@@ -1,0 +1,65 @@
+"""Shared base utilities (port of ``mxnet_tpu/base.py``, subset).
+
+The dtype tables map the framework's dtype names onto numpy dtypes (the
+file formats speak numpy) and onto ``torch.dtype`` (the tensors).
+``bfloat16`` has no numpy dtype of its own; ``np_dtype`` reaches for
+``ml_dtypes`` only when a caller asks for it by name.
+"""
+
+from __future__ import annotations
+
+import numpy as _np
+import torch
+
+__all__ = ["MXNetError", "np_dtype", "dtype_name", "torch_dtype"]
+
+
+class MXNetError(RuntimeError):
+    """Framework error type (mirrors ``mxnet_tpu.base.MXNetError``)."""
+
+
+_NP_NAMES = ("float32", "float64", "float16", "uint8", "int8", "int32",
+             "int64", "bool")
+
+_TORCH = {
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "uint8": torch.uint8,
+    "int8": torch.int8,
+    "int32": torch.int32,
+    "int64": torch.int64,
+    "bool": torch.bool,
+}
+_TORCH_NAMES = {v: k for k, v in _TORCH.items()}
+
+
+def np_dtype(dtype):
+    """Normalize a dtype-ish (str / numpy / torch dtype / None) to a numpy
+    dtype; ``None`` means float32, as in the JAX package."""
+    if dtype is None:
+        return _np.dtype(_np.float32)
+    if isinstance(dtype, torch.dtype):
+        dtype = _TORCH_NAMES[dtype]
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        import ml_dtypes
+        return _np.dtype(ml_dtypes.bfloat16)
+    return _np.dtype(dtype)
+
+
+def dtype_name(dtype):
+    """Canonical name ('float32', 'bfloat16', ...) of a dtype-ish."""
+    if isinstance(dtype, torch.dtype):
+        return _TORCH_NAMES[dtype]
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return dtype
+    dt = _np.dtype(dtype) if dtype is not None else _np.dtype("float32")
+    return "bfloat16" if dt.name == "bfloat16" else dt.name
+
+
+def torch_dtype(dtype):
+    """The ``torch.dtype`` for a dtype-ish (None means float32)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _TORCH[dtype_name(dtype)]

@@ -1,0 +1,3 @@
+"""Model zoo (port of ``mxnet_tpu/gluon/model_zoo/``, subset)."""
+
+from . import transformer  # noqa: F401
