@@ -13,12 +13,14 @@ __version__ = "0.1.0"
 
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, gpu, tpu, current_context  # noqa: F401
+from . import autograd  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
+from . import optimizer  # noqa: F401
 from . import gluon  # noqa: F401
 from . import model  # noqa: F401
 from . import serve  # noqa: F401

@@ -9,9 +9,15 @@ surface (deferred shapes, ``data()``, ``set_data``).
 
 ``hybridize()`` plus a first forward traces ``hybrid_forward`` with
 Symbol proxies into a cached graph (the JAX package's ``_CachedGraph``);
-later forwards evaluate that graph with ``executor._build_eval``.  It is
-also what ``export`` writes.  Without ``hybridize`` the forward runs
-``hybrid_forward`` eagerly with ``F`` = the ``nd`` namespace.
+later forwards evaluate that graph with ``executor._build_eval``, the
+train graph under ``autograd.is_training()`` and the infer graph
+otherwise.  It is also what ``export`` writes.  Without ``hybridize`` the
+forward runs ``hybrid_forward`` eagerly with ``F`` = the ``nd`` namespace.
+
+Inside ``autograd.record()`` a forward runs with PyTorch's grad mode on,
+so its ops are taped against the parameters' tensors (marked variables);
+PyTorch's tape takes the place of the JAX package's per-graph
+``jax.vjp``.  Outside it, forwards run under ``no_grad``.
 
 Deferred parameter shapes are resolved by symbolic shape inference over
 the traced graph at the first forward, as in the JAX package.
@@ -24,6 +30,7 @@ from collections import OrderedDict
 
 import torch
 
+from .. import autograd
 from .. import ndarray as nd
 from ..executor import _build_eval
 from ..ndarray import NDArray
@@ -186,7 +193,8 @@ class _CachedGraph:
         self.param_names = [a for a in self.symbol.list_arguments()
                             if a not in self.input_names]
         self.aux_names = list(self.symbol.list_auxiliary_states())
-        self._eval = _build_eval(self.symbol, False)
+        self._eval_train = _build_eval(self.symbol, True)
+        self._eval_infer = _build_eval(self.symbol, False)
 
     def run(self, block, flat_inputs):
         params = {p.name: p for p in block.collect_params().values()}
@@ -194,8 +202,12 @@ class _CachedGraph:
         for n in self.param_names:
             arg_map[n] = params[n].data()._data
         aux_map = {n: params[n].data()._data for n in self.aux_names}
+        ev = self._eval_train if autograd.is_training() else self._eval_infer
+        with torch.set_grad_enabled(autograd.is_recording()):
+            outs, auxu = ev(arg_map, aux_map)
         with torch.no_grad():
-            outs, _ = self._eval(arg_map, aux_map)
+            for n, v in auxu.items():
+                params[n].data()._data.copy_(v)
         out, _ = _regroup([NDArray(o) for o in outs], self._out_fmt)
         return out
 
@@ -254,7 +266,7 @@ class HybridBlock(Block):
                 self._cached_graph = _CachedGraph(self, flat)
             return self._cached_graph.run(self, flat)
         params = {n: p.data() for n, p in self._reg_params.items()}
-        with torch.no_grad():
+        with torch.set_grad_enabled(autograd.is_recording()):
             return self.hybrid_forward(nd, x, *args, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):

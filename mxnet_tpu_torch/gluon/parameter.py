@@ -1,10 +1,13 @@
 """Gluon Parameter / ParameterDict (port of ``mxnet_tpu/gluon/parameter.py``).
 
-A Parameter holds one NDArray on one context (the port serves one
-device).  Shapes may be deferred: a ``0`` in a shape is filled by shape
-inference at the first forward, when the parameter is created and
-initialized.  Random initializers draw from the ``torch.Generator`` the
-caller passed to ``initialize``.
+A Parameter holds one NDArray on one context (the port runs on one
+device), and, unless its ``grad_req`` is 'null', a gradient buffer of
+the same shape made with it: the data is then a marked variable of
+``autograd`` whose gradient lands in that buffer.  Shapes may be
+deferred: a ``0`` in a shape is filled by shape inference at the first
+forward, when the parameter is created and initialized.  Random
+initializers draw from the ``torch.Generator`` the caller passed to
+``initialize``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from collections import OrderedDict
 
 import torch
 
+from .. import autograd
 from ..base import MXNetError, dtype_name
 from ..context import Context, current_context
 from .. import ndarray as nd
@@ -34,7 +38,8 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True):
         self.name = name
-        self.grad_req = grad_req if differentiable else "null"
+        self._differentiable = differentiable
+        self._grad_req = grad_req if differentiable else "null"
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = dtype_name(dtype)
         self.lr_mult = lr_mult
@@ -42,6 +47,7 @@ class Parameter:
         self.init = init
         self._allow_deferred_init = allow_deferred_init
         self._data = None
+        self._grad = None
         self._deferred_init = None
         self._var = None
 
@@ -63,6 +69,23 @@ class Parameter:
                 "Expected shape %s is incompatible with given shape %s for "
                 "Parameter %s" % (new_shape, self._shape, self.name))
         self._shape = new_shape
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise ValueError("grad_req must be 'write', 'add' or 'null', "
+                             "got %r" % (req,))
+        if not self._differentiable:
+            req = "null"
+        if self._grad_req == req:
+            return
+        self._grad_req = req
+        if self._data is not None:
+            self._init_grad()
 
     def _known(self):
         return self._shape is not None and all(s > 0 for s in self._shape)
@@ -99,6 +122,17 @@ class Parameter:
         initializer(self.name, data, generator)
         self._data = data
         self._deferred_init = None
+        self._init_grad()
+
+    def _init_grad(self):
+        """A zero gradient buffer, and the data marked as a variable of
+        ``autograd`` by ``grad_req`` (no buffer for 'null')."""
+        if self._grad_req == "null":
+            self._grad = None
+        else:
+            self._grad = nd.zeros(self._shape, ctx=self._data.context,
+                                  dtype=self.dtype)
+        autograd.mark_variables([self._data], [self._grad], self._grad_req)
 
     def _finish_deferred_init(self):
         if self._deferred_init is None:
@@ -125,6 +159,31 @@ class Parameter:
         self._check_initialized()
         return self._data
 
+    def list_data(self):
+        return [self.data()]
+
+    def grad(self, ctx=None):
+        self._check_initialized()
+        if self._grad is None:
+            raise RuntimeError(
+                "Cannot get gradient array for Parameter %s because "
+                "grad_req='null'" % self.name)
+        return self._grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def list_ctx(self):
+        if self._data is None and self._deferred_init is not None:
+            return [self._deferred_init[1]]
+        self._check_initialized()
+        return [self._data.context]
+
+    def zero_grad(self):
+        """Set the gradient buffer to zeros (for grad_req 'add')."""
+        if self._grad is not None:
+            self._grad._data.zero_()
+
     def set_data(self, data):
         """Copy *data* (NDArray, tensor or numpy) into the parameter,
         cast to its dtype, on its context."""
@@ -133,7 +192,8 @@ class Parameter:
             self._finish_deferred_init()
         src = data._data if isinstance(data, NDArray) else \
             nd.array(data, ctx=self._data.context)._data
-        self._data._data.copy_(src.to(self._data._data.dtype))
+        with torch.no_grad():
+            self._data._data.copy_(src.to(self._data._data.dtype))
 
     def var(self):
         """The variable Symbol standing for this parameter in a trace."""
@@ -198,6 +258,10 @@ class ParameterDict:
                                  "they have different Parameters with the "
                                  "same name %r" % k)
             self._params[k] = v
+
+    def zero_grad(self):
+        for p in self.values():
+            p.zero_grad()
 
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False, generator=None):

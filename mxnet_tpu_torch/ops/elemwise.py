@@ -1,5 +1,6 @@
-"""Elementwise binary ops (port of ``mxnet_tpu/ops/elemwise.py``, subset:
-``broadcast_add`` with its aliases)."""
+"""Elementwise ops (port of ``mxnet_tpu/ops/elemwise.py``, subset:
+``broadcast_add`` and ``broadcast_mul`` with their aliases, ``negative``
+and ``_mul_scalar``)."""
 
 from __future__ import annotations
 
@@ -17,3 +18,22 @@ def _broadcast_add(lhs, rhs):
 
 alias("elemwise_add", "broadcast_add")
 alias("_plus", "broadcast_add")
+
+
+@register_op("broadcast_mul", input_names=())
+def _broadcast_mul(lhs, rhs):
+    return torch.mul(lhs, rhs)
+
+
+alias("elemwise_mul", "broadcast_mul")
+alias("_mul", "broadcast_mul")
+
+
+@register_op("negative")
+def _negative(x):
+    return torch.neg(x)
+
+
+@register_op("_mul_scalar")
+def _mul_scalar(x, scalar=1.0):
+    return x * scalar

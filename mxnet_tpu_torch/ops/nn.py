@@ -1,5 +1,5 @@
 """Neural-network ops (port of ``mxnet_tpu/ops/nn.py``, subset:
-FullyConnected, Activation, LayerNorm).
+FullyConnected, Activation, LayerNorm, softmax, log_softmax).
 
 Matrix products stay with PyTorch (cuBLAS on the card), as the JAX
 package left them to XLA.  A float32 product runs in full float32:
@@ -64,3 +64,19 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     bshape[axis % data.dim()] = data.shape[axis % data.dim()]
     out = (data - mean) * inv * gamma.reshape(bshape) + beta.reshape(bshape)
     return out, mean.squeeze(axis), var.squeeze(axis)
+
+
+def _temper(x, temperature):
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    return x
+
+
+@register_op("softmax")
+def _softmax(x, axis=-1, temperature=None, length=None):
+    return torch.softmax(_temper(x, temperature), dim=axis)
+
+
+@register_op("log_softmax")
+def _log_softmax(x, axis=-1, temperature=None):
+    return torch.log_softmax(_temper(x, temperature), dim=axis)

@@ -1,5 +1,5 @@
 """Shape and indexing ops (port of ``mxnet_tpu/ops/tensor.py``, subset:
-Reshape, transpose, slice_like, Embedding)."""
+Reshape, reshape_like, transpose, slice_like, pick, Embedding)."""
 
 from __future__ import annotations
 
@@ -71,6 +71,11 @@ def _reshape(x, shape=(), reverse=False):
                                            reverse))
 
 
+@register_op("reshape_like")
+def _reshape_like(x, y):
+    return torch.reshape(x, y.shape)
+
+
 @register_op("transpose")
 def _transpose(x, axes=None):
     axes = _axes_tuple(axes)
@@ -86,6 +91,15 @@ def _slice_like(x, y, axes=()):
     for a in axes:
         idx[a] = slice(0, y.shape[a])
     return x[tuple(idx)]
+
+
+@register_op("pick")
+def _pick(data, index, axis=-1, keepdims=False, mode="clip"):
+    """data's element at *index* along *axis*; indices arrive as floats
+    or ints and are clipped into range (mode 'clip')."""
+    idx = index.long().clamp(0, data.shape[axis] - 1).unsqueeze(axis)
+    out = torch.gather(data, axis, idx)
+    return out if keepdims else out.squeeze(axis)
 
 
 @register_op("Embedding")

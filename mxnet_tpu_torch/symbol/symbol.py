@@ -90,6 +90,20 @@ class Symbol:
     def __radd__(self, other):
         return self.__add__(other)
 
+    def __mul__(self, other):
+        if isinstance(other, Symbol):
+            return _sym_invoke("broadcast_mul", [self, other], {})
+        if isinstance(other, (int, float)):
+            return _sym_invoke("_mul_scalar", [self],
+                               {"scalar": float(other)})
+        raise TypeError("Symbol * %s is not ported" % type(other))
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    def __neg__(self):
+        return _sym_invoke("negative", [self], {})
+
     __hash__ = object.__hash__
 
     def __repr__(self):

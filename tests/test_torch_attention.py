@@ -124,8 +124,11 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_no_fallback_from_kernel_to_plain_version():
     """A CUDA tensor launches the kernel or raises: neither the
-    dispatcher nor the wrapper catches an exception."""
-    for fn in (tatt.flash_attention, tatt.flash_fwd):
+    dispatcher, the autograd Function nor a wrapper catches an
+    exception."""
+    for fn in (tatt.flash_attention, tatt.flash_fwd, tatt.flash_bwd,
+               tatt.flash_bwd_dkdv, tatt.flash_bwd_dq, tatt._FlashAttention,
+               tatt._check_qkv, tatt._check_rows):
         tree = ast.parse(inspect.getsource(fn))
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), fn
 

@@ -1,5 +1,6 @@
-"""The port's CUDA kernel on the card: ``flash_fwd`` against its plain
-version, the wrapper's refusals, and the serving path's launch count.
+"""The port's CUDA kernels on the card: ``flash_fwd``, ``flash_bwd_dkdv``
+and ``flash_bwd_dq`` against their plain versions, the wrappers'
+refusals, and the launch counts of the serving and training paths.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one.
 This file imports neither jax nor the JAX package, so it runs on a
@@ -122,3 +123,134 @@ def test_served_lm_goes_through_the_kernel(cuda, tmp_path):
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-4 * max(1.0, np.abs(want).max()))
     assert math.isfinite(float(got.sum()))
+
+
+def _bwd_inputs(cuda, b, h, sq, sk, d, dtype, causal, seed=1):
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v = _qkv(cuda, b, h, sq, sk, d, dtype, seed)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    o, lse = att.flash_fwd(q, k, v, causal, with_lse=True)
+    return q, k, v, do, lse, att._delta(o, do)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,dtype", [
+    (128, 128, 64, True, torch.float32),
+    (300, 100, 64, True, torch.float32),
+    (100, 300, 32, True, torch.float32),
+    (1000, 1537, 64, False, torch.float32),
+    (384, 384, 128, True, torch.bfloat16),
+    (200, 200, 200, True, torch.float16)])
+def test_bwd_kernels_match_plain_versions(cuda, sq, sk, d, causal, dtype):
+    """Per element within the limits chip_smoke.py derives (f32:
+    2**-12 times the sum of the absolute terms; 16-bit: one rounding
+    flip per term plus 2 ulps), and bit-equal from launch to launch."""
+    from chip_smoke import bwd_error, bwd_magnitudes
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 2, 3, sq, sk, d, dtype,
+                                          causal)
+    scale = 1.0 / math.sqrt(d)
+    dk, dv = att.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    pdk, pdv = att._flash_bwd_dkdv_plain(q, k, v, do, lse, delta, causal)
+    pdq = att._flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    mags = bwd_magnitudes(torch, att, q, k, v, do, lse, delta, causal,
+                          scale)
+    dtn = str(dtype).split(".")[1]
+    for got, want, mag in zip((dq, dk, dv), (pdq, pdk, pdv), mags):
+        assert got.dtype == dtype
+        assert bwd_error(torch, got, want, mag, dtn)[1] <= 1.0
+    assert torch.equal(att.flash_bwd_dkdv(q, k, v, do, lse, delta,
+                                          causal)[0], dk)
+    if causal and sq > sk:
+        assert not dq[:, :, :sq - sk].any()
+
+
+def test_function_backward_launches_both_kernels(cuda):
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v = (t.requires_grad_() for t in
+               _qkv(cuda, 1, 2, 64, 64, 32, torch.float32))
+    before = (att.flash_fwd.launches, att.flash_bwd_dkdv.launches,
+              att.flash_bwd_dq.launches)
+    att.flash_attention(q, k, v, causal=True).sum().backward()
+    assert (att.flash_fwd.launches, att.flash_bwd_dkdv.launches,
+            att.flash_bwd_dq.launches) == tuple(n + 1 for n in before)
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    att.flash_attention(qc, kc, vc, causal=True).sum().backward()
+    for t, c in ((q, qc), (k, kc), (v, vc)):
+        np.testing.assert_allclose(t.grad.cpu().numpy(), c.grad.numpy(),
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("fault", ["dout_dtype", "lse_dtype", "lse_shape",
+                                   "delta_device", "dout_shape"])
+def test_bwd_wrappers_refuse_what_the_kernels_do_not_take(cuda, fault):
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 1, 2, 16, 16, 32,
+                                          torch.float32, True)
+    if fault == "dout_dtype":
+        do = do.half()
+    elif fault == "lse_dtype":
+        lse = lse.double()
+    elif fault == "lse_shape":
+        lse = lse[:, :, :8].contiguous()
+    elif fault == "delta_device":
+        delta = delta.cpu()
+    else:
+        do = do[:, :, :8].contiguous()
+    before = (att.flash_bwd_dkdv.launches, att.flash_bwd_dq.launches)
+    for fn in (att.flash_bwd_dkdv, att.flash_bwd_dq):
+        with pytest.raises(MXNetError):
+            fn(q, k, v, do, lse, delta, True)
+    assert (att.flash_bwd_dkdv.launches, att.flash_bwd_dq.launches) == \
+        before
+
+
+def test_trained_lm_goes_through_the_kernels(cuda):
+    """One SGD step of a small LM on the card launches each kernel once
+    per layer, and its loss and updated weights match the same step on
+    the CPU (plain versions) within 1e-4 of each weight's scale."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        get_transformer_lm
+    from mxnet_tpu_torch.ops import attention as att
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 50, (3, 64)).astype("float32")
+    y = rng.randint(0, 50, (3, 64)).astype("float32")
+    weights, losses = [], []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = get_transformer_lm(vocab=50, dim=64, heads=4, layers=3,
+                                 max_seq=64, prefix="trainlm_")
+        net.initialize(ctx=ctx)
+        net(mx.nd.array(x, ctx=ctx))        # resolves deferred shapes
+        if weights:
+            for n, p in net.collect_params().items():
+                p.set_data(weights[0][n])
+        net.hybridize()
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.1, "momentum": 0.9})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        before = (att.flash_fwd.launches, att.flash_bwd_dkdv.launches,
+                  att.flash_bwd_dq.launches)
+        if not weights:
+            weights.append({n: p.data().asnumpy()
+                            for n, p in net.collect_params().items()})
+        with autograd.record():
+            loss = loss_fn(net(mx.nd.array(x, ctx=ctx)),
+                           mx.nd.array(y, ctx=ctx))
+        loss.backward()
+        trainer.step(3)
+        grew = (att.flash_fwd.launches - before[0],
+                att.flash_bwd_dkdv.launches - before[1],
+                att.flash_bwd_dq.launches - before[2])
+        assert grew == ((3, 3, 3) if ctx == mx.gpu(0) else (0, 0, 0))
+        losses.append(loss.asnumpy())
+        weights.append({n: p.data().asnumpy()
+                        for n, p in net.collect_params().items()})
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    for n, w in weights[1].items():
+        np.testing.assert_allclose(w, weights[2][n], rtol=0,
+                                   atol=1e-4 * max(1.0, np.abs(w).max()))

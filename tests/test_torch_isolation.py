@@ -38,7 +38,9 @@ def _env_without_cuda():
 
 def test_import_leaves_jax_and_mxnet_tpu_unloaded():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
-            "mxnet_tpu_torch.gluon.model_zoo.transformer; "
+            "mxnet_tpu_torch.gluon.model_zoo.transformer, "
+            "mxnet_tpu_torch.autograd, mxnet_tpu_torch.optimizer, "
+            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.loss; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')))")
@@ -84,7 +86,7 @@ def test_gpu_context_without_cuda_raises(no_cuda):
 
 
 @pytest.mark.parametrize("entry", ["nd.array", "nd.zeros", "initialize",
-                                   "load_checkpoint", "nd.load"])
+                                   "load_checkpoint", "nd.load", "Trainer"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -95,6 +97,12 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         net = get_transformer_lm(vocab=10, dim=8, heads=2, layers=1,
                                  max_seq=4)
         call = net.initialize
+    elif entry == "Trainer":
+        # a deferred parameter waits for its shape on gpu(0): the new
+        # trainer resolves that device and raises
+        p = mx.gluon.Parameter("w", shape=(0,), allow_deferred_init=True)
+        p.initialize(ctx=mx.gpu(0))
+        call = lambda: mx.gluon.Trainer([p], "sgd")
     else:
         mx.nd.save(str(tmp_path / "m-0000.params"),
                    {"arg:w": mx.nd.array(np.ones(2), ctx=mx.cpu())})
