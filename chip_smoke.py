@@ -6,7 +6,9 @@ Phases, each reported on its own line; any failure exits non-zero:
 1. device  — require CUDA; print ``nvidia-smi`` name and power limit.
 2. build   — compile every hand-written kernel source of the paths in
              ``mxnet_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
-             source, all started together.
+             source, all started together; print ptxas's registers and
+             spills, and fail if the training path's dkdv (f32, D = 64)
+             spills.
 3. kernel  — hold each kernel against its plain PyTorch version on the
              card over a grid of cases, then time kernel, plain version
              and one PyTorch library call at the paths' shape.
@@ -40,6 +42,7 @@ import concurrent.futures
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -54,6 +57,9 @@ PATH_SHAPE = (8, 16, 2048, 2048, 64)
 VOCAB, DIM, HEADS, LAYERS, SEQ = 32000, 1024, 16, 12, 2048
 BATCH = 8
 SOURCES = ("flash_fwd", "flash_bwd")
+# the mangled name of flash_bwd_dkdv_kernel<float, 64, ...>: its spills fail
+# the build phase
+DKDV_PATH_ENTRY = "flash_bwd_dkdv_kernelIfLi64E"
 RUNGS = (1, 2, 4, 8)
 REQUESTS = (1, 3, 8)
 TRAIN_STEPS = 4
@@ -232,6 +238,42 @@ def phase_device(torch):
     return card
 
 
+def ptxas_usage(text):
+    """{entry function: {"registers", "spill_stores", "spill_loads"}} from
+    the ``-Xptxas -v`` lines of an nvcc log."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def path_dkdv_usage(text):
+    """ptxas usage of the dkdv instantiation on the training path (f32,
+    D = 64); raises unless the log holds exactly one, without spills."""
+    hits = [(n, u) for n, u in ptxas_usage(text).items()
+            if DKDV_PATH_ENTRY in n]
+    if len(hits) != 1 or len(hits[0][1]) != 3:
+        raise RuntimeError("ptxas -v: %d complete entries match %s"
+                           % (len(hits), DKDV_PATH_ENTRY))
+    name, usage = hits[0]
+    if usage["spill_stores"] or usage["spill_loads"]:
+        raise RuntimeError("%s spills: %s" % (name, usage))
+    return usage
+
+
 def phase_build():
     from mxnet_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
@@ -240,10 +282,18 @@ def phase_build():
     log("build: %d sources in %.2f s wall (nvcc %s, one process each)" % (
         len(SOURCES), time.perf_counter() - t0, " ".join(_cuda.ARCH_FLAGS)))
     for name, info in zip(SOURCES, infos):
-        log("build: %s in %.2f s" % (name, info["seconds"]))
+        log("build: %s in %.2f s%s" % (
+            name, info["seconds"],
+            "" if info["seconds"] else " (built before; ptxas lines from "
+            "its kept nvcc log)"))
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("  ptxas %s: %s" % (name, line.strip()))
+    usage = path_dkdv_usage(infos[SOURCES.index("flash_bwd")]["log"])
+    log("build: flash_bwd_dkdv float32 D=64 (the training path's): %d "
+        "registers, %d bytes spill stores, %d bytes spill loads -> ok" % (
+            usage["registers"], usage["spill_stores"], usage["spill_loads"]))
+    return usage
 
 
 def _rand(torch, shape, dtype, gen):
@@ -355,9 +405,11 @@ def check_bwd(torch, att, inputs, causal, dtn):
         finite = all(bool(torch.isfinite(g).all()) for g, _, _ in pairs)
         res[name] = (max(e for e, _ in errs),
                      max(r for _, r in errs) if finite else math.inf)
-    # no atomics: a second launch gives the same bits
-    res["deterministic"] = bool(torch.equal(
-        att.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale), dq))
+    # no atomics: a second launch of each kernel gives the same bits
+    dk2, dv2 = att.flash_bwd_dkdv(q, k, v, do, lse, delta, causal, scale)
+    res["deterministic"] = bool(torch.equal(dk2, dk)) and \
+        bool(torch.equal(dv2, dv)) and bool(torch.equal(
+            att.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale), dq))
     return res
 
 
@@ -411,6 +463,9 @@ def phase_kernel(torch, card, seed):
                                % (err, ratio, tol_text(dtn)))
         errs = {"flash_fwd": err}
         res = check_bwd(torch, att, inputs, True, dtn)
+        if not res["deterministic"]:
+            raise RuntimeError("a backward kernel at the path shape gave "
+                               "other bits on a second launch")
         for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
             if not res[name][1] <= 1.0:
                 raise RuntimeError("%s at the path shape: max err %g, worst "
@@ -937,7 +992,7 @@ def main():
 
     t_start = time.perf_counter()
     card = phase_device(torch)
-    phase_build()
+    dkdv_ptxas = phase_build()
     timing = phase_kernel(torch, card, args.seed)
     serve_launches = phase_serve(torch, card, args.seed)
     train_launches = phase_train(torch, card, args.seed)
@@ -959,6 +1014,8 @@ def main():
             **timing[(name, "float32")], launches_by_path=by_path,
             dtype="float32", shape=[b, h, sq, sk, d], causal=True,
             bfloat16=timing[(name, "bfloat16")], card=card))
+        if name == "flash_bwd_dkdv":
+            kernels[-1]["ptxas"] = dkdv_ptxas
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ function.  ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared
 library under ``build/torch_kernels/`` at the root of the checkout, at
 first use; ``ctypes`` loads it.  Sources include no PyTorch header, so a
 build takes seconds.  The library's file name carries a hash of its
-source, so an edited source is never served by a stale build.
+source, so an edited source is never served by a stale build; nvcc's
+output (ptxas's registers and spills) is kept beside it as ``.log``.
 
 Nothing here runs at import time: the CPU tests import every module on
 a machine with no ``nvcc``.
@@ -58,12 +59,14 @@ def _command(name):
 
 
 def build(name):
-    """Compile kernel *name* unless its library exists.  Returns
-    ``{"path", "seconds", "log"}``: the library, the nvcc seconds and
-    nvcc's output (0 and "" when it was already built)."""
+    """Compile kernel *name* unless its library and log exist.  Returns
+    ``{"path", "seconds", "log"}``: the library, the nvcc seconds (0 when
+    it was already built) and nvcc's output, read back from the log kept
+    beside a library that was already built."""
     lib, cmd = _command(name)
-    if os.path.exists(lib):
-        return {"path": lib, "seconds": 0.0, "log": ""}
+    if os.path.exists(lib) and os.path.exists(lib + ".log"):
+        with open(lib + ".log") as f:
+            return {"path": lib, "seconds": 0.0, "log": f.read()}
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
@@ -71,6 +74,9 @@ def build(name):
     if proc.returncode != 0:
         raise MXNetError("nvcc failed on %s.cu (exit %d):\n%s"
                          % (name, proc.returncode, proc.stdout))
+    with open(lib + ".log.tmp", "w") as f:
+        f.write(proc.stdout)
+    os.replace(lib + ".log.tmp", lib + ".log")
     os.replace(lib + ".tmp", lib)
     return {"path": lib, "seconds": time.perf_counter() - t0,
             "log": proc.stdout}

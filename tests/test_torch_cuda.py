@@ -141,7 +141,18 @@ def _bwd_inputs(cuda, b, h, sq, sk, d, dtype, causal, seed=1):
     (100, 300, 32, True, torch.float32),
     (1000, 1537, 64, False, torch.float32),
     (384, 384, 128, True, torch.bfloat16),
-    (200, 200, 200, True, torch.float16)])
+    (200, 200, 200, True, torch.float16),
+    # lengths that are not multiples of dkdv's tiles
+    (65, 127, 64, False, torch.float32),
+    (127, 65, 64, True, torch.float32),
+    (1, 300, 64, True, torch.float32),
+    # causal, Sq > Sk: whole q-tiles see no key
+    (400, 65, 64, True, torch.float32),
+    # 16-bit head dims off the tile; 36 bf16 is a 72-byte row, which dkdv
+    # stages with plain loads instead of 16-byte cp.async
+    (100, 100, 16, True, torch.bfloat16),
+    (200, 150, 96, False, torch.bfloat16),
+    (130, 200, 36, True, torch.bfloat16)])
 def test_bwd_kernels_match_plain_versions(cuda, sq, sk, d, causal, dtype):
     """Per element within the limits chip_smoke.py derives (f32:
     2**-12 times the sum of the absolute terms; 16-bit: one rounding
@@ -161,10 +172,30 @@ def test_bwd_kernels_match_plain_versions(cuda, sq, sk, d, causal, dtype):
     for got, want, mag in zip((dq, dk, dv), (pdq, pdk, pdv), mags):
         assert got.dtype == dtype
         assert bwd_error(torch, got, want, mag, dtn)[1] <= 1.0
-    assert torch.equal(att.flash_bwd_dkdv(q, k, v, do, lse, delta,
-                                          causal)[0], dk)
+    dk2, dv2 = att.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    assert torch.equal(att.flash_bwd_dq(q, k, v, do, lse, delta, causal), dq)
     if causal and sq > sk:
         assert not dq[:, :, :sq - sk].any()
+
+
+def test_dkdv_takes_inputs_off_16_byte_alignment(cuda):
+    """Contiguous views that start one element into their storage cannot
+    take 16-byte cp.async; the kernel stages them with plain loads and
+    gives the same bits as aligned copies of the same values."""
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 1, 2, 130, 100, 64,
+                                          torch.float32, True)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+    ins = [shifted(t) for t in (q, k, v, do)]
+    assert all(t.data_ptr() % 16 != 0 for t in ins)
+    got = att.flash_bwd_dkdv(*ins, lse, delta, True)
+    want = att.flash_bwd_dkdv(q, k, v, do, lse, delta, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_function_backward_launches_both_kernels(cuda):
