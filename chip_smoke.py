@@ -7,11 +7,14 @@ Phases, each reported on its own line; any failure exits non-zero:
 2. build   — compile every hand-written kernel source of the paths in
              ``mxnet_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
              source, all started together; print ptxas's registers and
-             spills, and fail if the training path's dkdv (f32, D = 64)
-             spills.
+             spills, and fail if an instantiation the paths run
+             (``PATH_ENTRIES``: flash_fwd and flash_bwd_dkdv, f32,
+             D = 64) spills or is missing.
 3. kernel  — hold each kernel against its plain PyTorch version on the
-             card over a grid of cases, then time kernel, plain version
-             and one PyTorch library call at the paths' shape.
+             card over a grid of cases, each relaunched for bit-equality,
+             and at B*H = 65600 (past grid.y's 65535); then time kernel,
+             plain version and one PyTorch library call at the paths'
+             shape.
 4. serve   — the serving path at full width: build the transformer LM
              (vocab 32000, dim 1024, heads 16, 12 layers, seq 2048),
              hybridize, forward, export a checkpoint, load it into a
@@ -57,9 +60,18 @@ PATH_SHAPE = (8, 16, 2048, 2048, 64)
 VOCAB, DIM, HEADS, LAYERS, SEQ = 32000, 1024, 16, 12, 2048
 BATCH = 8
 SOURCES = ("flash_fwd", "flash_bwd")
-# the mangled name of flash_bwd_dkdv_kernel<float, 64, ...>: its spills fail
-# the build phase
-DKDV_PATH_ENTRY = "flash_bwd_dkdv_kernelIfLi64E"
+# (kernel, source, part of the mangled name) of the instantiations both
+# paths run, f32 and D = 64 (flash_fwd_kernel<float, 64, ...>,
+# flash_bwd_dkdv_kernel<float, 64, ...>): a spill in either fails the
+# build phase
+PATH_ENTRIES = (("flash_fwd", "flash_fwd", "flash_fwd_kernelIfLi64E"),
+                ("flash_bwd_dkdv", "flash_bwd",
+                 "flash_bwd_dkdv_kernelIfLi64E"))
+# phase 3's case past grid.y's 65535 (b, h, sq, sk, d), causal, f32, and
+# the most extra device memory its plain versions may take: a few tensors
+# of q's 134 MB, as they hold no score matrix larger than q
+BIG_BH = (1, 65600, 16, 16, 32)
+BIG_BH_PLAIN_MB = 1024
 RUNGS = (1, 2, 4, 8)
 REQUESTS = (1, 3, 8)
 TRAIN_STEPS = 4
@@ -260,18 +272,22 @@ def ptxas_usage(text):
     return out
 
 
-def path_dkdv_usage(text):
-    """ptxas usage of the dkdv instantiation on the training path (f32,
-    D = 64); raises unless the log holds exactly one, without spills."""
-    hits = [(n, u) for n, u in ptxas_usage(text).items()
-            if DKDV_PATH_ENTRY in n]
-    if len(hits) != 1 or len(hits[0][1]) != 3:
-        raise RuntimeError("ptxas -v: %d complete entries match %s"
-                           % (len(hits), DKDV_PATH_ENTRY))
-    name, usage = hits[0]
-    if usage["spill_stores"] or usage["spill_loads"]:
-        raise RuntimeError("%s spills: %s" % (name, usage))
-    return usage
+def path_usage(logs):
+    """{kernel: ptxas usage} of each instantiation in ``PATH_ENTRIES``,
+    from the nvcc logs by source; raises unless each source's log holds
+    exactly one complete entry of it, without spills."""
+    out = {}
+    for kernel, source, entry in PATH_ENTRIES:
+        hits = [(n, u) for n, u in ptxas_usage(logs.get(source, "")).items()
+                if entry in n]
+        if len(hits) != 1 or len(hits[0][1]) != 3:
+            raise RuntimeError("ptxas -v of %s: %d complete entries match %s"
+                               % (source, len(hits), entry))
+        name, usage = hits[0]
+        if usage["spill_stores"] or usage["spill_loads"]:
+            raise RuntimeError("%s spills: %s" % (name, usage))
+        out[kernel] = usage
+    return out
 
 
 def phase_build():
@@ -289,10 +305,12 @@ def phase_build():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("  ptxas %s: %s" % (name, line.strip()))
-    usage = path_dkdv_usage(infos[SOURCES.index("flash_bwd")]["log"])
-    log("build: flash_bwd_dkdv float32 D=64 (the training path's): %d "
-        "registers, %d bytes spill stores, %d bytes spill loads -> ok" % (
-            usage["registers"], usage["spill_stores"], usage["spill_loads"]))
+    usage = path_usage({name: info["log"]
+                        for name, info in zip(SOURCES, infos)})
+    for kernel, u in usage.items():
+        log("build: %s float32 D=64 (on the paths): %d registers, %d bytes "
+            "spill stores, %d bytes spill loads -> ok" % (
+                kernel, u["registers"], u["spill_stores"], u["spill_loads"]))
     return usage
 
 
@@ -360,15 +378,22 @@ def check_fwd_case(torch, att, gen, case):
     empty = (want[1] == 1e30).sum().item()
     ok = ratio <= 1.0 and err_l <= TOL_LSE and \
         bool(lse_ok.all()) and bool(torch.isfinite(got[0]).all())
+    # no atomics: a relaunch gives the same bits
+    again = att.flash_fwd(q, k, v, causal, scale, with_lse=True)
+    same = bool(torch.equal(again[0], got[0])) and \
+        bool(torch.equal(again[1], got[1]))
     if not with_lse:
         # the no-lse launch must give the same o
         o2 = att.flash_fwd(q, k, v, causal, scale)
-        ok = ok and bool(torch.equal(o2, got[0]))
+        same = same and bool(torch.equal(o2, got[0]))
+    ok = ok and same
     log("kernel flash_fwd %s b%d h%d sq%d sk%d d%d causal=%s lse=%s: "
         "max|o-plain| %.3g (worst error/limit %.3f, limit %s), "
-        "max|lse-plain| %.3g (tol %g), empty rows %d -> %s" % (
+        "max|lse-plain| %.3g (tol %g), empty rows %d, repeat bit-equal %s "
+        "-> %s" % (
             dtn, b, h, sq, sk, d, causal, with_lse, err_o, ratio,
-            tol_text(dtn), err_l, TOL_LSE, empty, "ok" if ok else "FAIL"))
+            tol_text(dtn), err_l, TOL_LSE, empty, same,
+            "ok" if ok else "FAIL"))
     if not ok:
         raise RuntimeError("flash_fwd disagrees with its plain version")
     return ratio
@@ -413,6 +438,63 @@ def check_bwd(torch, att, inputs, causal, dtn):
     return res
 
 
+def check_big_bh(torch, att, gen, worst):
+    """All three kernels at ``BIG_BH`` (causal, f32), past the 65535 of
+    grid.y, against their plain versions, each relaunched for
+    bit-equality; the plain versions' extra device memory is held to
+    ``BIG_BH_PLAIN_MB``."""
+    b, h, sq, sk, d = BIG_BH
+    inputs = bwd_inputs(torch, att, gen, b, h, sq, sk, d, True,
+                        torch.float32)
+    q, k, v, do, o, lse, delta, scale = inputs
+    again = att.flash_fwd(q, k, v, True, scale, with_lse=True)
+    same = bool(torch.equal(again[0], o)) and bool(torch.equal(again[1], lse))
+    del again
+    want = att._chunked_attention(q, k, v, True, scale, with_lse=True)
+    err_o, ratio = o_error(torch, att, o, want[0], q, k, v, True, scale,
+                           "float32")
+    err_l = (lse - want[1]).abs().max().item()
+    del want
+    res = check_bwd(torch, att, inputs, True, "float32")
+
+    def extra_mb(fn):
+        """Peak device memory *fn* takes beyond what is held before it,
+        its outputs included."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    plain_mb = max(
+        extra_mb(lambda: att._chunked_attention(q, k, v, True, scale,
+                                                with_lse=True)),
+        extra_mb(lambda: att._flash_bwd_dkdv_plain(q, k, v, do, lse, delta,
+                                                   True, scale)),
+        extra_mb(lambda: att._flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                 True, scale)))
+    ok = ratio <= 1.0 and err_l <= TOL_LSE and same and \
+        res["deterministic"] and plain_mb <= BIG_BH_PLAIN_MB and \
+        all(res[n][1] <= 1.0 for n in ("flash_bwd_dkdv", "flash_bwd_dq"))
+    worst[("flash_fwd", "float32")] = max(worst[("flash_fwd", "float32")],
+                                          ratio)
+    for n in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        worst[(n, "float32")] = max(worst[(n, "float32")], res[n][1])
+    log("kernel all three float32 b%d h%d (B*H %d) sq%d sk%d d%d causal: "
+        "flash_fwd worst error/limit %.3f, max|lse-plain| %.3g; dkdv %.3f, "
+        "dq %.3f of their limits; repeat bit-equal %s; plain versions' "
+        "peak extra device memory %.1f MB (limit %d) -> %s" % (
+            b, h, b * h, sq, sk, d, ratio, err_l, res["flash_bwd_dkdv"][1],
+            res["flash_bwd_dq"][1], same and res["deterministic"], plain_mb,
+            BIG_BH_PLAIN_MB, "ok" if ok else "FAIL"))
+    if not ok:
+        raise RuntimeError("the kernels at B*H = %d disagree with their plain "
+                           "versions" % (b * h))
+    del inputs, q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+
+
 def phase_kernel(torch, card, seed):
     from mxnet_tpu_torch.ops import attention as att
     import torch.nn.functional as F
@@ -441,6 +523,7 @@ def phase_kernel(torch, card, seed):
             if not ok:
                 raise RuntimeError("%s disagrees with its plain version"
                                    % name)
+    check_big_bh(torch, att, gen, worst)
     for (name, dtn), r in sorted(worst.items()):
         log("kernel worst error/limit over the cases: %s %s %.3f"
             % (name, dtn, r))
@@ -992,7 +1075,7 @@ def main():
 
     t_start = time.perf_counter()
     card = phase_device(torch)
-    dkdv_ptxas = phase_build()
+    path_ptxas = phase_build()
     timing = phase_kernel(torch, card, args.seed)
     serve_launches = phase_serve(torch, card, args.seed)
     train_launches = phase_train(torch, card, args.seed)
@@ -1014,8 +1097,8 @@ def main():
             **timing[(name, "float32")], launches_by_path=by_path,
             dtype="float32", shape=[b, h, sq, sk, d], causal=True,
             bfloat16=timing[(name, "bfloat16")], card=card))
-        if name == "flash_bwd_dkdv":
-            kernels[-1]["ptxas"] = dkdv_ptxas
+        if name in path_ptxas:
+            kernels[-1]["ptxas"] = path_ptxas[name]
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -83,7 +83,8 @@
 // hoisted the chunk's loads past the register file and spilled kilobytes
 // (PERF.md).  dq stops at the last key the q-tile's last row can see, as
 // flash_fwd does.  Ragged Sq and Sk, and D below the slice width, are
-// masked in-kernel; nothing is padded or copied.
+// masked in-kernel; nothing is padded or copied.  Its grid is (batch*head,
+// q-tile), heaviest q-tile first, as flash_fwd's is.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -529,24 +530,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dQ
 // ---------------------------------------------------------------------------
 
-// One block per (q-tile of BQ queries, batch*head).
-template <typename T, int TPR>
-__global__ void __launch_bounds__(kNT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int sq, int sk, int d, float scale, int causal) {
-  constexpr int BQ = kNT / TPR;   // queries a block owns
-  constexpr int BK = kNT / TPR;   // keys staged per step
-  constexpr int DPS = TPR > 1 ? kDPT + 4 : kDPT;
-  constexpr int ROW = TPR * DPS;
-  static_assert(BK % kCH == 0, "chunk must divide the k-tile");
-  __shared__ __align__(16) float ks[BK * ROW];
-  __shared__ __align__(16) float vs[BK * ROW];
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+// dQ of queries [q0, q0 + BQ) of one batch*head.
+template <typename T, int TPR, int BQ, int BK, int ROW, int DPS>
+__device__ __forceinline__ void dq_tile(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dq, float* __restrict__ ks, float* __restrict__ vs,
+    int bh, int q0, int sq, int sk, int d, float scale, int causal) {
   const int tid = threadIdx.x;
   const int row = tid / TPR;
   const int part = tid % TPR;
@@ -643,6 +634,33 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Grid (batch*head, q-tiles): blocks start in order of blockIdx.x fastest,
+// and blockIdx.y counts q-tiles from the last, so every head's heaviest
+// q-tile under causal starts before any lighter one.  A block takes
+// q-tiles blockIdx.y, + gridDim.y, ... (more than one only past 65535).
+template <typename T, int TPR>
+__global__ void __launch_bounds__(kNT)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int sq, int sk, int d, float scale, int causal) {
+  constexpr int BQ = kNT / TPR;   // queries a block owns
+  constexpr int BK = kNT / TPR;   // keys staged per step
+  constexpr int DPS = TPR > 1 ? kDPT + 4 : kDPT;
+  constexpr int ROW = TPR * DPS;
+  static_assert(BK % kCH == 0, "chunk must divide the k-tile");
+  __shared__ __align__(16) float ks[BK * ROW];
+  __shared__ __align__(16) float vs[BK * ROW];
+  const int nq = (sq + BQ - 1) / BQ;
+  for (int j = blockIdx.y; j < nq; j += gridDim.y) {
+    if (j != (int)blockIdx.y) __syncthreads();   // shared memory is free
+    dq_tile<T, TPR, BQ, BK, ROW, DPS>(q, k, v, dout, lse, delta, dq, ks, vs,
+                                      blockIdx.x, (nq - 1 - j) * BQ, sq, sk,
+                                      d, scale, causal);
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -685,7 +703,7 @@ cudaError_t launch_dkdv(const Args& a, void* dk, void* dv) {
 
 template <typename T, int TPR>
 cudaError_t launch_dq(const Args& a, void* dq) {
-  dim3 grid((a.sq + kNT / TPR - 1) / (kNT / TPR), a.bh);
+  dim3 grid(a.bh, std::min((a.sq + kNT / TPR - 1) / (kNT / TPR), 65535));
   flash_bwd_dq_kernel<T, TPR><<<grid, kNT, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
@@ -713,13 +731,14 @@ cudaError_t dq_by_dim(const Args& a, void* dq) {
 }
 
 bool bad_shape(int bh, int sq, int sk, int d) {
-  return bh < 1 || bh > 65535 || sq < 1 || sk < 1 || d < 1 || d > 256;
+  return bh < 1 || sq < 1 || sk < 1 || d < 1 || d > 256;
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16.  Every pointer is required.
-// Returns the cudaError_t of the launch (0 on success).
+// batch*head goes up to 2**31 - 1 (grid.x of both kernels).  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* delta, void* dk, void* dv, int bh,

@@ -6,47 +6,75 @@
 // max m, sum l and output accumulator stay in float32; o = acc / l; an
 // optional float32 lse = m + log(l).  Keys at or past seq_k are masked;
 // under causal, query row i sees keys <= i + (seq_k - seq_q) (sequence ends
-// aligned).  A row that sees no key writes o = 0 and lse = +1e30.
+// aligned).  A masked score gives p = 0 outright, and a row that sees no
+// key writes o = 0 and lse = +1e30.
 //
 // Layout: q (BH, Sq, D), k and v (BH, Sk, D), o like q, all contiguous and
 // in one storage dtype (float32, bfloat16 or float16); lse float32 (BH, Sq).
 //
 // What bounds it on this card: at the serving shape (causal, S = 2048,
-// D = 64) the work is ~4*D multiply-adds per visible (query, key) pair
-// against 4 tensors of reads/writes, ~128 flop/byte in f32: the operations
-// bound it, not the bytes.  f32 stays exact f32 (no TF32), so the ceiling
-// is the 67 TFLOP/s of the FMA units, not the tensor cores.
+// D = 64) the work is 2 products of D multiply-adds per visible (query,
+// key) pair against 4 tensors of reads and writes, ~128 flop per byte in
+// f32: the operations bound it, not the bytes.  f32 stays exact f32 on the
+// FMA units (no TF32, no mma): the ceiling is their 67 TFLOP/s, and the
+// 16-bit dtypes run the same code on values staged in their storage dtype.
 //
-// Design (simple and right first; mma/wgmma and TMA are later work):
-// - One thread block per (q-tile of BQ rows, batch*head); the loop over
-//   k-tiles inside the block replaces the TPU's sequential grid axis.
-// - Each query row is owned by TPR threads, each holding DPT = 64 of the
-//   head dims of q and of the accumulator in registers, so no score or
-//   output ever goes to device memory.  D <= 64 uses one thread per row,
-//   D <= 128 two, D <= 256 four (partial dot products are summed with
-//   warp shuffles).  The head dim is not padded in memory: loads and
-//   stores are masked at D.
-// - A k-tile of BK keys of K and V is staged once in shared memory as
-//   float32 and read by every row of the q-tile: the threads of a warp
-//   read the same key, so shared-memory reads are broadcasts.
-// - Scores are taken CH = 16 keys at a time: one rescale of the
-//   accumulator per chunk, 16 independent dot products for ILP.
-// - Under causal the k-loop stops at the last key the tile's last row
-//   can see, which skips the k-tiles wholly above the diagonal.
-// - Ragged Sq and Sk are masked in-kernel; nothing is padded or copied.
-// - bf16 and f16 load in their storage dtype and accumulate in f32; p is
-//   rounded to v's dtype before the P.V product, as the TPU kernel does
-//   (attention.py:211-213), while l sums the unrounded p.
+// Design, a register-tiled SIMT product on a cp.async K/V stream (the
+// shape of flash_bwd.cu's dkdv kernel, plus the online softmax's row max):
+// - A block of 256 threads owns a q-tile of BQ queries of one batch*head.
+//   Q is staged once; K and V tiles of BK keys are streamed with 16-byte
+//   cp.async.cg, double-buffered: the copy of tile n+1 is in flight while
+//   tile n is computed.  Staged tiles keep the storage dtype; rows and
+//   head dims past the tensor are zero-filled by the src-size operand.  A
+//   row whose bytes are not a multiple of 16, or a base that is not 16-byte
+//   aligned, is staged by plain loads and stores instead.  Under causal
+//   the stream stops at the last key the tile's last row can see, which
+//   skips the k-tiles wholly above the diagonal.
+// - Each warp owns BQ/8 query rows in both products.  Its lanes form a
+//   4 x 8 grid: lane (ly, lx) holds rows ly + 4 i of the warp's rows, keys
+//   lx + 8 j of S = Q K^T (a register micro-tile, as a SIMT SGEMM does),
+//   then head dims 32 c + 4 lx + e of O.  The row max is taken inside the
+//   thread, then by __shfl_xor_sync across the 8 lanes of the row, and
+//   kept in log2 units, so each p is one FMA and one exp2; each lane
+//   keeps its own part of the row sum l, summed across the lanes once at
+//   the end.  p = exp(s * scale - m_new) is rounded to v's dtype and
+//   written to the warp's own rows of a P buffer in shared memory, while l
+//   sums the unrounded p (as attention.py:204-213 does); after
+//   __syncwarp, O = O * alpha + P V.  m, l, alpha and O stay in registers,
+//   because the same lanes own the same rows in both products; the only
+//   block barriers are the K/V stage handoffs, one a k-tile.
+// - Rows are padded by 16 bytes and the P buffer by 8 floats, so every
+//   shared-memory read of a micro-tile is one conflict-free wavefront or a
+//   broadcast.  At D = 64 (BQ = 128, BK = 64, 4 x 8 micro-tiles in both
+//   products) that is one 16-byte read (f32) for every 10.7 FMAs.  Of the
+//   shapes timed at the serving shape (BQ x BK x blocks an SM: 128 x 64 x
+//   1, 128 x 32 x 1 and 2, 64 x 64 x 1 and 2) 128 x 64 x 1 was the
+//   fastest; both loops are unrolled four times: twice, or fully, ran
+//   slower (PERF.md, tools/torch_flash_fwd_tiles.py).
+// - Only a k-tile that straddles the causal diagonal or the ragged key
+//   edge takes the per-score mask; the others run an unmasked
+//   instantiation.  Rows past Sq compute on zeros and are not stored.
+// - Blocks start heaviest first: grid (batch*head, q-tile) with the q-tile
+//   counted from the end, so under causal every head's last q-tile, which
+//   sees the most keys, starts before any lighter one.  batch*head on
+//   grid.x takes up to 2**31 - 1; past 65535 q-tiles a block strides.
+// - No atomics: each output is summed by one thread in key order, so a
+//   relaunch gives the same bits, with or without lse.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;   // the masked-score sentinel (_NEG_INF)
+constexpr int kThreads = 256;       // 8 warps
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -66,175 +94,362 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-template <typename T, int DPT, int TPR, int BQ, int BK, int CH>
-__global__ void __launch_bounds__(BQ * TPR)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int sq, int sk, int d,
-                 float scale, int causal) {
-  constexpr int NT = BQ * TPR;
-  // a thread's slice of a staged key row; slices of different threads
-  // are offset by 4 floats so they start in different banks
-  constexpr int DPS = TPR > 1 ? DPT + 4 : DPT;
-  constexpr int ROW = TPR * DPS;
-  static_assert(BK % CH == 0, "chunk must divide the k-tile");
-  static_assert(DPT % 4 == 0, "slices are read as float4");
-  __shared__ __align__(16) float ks[BK * ROW];
-  __shared__ __align__(16) float vs[BK * ROW];
+// queries a block owns (BQ) and keys a streamed tile (BK), by padded head
+// dim: O's micro-tile (BQ/32 rows x DP/8 dims) stays at or below 32
+// registers and shared memory within the 227 KB of a block
+template <int DP> struct FwdTile;
+template <> struct FwdTile<32> { static constexpr int BQ = 128, BK = 64; };
+template <> struct FwdTile<64> { static constexpr int BQ = 128, BK = 64; };
+template <> struct FwdTile<128> { static constexpr int BQ = 64, BK = 64; };
+template <> struct FwdTile<256> { static constexpr int BQ = 32, BK = 32; };
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int row = tid / TPR;
-  const int part = tid % TPR;
-  const int qi = q0 + row;
-  const bool row_ok = qi < sq;
-  const int off = sk - sq;
-  const int qpos = qi + off;
-  const size_t qbase = ((size_t)bh * sq + (row_ok ? qi : 0)) * d;
-  const size_t kvbase = (size_t)bh * sk * d;
+// Shared memory of one block: Q (BQ rows), two stages of (K, V: BK rows
+// each), then P (BQ rows of BK floats).  Rows are padded by 16 bytes;
+// every region starts 16-byte aligned.
+template <typename T, int DP, int BQ, int BK>
+struct FwdSmem {
+  static constexpr int DS = DP + 16 / (int)sizeof(T);   // row stride, in T
+  static constexpr int PS = BK + 8;                     // P row stride
+  static constexpr size_t q = (size_t)BQ * DS * sizeof(T);
+  static constexpr size_t stage = 2 * (size_t)BK * DS * sizeof(T);
+  static constexpr size_t bytes = q + 2 * stage + (size_t)BQ * PS * 4;
+};
 
-  float qr[DPT];
-  float acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int c = part * DPT + i;
-    qr[i] = (row_ok && c < d) ? to_f(q[qbase + c]) : 0.f;
-    acc[i] = 0.f;
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// copy *bytes* (16 or 0: then 16 zero bytes) from global to shared memory
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four consecutive staged values as float32
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 ld4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int u) {
+  return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
+}
+
+// Stage rows [r0, r0 + R) of a (rows, d) tensor at *src* into shared
+// memory at *dst* (row stride DS), zeros past *rows* and from d to DP.
+// *vec*: d * sizeof(T) is a multiple of 16 and *src* is 16-byte aligned,
+// so every 16-byte chunk of a padded row is copied by cp.async or zeroed;
+// else plain loads and stores.
+template <typename T, int R, int DP, int DS>
+__device__ __forceinline__ void stage_rows(T* __restrict__ dst,
+                                           const T* __restrict__ src,
+                                           int r0, int rows, int d,
+                                           bool vec, int tid) {
+  if (vec) {
+    constexpr int EPC = 16 / (int)sizeof(T);   // values a chunk
+    constexpr int CPR = DP / EPC;              // chunks a padded row
+    for (int e = tid; e < R * CPR; e += kThreads) {
+      const int r = e / CPR;
+      const int c = (e - r * CPR) * EPC;
+      const bool ok = r0 + r < rows && c < d;
+      cp_async16(dst + r * DS + c, ok ? src + (size_t)(r0 + r) * d + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < R * DP; e += kThreads) {
+      const int r = e / DP;
+      const int c = e - r * DP;
+      const bool ok = r0 + r < rows && c < d;
+      dst[r * DS + c] = ok ? src[(size_t)(r0 + r) * d + c] : from_f<T>(0.f);
+    }
   }
-  float m = kNegInf;
-  float l = 0.f;
+}
+
+// One k-tile of keys [k0, k0 + BK) for the warp's rows r0 + ly + 4 i:
+// S = Q K^T, the online softmax update of m, l (this lane's part) and O,
+// P through the warp's rows of *ps*.  *scale2* is the softmax scale times
+// log2(e), and m is kept in those units: p = exp2(s * scale2 - m) is one
+// FMA and one exp2 (the same function as exp(s * scale - m / log2(e))).
+// MASKED: the k-tile straddles the causal diagonal or the ragged key
+// edge, so each score is masked.
+template <bool MASKED, typename T, int DP, int BQ, int BK>
+__device__ __forceinline__ void fwd_step(
+    const T* __restrict__ qs, const T* __restrict__ ks,
+    const T* __restrict__ vs, float* __restrict__ ps, int r0, int lx,
+    int ly, int q0, int k0, int sk, int off, int causal, float scale2,
+    float (&m)[BQ / 32], float (&l)[BQ / 32], float (&o)[BQ / 32][DP / 8]) {
+  using S = FwdSmem<T, DP, BQ, BK>;
+  constexpr int MI = BQ / 32, NJ = BK / 8, NV = DP / 32;
+  float s[MI][NJ];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < DP; c += 4) {
+    float4 x[MI], y[NJ];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) x[i] = ld4(qs + (r0 + ly + 4 * i) * S::DS + c);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) y[j] = ld4(ks + (lx + 8 * j) * S::DS + c);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
+        s[i][j] = fmaf(x[i].y, y[j].y, s[i][j]);
+        s[i][j] = fmaf(x[i].z, y[j].z, s[i][j]);
+        s[i][j] = fmaf(x[i].w, y[j].w, s[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int r = r0 + ly + 4 * i;
+    const int qpos = q0 + r + off;
+    float mx = kNegInf;   // of the unscaled scores
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int kj = k0 + lx + 8 * j;
+      if (!MASKED || (kj < sk && (!causal || kj <= qpos)))
+        mx = fmaxf(mx, s[i][j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    const float m_new = mx > kNegInf * 0.5f ? fmaxf(m[i], mx * scale2) : m[i];
+    const float alpha = exp2f(m[i] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int kj = k0 + lx + 8 * j;
+      const bool ok = !MASKED || (kj < sk && (!causal || kj <= qpos));
+      const float p = ok ? exp2f(fmaf(s[i][j], scale2, -m_new)) : 0.f;
+      sum += p;
+      ps[r * S::PS + lx + 8 * j] = round_to<T>(p);
+    }
+    l[i] = l[i] * alpha + sum;
+    m[i] = m_new;
+#pragma unroll
+    for (int e = 0; e < DP / 8; ++e) o[i][e] *= alpha;
+  }
+  __syncwarp();   // the warp's rows of P are written
+
+#pragma unroll 4
+  for (int kk = 0; kk < BK; kk += 4) {
+    float4 pa[MI];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) pa[i] = ld4(ps + (r0 + ly + 4 * i) * S::PS + kk);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const float4 w = ld4(vs + (kk + u) * S::DS + 32 * c + 4 * lx);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const float pu = lane_of(pa[i], u);
+          o[i][4 * c + 0] = fmaf(pu, w.x, o[i][4 * c + 0]);
+          o[i][4 * c + 1] = fmaf(pu, w.y, o[i][4 * c + 1]);
+          o[i][4 * c + 2] = fmaf(pu, w.z, o[i][4 * c + 2]);
+          o[i][4 * c + 3] = fmaf(pu, w.w, o[i][4 * c + 3]);
+        }
+      }
+    }
+  }
+}
+
+// o (and lse) of queries [q0, q0 + BQ) of one batch*head; see the note at
+// the top.
+template <typename T, int DP, int BQ, int BK>
+__device__ __forceinline__ void fwd_tile(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int bh, int q0, int sq, int sk, int d, float scale, int causal,
+    int vec) {
+  using S = FwdSmem<T, DP, BQ, BK>;
+  constexpr int MI = BQ / 32, NV = DP / 32;
+  static_assert(BQ % 32 == 0 && BK % 8 == 0 && DP % 32 == 0, "tile shape");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  unsigned char* stages = smem + S::q;
+  float* ps = reinterpret_cast<float*>(stages + 2 * S::stage);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int lx = lane & 7, ly = lane >> 3;
+  const int r0 = warp * (BQ / kWarps);   // the warp's first row
+  const int off = sk - sq;
+  const T* kb = k + (size_t)bh * sk * d;
+  const T* vb = v + (size_t)bh * sk * d;
+
+  // K and V of keys [k0, k0 + BK) into stage *st*
+  auto stage_kv = [&](int k0, int st) {
+    T* kd = reinterpret_cast<T*>(stages + st * S::stage);
+    stage_rows<T, BK, DP, S::DS>(kd, kb, k0, sk, d, vec, tid);
+    stage_rows<T, BK, DP, S::DS>(kd + BK * S::DS, vb, k0, sk, d, vec, tid);
+    cp_async_commit();
+  };
+
+  float m[MI], l[MI], acc[MI][DP / 8];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DP / 8; ++e) acc[i][e] = 0.f;
+  }
 
   int k_end = sk;
   if (causal) {
-    // last key visible to the tile's last row
-    const int last = min(q0 + BQ, sq) - 1 + off;
-    k_end = max(0, min(sk, last + 1));
+    // one past the last key visible to the tile's last row
+    k_end = max(0, min(sk, min(q0 + BQ, sq) + off));
   }
-
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // every row is done with the previous tile
-    for (int e = tid; e < BK * TPR * DPT; e += NT) {
-      const int r = e / (TPR * DPT);
-      const int c = e - r * (TPR * DPT);
-      const int key = k0 + r;
-      const bool ok = key < sk && c < d;
-      const size_t g = kvbase + (size_t)key * d + c;
-      const int s_idx = r * ROW + (c / DPT) * DPS + (c % DPT);
-      ks[s_idx] = ok ? to_f(k[g]) : 0.f;
-      vs[s_idx] = ok ? to_f(v[g]) : 0.f;
-    }
+  const int nk = (k_end + BK - 1) / BK;
+  const float scale2 = scale * 1.44269504088896341f;   // log2(e)
+  if (nk > 0) {   // Q rides in the first k-tile's cp.async group
+    stage_rows<T, BQ, DP, S::DS>(qs, q + (size_t)bh * sq * d, q0, sq, d,
+                                 vec, tid);
+    stage_kv(0, 0);
+  }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait_all();
+    // this k-tile (and Q) are in shared memory for every thread, and
+    // every warp is done with the previous k-tile's stage
     __syncthreads();
-
-    for (int kk = 0; kk < BK; kk += CH) {
-      float s[CH];
-#pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        const float4* kr =
-            reinterpret_cast<const float4*>(ks + (kk + j) * ROW + part * DPS);
-        float a = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPT / 4; ++i) {
-          const float4 kv4 = kr[i];
-          a = fmaf(qr[4 * i + 0], kv4.x, a);
-          a = fmaf(qr[4 * i + 1], kv4.y, a);
-          a = fmaf(qr[4 * i + 2], kv4.z, a);
-          a = fmaf(qr[4 * i + 3], kv4.w, a);
-        }
-        s[j] = a;
-      }
-#pragma unroll
-      for (int w = 1; w < TPR; w <<= 1) {
-#pragma unroll
-        for (int j = 0; j < CH; ++j)
-          s[j] += __shfl_xor_sync(0xffffffffu, s[j], w);
-      }
-
-      unsigned valid = 0u;
-      float m_new = m;
-#pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        const int key = k0 + kk + j;
-        const bool ok = key < sk && (!causal || key <= qpos);
-        s[j] *= scale;
-        if (ok) {
-          valid |= 1u << j;
-          m_new = fmaxf(m_new, s[j]);
-        }
-      }
-      if (valid == 0u) continue;  // nothing visible in this chunk
-
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        const float p = ((valid >> j) & 1u) ? expf(s[j] - m_new) : 0.f;
-        l += p;
-        const float pv = round_to<T>(p);
-        const float4* vr =
-            reinterpret_cast<const float4*>(vs + (kk + j) * ROW + part * DPS);
-#pragma unroll
-        for (int i = 0; i < DPT / 4; ++i) {
-          const float4 v4 = vr[i];
-          acc[4 * i + 0] = fmaf(pv, v4.x, acc[4 * i + 0]);
-          acc[4 * i + 1] = fmaf(pv, v4.y, acc[4 * i + 1]);
-          acc[4 * i + 2] = fmaf(pv, v4.z, acc[4 * i + 2]);
-          acc[4 * i + 3] = fmaf(pv, v4.w, acc[4 * i + 3]);
-        }
-      }
-      m = m_new;
-    }
+    if (t + 1 < nk) stage_kv((t + 1) * BK, (t + 1) & 1);
+    const T* ks = reinterpret_cast<const T*>(stages + (t & 1) * S::stage);
+    const T* vs = ks + BK * S::DS;
+    const int k0 = t * BK;
+    // the ragged key edge, or under causal a row of the tile that does
+    // not see the k-tile's last key
+    const bool masked = k0 + BK > sk || (causal && q0 + off < k0 + BK - 1);
+    if (masked)
+      fwd_step<true, T, DP, BQ, BK>(qs, ks, vs, ps, r0, lx, ly, q0, k0, sk,
+                                    off, causal, scale2, m, l, acc);
+    else
+      fwd_step<false, T, DP, BQ, BK>(qs, ks, vs, ps, r0, lx, ly, q0, k0, sk,
+                                     off, causal, scale2, m, l, acc);
   }
 
-  if (!row_ok) return;
-  const bool degenerate = m <= kNegInf * 0.5f;
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    const int c = part * DPT + i;
-    if (c < d) o[qbase + c] = from_f<T>(degenerate ? 0.f : acc[i] / l);
+  for (int i = 0; i < MI; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li += __shfl_xor_sync(0xffffffffu, li, 4);
+    const int qi = q0 + r0 + ly + 4 * i;
+    if (qi >= sq) continue;
+    const bool degenerate = m[i] <= kNegInf * 0.5f;
+    const size_t base = ((size_t)bh * sq + qi) * d;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int dim = 32 * c + 4 * lx + e;
+        if (dim < d)
+          o[base + dim] = from_f<T>(degenerate ? 0.f : acc[i][4 * c + e] / li);
+      }
+    if (lse != nullptr && lx == 0)
+      lse[(size_t)bh * sq + qi] =
+          degenerate ? 1e30f : m[i] * 0.693147180559945309f + logf(li);
   }
-  if (lse != nullptr && part == 0)
-    lse[(size_t)bh * sq + qi] = degenerate ? 1e30f : m + logf(l);
 }
 
-template <typename T, int TPR>
+// Grid (batch*head, q-tiles): blocks start in order of blockIdx.x fastest,
+// and blockIdx.y counts q-tiles from the last, so every head's heaviest
+// q-tile under causal starts before any lighter one.  A block takes
+// q-tiles blockIdx.y, + gridDim.y, ... (more than one only past 65535).
+template <typename T, int DP, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int sq, int sk, int d, float scale,
+                 int causal, int vec) {
+  const int nq = (sq + BQ - 1) / BQ;
+  for (int j = blockIdx.y; j < nq; j += gridDim.y) {
+    if (j != (int)blockIdx.y) __syncthreads();   // shared memory is free
+    fwd_tile<T, DP, BQ, BK>(q, k, v, o, lse, blockIdx.x, (nq - 1 - j) * BQ,
+                            sq, sk, d, scale, causal, vec);
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// DP: the padded head dim.  Raises the block's dynamic shared memory limit
+// before every launch: the limit is per device, and the call is cheap next
+// to the kernel.
+template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int sq, int sk, int d, float scale,
                    int causal, cudaStream_t stream) {
-  constexpr int DPT = 64;
-  constexpr int BQ = 128 / TPR;   // 128 threads a block
-  constexpr int BK = 64 / TPR;    // 32-35 KB of shared memory for K and V
-  constexpr int CH = 16;
-  dim3 grid((sq + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<T, DPT, TPR, BQ, BK, CH><<<grid, BQ * TPR, 0, stream>>>(
+  constexpr int BQ = FwdTile<DP>::BQ, BK = FwdTile<DP>::BK;
+  constexpr size_t bytes = FwdSmem<T, DP, BQ, BK>::bytes;
+  static_assert(bytes <= 232448, "shared memory of a block");
+  auto kernel = flash_fwd_kernel<T, DP, BQ, BK>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return attr;
+  const int vec = (d * sizeof(T)) % 16 == 0 && aligned16(q) &&
+                  aligned16(k) && aligned16(v);
+  dim3 grid(bh, std::min((sq + BQ - 1) / BQ, 65535));
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), sq, sk, d, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      sq, sk, d, scale, causal, vec);
   return cudaGetLastError();
 }
 
+// the padded head dim: the least of 32, 64, 128, 256 that covers d
 template <typename T>
 cudaError_t by_dim(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int sq, int sk, int d, float scale,
                    int causal, cudaStream_t stream) {
+  if (d <= 32)
+    return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
   if (d <= 64)
-    return launch<T, 1>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
+    return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
   if (d <= 128)
-    return launch<T, 2>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
-  return launch<T, 4>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
+    return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                          stream);
+  return launch<T, 256>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 float16.  lse may be null.  Returns the
-// cudaError_t of the launch (0 on success).
+// dtype: 0 float32, 1 bfloat16, 2 float16.  lse may be null.  batch*head
+// goes up to 2**31 - 1 (grid.x).  Returns the cudaError_t of the launch (0
+// on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int bh, int sq, int sk, int d,
                          float sm_scale, int causal, int dtype,
                          void* stream) {
-  if (bh < 1 || bh > 65535 || sq < 1 || sk < 0 || d < 1 || d > 256)
+  if (bh < 1 || sq < 1 || sk < 0 || d < 1 || d > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {

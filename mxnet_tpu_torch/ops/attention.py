@@ -15,8 +15,9 @@ Layout is (batch, heads, seq, head_dim) at every public function.
   ``_flash_fwd_kernel`` (``mxnet_tpu/ops/attention.py:164``).  At the
   serving shape the kernel is bound by operations, not bytes (about 128
   flop per byte moved in f32), so its design keeps every score, weight
-  and partial output in registers and stages each K/V tile once in
-  shared memory for a whole tile of query rows; see the source's header.
+  and partial output in register micro-tiles of warp-owned query rows
+  and streams K/V tiles into shared memory with cp.async; see the
+  source's header.
 - ``flash_bwd_dkdv`` / ``flash_bwd_dq`` (and ``flash_bwd``, which runs
   both): the wrappers of ``mxnet_tpu_torch/csrc/flash_bwd.cu``, which
   replaces ``_flash_bwd_dkdv_kernel`` (attention.py:335) and
@@ -47,6 +48,8 @@ __all__ = ["flash_attention", "attention_reference", "flash_fwd",
 _NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# Each register-tiled kernel has a compile-time tile for each padded head
+# dim (32, 64, 128, 256); no model of the repo has D > 128.
 _MAX_HEAD_DIM = 256
 
 
@@ -215,8 +218,10 @@ def _flash_bwd_plain(q, k, v, o, lse, dout, causal=False, sm_scale=None,
 def _check_qkv(who, q, k, v, dout=None):
     """The checks every attention kernel's wrapper makes: q (B, H, Sq, D),
     k and v (B, H, Sk, D), and *dout* like q, contiguous CUDA tensors on
-    one device in one dtype of float32 / bfloat16 / float16, D <= 256,
-    within the kernels' grid.  Returns (b, h, sq, sk, d)."""
+    one device in one dtype of float32 / bfloat16 / float16, D <= 256
+    (``_MAX_HEAD_DIM``), element offsets within 2**62, and B*H, Sq, Sk
+    within the kernels' 32-bit ints (B*H goes on grid.x, which takes up to
+    2**31 - 1).  Returns (b, h, sq, sk, d)."""
     named = [("q", q), ("k", k), ("v", v)]
     if dout is not None:
         named.append(("dout", dout))
@@ -249,8 +254,8 @@ def _check_qkv(who, q, k, v, dout=None):
     if not 1 <= d <= _MAX_HEAD_DIM:
         raise MXNetError("%s: head dim %d outside 1..%d"
                          % (who, d, _MAX_HEAD_DIM))
-    if b * h > 65535 or max(b * h * sq, b * h * sk) * d >= 2 ** 62 or \
-            max(sq, sk) >= 2 ** 31:
+    if max(b * h * sq, b * h * sk) * d >= 2 ** 62 or \
+            max(sq, sk, b * h) >= 2 ** 31:
         raise MXNetError("%s: shape %s is too large for the kernel's grid"
                          % (who, tuple(q.shape)))
     return b, h, sq, sk, d
@@ -437,7 +442,12 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, chunk=512,
     the meta device during shape inference) run the plain chunked
     versions, *chunk* keys at a time.  The ``_FlashAttention`` Function
     is taken only when a gradient is needed (grad mode on and an input
-    that requires grad); otherwise no lse is kept."""
+    that requires grad); otherwise no lse is kept.
+
+    On CUDA the head dim D is at most 256 and a larger one raises
+    ``MXNetError``: each kernel keeps its tiles in registers and has a
+    compile-time tile for each padded head dim (32, 64, 128, 256), and no
+    model of the repo has D > 128.  B*H may exceed 65535."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
@@ -465,6 +475,8 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, chunk=512,
              input_names=("query", "key", "value"))
 def _dot_product_attention(query, key, value, causal=False, sm_scale=None,
                            chunk=512):
-    """Fused scaled-dot-product attention over the flash kernels."""
+    """Fused scaled-dot-product attention over the flash kernels.  On
+    CUDA the head dim is at most 256 (``flash_attention`` says why) and a
+    larger one raises ``MXNetError``; the CPU takes any."""
     return flash_attention(query, key, value, causal=bool(causal),
                            sm_scale=sm_scale, chunk=chunk)

@@ -55,6 +55,51 @@ def test_plain_forward_matches_pallas_interpret(sq, sk, causal):
     np.testing.assert_allclose(tl.numpy(), jl, rtol=1e-6, atol=1e-5)
 
 
+# (sq, sk, d, causal) with lengths that no block divides and head dims off
+# 16: ragged both ways, Sq > Sk with rows that see no key (causal) and
+# with every row seeing every key (not causal)
+RAGGED = [(50, 70, 24, True), (70, 50, 24, True), (70, 50, 40, False),
+          (45, 45, 80, True), (90, 37, 32, True)]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", RAGGED)
+def test_forward_matches_pallas_interpret_at_ragged_blocks(sq, sk, d,
+                                                           causal):
+    """The dispatcher on the CPU (the kernel's plain version) against the
+    Pallas kernel in interpret mode with blocks that divide neither
+    length: the same o, the same lse, and zeros with lse +1e30 on rows
+    that see no key."""
+    q, k, v = _qkv(2, 1, sq, sk, d, seed=sq * 7 + sk + d)
+    scale = 1.0 / math.sqrt(d)
+    jo, jl = jatt._flash_fwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, scale,
+        blk_q=32, blk_k=16, interpret=True, with_lse=True)
+    jl = np.asarray(jl)[:, :sq].reshape(2, 1, sq)
+    to, tl = tatt.flash_attention(*_t(q, k, v), causal=causal, chunk=16,
+                                  with_lse=True)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(tl.numpy(), jl, rtol=1e-6, atol=1e-5)
+    empty = max(0, sq - sk) if causal else 0
+    assert np.all(to.numpy()[:, :, :empty] == 0)
+    assert np.all(tl.numpy()[:, :, :empty] == 1e30)
+    assert np.all(tl.numpy()[:, :, empty:] < 1e3)
+
+
+@pytest.mark.parametrize("sq,sk", [(70, 50), (50, 70)])
+def test_bf16_matches_pallas_bf16_at_ragged_blocks(sq, sk):
+    q, k, v = _qkv(1, 2, sq, sk, 24, seed=sq + 3 * sk)
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = tatt.flash_attention(qb, kb, vb, causal=True, chunk=16)
+    assert got.dtype == torch.bfloat16
+    jo = jatt._flash_fwd_pallas(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), True,
+        1.0 / math.sqrt(24), blk_q=32, blk_k=16, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jo, np.float32), rtol=5e-2,
+                               atol=5e-2)
+
+
 @pytest.mark.parametrize("sq,sk,causal", CASES)
 @pytest.mark.parametrize("chunk", [7, 512])
 def test_plain_forward_matches_reference(sq, sk, causal, chunk):

@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s build gate on the CPU: it reads registers and
-spills from nvcc's ``-Xptxas -v`` log and fails the run when the
-training path's dkdv instantiation (f32, D = 64) spills or is missing,
+spills from nvcc's ``-Xptxas -v`` logs and fails the run when an
+instantiation the paths run (``PATH_ENTRIES``: flash_fwd and
+flash_bwd_dkdv, f32, D = 64) spills or is missing from its source's log,
 on a fresh build and on one that an earlier run left behind."""
 
 import os
@@ -16,6 +17,11 @@ DKDV64 = ("_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelIfLi64ELi64ELi64EEEvPKT_"
           "S4_S4_S4_PKfS6_PS2_S7_iiifii")
 DKDV64_BF16 = DKDV64.replace("kernelIf", "kernelI13__nv_bfloat16")
 DQ64 = "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi2EEEvPKT_S4_S4_S4_PKfS6_PS2_iiifi"
+FWD64 = ("_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64ELi128ELi64EEEvPKT_S3_S3_"
+         "PS1_Pfiiifii")
+FWD64_BF16 = FWD64.replace("kernelIf", "kernelI13__nv_bfloat16")
+FWD128 = FWD64.replace("Li64ELi128", "Li128ELi64")
+CLEAN = {"registers": 168, "spill_stores": 0, "spill_loads": 0}
 
 
 def _log(entries):
@@ -42,11 +48,20 @@ def test_ptxas_usage_reads_every_entry():
         DQ64: {"registers": 214, "spill_stores": 68, "spill_loads": 72}}
 
 
+def _logs(fwd=((FWD64, 168, 0, 0),), bwd=((DKDV64, 168, 0, 0),)):
+    """{source: nvcc log}, each path entry clean unless given."""
+    return {"flash_fwd": _log(fwd), "flash_bwd": _log(bwd)}
+
+
 def test_path_dkdv_usage_passes_a_clean_build():
-    text = _log([(DKDV64_BF16, 255, 96, 96), (DKDV64, 168, 0, 0),
-                 (DQ64, 214, 68, 72)])
-    assert chip_smoke.path_dkdv_usage(text) == {
-        "registers": 168, "spill_stores": 0, "spill_loads": 0}
+    logs = _logs(fwd=[(FWD64_BF16, 255, 96, 96), (FWD64, 190, 0, 0),
+                      (FWD128, 255, 40, 40)],
+                 bwd=[(DKDV64_BF16, 255, 96, 96), (DKDV64, 168, 0, 0),
+                      (DQ64, 214, 68, 72)])
+    assert chip_smoke.path_usage(logs) == {
+        "flash_fwd": {"registers": 190, "spill_stores": 0,
+                      "spill_loads": 0},
+        "flash_bwd_dkdv": CLEAN}
 
 
 @pytest.mark.parametrize("entries", [
@@ -57,14 +72,41 @@ def test_path_dkdv_usage_passes_a_clean_build():
 ])
 def test_path_dkdv_usage_fails_the_run(entries):
     with pytest.raises(RuntimeError):
-        chip_smoke.path_dkdv_usage(_log(entries))
+        chip_smoke.path_usage(_logs(bwd=entries))
 
 
 def test_path_dkdv_usage_fails_without_the_spill_line():
-    text = "\n".join(line for line in _log([(DKDV64, 128, 0, 0)])
-                     .splitlines() if "spill" not in line)
+    logs = _logs()
+    logs["flash_bwd"] = "\n".join(line for line in logs["flash_bwd"]
+                                  .splitlines() if "spill" not in line)
     with pytest.raises(RuntimeError):
-        chip_smoke.path_dkdv_usage(text)
+        chip_smoke.path_usage(logs)
+
+
+@pytest.mark.parametrize("fault", ["spill stores", "spill loads", "missing",
+                                   "in the other source's log"])
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dkdv"])
+def test_path_usage_fails_when_an_entry_spills_or_is_missing(kernel, fault):
+    """Either path entry fails the run on its own, and each is read only
+    from its own source's log."""
+    entry = {"flash_fwd": FWD64, "flash_bwd_dkdv": DKDV64}[kernel]
+    source = {"flash_fwd": "flash_fwd", "flash_bwd_dkdv": "flash_bwd"}[kernel]
+    other = ({"flash_fwd", "flash_bwd"} - {source}).pop()
+    logs = _logs()
+    assert set(chip_smoke.path_usage(logs)) == {"flash_fwd",
+                                                "flash_bwd_dkdv"}
+    if fault == "spill stores":
+        logs[source] = _log([(entry, 255, 68, 0)])
+    elif fault == "spill loads":
+        logs[source] = _log([(entry, 255, 0, 4)])
+    elif fault == "missing":
+        del logs[source]
+    else:
+        logs[other] = _log([(FWD64, 168, 0, 0), (DKDV64, 168, 0, 0)])
+        logs[source] = _log([(DQ64, 214, 0, 0)])
+    with pytest.raises(RuntimeError, match="spills" if "spill" in fault
+                       else "complete entries"):
+        chip_smoke.path_usage(logs)
 
 
 def _fake_nvcc(tmp_path, text):
@@ -86,7 +128,8 @@ def test_build_gate_reads_a_library_built_before(tmp_path, monkeypatch,
     gate reads ptxas's lines from the nvcc log kept beside each, so it
     passes a clean build and still fails a spilling one."""
     from mxnet_tpu_torch.ops import _cuda
-    nvcc = _fake_nvcc(tmp_path, _log([(DKDV64, 168, spill, spill),
+    nvcc = _fake_nvcc(tmp_path, _log([(FWD64, 168, 0, 0),
+                                      (DKDV64, 168, spill, spill),
                                       (DQ64, 214, 0, 0)]))
     monkeypatch.setattr(_cuda, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(_cuda, "_nvcc", lambda: nvcc)
@@ -99,8 +142,9 @@ def test_build_gate_reads_a_library_built_before(tmp_path, monkeypatch,
                 chip_smoke.phase_build()
         else:
             results.append(chip_smoke.phase_build())
-        info = _cuda.build("flash_bwd")
-        assert info["seconds"] == 0.0 and DKDV64 in info["log"]
+        for source, entry in (("flash_fwd", FWD64), ("flash_bwd", DKDV64)):
+            info = _cuda.build(source)
+            assert info["seconds"] == 0.0 and entry in info["log"]
     if not spill:
-        assert results[0] == results[1] == {
-            "registers": 168, "spill_stores": 0, "spill_loads": 0}
+        assert results[0] == results[1] == {"flash_fwd": CLEAN,
+                                            "flash_bwd_dkdv": CLEAN}

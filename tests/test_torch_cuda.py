@@ -68,6 +68,74 @@ def test_kernel_matches_plain_version(cuda, sq, sk, d, causal, dtype):
     assert torch.equal(att.flash_fwd(q, k, v, causal), o)
 
 
+@pytest.mark.parametrize("sq,sk,d,causal,dtype", [
+    # lengths off the q-tile (128 at D <= 64, 64 at D 128, 32 at D 256) and
+    # the k-tile (64, 32 at D 256)
+    (129, 65, 64, False, torch.float32),
+    (65, 129, 64, True, torch.float32),
+    (1, 200, 64, True, torch.float32),
+    # causal, Sq > Sk: whole q-tiles see no key, then a ragged diagonal
+    (400, 70, 64, True, torch.float32),
+    (333, 100, 32, True, torch.bfloat16),
+    # head dims of each padded tile, and off them
+    (150, 170, 32, True, torch.float16),
+    (150, 170, 80, True, torch.float32),
+    (150, 170, 128, False, torch.bfloat16),
+    (97, 61, 128, True, torch.float16),
+    (70, 90, 256, True, torch.float32),
+    (70, 90, 256, False, torch.bfloat16),
+    (90, 70, 200, True, torch.float16),
+    # 36 bf16 is a 72-byte row: staged by plain loads, not cp.async
+    (130, 100, 36, True, torch.bfloat16)])
+def test_forward_at_the_tile_edges(cuda, sq, sk, d, causal, dtype):
+    """The register-tiled forward at the edges of its tiles against its
+    plain version (the limits of test_kernel_matches_plain_version); a
+    relaunch, and the launch without lse, give the same bits."""
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v = _qkv(cuda, 2, 3, sq, sk, d, dtype, seed=sq + sk + d)
+    o, lse = att.flash_fwd(q, k, v, causal, with_lse=True)
+    po, plse = att._chunked_attention(q, k, v, causal, with_lse=True)
+    assert o.dtype == dtype and bool(torch.isfinite(o).all())
+    assert bool(((o.float() - po.float()).abs()
+                 <= _o_limit(po, q, k, v, causal)).all())
+    assert (lse - plse).abs().max().item() <= 1e-4
+    if causal and sq > sk:
+        assert not o[:, :, :sq - sk].any()
+        assert bool((lse[:, :, :sq - sk] == 1e30).all())
+    o2, lse2 = att.flash_fwd(q, k, v, causal, with_lse=True)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    assert torch.equal(att.flash_fwd(q, k, v, causal), o)
+
+
+def test_all_three_kernels_past_65535_batch_heads(cuda):
+    """B*H = 65600 goes on grid.x: one launch of each kernel against its
+    plain version, through flash_attention's forward and backward too."""
+    from chip_smoke import bwd_error, bwd_magnitudes
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 2, 32800, 16, 16, 32,
+                                          torch.float32, True)
+    o, _ = att.flash_fwd(q, k, v, True, with_lse=True)
+    po, plse = att._chunked_attention(q, k, v, True, with_lse=True)
+    assert (o - po).abs().max().item() <= 1e-4
+    assert (lse - plse).abs().max().item() <= 1e-4
+    dk, dv = att.flash_bwd_dkdv(q, k, v, do, lse, delta, True)
+    dq = att.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    pdk, pdv = att._flash_bwd_dkdv_plain(q, k, v, do, lse, delta, True)
+    pdq = att._flash_bwd_dq_plain(q, k, v, do, lse, delta, True)
+    mags = bwd_magnitudes(torch, att, q, k, v, do, lse, delta, True,
+                          1.0 / math.sqrt(32))
+    for got, want, mag in zip((dq, dk, dv), (pdq, pdk, pdv), mags):
+        assert bwd_error(torch, got, want, mag, "float32")[1] <= 1.0
+    before = (att.flash_fwd.launches, att.flash_bwd_dkdv.launches,
+              att.flash_bwd_dq.launches)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    att.flash_attention(qg, kg, vg, causal=True).backward(do)
+    assert (att.flash_fwd.launches, att.flash_bwd_dkdv.launches,
+            att.flash_bwd_dq.launches) == tuple(n + 1 for n in before)
+    assert torch.equal(qg.grad, dq) and torch.equal(kg.grad, dk) and \
+        torch.equal(vg.grad, dv)
+
+
 def test_dispatch_launches_the_kernel(cuda):
     from mxnet_tpu_torch.ops import attention as att
     q, k, v = _qkv(cuda, 1, 2, 64, 64, 32, torch.float32)
