@@ -8,13 +8,15 @@ Phases, each reported on its own line; any failure exits non-zero:
              ``mxnet_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
              source, all started together; print ptxas's registers and
              spills, and fail if an instantiation the paths run
-             (``PATH_ENTRIES``: flash_fwd and flash_bwd_dkdv, f32,
-             D = 64) spills or is missing.
+             (``PATH_ENTRIES``: flash_fwd, flash_bwd_dkdv and
+             flash_bwd_dq, f32, D = 64) spills or is missing.
 3. kernel  — hold each kernel against its plain PyTorch version on the
              card over a grid of cases, each relaunched for bit-equality,
-             and at B*H = 65600 (past grid.y's 65535); then time kernel,
+             head dims past 256 up to the kernels' bound among them, and
+             at B*H = 65600 (past grid.y's 65535); then time kernel,
              plain version and one PyTorch library call at the paths'
-             shape.
+             shape, and the wide-head kernels beside their plain
+             versions.
 4. serve   — the serving path at full width: build the transformer LM
              (vocab 32000, dim 1024, heads 16, 12 layers, seq 2048),
              hybridize, forward, export a checkpoint, load it into a
@@ -60,13 +62,14 @@ PATH_SHAPE = (8, 16, 2048, 2048, 64)
 VOCAB, DIM, HEADS, LAYERS, SEQ = 32000, 1024, 16, 12, 2048
 BATCH = 8
 SOURCES = ("flash_fwd", "flash_bwd")
-# (kernel, source, part of the mangled name) of the instantiations both
+# (kernel, source, part of the mangled name) of the instantiations the
 # paths run, f32 and D = 64 (flash_fwd_kernel<float, 64, ...>,
-# flash_bwd_dkdv_kernel<float, 64, ...>): a spill in either fails the
-# build phase
+# flash_bwd_dkdv_kernel<float, 64, ...>, flash_bwd_dq_kernel<float, 64,
+# ...>): a spill in any fails the build phase
 PATH_ENTRIES = (("flash_fwd", "flash_fwd", "flash_fwd_kernelIfLi64E"),
                 ("flash_bwd_dkdv", "flash_bwd",
-                 "flash_bwd_dkdv_kernelIfLi64E"))
+                 "flash_bwd_dkdv_kernelIfLi64E"),
+                ("flash_bwd_dq", "flash_bwd", "flash_bwd_dq_kernelIfLi64E"))
 # phase 3's case past grid.y's 65535 (b, h, sq, sk, d), causal, f32, and
 # the most extra device memory its plain versions may take: a few tensors
 # of q's 134 MB, as they hold no score matrix larger than q
@@ -95,7 +98,10 @@ TOL_LSE = 1e-4
 # (not a running max) and sum in f32 in another order.  Held per element
 # against M, the sum of the absolute terms behind it (bwd_magnitudes):
 # each version is within n * 2**-24 * M of the exact sum over n <= 2**11
-# terms, so f32 is held to 2**-12 * M.  A 16-bit dtype rounds p (for dv)
+# terms, so f32 is held to 2**-12 * M.  Every case stays within 2**11
+# terms: sequences of at most 2048, and head dims at most the kernels'
+# bound of 2048 = 2**11 (the wide cases sum at most 2048 terms in a dot
+# product and 300 in a gradient).  A 16-bit dtype rounds p (for dv)
 # and ds (for dk, dq) to the dtype; both round the same f32 value, so a
 # term differs only where the f32 noise straddles a rounding boundary,
 # by one ulp <= 2**-bits * |term|: held to (2**-bits + 2**-12) * M plus 2
@@ -358,7 +364,15 @@ CASES = [
     (1, 2, 200, 200, 80, True, "float32", True),     # D not a tile
     (1, 2, 200, 200, 32, False, "bfloat16", True),
     (1, 2, 256, 256, 256, True, "float32", True),    # D = 256
+    # head dims past 256: the wide kernels (the case at the kernels' bound,
+    # attention.KERNEL_MAX_HEAD_DIM, is added in phase_kernel)
+    (1, 2, 200, 300, 300, True, "float32", True),
+    (1, 2, 300, 200, 300, True, "bfloat16", True),
+    (1, 1, 256, 256, 1024, False, "float32", True),
 ]
+# the wide-head shapes timed beside their plain versions (b, h, sq, sk, d,
+# causal)
+WIDE_TIMED = ((1, 2, 200, 300, 300, True), (1, 1, 256, 256, 1024, False))
 
 
 def check_fwd_case(torch, att, gen, case):
@@ -495,17 +509,52 @@ def check_big_bh(torch, att, gen, worst):
     torch.cuda.empty_cache()
 
 
+def time_wide(torch, att, gen, card):
+    """The wide-head kernels (D > 256) at ``WIDE_TIMED``, f32, beside
+    their plain versions; printed, not part of the kernels line."""
+    for b, h, sq, sk, d, causal in WIDE_TIMED:
+        inputs = bwd_inputs(torch, att, gen, b, h, sq, sk, d, causal,
+                            torch.float32)
+        q, k, v, do, o, lse, delta, scale = inputs
+        for name, kern, plain in (
+                ("flash_fwd",
+                 lambda: att.flash_fwd(q, k, v, causal, scale),
+                 lambda: att._chunked_attention(q, k, v, causal, scale)),
+                ("flash_bwd_dkdv",
+                 lambda: att.flash_bwd_dkdv(q, k, v, do, lse, delta, causal,
+                                            scale),
+                 lambda: att._flash_bwd_dkdv_plain(q, k, v, do, lse, delta,
+                                                   causal, scale)),
+                ("flash_bwd_dq",
+                 lambda: att.flash_bwd_dq(q, k, v, do, lse, delta, causal,
+                                          scale),
+                 lambda: att._flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                 causal, scale))):
+            ms = time_ms(torch, kern, 20)
+            plain_ms = time_ms(torch, plain, 20)
+            bound, by = kernel_bound_ms(name, b, h, sq, sk, d, causal,
+                                        "float32", 4)
+            log("kernel %s wide-head timing float32 b%d h%d sq%d sk%d d%d "
+                "causal=%s on %s: kernel %.4f ms, plain %.4f ms, bound "
+                "%.4f ms (%s), kernel at %.1f%% of bound" % (
+                    name, b, h, sq, sk, d, causal, card, ms, plain_ms, bound,
+                    by, 100.0 * bound / ms))
+        del inputs, q, k, v, do, o, lse, delta
+
+
 def phase_kernel(torch, card, seed):
     from mxnet_tpu_torch.ops import attention as att
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     worst = {}
-    for case in CASES:
+    cases = CASES + [(1, 2, 128, 160, att.KERNEL_MAX_HEAD_DIM, True,
+                      "float32", True)]
+    for case in cases:
         ratio = check_fwd_case(torch, att, gen, case)
         worst[("flash_fwd", case[6])] = max(
             worst.get(("flash_fwd", case[6]), 0.0), ratio)
-    for (b, h, sq, sk, d, causal, dtn, _) in CASES:
+    for (b, h, sq, sk, d, causal, dtn, _) in cases:
         inputs = bwd_inputs(torch, att, gen, b, h, sq, sk, d, causal,
                             getattr(torch, dtn))
         res = check_bwd(torch, att, inputs, causal, dtn)
@@ -527,6 +576,7 @@ def phase_kernel(torch, card, seed):
     for (name, dtn), r in sorted(worst.items()):
         log("kernel worst error/limit over the cases: %s %s %.3f"
             % (name, dtn, r))
+    time_wide(torch, att, gen, card)
 
     # timing at the paths' shape
     b, h, sq, sk, d = PATH_SHAPE

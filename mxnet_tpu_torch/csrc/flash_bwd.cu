@@ -73,18 +73,49 @@
 // - No atomics: each dK, dV element is summed by one thread in query
 //   order, so the result is the same from run to run.
 //
-// dq (the first design, kept): a query row is owned by TPR threads, each
-// holding DPT = 32 of the head dims of q, dO and dq (3 * 32 floats), so
-// D <= 32 uses one thread a row, D <= 64 two, D <= 128 four, D <= 256
-// eight; partial dot products are summed with warp shuffles.  The k/v
-// tile is staged once in shared memory as float32 and read by every row
-// of the block as broadcasts; slices of different threads are offset by 4
-// floats.  Scores are taken CH = 2 keys at a time: with CH = 8 ptxas
-// hoisted the chunk's loads past the register file and spilled kilobytes
-// (PERF.md).  dq stops at the last key the q-tile's last row can see, as
-// flash_fwd does.  Ragged Sq and Sk, and D below the slice width, are
-// masked in-kernel; nothing is padded or copied.  Its grid is (batch*head,
-// q-tile), heaviest q-tile first, as flash_fwd's is.
+// dq, flash_fwd.cu's design with dP = dO V^T beside S:
+// - A block of 256 threads owns a q-tile of BQ queries of one batch*head.
+//   Q, dO and the rows' lse and delta are staged once; K and V tiles of BK
+//   keys are double-buffered on the same cp.async stream as dkdv's (plain
+//   loads for rows cp.async cannot take).  Under causal the stream stops
+//   at the last key the tile's last row can see.
+// - Each warp owns BQ/8 query rows in both products.  Its lanes form a
+//   4 x 8 grid: lane (ly, lx) holds rows ly + 4 i of the warp's rows and
+//   keys lx + 8 j of S = Q K^T and dP = dO V^T (register micro-tiles),
+//   then head dims 32 c + 4 lx + e of dQ.  No row max is needed, as lse is
+//   known: p = exp2(s * scale * log2(e) - lse * log2(e)), one FMA and one
+//   exp2 (the forward's scale folding), and ds = p * (dp - delta) * scale,
+//   rounded to the storage dtype, goes to the warp's own rows of a dS
+//   buffer in shared memory; after __syncwarp, dQ += dS K into a register
+//   micro-tile that lives across all k-tiles, because the same lanes own
+//   the same rows in both products.  The only block barrier is the K/V
+//   stage handoff, one a k-tile.
+// - Rows are padded by 16 bytes and the dS buffer by 8 floats, so every
+//   shared-memory read of a micro-tile is one conflict-free wavefront or a
+//   broadcast.  At D = 64, f32 (BQ = 128, BK = 64): 4 x 8 micro-tiles in
+//   all three products, one 16-byte read for every 10.7 FMAs, 173 KB of
+//   shared memory, 254 registers without spill, one block an SM.  Of the
+//   shapes timed at the training shape (BQ x BK: 128 x 64, 128 x 32,
+//   64 x 64, and 64 x 32 at two blocks an SM) 128 x 64 was the fastest by
+//   16 % or more, and unrolling the head-dim loops four times beat twice
+//   by ~0.6 % (PERF.md, tools/torch_flash_dq_tiles.py); other head dims
+//   keep twice, untimed.
+// - Only a k-tile that straddles the causal diagonal or the ragged key
+//   edge takes the per-score mask.  Rows past Sq compute on zeros (their
+//   dO and delta are 0, so their ds is 0) and are not stored; a q-tile
+//   that sees no key stores zeros.
+// - Grid (batch*head, q-tile), heaviest q-tile first, as flash_fwd's is.
+//   Each dQ element is summed by one thread in key order and stored once.
+//
+// Head dims past 256 (up to kMaxHeadDim): one simple kernel a function,
+// one warp a row (a key row for dkdv, a query row for dq), 4 warps a
+// block.  The row's operands and its float32 sums live in dynamic shared
+// memory with the head dim strided across the lanes; the other side is
+// streamed one row at a time from global memory with coalesced reads.
+// Each dot product is a lane's partial sum plus five __shfl_xor_sync,
+// which leave the same bits in every lane.  dq stops at the last key its
+// row sees, dkdv starts at the first query that sees its key.  Same
+// numerics as the tiled kernels; the speed is not tuned (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -97,9 +128,25 @@
 
 namespace {
 
-constexpr int kDPT = 32;   // head dims a thread holds
-constexpr int kNT = 128;   // threads a block
-constexpr int kCH = 2;     // streamed rows per score chunk
+constexpr int kThreads = 256;   // 8 warps, both tiled kernels
+
+// the largest head dim the kernels take: the largest power of two whose
+// wide dkdv block (4 warps x 4 float32 rows of D) fits the 227 KB of
+// shared memory a block may use
+constexpr int kMaxHeadDim = 2048;
+constexpr int kWideWarps = 4;                  // rows a wide block
+constexpr int kWideThreads = 32 * kWideWarps;
+
+// dynamic shared memory of a wide block that keeps *rows* float32 rows of
+// d a warp
+constexpr size_t wide_bytes(int rows, int d) {
+  return (size_t)kWideWarps * rows * d * sizeof(float);
+}
+static_assert(wide_bytes(4, kMaxHeadDim) <= 232448 &&
+                  wide_bytes(4, 2 * kMaxHeadDim) > 232448,
+              "kMaxHeadDim is set by the wide dkdv block's shared memory");
+
+constexpr float kLog2e = 1.44269504088896341f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -119,32 +166,9 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// Stage rows [r0, r0 + R) of two (rows, d) tensors into shared memory as
-// float32, each row laid out as TPR slices of DPS floats.
-template <typename T, int R, int TPR, int DPS>
-__device__ __forceinline__ void stage_pair(float* __restrict__ a_s,
-                                           float* __restrict__ b_s,
-                                           const T* __restrict__ a,
-                                           const T* __restrict__ b,
-                                           size_t base, int r0, int rows,
-                                           int d, int tid) {
-  constexpr int ROW = TPR * DPS;
-  for (int e = tid; e < R * TPR * kDPT; e += kNT) {
-    const int r = e / (TPR * kDPT);
-    const int c = e - r * (TPR * kDPT);
-    const bool ok = r0 + r < rows && c < d;
-    const size_t g = base + (size_t)(r0 + r) * d + c;
-    const int s_idx = r * ROW + (c / kDPT) * DPS + (c % kDPT);
-    a_s[s_idx] = ok ? to_f(a[g]) : 0.f;
-    b_s[s_idx] = ok ? to_f(b[g]) : 0.f;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // dK/dV
 // ---------------------------------------------------------------------------
-
-constexpr int kDkdvThreads = 256;   // 8 warps, a 16 x 16 grid of threads
 
 // keys a block owns (BK), queries a streamed tile (BQ) and the blocks an
 // SM is to hold (MINB, for ptxas's register budget), by padded head dim
@@ -260,7 +284,7 @@ __device__ __forceinline__ void stage_rows(T* __restrict__ dst,
   if (vec) {
     constexpr int EPC = 16 / (int)sizeof(T);   // values a chunk
     constexpr int CPR = DP / EPC;              // chunks a padded row
-    for (int e = tid; e < R * CPR; e += kDkdvThreads) {
+    for (int e = tid; e < R * CPR; e += kThreads) {
       const int r = e / CPR;
       const int c = (e - r * CPR) * EPC;
       const bool ok = r0 + r < rows && c < d;
@@ -268,7 +292,7 @@ __device__ __forceinline__ void stage_rows(T* __restrict__ dst,
                  ok ? 16 : 0);
     }
   } else {
-    for (int e = tid; e < R * DP; e += kDkdvThreads) {
+    for (int e = tid; e < R * DP; e += kThreads) {
       const int r = e / DP;
       const int c = e - r * DP;
       const bool ok = r0 + r < rows && c < d;
@@ -277,9 +301,10 @@ __device__ __forceinline__ void stage_rows(T* __restrict__ dst,
   }
 }
 
-// acc[i][j] = a_row(ty + 16 i) . b_row(tx + 16 j) over DP, summed in
-// order
-template <typename T, int MI, int NJ, int DP, int DS>
+// acc[i][j] = a_row(ty + SI i) . b_row(tx + SJ j) over DP, summed in
+// order; the loop over DP unrolled U times
+template <typename T, int MI, int NJ, int DP, int DS, int SI = 16,
+          int SJ = 16, int U = 2>
 __device__ __forceinline__ void dot_tile(const T* __restrict__ a,
                                          const T* __restrict__ b, int ty,
                                          int tx, float (&acc)[MI][NJ]) {
@@ -287,13 +312,13 @@ __device__ __forceinline__ void dot_tile(const T* __restrict__ a,
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
+#pragma unroll (U)
   for (int c = 0; c < DP; c += 4) {
     float4 x[MI], y[NJ];
 #pragma unroll
-    for (int i = 0; i < MI; ++i) x[i] = ld4(a + (ty + 16 * i) * DS + c);
+    for (int i = 0; i < MI; ++i) x[i] = ld4(a + (ty + SI * i) * DS + c);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) y[j] = ld4(b + (tx + 16 * j) * DS + c);
+    for (int j = 0; j < NJ; ++j) y[j] = ld4(b + (tx + SJ * j) * DS + c);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
 #pragma unroll
@@ -511,7 +536,7 @@ __device__ __forceinline__ void dkdv_tile(
 // starts before any later one.  A block takes k-tiles blockIdx.y,
 // + gridDim.y, ... (more than one only past 65535 k-tiles).
 template <typename T, int DP, int BK, int BQ>
-__global__ void __launch_bounds__(kDkdvThreads, DkdvTile<DP>::MINB)
+__global__ void __launch_bounds__(kThreads, DkdvTile<DP>::MINB)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
@@ -530,107 +555,181 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dQ
 // ---------------------------------------------------------------------------
 
-// dQ of queries [q0, q0 + BQ) of one batch*head.
-template <typename T, int TPR, int BQ, int BK, int ROW, int DPS>
-__device__ __forceinline__ void dq_tile(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, float* __restrict__ ks, float* __restrict__ vs,
-    int bh, int q0, int sq, int sk, int d, float scale, int causal) {
-  const int tid = threadIdx.x;
-  const int row = tid / TPR;
-  const int part = tid % TPR;
-  const int qi = q0 + row;
-  const bool row_ok = qi < sq;
-  const int off = sk - sq;
-  const int qpos = qi + off;
-  const size_t qbase = ((size_t)bh * sq + (row_ok ? qi : 0)) * d;
-  const size_t kvbase = (size_t)bh * sk * d;
+// queries a block owns (BQ), keys a streamed tile (BK), and how often the
+// loops over the head dim (S, dP: UA) and over the keys (dQ: UB) are
+// unrolled, by padded head dim: dQ's micro-tile (BQ/32 rows x DP/8 dims)
+// stays at or below 32 registers and shared memory within the 227 KB of a
+// block
+template <int DP> struct DqTile;
+template <> struct DqTile<32> { static constexpr int BQ = 128, BK = 64, UA = 2, UB = 4; };
+template <> struct DqTile<64> { static constexpr int BQ = 128, BK = 64, UA = 4, UB = 4; };
+template <> struct DqTile<128> { static constexpr int BQ = 64, BK = 64, UA = 2, UB = 4; };
+template <> struct DqTile<256> { static constexpr int BQ = 32, BK = 32, UA = 2, UB = 4; };
 
-  float qr[kDPT], dor[kDPT], acc[kDPT];
+// Shared memory of one block: Q and dO (BQ rows each), lse and delta (BQ
+// floats each), two stages of (K, V: BK rows each), then dS (BQ rows of
+// BK floats).  Rows are padded by 16 bytes; every region starts 16-byte
+// aligned.
+template <typename T, int DP, int BQ, int BK>
+struct DqSmem {
+  static constexpr int DS = DP + 16 / (int)sizeof(T);   // row stride, in T
+  static constexpr int PS = BK + 8;                     // dS row stride
+  static constexpr size_t rows = 2 * (size_t)BQ * DS * sizeof(T);
+  static constexpr size_t lds = 2 * (size_t)BQ * sizeof(float);
+  static constexpr size_t stage = 2 * (size_t)BK * DS * sizeof(T);
+  static constexpr size_t bytes = rows + lds + 2 * stage + (size_t)BQ * PS * 4;
+};
+
+// One k-tile of keys [k0, k0 + BK) for the warp's rows r0 + ly + 4 i:
+// S = Q K^T and dP = dO V^T, ds into the warp's rows of *dss*, then
+// dQ += dS K.  *ls* holds lse (ls[r]) and delta (ls[BQ + r]); *scale2* is
+// the softmax scale times log2(e).  MASKED: the k-tile straddles the
+// causal diagonal or the ragged key edge, so each score is masked.
+template <bool MASKED, typename T, int DP, int BQ, int BK>
+__device__ __forceinline__ void dq_step(
+    const T* __restrict__ qs, const T* __restrict__ dos,
+    const float* __restrict__ ls, const T* __restrict__ ks,
+    const T* __restrict__ vs, float* __restrict__ dss, int r0, int lx,
+    int ly, int q0, int k0, int sk, int off, int causal, float scale,
+    float scale2, float (&dqa)[BQ / 32][DP / 8]) {
+  using S = DqSmem<T, DP, BQ, BK>;
+  using Tile = DqTile<DP>;
+  constexpr int MI = BQ / 32, NJ = BK / 8, NV = DP / 32;
+  float s[MI][NJ], dp[MI][NJ];
+  dot_tile<T, MI, NJ, DP, S::DS, 4, 8, Tile::UA>(qs, ks, r0 + ly, lx, s);
+  dot_tile<T, MI, NJ, DP, S::DS, 4, 8, Tile::UA>(dos, vs, r0 + ly, lx, dp);
 #pragma unroll
-  for (int i = 0; i < kDPT; ++i) {
-    const int c = part * kDPT + i;
-    const bool ok = row_ok && c < d;
-    qr[i] = ok ? to_f(q[qbase + c]) : 0.f;
-    dor[i] = ok ? to_f(dout[qbase + c]) : 0.f;
-    acc[i] = 0.f;
+  for (int i = 0; i < MI; ++i) {
+    const int r = r0 + ly + 4 * i;
+    const int qpos = q0 + r + off;
+    const float lse2 = ls[r] * kLog2e, dl = ls[BQ + r];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int kj = k0 + lx + 8 * j;
+      const bool ok = !MASKED || (kj < sk && (!causal || kj <= qpos));
+      const float p = ok ? exp2f(fmaf(s[i][j], scale2, -lse2)) : 0.f;
+      dss[r * S::PS + lx + 8 * j] = round_to<T>(p * (dp[i][j] - dl) * scale);
+    }
   }
-  const float lse_i = row_ok ? lse[(size_t)bh * sq + qi] : 0.f;
-  const float delta_i = row_ok ? delta[(size_t)bh * sq + qi] : 0.f;
+  __syncwarp();   // the warp's rows of dS are written
 
-  int k_end = sk;
-  if (causal) {
-    // last key visible to the tile's last row
-    const int last = min(q0 + BQ, sq) - 1 + off;
-    k_end = max(0, min(sk, last + 1));
-  }
-
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // every row is done with the previous tile
-    stage_pair<T, BK, TPR, DPS>(ks, vs, k, v, kvbase, k0, sk, d, tid);
-    __syncthreads();
-
-    for (int kk = 0; kk < BK; kk += kCH) {
-      float s[kCH], dp[kCH];
+#pragma unroll (Tile::UB)
+  for (int kk = 0; kk < BK; kk += 4) {
+    float4 sa[MI];
 #pragma unroll
-      for (int j = 0; j < kCH; ++j) {
-        const float4* kr =
-            reinterpret_cast<const float4*>(ks + (kk + j) * ROW + part * DPS);
-        const float4* vr =
-            reinterpret_cast<const float4*>(vs + (kk + j) * ROW + part * DPS);
-        float a = 0.f, b = 0.f;
+    for (int i = 0; i < MI; ++i) sa[i] = ld4(dss + (r0 + ly + 4 * i) * S::PS + kk);
 #pragma unroll
-        for (int i = 0; i < kDPT / 4; ++i) {
-          const float4 k4 = kr[i];
-          const float4 v4 = vr[i];
-          a = fmaf(qr[4 * i + 0], k4.x, a);
-          a = fmaf(qr[4 * i + 1], k4.y, a);
-          a = fmaf(qr[4 * i + 2], k4.z, a);
-          a = fmaf(qr[4 * i + 3], k4.w, a);
-          b = fmaf(dor[4 * i + 0], v4.x, b);
-          b = fmaf(dor[4 * i + 1], v4.y, b);
-          b = fmaf(dor[4 * i + 2], v4.z, b);
-          b = fmaf(dor[4 * i + 3], v4.w, b);
-        }
-        s[j] = a;
-        dp[j] = b;
-      }
+    for (int u = 0; u < 4; ++u) {
 #pragma unroll
-      for (int w = 1; w < TPR; w <<= 1) {
+      for (int c = 0; c < NV; ++c) {
+        float w[4];
+        ldv<4>(ks + (kk + u) * S::DS + 32 * c + 4 * lx, w);
 #pragma unroll
-        for (int j = 0; j < kCH; ++j) {
-          s[j] += __shfl_xor_sync(0xffffffffu, s[j], w);
-          dp[j] += __shfl_xor_sync(0xffffffffu, dp[j], w);
-        }
-      }
-
+        for (int i = 0; i < MI; ++i) {
+          const float su = lane_of(sa[i], u);
 #pragma unroll
-      for (int j = 0; j < kCH; ++j) {
-        const int key = k0 + kk + j;
-        const bool ok = row_ok && key < sk && (!causal || key <= qpos);
-        const float p = ok ? expf(s[j] * scale - lse_i) : 0.f;
-        const float dsr = round_to<T>(p * (dp[j] - delta_i) * scale);
-        const float4* kr =
-            reinterpret_cast<const float4*>(ks + (kk + j) * ROW + part * DPS);
-#pragma unroll
-        for (int i = 0; i < kDPT / 4; ++i) {
-          const float4 k4 = kr[i];
-          acc[4 * i + 0] = fmaf(dsr, k4.x, acc[4 * i + 0]);
-          acc[4 * i + 1] = fmaf(dsr, k4.y, acc[4 * i + 1]);
-          acc[4 * i + 2] = fmaf(dsr, k4.z, acc[4 * i + 2]);
-          acc[4 * i + 3] = fmaf(dsr, k4.w, acc[4 * i + 3]);
+          for (int e = 0; e < 4; ++e)
+            dqa[i][4 * c + e] = fmaf(su, w[e], dqa[i][4 * c + e]);
         }
       }
     }
   }
+}
 
-  if (!row_ok) return;
+// dQ of queries [q0, q0 + BQ) of one batch*head; see the note at the top.
+template <typename T, int DP, int BQ, int BK>
+__device__ __forceinline__ void dq_tile(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dq, int bh, int q0, int sq, int sk, int d, float scale,
+    int causal, int vec) {
+  using S = DqSmem<T, DP, BQ, BK>;
+  constexpr int MI = BQ / 32, NV = DP / 32;
+  static_assert(BQ % 32 == 0 && BK % 8 == 0 && DP % 32 == 0, "tile shape");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + BQ * S::DS;
+  float* ls = reinterpret_cast<float*>(smem + S::rows);
+  unsigned char* stages = smem + S::rows + S::lds;
+  float* dss = reinterpret_cast<float*>(stages + 2 * S::stage);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int lx = lane & 7, ly = lane >> 3;
+  const int r0 = warp * (BQ / 8);   // the warp's first row
+  const int off = sk - sq;
+  const T* kb = k + (size_t)bh * sk * d;
+  const T* vb = v + (size_t)bh * sk * d;
+
+  // K and V of keys [k0, k0 + BK) into stage *st*
+  auto stage_kv = [&](int k0, int st) {
+    T* kd = reinterpret_cast<T*>(stages + st * S::stage);
+    stage_rows<T, BK, DP, S::DS>(kd, kb, k0, sk, d, vec, tid);
+    stage_rows<T, BK, DP, S::DS>(kd + BK * S::DS, vb, k0, sk, d, vec, tid);
+    cp_async_commit();
+  };
+
+  float dqa[MI][DP / 8];
 #pragma unroll
-  for (int i = 0; i < kDPT; ++i) {
-    const int c = part * kDPT + i;
-    if (c < d) dq[qbase + c] = from_f<T>(acc[i]);
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int e = 0; e < DP / 8; ++e) dqa[i][e] = 0.f;
+
+  int k_end = sk;
+  if (causal) {
+    // one past the last key visible to the tile's last row
+    k_end = max(0, min(sk, min(q0 + BQ, sq) + off));
+  }
+  const int nk = (k_end + BK - 1) / BK;
+  const float scale2 = scale * kLog2e;
+  if (nk > 0) {   // Q, dO, lse, delta ride in the first k-tile's group
+    stage_rows<T, BQ, DP, S::DS>(qs, q + (size_t)bh * sq * d, q0, sq, d,
+                                 vec, tid);
+    stage_rows<T, BQ, DP, S::DS>(dos, dout + (size_t)bh * sq * d, q0, sq,
+                                 d, vec, tid);
+    if (tid < 2 * BQ) {   // lse at ls[r], delta at ls[BQ + r]
+      const int r = tid % BQ;
+      const bool ok = q0 + r < sq;
+      const float* src = (tid < BQ ? lse : delta) + (size_t)bh * sq +
+                         (ok ? q0 + r : 0);
+      cp_async4(ls + tid, src, ok ? 4 : 0);
+    }
+    stage_kv(0, 0);
+  }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait_all();
+    // this k-tile (and the q-tile) are in shared memory for every thread,
+    // and every warp is done with the previous k-tile's stage
+    __syncthreads();
+    if (t + 1 < nk) stage_kv((t + 1) * BK, (t + 1) & 1);
+    const T* ks = reinterpret_cast<const T*>(stages + (t & 1) * S::stage);
+    const T* vs = ks + BK * S::DS;
+    const int k0 = t * BK;
+    // the ragged key edge, or under causal a row of the tile that does
+    // not see the k-tile's last key
+    const bool masked = k0 + BK > sk || (causal && q0 + off < k0 + BK - 1);
+    if (masked)
+      dq_step<true, T, DP, BQ, BK>(qs, dos, ls, ks, vs, dss, r0, lx, ly, q0,
+                                   k0, sk, off, causal, scale, scale2, dqa);
+    else
+      dq_step<false, T, DP, BQ, BK>(qs, dos, ls, ks, vs, dss, r0, lx, ly,
+                                    q0, k0, sk, off, causal, scale, scale2,
+                                    dqa);
+  }
+
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int qi = q0 + r0 + ly + 4 * i;
+    if (qi >= sq) continue;
+    const size_t base = ((size_t)bh * sq + qi) * d;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int dim = 32 * c + 4 * lx + e;
+        if (dim < d) dq[base + dim] = from_f<T>(dqa[i][4 * c + e]);
+      }
   }
 }
 
@@ -638,28 +737,146 @@ __device__ __forceinline__ void dq_tile(
 // and blockIdx.y counts q-tiles from the last, so every head's heaviest
 // q-tile under causal starts before any lighter one.  A block takes
 // q-tiles blockIdx.y, + gridDim.y, ... (more than one only past 65535).
-template <typename T, int TPR>
-__global__ void __launch_bounds__(kNT)
+template <typename T, int DP, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int sq, int sk, int d, float scale, int causal) {
-  constexpr int BQ = kNT / TPR;   // queries a block owns
-  constexpr int BK = kNT / TPR;   // keys staged per step
-  constexpr int DPS = TPR > 1 ? kDPT + 4 : kDPT;
-  constexpr int ROW = TPR * DPS;
-  static_assert(BK % kCH == 0, "chunk must divide the k-tile");
-  __shared__ __align__(16) float ks[BK * ROW];
-  __shared__ __align__(16) float vs[BK * ROW];
+                    int sq, int sk, int d, float scale, int causal, int vec) {
   const int nq = (sq + BQ - 1) / BQ;
   for (int j = blockIdx.y; j < nq; j += gridDim.y) {
     if (j != (int)blockIdx.y) __syncthreads();   // shared memory is free
-    dq_tile<T, TPR, BQ, BK, ROW, DPS>(q, k, v, dout, lse, delta, dq, ks, vs,
-                                      blockIdx.x, (nq - 1 - j) * BQ, sq, sk,
-                                      d, scale, causal);
+    dq_tile<T, DP, BQ, BK>(q, k, v, dout, lse, delta, dq, blockIdx.x,
+                           (nq - 1 - j) * BQ, sq, sk, d, scale, causal, vec);
   }
 }
+
+// ---------------------------------------------------------------------------
+// Head dims past 256: one warp a row; see the note at the top
+// ---------------------------------------------------------------------------
+
+// the sum of x over the warp, the same bits in every lane
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) x += __shfl_xor_sync(0xffffffffu, x, w);
+  return x;
+}
+
+// dK, dV of key rows blockIdx.y * 4 + warp, + gridDim.y * 4, ... (the
+// first keys, which under causal the most queries see, first).  Shared
+// memory a warp: k, v, dk, dv rows of d floats.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int sq,
+                           int sk, int d, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* kr = reinterpret_cast<float*>(smem) + (size_t)warp * 4 * d;
+  float* vr = kr + d;
+  float* dka = vr + d;
+  float* dva = dka + d;
+  const int bh = blockIdx.x;
+  const int off = sk - sq;
+  const float scale2 = scale * kLog2e;
+  const T* qb = q + (size_t)bh * sq * d;
+  const T* dob = dout + (size_t)bh * sq * d;
+  for (int kj = blockIdx.y * kWideWarps + warp; kj < sk;
+       kj += gridDim.y * kWideWarps) {
+    const size_t base = ((size_t)bh * sk + kj) * d;
+    // each lane reads and writes only its own dims c = lane + 32 t
+    for (int c = lane; c < d; c += 32) {
+      kr[c] = to_f(k[base + c]);
+      vr[c] = to_f(v[base + c]);
+      dka[c] = dva[c] = 0.f;
+    }
+    // under causal, query i sees key kj iff kj <= i + off
+    for (int i = causal ? max(0, kj - off) : 0; i < sq; ++i) {
+      const T* qi = qb + (size_t)i * d;
+      const T* doi = dob + (size_t)i * d;
+      float s = 0.f, dp = 0.f;
+      for (int c = lane; c < d; c += 32) {
+        s = fmaf(to_f(qi[c]), kr[c], s);
+        dp = fmaf(to_f(doi[c]), vr[c], dp);
+      }
+      s = warp_sum(s);
+      dp = warp_sum(dp);
+      const size_t ri = (size_t)bh * sq + i;
+      const float p = exp2f(fmaf(s, scale2, -lse[ri] * kLog2e));
+      const float pr = round_to<T>(p);
+      const float dsr = round_to<T>(p * (dp - delta[ri]) * scale);
+      for (int c = lane; c < d; c += 32) {
+        dva[c] = fmaf(pr, to_f(doi[c]), dva[c]);
+        dka[c] = fmaf(dsr, to_f(qi[c]), dka[c]);
+      }
+    }
+    for (int c = lane; c < d; c += 32) {
+      dk[base + c] = from_f<T>(dka[c]);
+      dv[base + c] = from_f<T>(dva[c]);
+    }
+  }
+}
+
+// dQ of query rows counted from the last (under causal the heaviest
+// first), 4 a block as above.  Shared memory a warp: q, dO, dq rows of d
+// floats.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         T* __restrict__ dq, int sq, int sk, int d,
+                         float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* qr = reinterpret_cast<float*>(smem) + (size_t)warp * 3 * d;
+  float* dor = qr + d;
+  float* acc = dor + d;
+  const int bh = blockIdx.x;
+  const int off = sk - sq;
+  const float scale2 = scale * kLog2e;
+  const T* kb = k + (size_t)bh * sk * d;
+  const T* vb = v + (size_t)bh * sk * d;
+  for (int r = blockIdx.y * kWideWarps + warp; r < sq;
+       r += gridDim.y * kWideWarps) {
+    const int qi = sq - 1 - r;
+    const size_t ri = (size_t)bh * sq + qi;
+    const size_t base = ri * d;
+    for (int c = lane; c < d; c += 32) {
+      qr[c] = to_f(q[base + c]);
+      dor[c] = to_f(dout[base + c]);
+      acc[c] = 0.f;
+    }
+    const float lse2 = lse[ri] * kLog2e, dl = delta[ri];
+    // one past the last key the row sees
+    const int k_end = causal ? max(0, min(sk, qi + off + 1)) : sk;
+    for (int j = 0; j < k_end; ++j) {
+      const T* kj = kb + (size_t)j * d;
+      const T* vj = vb + (size_t)j * d;
+      float s = 0.f, dp = 0.f;
+      for (int c = lane; c < d; c += 32) {
+        s = fmaf(qr[c], to_f(kj[c]), s);
+        dp = fmaf(dor[c], to_f(vj[c]), dp);
+      }
+      s = warp_sum(s);
+      dp = warp_sum(dp);
+      const float p = exp2f(fmaf(s, scale2, -lse2));
+      const float dsr = round_to<T>(p * (dp - dl) * scale);
+      for (int c = lane; c < d; c += 32) acc[c] = fmaf(dsr, to_f(kj[c]), acc[c]);
+    }
+    for (int c = lane; c < d; c += 32) dq[base + c] = from_f<T>(acc[c]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void* q;
@@ -678,9 +895,16 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// DP: the padded head dim.  Raises the block's dynamic shared memory limit
-// before every launch: the limit is per device, and the call is cheap next
-// to the kernel.
+// whether every row of q, k, v, dO can be staged by 16-byte cp.async
+template <typename T>
+int vec_ok(const Args& a) {
+  return (a.d * sizeof(T)) % 16 == 0 && aligned16(a.q) && aligned16(a.k) &&
+         aligned16(a.v) && aligned16(a.dout);
+}
+
+// Every launcher raises the block's dynamic shared memory limit before
+// each launch: the limit is per device, and the call is cheap next to
+// the kernel.  DP: the padded head dim.
 template <typename T, int DP>
 cudaError_t launch_dkdv(const Args& a, void* dk, void* dv) {
   constexpr int BK = DkdvTile<DP>::BK, BQ = DkdvTile<DP>::BQ;
@@ -690,55 +914,94 @@ cudaError_t launch_dkdv(const Args& a, void* dk, void* dv) {
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (attr != cudaSuccess) return attr;
-  const int vec = (a.d * sizeof(T)) % 16 == 0 && aligned16(a.q) &&
-                  aligned16(a.k) && aligned16(a.v) && aligned16(a.dout);
   dim3 grid(a.bh, std::min((a.sk + BK - 1) / BK, 65535));
-  kernel<<<grid, kDkdvThreads, bytes, a.stream>>>(
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.sq, a.sk, a.d,
-      a.scale, a.causal, vec);
+      a.scale, a.causal, vec_ok<T>(a));
   return cudaGetLastError();
 }
 
-template <typename T, int TPR>
+template <typename T, int DP>
 cudaError_t launch_dq(const Args& a, void* dq) {
-  dim3 grid(a.bh, std::min((a.sq + kNT / TPR - 1) / (kNT / TPR), 65535));
-  flash_bwd_dq_kernel<T, TPR><<<grid, kNT, 0, a.stream>>>(
+  constexpr int BQ = DqTile<DP>::BQ, BK = DqTile<DP>::BK;
+  constexpr size_t bytes = DqSmem<T, DP, BQ, BK>::bytes;
+  static_assert(bytes <= 232448, "shared memory of a block");
+  auto kernel = flash_bwd_dq_kernel<T, DP, BQ, BK>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(a.bh, std::min((a.sq + BQ - 1) / BQ, 65535));
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(dq), a.sq, a.sk, a.d, a.scale, a.causal,
+      vec_ok<T>(a));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkdv_wide(const Args& a, void* dk, void* dv) {
+  const size_t bytes = wide_bytes(4, a.d);
+  auto kernel = flash_bwd_dkdv_wide_kernel<T>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(a.bh, std::min((a.sk + kWideWarps - 1) / kWideWarps, 65535));
+  kernel<<<grid, kWideThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.sq, a.sk, a.d,
+      a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_wide(const Args& a, void* dq) {
+  const size_t bytes = wide_bytes(3, a.d);
+  auto kernel = flash_bwd_dq_wide_kernel<T>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(a.bh, std::min((a.sq + kWideWarps - 1) / kWideWarps, 65535));
+  kernel<<<grid, kWideThreads, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(dq), a.sq, a.sk, a.d, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-// the padded head dim: the least of 32, 64, 128, 256 that covers d
+// the padded head dim: the least of 32, 64, 128, 256 that covers d; past
+// 256 the wide kernel
 template <typename T>
 cudaError_t dkdv_by_dim(const Args& a, void* dk, void* dv) {
   if (a.d <= 32) return launch_dkdv<T, 32>(a, dk, dv);
   if (a.d <= 64) return launch_dkdv<T, 64>(a, dk, dv);
   if (a.d <= 128) return launch_dkdv<T, 128>(a, dk, dv);
-  return launch_dkdv<T, 256>(a, dk, dv);
+  if (a.d <= 256) return launch_dkdv<T, 256>(a, dk, dv);
+  return launch_dkdv_wide<T>(a, dk, dv);
 }
 
-// threads a row: the least power of two whose slices of kDPT cover d
 template <typename T>
 cudaError_t dq_by_dim(const Args& a, void* dq) {
-  if (a.d <= kDPT) return launch_dq<T, 1>(a, dq);
-  if (a.d <= 2 * kDPT) return launch_dq<T, 2>(a, dq);
-  if (a.d <= 4 * kDPT) return launch_dq<T, 4>(a, dq);
-  if (a.d <= 8 * kDPT) return launch_dq<T, 8>(a, dq);
-  return launch_dq<T, 256 / kDPT>(a, dq);
+  if (a.d <= 32) return launch_dq<T, 32>(a, dq);
+  if (a.d <= 64) return launch_dq<T, 64>(a, dq);
+  if (a.d <= 128) return launch_dq<T, 128>(a, dq);
+  if (a.d <= 256) return launch_dq<T, 256>(a, dq);
+  return launch_dq_wide<T>(a, dq);
 }
 
 bool bad_shape(int bh, int sq, int sk, int d) {
-  return bh < 1 || sq < 1 || sk < 1 || d < 1 || d > 256;
+  return bh < 1 || sq < 1 || sk < 1 || d < 1 || d > kMaxHeadDim;
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16.  Every pointer is required.
-// batch*head goes up to 2**31 - 1 (grid.x of both kernels).  Returns the
-// cudaError_t of the launch (0 on success).
+// batch*head goes up to 2**31 - 1 (grid.x of every kernel), d up to
+// kMaxHeadDim (2048).  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* delta, void* dk, void* dv, int bh,

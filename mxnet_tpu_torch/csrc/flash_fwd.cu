@@ -60,6 +60,16 @@
 //   grid.x takes up to 2**31 - 1; past 65535 q-tiles a block strides.
 // - No atomics: each output is summed by one thread in key order, so a
 //   relaunch gives the same bits, with or without lse.
+//
+// Head dims past 256 (up to kMaxHeadDim): a simple kernel, one warp a
+// query row, 4 warps a block.  The row's q and its float32 output sum live
+// in dynamic shared memory with the head dim strided across the lanes; K
+// and V are streamed one row at a time from global memory with coalesced
+// reads; each score is a lane's partial sum plus five __shfl_xor_sync,
+// which leave the same bits in every lane.  The same online softmax, one
+// key at a time: m moves only on a visible key, the sum is rescaled only
+// when m grows, p is rounded to v's dtype against the running max and l
+// sums the unrounded p.  The speed is not tuned (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -75,6 +85,13 @@ namespace {
 constexpr float kNegInf = -1e30f;   // the masked-score sentinel (_NEG_INF)
 constexpr int kThreads = 256;       // 8 warps
 constexpr int kWarps = kThreads / 32;
+
+// the largest head dim the kernels take (flash_bwd.cu's bound, set by its
+// wide dK/dV block's shared memory)
+constexpr int kMaxHeadDim = 2048;
+constexpr int kWideWarps = 4;                  // query rows a wide block
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr float kLog2e = 1.44269504088896341f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -329,7 +346,7 @@ __device__ __forceinline__ void fwd_tile(
     k_end = max(0, min(sk, min(q0 + BQ, sq) + off));
   }
   const int nk = (k_end + BK - 1) / BK;
-  const float scale2 = scale * 1.44269504088896341f;   // log2(e)
+  const float scale2 = scale * kLog2e;
   if (nk > 0) {   // Q rides in the first k-tile's cp.async group
     stage_rows<T, BQ, DP, S::DS>(qs, q + (size_t)bh * sq * d, q0, sq, d,
                                  vec, tid);
@@ -397,6 +414,69 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// the sum of x over the warp, the same bits in every lane
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) x += __shfl_xor_sync(0xffffffffu, x, w);
+  return x;
+}
+
+// o (and lse) of query rows counted from the last (under causal the
+// heaviest first), blockIdx.y * 4 + warp, + gridDim.y * 4, ...; see the
+// note at the top.  Shared memory a warp: q and o rows of d floats.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int sq, int sk, int d,
+                      float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* qr = reinterpret_cast<float*>(smem) + (size_t)warp * 2 * d;
+  float* acc = qr + d;
+  const int bh = blockIdx.x;
+  const float scale2 = scale * kLog2e;
+  const T* kb = k + (size_t)bh * sk * d;
+  const T* vb = v + (size_t)bh * sk * d;
+  for (int r = blockIdx.y * kWideWarps + warp; r < sq;
+       r += gridDim.y * kWideWarps) {
+    const int qi = sq - 1 - r;
+    const size_t base = ((size_t)bh * sq + qi) * d;
+    // each lane reads and writes only its own dims c = lane + 32 t
+    for (int c = lane; c < d; c += 32) {
+      qr[c] = to_f(q[base + c]);
+      acc[c] = 0.f;
+    }
+    // one past the last key the row sees
+    const int k_end = causal ? max(0, min(sk, qi + sk - sq + 1)) : sk;
+    float m = kNegInf, l = 0.f;   // m in log2 units, as the tiled kernel's
+    for (int j = 0; j < k_end; ++j) {
+      const T* kj = kb + (size_t)j * d;
+      const T* vj = vb + (size_t)j * d;
+      float s = 0.f;
+      for (int c = lane; c < d; c += 32) s = fmaf(qr[c], to_f(kj[c]), s);
+      s = warp_sum(s);
+      const float m_new = fmaxf(m, s * scale2);
+      if (m_new > m) {   // the same in every lane
+        const float alpha = exp2f(m - m_new);
+        l *= alpha;
+        for (int c = lane; c < d; c += 32) acc[c] *= alpha;
+        m = m_new;
+      }
+      const float p = exp2f(fmaf(s, scale2, -m));
+      l += p;
+      const float pr = round_to<T>(p);
+      for (int c = lane; c < d; c += 32) acc[c] = fmaf(pr, to_f(vj[c]), acc[c]);
+    }
+    const bool degenerate = m <= kNegInf * 0.5f;
+    for (int c = lane; c < d; c += 32)
+      o[base + c] = from_f<T>(degenerate ? 0.f : acc[c] / l);
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)bh * sq + qi] =
+          degenerate ? 1e30f : m * 0.693147180559945309f + logf(l);
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -425,7 +505,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// the padded head dim: the least of 32, 64, 128, 256 that covers d
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        void* o, void* lse, int bh, int sq, int sk, int d,
+                        float scale, int causal, cudaStream_t stream) {
+  const size_t bytes = (size_t)kWideWarps * 2 * d * sizeof(float);
+  auto kernel = flash_fwd_wide_kernel<T>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(bh, std::min((sq + kWideWarps - 1) / kWideWarps, 65535));
+  kernel<<<grid, kWideThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      sq, sk, d, scale, causal);
+  return cudaGetLastError();
+}
+
+// the padded head dim: the least of 32, 64, 128, 256 that covers d; past
+// 256 the wide kernel
 template <typename T>
 cudaError_t by_dim(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int sq, int sk, int d, float scale,
@@ -437,19 +535,23 @@ cudaError_t by_dim(const void* q, const void* k, const void* v, void* o,
   if (d <= 128)
     return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
                           stream);
-  return launch<T, 256>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
+  if (d <= 256)
+    return launch<T, 256>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                          stream);
+  return launch_wide<T>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                        stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16.  lse may be null.  batch*head
-// goes up to 2**31 - 1 (grid.x).  Returns the cudaError_t of the launch (0
-// on success).
+// goes up to 2**31 - 1 (grid.x), d up to kMaxHeadDim (2048).  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int bh, int sq, int sk, int d,
                          float sm_scale, int causal, int dtype,
                          void* stream) {
-  if (bh < 1 || sq < 1 || sk < 0 || d < 1 || d > 256)
+  if (bh < 1 || sq < 1 || sk < 0 || d < 1 || d > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {

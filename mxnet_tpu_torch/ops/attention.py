@@ -48,9 +48,13 @@ __all__ = ["flash_attention", "attention_reference", "flash_fwd",
 _NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# Each register-tiled kernel has a compile-time tile for each padded head
-# dim (32, 64, 128, 256); no model of the repo has D > 128.
-_MAX_HEAD_DIM = 256
+# The largest head dim the kernels take (``kMaxHeadDim`` in both CUDA
+# sources).  D <= 256 runs the register-tiled kernels, a compile-time tile
+# for each padded head dim (32, 64, 128, 256); past 256, simple kernels
+# that keep a warp's row operands and float32 sums in shared memory, whose
+# wide dK/dV block (4 warps x 4 float32 rows of D) sets the bound: 2048 is
+# the largest power of two whose block fits a block's 227 KB.
+KERNEL_MAX_HEAD_DIM = 2048
 
 
 def _acc_dtype(t):
@@ -218,8 +222,8 @@ def _flash_bwd_plain(q, k, v, o, lse, dout, causal=False, sm_scale=None,
 def _check_qkv(who, q, k, v, dout=None):
     """The checks every attention kernel's wrapper makes: q (B, H, Sq, D),
     k and v (B, H, Sk, D), and *dout* like q, contiguous CUDA tensors on
-    one device in one dtype of float32 / bfloat16 / float16, D <= 256
-    (``_MAX_HEAD_DIM``), element offsets within 2**62, and B*H, Sq, Sk
+    one device in one dtype of float32 / bfloat16 / float16, D <= 2048
+    (``KERNEL_MAX_HEAD_DIM``), element offsets within 2**62, and B*H, Sq, Sk
     within the kernels' 32-bit ints (B*H goes on grid.x, which takes up to
     2**31 - 1).  Returns (b, h, sq, sk, d)."""
     named = [("q", q), ("k", k), ("v", v)]
@@ -251,9 +255,10 @@ def _check_qkv(who, q, k, v, dout=None):
     if dout is not None and dout.shape != q.shape:
         raise MXNetError("%s: dout %s does not match q %s"
                          % (who, tuple(dout.shape), tuple(q.shape)))
-    if not 1 <= d <= _MAX_HEAD_DIM:
-        raise MXNetError("%s: head dim %d outside 1..%d"
-                         % (who, d, _MAX_HEAD_DIM))
+    if not 1 <= d <= KERNEL_MAX_HEAD_DIM:
+        raise MXNetError("%s: head dim %d outside 1..%d (KERNEL_MAX_HEAD_DIM,"
+                         " set by the kernels' shared memory)"
+                         % (who, d, KERNEL_MAX_HEAD_DIM))
     if max(b * h * sq, b * h * sk) * d >= 2 ** 62 or \
             max(sq, sk, b * h) >= 2 ** 31:
         raise MXNetError("%s: shape %s is too large for the kernel's grid"
@@ -298,8 +303,8 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None, with_lse=False):
     """Launch the Hopper flash-attention forward on CUDA tensors.
 
     q (B, H, Sq, D), k and v (B, H, Sk, D): contiguous, on one CUDA
-    device, one dtype of float32 / bfloat16 / float16, D <= 256.
-    Returns o (like q), and with *with_lse* also the f32 logsumexp
+    device, one dtype of float32 / bfloat16 / float16, D <= 2048
+    (``KERNEL_MAX_HEAD_DIM``).  Returns o (like q), and with *with_lse* also the f32 logsumexp
     (B, H, Sq).  Raises on any input the kernel does not take."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -444,10 +449,13 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, chunk=512,
     is taken only when a gradient is needed (grad mode on and an input
     that requires grad); otherwise no lse is kept.
 
-    On CUDA the head dim D is at most 256 and a larger one raises
-    ``MXNetError``: each kernel keeps its tiles in registers and has a
-    compile-time tile for each padded head dim (32, 64, 128, 256), and no
-    model of the repo has D > 128.  B*H may exceed 65535."""
+    On CUDA the head dim D is at most ``KERNEL_MAX_HEAD_DIM`` (2048) and
+    a larger one raises ``MXNetError``.  D <= 256 runs the register-tiled
+    kernels, one compile-time tile for each padded head dim (32, 64, 128,
+    256); a larger D runs simple kernels that keep each warp's row and its
+    float32 sums in shared memory, whose size sets the bound (the JAX
+    package's Pallas path has a memory-set bound too: a 1024-row block of
+    D-wide rows in VMEM).  B*H may exceed 65535."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
@@ -476,7 +484,8 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, chunk=512,
 def _dot_product_attention(query, key, value, causal=False, sm_scale=None,
                            chunk=512):
     """Fused scaled-dot-product attention over the flash kernels.  On
-    CUDA the head dim is at most 256 (``flash_attention`` says why) and a
-    larger one raises ``MXNetError``; the CPU takes any."""
+    CUDA the head dim is at most ``KERNEL_MAX_HEAD_DIM`` (2048;
+    ``flash_attention`` says why) and a larger one raises ``MXNetError``;
+    the CPU takes any."""
     return flash_attention(query, key, value, causal=bool(causal),
                            sm_scale=sm_scale, chunk=chunk)

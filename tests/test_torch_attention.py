@@ -57,9 +57,11 @@ def test_plain_forward_matches_pallas_interpret(sq, sk, causal):
 
 # (sq, sk, d, causal) with lengths that no block divides and head dims off
 # 16: ragged both ways, Sq > Sk with rows that see no key (causal) and
-# with every row seeing every key (not causal)
+# with every row seeing every key (not causal); D = 300 is past 256, which
+# the CUDA kernels take in their wide branch
 RAGGED = [(50, 70, 24, True), (70, 50, 24, True), (70, 50, 40, False),
-          (45, 45, 80, True), (90, 37, 32, True)]
+          (45, 45, 80, True), (90, 37, 32, True), (50, 70, 300, True),
+          (70, 50, 300, True)]
 
 
 @pytest.mark.parametrize("sq,sk,d,causal", RAGGED)
@@ -176,6 +178,20 @@ def test_no_fallback_from_kernel_to_plain_version():
                tatt._check_qkv, tatt._check_rows):
         tree = ast.parse(inspect.getsource(fn))
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), fn
+
+
+def test_kernel_head_dim_bound_is_the_sources_bound():
+    """The wrappers refuse D past ``KERNEL_MAX_HEAD_DIM``, and each CUDA
+    source's C entry past its ``kMaxHeadDim``: the three must agree."""
+    import os
+    import re
+    csrc = os.path.join(os.path.dirname(os.path.dirname(tatt.__file__)),
+                        "csrc")
+    for name in ("flash_fwd.cu", "flash_bwd.cu"):
+        with open(os.path.join(csrc, name)) as f:
+            found = re.findall(r"constexpr int kMaxHeadDim = (\d+);", f.read())
+        assert found == [str(tatt.KERNEL_MAX_HEAD_DIM)], name
+    assert tatt.KERNEL_MAX_HEAD_DIM >= 2048
 
 
 def test_registered_op_contract_matches_jax():

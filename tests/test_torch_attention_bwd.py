@@ -95,6 +95,32 @@ def test_function_grads_match_jax_vjp_of_reference(sq, sk, causal, chunk):
                                    atol=2e-4)
 
 
+@pytest.mark.parametrize("sq,sk,causal", [(24, 40, True), (40, 24, True),
+                                          (33, 17, False)])
+def test_function_grads_match_jax_vjp_at_head_dim_300(sq, sk, causal):
+    """D = 300, past the 256 of the CUDA kernels' tiled branch: the
+    output and the gradients of the port's Function against ``jax.vjp``
+    of the JAX einsum oracle (f32, atol 2e-4 as above; with Sq > Sk the
+    rows that see no key pass zero gradient)."""
+    q, k, v, do = _inputs(1, 2, sq, sk, 300, seed=sq * 3 + sk)
+
+    def ref(q_, k_, v_):
+        return jatt.attention_reference(q_, k_, v_, causal=causal)
+
+    want_o, vjp = jax.vjp(ref, *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = tatt.flash_attention(tq, tk, tv, causal=causal, chunk=16)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_o),
+                               rtol=0, atol=1e-5)
+    for t, w in zip((tq, tk, tv), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=0,
+                                   atol=2e-4)
+    if causal and sq > sk:
+        assert np.all(tq.grad.numpy()[:, :, :sq - sk] == 0)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_grads_match_pallas_bf16_and_f32_oracle(causal):
     q, k, v, do = _inputs(1, 2, 32, 48, 16, seed=11)

@@ -1,8 +1,8 @@
 """``chip_smoke.py``'s build gate on the CPU: it reads registers and
 spills from nvcc's ``-Xptxas -v`` logs and fails the run when an
-instantiation the paths run (``PATH_ENTRIES``: flash_fwd and
-flash_bwd_dkdv, f32, D = 64) spills or is missing from its source's log,
-on a fresh build and on one that an earlier run left behind."""
+instantiation the paths run (``PATH_ENTRIES``: flash_fwd, flash_bwd_dkdv
+and flash_bwd_dq, f32, D = 64) spills or is missing from its source's
+log, on a fresh build and on one that an earlier run left behind."""
 
 import os
 import sys
@@ -16,7 +16,9 @@ import chip_smoke  # noqa: E402
 DKDV64 = ("_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelIfLi64ELi64ELi64EEEvPKT_"
           "S4_S4_S4_PKfS6_PS2_S7_iiifii")
 DKDV64_BF16 = DKDV64.replace("kernelIf", "kernelI13__nv_bfloat16")
-DQ64 = "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi2EEEvPKT_S4_S4_S4_PKfS6_PS2_iiifi"
+DQ64 = ("_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64ELi128ELi64EEEvPKT_S4_"
+        "S4_S4_PKfS6_PS2_iiifii")
+DQ64_BF16 = DQ64.replace("kernelIf", "kernelI13__nv_bfloat16")
 FWD64 = ("_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64ELi128ELi64EEEvPKT_S3_S3_"
          "PS1_Pfiiifii")
 FWD64_BF16 = FWD64.replace("kernelIf", "kernelI13__nv_bfloat16")
@@ -48,7 +50,8 @@ def test_ptxas_usage_reads_every_entry():
         DQ64: {"registers": 214, "spill_stores": 68, "spill_loads": 72}}
 
 
-def _logs(fwd=((FWD64, 168, 0, 0),), bwd=((DKDV64, 168, 0, 0),)):
+def _logs(fwd=((FWD64, 168, 0, 0),),
+          bwd=((DKDV64, 168, 0, 0), (DQ64, 168, 0, 0))):
     """{source: nvcc log}, each path entry clean unless given."""
     return {"flash_fwd": _log(fwd), "flash_bwd": _log(bwd)}
 
@@ -57,11 +60,13 @@ def test_path_dkdv_usage_passes_a_clean_build():
     logs = _logs(fwd=[(FWD64_BF16, 255, 96, 96), (FWD64, 190, 0, 0),
                       (FWD128, 255, 40, 40)],
                  bwd=[(DKDV64_BF16, 255, 96, 96), (DKDV64, 168, 0, 0),
-                      (DQ64, 214, 68, 72)])
+                      (DQ64_BF16, 255, 68, 72), (DQ64, 214, 0, 0)])
     assert chip_smoke.path_usage(logs) == {
         "flash_fwd": {"registers": 190, "spill_stores": 0,
                       "spill_loads": 0},
-        "flash_bwd_dkdv": CLEAN}
+        "flash_bwd_dkdv": CLEAN,
+        "flash_bwd_dq": {"registers": 214, "spill_stores": 0,
+                         "spill_loads": 0}}
 
 
 @pytest.mark.parametrize("entries", [
@@ -71,8 +76,8 @@ def test_path_dkdv_usage_passes_a_clean_build():
     [(DKDV64, 128, 0, 0), (DKDV64 + "x", 128, 0, 0)],   # ambiguous
 ])
 def test_path_dkdv_usage_fails_the_run(entries):
-    with pytest.raises(RuntimeError):
-        chip_smoke.path_usage(_logs(bwd=entries))
+    with pytest.raises(RuntimeError, match="flash_bwd_dkdv_kernel"):
+        chip_smoke.path_usage(_logs(bwd=entries + [(DQ64, 168, 0, 0)]))
 
 
 def test_path_dkdv_usage_fails_without_the_spill_line():
@@ -83,27 +88,34 @@ def test_path_dkdv_usage_fails_without_the_spill_line():
         chip_smoke.path_usage(logs)
 
 
+ENTRY = {"flash_fwd": FWD64, "flash_bwd_dkdv": DKDV64,
+         "flash_bwd_dq": DQ64}
+SOURCE = {"flash_fwd": "flash_fwd", "flash_bwd_dkdv": "flash_bwd",
+          "flash_bwd_dq": "flash_bwd"}
+
+
 @pytest.mark.parametrize("fault", ["spill stores", "spill loads", "missing",
                                    "in the other source's log"])
-@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dkdv"])
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dkdv",
+                                    "flash_bwd_dq"])
 def test_path_usage_fails_when_an_entry_spills_or_is_missing(kernel, fault):
-    """Either path entry fails the run on its own, and each is read only
-    from its own source's log."""
-    entry = {"flash_fwd": FWD64, "flash_bwd_dkdv": DKDV64}[kernel]
-    source = {"flash_fwd": "flash_fwd", "flash_bwd_dkdv": "flash_bwd"}[kernel]
+    """Each path entry fails the run on its own, beside clean entries of
+    the other kernels, and each is read only from its own source's log."""
+    entry, source = ENTRY[kernel], SOURCE[kernel]
     other = ({"flash_fwd", "flash_bwd"} - {source}).pop()
     logs = _logs()
-    assert set(chip_smoke.path_usage(logs)) == {"flash_fwd",
-                                                "flash_bwd_dkdv"}
+    assert set(chip_smoke.path_usage(logs)) == set(ENTRY)
+    rest = [(ENTRY[n], 168, 0, 0) for n in ENTRY
+            if n != kernel and SOURCE[n] == source]
     if fault == "spill stores":
-        logs[source] = _log([(entry, 255, 68, 0)])
+        logs[source] = _log(rest + [(entry, 255, 68, 0)])
     elif fault == "spill loads":
-        logs[source] = _log([(entry, 255, 0, 4)])
+        logs[source] = _log(rest + [(entry, 255, 0, 4)])
     elif fault == "missing":
-        del logs[source]
+        logs[source] = _log(rest)
     else:
-        logs[other] = _log([(FWD64, 168, 0, 0), (DKDV64, 168, 0, 0)])
-        logs[source] = _log([(DQ64, 214, 0, 0)])
+        logs[other] = _log([(e, 168, 0, 0) for e in ENTRY.values()])
+        logs[source] = _log(rest)
     with pytest.raises(RuntimeError, match="spills" if "spill" in fault
                        else "complete entries"):
         chip_smoke.path_usage(logs)
@@ -146,5 +158,6 @@ def test_build_gate_reads_a_library_built_before(tmp_path, monkeypatch,
             info = _cuda.build(source)
             assert info["seconds"] == 0.0 and entry in info["log"]
     if not spill:
-        assert results[0] == results[1] == {"flash_fwd": CLEAN,
-                                            "flash_bwd_dkdv": CLEAN}
+        assert results[0] == results[1] == {
+            "flash_fwd": CLEAN, "flash_bwd_dkdv": CLEAN,
+            "flash_bwd_dq": dict(CLEAN, registers=214)}

@@ -154,7 +154,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, fault):
     if fault == "dtype":
         q, k, v = q.double(), k.double(), v.double()
     elif fault == "head_dim":
-        q, k, v = _qkv(cuda, 1, 1, 8, 8, 300, torch.float32)
+        # just past the kernels' bound, which the error names
+        q, k, v = _qkv(cuda, 1, 1, 8, 8, att.KERNEL_MAX_HEAD_DIM + 1,
+                       torch.float32)
     elif fault == "strides":
         q = q.transpose(1, 2)
     elif fault == "shape":
@@ -162,9 +164,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, fault):
     else:
         k = k.cpu()
     before = att.flash_fwd.launches
-    with pytest.raises(MXNetError):
+    with pytest.raises(MXNetError) as err:
         att.flash_fwd(q, k, v)
     assert att.flash_fwd.launches == before
+    if fault == "head_dim":
+        assert str(att.KERNEL_MAX_HEAD_DIM) in str(err.value)
 
 
 def test_served_lm_goes_through_the_kernel(cuda, tmp_path):
@@ -220,7 +224,10 @@ def _bwd_inputs(cuda, b, h, sq, sk, d, dtype, causal, seed=1):
     # stages with plain loads instead of 16-byte cp.async
     (100, 100, 16, True, torch.bfloat16),
     (200, 150, 96, False, torch.bfloat16),
-    (130, 200, 36, True, torch.bfloat16)])
+    (130, 200, 36, True, torch.bfloat16),
+    # dq's plain-load staging with rows that see no key (Sq > Sk)
+    (130, 100, 36, True, torch.bfloat16),
+    (300, 100, 36, True, torch.bfloat16)])
 def test_bwd_kernels_match_plain_versions(cuda, sq, sk, d, causal, dtype):
     """Per element within the limits chip_smoke.py derives (f32:
     2**-12 times the sum of the absolute terms; 16-bit: one rounding
@@ -245,6 +252,108 @@ def test_bwd_kernels_match_plain_versions(cuda, sq, sk, d, causal, dtype):
     assert torch.equal(att.flash_bwd_dq(q, k, v, do, lse, delta, causal), dq)
     if causal and sq > sk:
         assert not dq[:, :, :sq - sk].any()
+        assert dq[:, :, sq - sk:].abs().sum().item() > 0
+
+
+def _bwd_ratios(q, k, v, do, lse, delta, causal, grads):
+    """Worst error/limit of (dq, dk, dv) against the plain versions, with
+    chip_smoke.py's limits."""
+    from chip_smoke import bwd_error, bwd_magnitudes
+    from mxnet_tpu_torch.ops import attention as att
+    pdk, pdv = att._flash_bwd_dkdv_plain(q, k, v, do, lse, delta, causal)
+    pdq = att._flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    mags = bwd_magnitudes(torch, att, q, k, v, do, lse, delta, causal,
+                          1.0 / math.sqrt(q.shape[-1]))
+    dtn = str(q.dtype).split(".")[1]
+    return [bwd_error(torch, g, w, m, dtn)[1]
+            for g, w, m in zip(grads, (pdq, pdk, pdv), mags)]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,dtype", [
+    (200, 300, 300, True, torch.float32),
+    (300, 200, 300, True, torch.bfloat16),    # causal Sq > Sk: empty rows
+    (256, 256, 1024, False, torch.float32),
+    (70, 90, 520, True, torch.float16),
+    (64, 80, 2048, True, torch.float32)])     # the kernels' bound
+def test_wide_head_kernels_match_plain_versions(cuda, sq, sk, d, causal,
+                                               dtype):
+    """Head dims past 256 run the wide kernels (one warp a row): all three
+    against their plain versions within chip_smoke.py's limits, and
+    bit-equal from launch to launch."""
+    from mxnet_tpu_torch.ops import attention as att
+    assert d <= att.KERNEL_MAX_HEAD_DIM
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 1, 2, sq, sk, d, dtype,
+                                          causal)
+    o, lse2 = att.flash_fwd(q, k, v, causal, with_lse=True)
+    po, plse = att._chunked_attention(q, k, v, causal, with_lse=True)
+    assert bool(((o.float() - po.float()).abs()
+                 <= _o_limit(po, q, k, v, causal)).all())
+    assert (lse2 - plse).abs().max().item() <= 1e-4
+    assert torch.equal(att.flash_fwd(q, k, v, causal), o)
+    dk, dv = att.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    assert max(_bwd_ratios(q, k, v, do, lse, delta, causal,
+                           (dq, dk, dv))) <= 1.0
+    dk2, dv2 = att.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    assert torch.equal(att.flash_bwd_dq(q, k, v, do, lse, delta, causal), dq)
+    if causal and sq > sk:
+        assert not o[:, :, :sq - sk].any() and not dq[:, :, :sq - sk].any()
+
+
+@pytest.mark.parametrize("d,causal", [(300, True), (1024, False)])
+def test_wide_head_attention_runs_the_kernels(cuda, d, causal):
+    """flash_attention forward and backward at D > 256 launch each kernel
+    once and give the plain versions' gradients within their limits."""
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v, do, _, _ = _bwd_inputs(cuda, 1, 2, 96, 128, d, torch.float32,
+                                    causal)
+    before = (att.flash_fwd.launches, att.flash_bwd_dkdv.launches,
+              att.flash_bwd_dq.launches)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = att.flash_attention(qg, kg, vg, causal=causal)
+    out.backward(do)
+    assert (att.flash_fwd.launches, att.flash_bwd_dkdv.launches,
+            att.flash_bwd_dq.launches) == tuple(n + 1 for n in before)
+    po, plse = att._chunked_attention(q, k, v, causal, with_lse=True)
+    assert (out.detach() - po).abs().max().item() <= 1e-4
+    assert max(_bwd_ratios(q, k, v, do, plse, att._delta(po, do), causal,
+                           (qg.grad, kg.grad, vg.grad))) <= 1.0
+
+
+def test_every_wrapper_refuses_a_head_dim_past_the_bound(cuda):
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops import attention as att
+    d = att.KERNEL_MAX_HEAD_DIM + 1
+    q, k, v = _qkv(cuda, 1, 1, 4, 4, d, torch.float32)
+    lse = torch.zeros(1, 1, 4, device=cuda)
+    counts = (att.flash_fwd.launches, att.flash_bwd_dkdv.launches,
+              att.flash_bwd_dq.launches)
+    for call in (lambda: att.flash_fwd(q, k, v),
+                 lambda: att.flash_bwd_dkdv(q, k, v, q, lse, lse),
+                 lambda: att.flash_bwd_dq(q, k, v, q, lse, lse),
+                 lambda: att.flash_attention(q, k, v)):
+        with pytest.raises(MXNetError, match=str(att.KERNEL_MAX_HEAD_DIM)):
+            call()
+    assert (att.flash_fwd.launches, att.flash_bwd_dkdv.launches,
+            att.flash_bwd_dq.launches) == counts
+
+
+def test_dq_takes_inputs_off_16_byte_alignment(cuda):
+    """As dkdv: views one element into their storage are staged with
+    plain loads and give the bits of aligned copies of the same values."""
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 1, 2, 130, 100, 64,
+                                          torch.float32, True)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+    ins = [shifted(t) for t in (q, k, v, do)]
+    assert all(t.data_ptr() % 16 != 0 for t in ins)
+    assert torch.equal(att.flash_bwd_dq(*ins, lse, delta, True),
+                       att.flash_bwd_dq(q, k, v, do, lse, delta, True))
 
 
 def test_dkdv_takes_inputs_off_16_byte_alignment(cuda):
