@@ -33,6 +33,20 @@ Phases, each reported on its own line; any failure exits non-zero:
              ReLU branches fixed, in every parameter's gradient; then four
              steps must lower the loss on the fixed batch, each launching
              flash_fwd, flash_bwd_dkdv and flash_bwd_dq once per layer.
+6. resnet  — ResNet-50 v1 (classes 1000, conv7 stem, f32) at full width
+             and depth on the same paths, with Convolution, BatchNorm,
+             Pooling and Flatten on PyTorch and cuDNN (no TPU kernel lies
+             on it).  Serve: hybridize, export, ``ModelRegistry``, warm
+             rungs 1, 8, 32 and answer requests of 1, 8 and 32 images of
+             224 x 224, each held against the same graph and weights in
+             float64 on the card; the same requests with TF32
+             convolutions must break that limit.  Check step, batch 32:
+             loss, every gradient (ReLU masks frozen to the f64 run's) and
+             the running statistics against a float64 step; a TF32 run
+             must break the gradient limit (SGD lr 0.1, momentum 0.9).
+             Train: a fresh net, batch 128, six steps of SGD (lr 0.01,
+             momentum 0.9), steps 2-6 timed, the loss must fall, peak
+             memory, and one profiled step beside its f32 bound.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -130,6 +144,58 @@ TOL_SERVE = 1e-3
 # beyond that, which the script checks.
 TOL_TRAIN_LOSS = 1e-5
 TOL_TRAIN_GRAD = 1e-4
+
+# phase 6: ResNet-50 v1 at the published width and depth of bench.py's
+# north-star model (bench.py:1814-1815): classes 1000, 224 x 224, conv7
+# stem, f32; weights Xavier(gaussian, in, 2) (examples/train_imagenet.py
+# :37).  The check step runs SGD lr 0.1, momentum 0.9 (bench.py:253-256,
+# without LARS).  The timed steps run lr 0.01: bench.py's 0.1 is scaled
+# per layer by LARS's trust ratio (eta 0.001), and plain SGD at 0.1 on a
+# fixed batch lowers the loss for two steps and then climbs (PERF.md,
+# ResNet-50 findings), so whether it fell by step 6 would be chance.
+RESNET = "resnet50_v1"
+RESNET_CLASSES, RESNET_IMAGE = 1000, 224
+RESNET_RUNGS = (1, 8, 32)
+RESNET_REQUESTS = (1, 8, 32)
+RESNET_CHECK_BATCH = 32      # the f64 copy of the check step must fit
+RESNET_BATCH = 128
+RESNET_STEPS = 6
+RESNET_CHECK_LR, RESNET_LR, RESNET_MOMENTUM = 0.1, 0.01, 0.9
+# forward flop of one 224 x 224 image (bench.py:270); a training step
+# does three times the forward's work
+RESNET_FWD_FLOP = 4.089e9
+# Limits against the float64 oracle (the same graph and weights, in f64
+# on the card: no TF32, no f32 rounding).  f32 and TF32 differ in the
+# rounding of every product's inputs, 2**-24 against 2**-11 relative,
+# and both errors grow alike through the 53 convolutions.  Each limit
+# sits near the geometric mean of the two, as first measured on an H100
+# (PERF.md, ResNet-50 findings): served logits, f32 2.2e-6 and TF32
+# 4.3e-4 of max |logit|; gradients with the ReLU masks frozen, f32
+# 1.9e-3 and TF32 0.149 of max |g| (the worst is the stem's weight,
+# each element a sum of 401,408 products behind BatchNorm's
+# mean-removing backward).  The script shows that TF32 convolutions
+# break the serve and gradient limits.  The loss and the running
+# statistics are held to 1e-5.
+TOL_RESNET_SERVE = 3e-5      # x max(1, max |logit|) of the f64 answer
+TOL_RESNET_LOSS = 1e-5       # x max(1, |loss|)
+TOL_RESNET_GRAD = 1e-2       # x each parameter's max |g| (masks frozen)
+TOL_RESNET_STATS = 1e-5      # x max(1, max |stat|) per running stat
+# cuDNN kernel names by what they do, for the training profile's shares
+CONV_KEYS = ("conv", "fprop", "dgrad", "wgrad", "winograd", "fft",
+             "implicit", "cudnn")
+NORM_KEYS = ("elementwise", "reduce", "welford", "norm", "pointwise",
+             "vectorized", "unrolled", "copy", "fill")
+RESNET_SHARES = (
+    ("TF32 kernels", lambda k: "tf32" in k),
+    ("convolution", lambda k: "tf32" not in k and
+     any(c in k for c in CONV_KEYS)),
+    ("BatchNorm and elementwise",
+     lambda k: not any(c in k for c in CONV_KEYS) and
+     any(c in k for c in NORM_KEYS)),
+    ("GEMM", lambda k: not any(c in k for c in CONV_KEYS + NORM_KEYS) and
+     ("gemm" in k or "cutlass" in k)),
+    ("pooling", lambda k: "pool" in k and
+     not any(c in k for c in CONV_KEYS + NORM_KEYS)))
 
 
 def log(*a):
@@ -250,9 +316,11 @@ def phase_device(torch):
     log("device: %s, count %d, torch %s, cuda %s" % (
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
-    # f32 products stay full f32 everywhere (the JAX package's HIGHEST)
+    # f32 products stay full f32 everywhere (the JAX package's HIGHEST);
+    # convolutions set their own precision (mxnet_tpu_torch/ops/nn.py),
+    # so cuDNN's process default is left as it is: phase 6 runs its f32
+    # convolutions under that default
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return card
 
 
@@ -763,9 +831,20 @@ def phase_serve(torch, card, seed):
     return launches
 
 
-def profile(torch, run, what, card):
-    """Where one run's device time goes, by kernel (torch.profiler);
-    reported as not measured when the trace holds no device time."""
+# kernel-name shares the attention paths' profiles report
+ATTENTION_SHARES = (
+    ("flash_fwd", lambda k: "flash_fwd" in k),
+    ("flash_bwd_dkdv", lambda k: "dkdv" in k),
+    ("flash_bwd_dq", lambda k: "flash_bwd_dq" in k),
+    ("GEMM", lambda k: "gemm" in k or "cutlass" in k or "sm90" in k))
+
+
+def profile(torch, run, what, card, shares=ATTENTION_SHARES):
+    """Where one run's device time goes, by kernel (torch.profiler):
+    the device-time share of each (label, predicate on the lowercased
+    kernel name) of *shares*, the idle share and the top kernels.
+    Returns {label: share}, or None when the trace holds no device
+    time (reported as not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
@@ -788,16 +867,12 @@ def profile(torch, run, what, card):
     if total <= 0:
         log("%s: device time not measured (the trace holds no CUDA kernel "
             "time)" % what)
-        return
+        return None
 
     def share(pred):
         return sum(r[0] for r in rows if pred(r[1].lower())) / total
 
-    shares = {"flash_fwd": share(lambda k: "flash_fwd" in k),
-              "flash_bwd_dkdv": share(lambda k: "dkdv" in k),
-              "flash_bwd_dq": share(lambda k: "flash_bwd_dq" in k),
-              "GEMM": share(lambda k: "gemm" in k or "cutlass" in k or
-                            "sm90" in k)}
+    shares = {label: share(pred) for label, pred in shares}
     if total > wall_us:
         # kernels of one stream cannot outlast the wall: the sum counted
         # something twice, so no idle share can be read from it
@@ -811,6 +886,7 @@ def profile(torch, run, what, card):
             1.0 - sum(shares.values())))
     for us, key, count in sorted(rows, reverse=True)[:10]:
         log("  %9.3f ms  x%-4d %s" % (us / 1e3, count, key[:110]))
+    return shares
 
 
 def attention_op(torch, att, chunk=512, backward="plain", boundary=None):
@@ -1110,6 +1186,313 @@ def phase_train(torch, card, seed):
     return launches
 
 
+def within(err, scale, tol):
+    """(ratio of *err* to its limit tol * max(1, scale), ok)."""
+    ratio = err / (tol * max(1.0, scale))
+    return ratio, ratio <= 1.0
+
+
+def worst_share(gaps):
+    """The largest per-parameter gap as a share of max |g| (the first of
+    each ``grad_gaps`` pair)."""
+    return max(v[0] for v in gaps.values())
+
+
+def resnet_net(mx, vision, gen, ctx, dtype="float32", prefix=None):
+    """The phase's ResNet-50 v1, initialized from *gen*."""
+    net = vision.get_model(RESNET, classes=RESNET_CLASSES, prefix=prefix)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx, generator=gen)
+    if dtype != "float32":
+        net.cast(dtype)
+    return net
+
+
+def tf32_convolutions(torch):
+    """A scope in which the port's f32 convolutions run in TF32 (forward
+    and backward): the pass that the f64 limits must catch."""
+    from unittest import mock
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    return mock.patch.object(
+        nn_ops, "conv_precision",
+        lambda dtype: "tf32" if dtype == torch.float32 else None)
+
+
+def resnet_serve(torch, card, mx, ctx, net, rng, tmp):
+    """Phase 6 (a): export, serve requests of 1, 8 and 32 images, hold
+    each answer against the f64 graph, and show TF32 convolutions break
+    that limit."""
+    from mxnet_tpu_torch.executor import _build_eval
+    prefix = os.path.join(tmp, "resnet")
+    net.export(prefix, 0)
+    reg = mx.serve.ModelRegistry()
+    t0 = time.perf_counter()
+    shape = (1, 3, RESNET_IMAGE, RESNET_IMAGE)
+    pred = reg.load_checkpoint(
+        "resnet", prefix, 0, data_shapes={"data0": shape},
+        ladder=mx.serve.BucketLadder(batches=RESNET_RUNGS), ctx=ctx)
+    log("resnet serve: load_checkpoint (%d arg, %d aux arrays) + warm of "
+        "rungs %s in %.2f s" % (len(pred._params), len(pred._aux),
+                                RESNET_RUNGS, time.perf_counter() - t0))
+    answers = []
+    for rows in RESNET_REQUESTS:
+        x = rng.randn(rows, *shape[1:]).astype("float32")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reg.predict("resnet", x)[0]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log("resnet serve: request of %d images (rung %d): %.3f ms, %.1f "
+            "images/s on %s" % (rows, pred.ladder.batch_for(rows), dt * 1e3,
+                                rows / dt, card))
+        if tuple(out.shape) != (rows, RESNET_CLASSES) or \
+                not bool(torch.isfinite(out._data).all()):
+            raise RuntimeError("request of %d images: bad output %s"
+                               % (rows, out.shape))
+        answers.append((x, out._data))
+
+    ev = _build_eval(pred._symbol, False)
+    p64 = {n: t.double() for n, t in pred._params.items()}
+    a64 = {n: t.double() for n, t in pred._aux.items()}
+    ok = True
+    for x, got in answers:
+        rows = x.shape[0]
+        pad = torch.zeros((pred.ladder.batch_for(rows),) + shape[1:],
+                          dtype=torch.float32, device=ctx.torch_device)
+        pad[:rows] = torch.from_numpy(x)
+        with torch.no_grad():
+            want = ev(dict(p64, data0=pad.double()), a64)[0][0][:rows]
+            with tf32_convolutions(torch):
+                low = ev(dict(pred._params, data0=pad), pred._aux)[0][0]
+        scale = want.abs().max().item()
+        err = (got.double() - want).abs().max().item()
+        err_tf32 = (low[:rows].double() - want).abs().max().item()
+        ratio, good = within(err, scale, TOL_RESNET_SERVE)
+        ratio_tf32, tf32_passes = within(err_tf32, scale, TOL_RESNET_SERVE)
+        ok = ok and good and not tf32_passes
+        log("resnet serve: request of %d images vs the f64 graph: max abs "
+            "err %.4g, max |logit| %.4g, %.4f of the limit (%g x max(1, "
+            "max|logit|)); TF32 convolutions: max abs err %.4g, %.3f of "
+            "the limit (must exceed 1) -> %s" % (
+                rows, err, scale, ratio, TOL_RESNET_SERVE, err_tf32,
+                ratio_tf32, "ok" if good and not tf32_passes else "FAIL"))
+    if not ok:
+        raise RuntimeError("served ResNet logits against the f64 graph "
+                           "failed (above)")
+    del answers, reg, pred, ev, p64, a64
+
+
+def resnet_check_step(torch, card, mx, ctx, vision, net, loss_fn, trainer,
+                      rng):
+    """Phase 6 (b): one step at batch 32 from one set of weights in f32
+    and in f64 on the card: the loss, every gradient (ReLU masks frozen
+    to the f64 run's) and the running statistics after the step; a TF32
+    run must break the gradient limit."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.executor import _build_eval
+    from mxnet_tpu_torch.ndarray import NDArray
+    b = RESNET_CHECK_BATCH
+    x = mx.nd.array(rng.randn(b, 3, RESNET_IMAGE, RESNET_IMAGE)
+                    .astype("float32"), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, RESNET_CLASSES, (b,)).astype("float32"),
+                    ctx=ctx)
+    graph = net._cached_graph
+    params = net.collect_params()
+    net64 = resnet_net(mx, vision, None, ctx, "float64", prefix=net.prefix)
+    params64 = net64.collect_params()
+    for n, p in params64.items():
+        p.set_data(params[n].data())
+
+    def run(ps, data, relu, low=False):
+        """One forward and backward of the net's train graph on the
+        parameters *ps*; returns (loss, grads, running stats after)."""
+        ev = _build_eval(graph.symbol, True, op_impls={"Activation": relu})
+        amap = {n: ps[n].data()._data for n in graph.param_names}
+        amap["data0"] = data
+        aux = {n: ps[n].data()._data for n in graph.aux_names}
+        with autograd.record(), torch.enable_grad():
+            if low:
+                with tf32_convolutions(torch):
+                    outs, stats = ev(amap, aux)
+            else:
+                outs, stats = ev(amap, aux)
+            loss = loss_fn(NDArray(outs[0]), y)
+            loss.backward()
+        grads = {n: ps[n].grad()._data.clone() for n in graph.param_names}
+        return loss.asnumpy(), grads, stats
+
+    t0 = time.perf_counter()
+    relu64, masks = relu_op(torch)
+    loss64, g64, stats64 = run(params64, x._data.double(), relu64)
+    torch.cuda.synchronize()
+    t64 = time.perf_counter() - t0
+    del net64, params64
+    relu32, seen = relu_op(torch, masks)
+    _, g32, _ = run(params, x._data, relu32)
+    flips = sum(int((a != m).sum()) for a, m in zip(seen, masks))
+    units = sum(int(m.numel()) for m in masks)
+    del seen
+    relu_low, _ = relu_op(torch, masks)
+    _, g_low, _ = run(params, x._data, relu_low, low=True)
+    del masks
+    gaps = grad_gaps(torch, g32, {n: g.float() for n, g in g64.items()})
+    gaps_low = grad_gaps(torch, g_low, {n: g.float() for n, g in g64.items()})
+    del g32, g_low, g64
+
+    # the user's path: record -> loss -> backward -> Trainer.step
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(b)
+    loss32 = loss.asnumpy()
+    stat_worst, stat_name = 0.0, None
+    for n, want in stats64.items():
+        got = params[n].data()._data.double()
+        r, _ = within((got - want).abs().max().item(),
+                      want.abs().max().item(), TOL_RESNET_STATS)
+        if r >= stat_worst:
+            stat_worst, stat_name = r, n
+    loss_ratio, loss_ok = within(
+        float(abs(loss32.mean() - loss64.mean())), abs(loss64.mean()),
+        TOL_RESNET_LOSS)
+    g_worst, l_worst = worst_share(gaps), worst_share(gaps_low)
+    ok = loss_ok and stat_worst <= 1.0 and \
+        len(stats64) == len(graph.aux_names) > 0 and \
+        g_worst <= TOL_RESNET_GRAD < l_worst
+    log("resnet check step, batch %d on %s (f64 forward and backward "
+        "%.2f s): mean loss f32 %.7f, f64 %.7f, %.4f of the limit (%g x "
+        "max(1, |loss|))" % (b, card, t64, float(loss32.mean()),
+                             float(loss64.mean()), loss_ratio,
+                             TOL_RESNET_LOSS))
+    log("resnet check step: %d running statistics after the step vs f64: "
+        "worst %.4f of the limit (%g x max(1, max|stat|), %s)" % (
+            len(stats64), stat_worst, TOL_RESNET_STATS, stat_name))
+    log("resnet check step: ReLU units that take the other branch than "
+        "f64's, of %d: %d (frozen to f64's masks below)" % (units, flips))
+    log("resnet check step, f32 vs f64, masks frozen: %s" % gap_text(gaps))
+    log("resnet check step, TF32 convolutions vs f64, masks frozen: %s"
+        % gap_text(gaps_low))
+    log("resnet check step: f32 gradients worst %.4g of max |g| (limit "
+        "%g), TF32 convolutions %.4g (must exceed the limit) -> %s" % (
+            g_worst, TOL_RESNET_GRAD, l_worst, "ok" if ok else "FAIL"))
+    if not ok:
+        raise RuntimeError("the ResNet check step failed (above)")
+
+
+def resnet_train(torch, card, mx, ctx, net, loss_fn, trainer, rng):
+    """Phase 6 (c): six steps at batch 128 on a fixed batch, steps 2-6
+    timed; the loss must fall from step 1 to step 6; peak memory; one
+    profiled step beside the f32 bound."""
+    from mxnet_tpu_torch import autograd
+    b = RESNET_BATCH
+    x = mx.nd.array(rng.randn(b, 3, RESNET_IMAGE, RESNET_IMAGE)
+                    .astype("float32"), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, RESNET_CLASSES, (b,)).astype("float32"),
+                    ctx=ctx)
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(b)
+        return float(loss.asnumpy().mean())     # waits for the step
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        times.append(time.perf_counter() - t0)
+        log("resnet train: step %d: loss %.6f, %.2f ms on %s" % (
+            i + 1, losses[-1], times[-1] * 1e3, card))
+    peak = torch.cuda.max_memory_allocated()
+    ms = 1e3 * sum(times[1:]) / len(times[1:])
+    flop = 3 * RESNET_FWD_FLOP * b
+    bound = flop / PEAK_FLOPS["float32"] * 1e3
+    log("resnet train: batch %d x %d^2: ms per step %.2f (steps 2-%d), "
+        "%.1f images/s; f32 bound %.2f ms (3 x %.4g x %d flop over %.0f "
+        "TFLOP/s), step at %.1f%% of it; peak device memory %.3f GB of "
+        "%.1f on %s" % (
+            b, RESNET_IMAGE, ms, RESNET_STEPS, b / ms * 1e3, bound,
+            RESNET_FWD_FLOP, b, PEAK_FLOPS["float32"] / 1e12,
+            100.0 * bound / ms, peak / 1e9,
+            torch.cuda.get_device_properties(0).total_memory / 1e9, card))
+    shares = profile(torch, step, "resnet train profile, one step of batch "
+                     "%d x %d^2" % (b, RESNET_IMAGE), card, RESNET_SHARES)
+    if shares is not None:
+        log("resnet train profile: device time in kernels named tf32: "
+            "%.4f (must be 0: the f32 convolutions run in full f32)"
+            % shares["TF32 kernels"])
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise RuntimeError("the ResNet loss did not fall over %d steps: %s"
+                           % (RESNET_STEPS, losses))
+    if shares is not None and shares["TF32 kernels"] > 0:
+        raise RuntimeError("the f32 training step ran TF32 kernels")
+    return {"ms": ms, "images_s": b / ms * 1e3, "bound_ms": bound,
+            "peak_gb": peak / 1e9, "losses": losses, "shares": shares}
+
+
+def phase_resnet(torch, card, seed):
+    """Phase 6: ResNet-50 v1 served, checked against f64 and trained on
+    the card.  Raises without CUDA: it never runs on the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 6 needs a CUDA device")
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    log("resnet: cuDNN's process default f32 convolution precision: %r "
+        "(the port's Convolution runs f32 in 'ieee' whatever it is)"
+        % torch.backends.cudnn.conv.fp32_precision)
+    ctx = mx.gpu(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 2)
+    rng = np.random.RandomState(seed + 2)
+    t0 = time.perf_counter()
+    net = resnet_net(mx, vision, gen, ctx)
+    net.hybridize()
+    first = net(mx.nd.array(rng.randn(1, 3, RESNET_IMAGE, RESNET_IMAGE)
+                            .astype("float32"), ctx=ctx))
+    params = net.collect_params()
+    trainable = [p for p in params.values() if p.grad_req != "null"]
+    log("resnet: built %s (%d trainable arrays, %d values; %d running "
+        "statistics, %d values), hybridized and ran one forward in %.2f s"
+        % (RESNET, len(trainable),
+           sum(int(np.prod(p.shape)) for p in trainable),
+           len(params) - len(trainable),
+           sum(int(np.prod(p.shape)) for p in params.values()
+               if p.grad_req == "null"), time.perf_counter() - t0))
+    if tuple(first.shape) != (1, RESNET_CLASSES) or \
+            not np.isfinite(first.asnumpy()).all():
+        raise RuntimeError("first forward: bad output %s" % (first.shape,))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resnet_")
+    try:
+        resnet_serve(torch, card, mx, ctx, net, rng, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(params, "sgd", {
+        "learning_rate": RESNET_CHECK_LR, "momentum": RESNET_MOMENTUM})
+    resnet_check_step(torch, card, mx, ctx, vision, net, loss_fn, trainer,
+                      rng)
+    del net, trainer, params
+    torch.cuda.empty_cache()
+    # the timed steps train a fresh net from the same generator
+    net = resnet_net(mx, vision, gen, ctx)
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM})
+    res = resnet_train(torch, card, mx, ctx, net, loss_fn, trainer, rng)
+    del net, trainer
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1129,6 +1512,7 @@ def main():
     timing = phase_kernel(torch, card, args.seed)
     serve_launches = phase_serve(torch, card, args.seed)
     train_launches = phase_train(torch, card, args.seed)
+    phase_resnet(torch, card, args.seed)
     b, h, sq, sk, d = PATH_SHAPE
     kernels = []
     for name, source, replaces in (

@@ -170,9 +170,23 @@ class Block(torch.nn.Module):
         self.collect_params().initialize(init, ctx, verbose, force_reinit,
                                          generator=generator)
 
+    def register_child(self, block, name=None):
+        """Add *block* as a child, under *name* (default: its index)."""
+        if name is None:
+            name = str(len(self._children))
+        setattr(self, name, block)
+
     def hybridize(self, active=True, **kwargs):
         for child in self._children.values():
             child.hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        """Cast every parameter of this block and its children to
+        *dtype*."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for param in self.params.values():
+            param.cast(dtype)
 
     def forward(self, *args):
         raise NotImplementedError
@@ -224,6 +238,14 @@ class HybridBlock(Block):
         self._active = active
         self._cached_graph = None
         super().hybridize(active, **kwargs)
+
+    def register_child(self, block, name=None):
+        super().register_child(block, name)
+        self._cached_graph = None
+
+    def cast(self, dtype):
+        self._cached_graph = None
+        super().cast(dtype)
 
     def _infer_attrs(self, *args):
         """Resolve deferred parameter shapes by shape inference over the

@@ -1,3 +1,4 @@
 """Model zoo (port of ``mxnet_tpu/gluon/model_zoo/``, subset)."""
 
 from . import transformer  # noqa: F401
+from . import vision  # noqa: F401

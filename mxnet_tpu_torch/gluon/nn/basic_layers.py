@@ -1,11 +1,61 @@
 """Basic Gluon layers (port of ``mxnet_tpu/gluon/nn/basic_layers.py``,
-subset: Dense, Embedding, LayerNorm, Activation)."""
+subset: Sequential, HybridSequential, Dense, Embedding, BatchNorm,
+LayerNorm, Flatten, Activation)."""
 
 from __future__ import annotations
 
-from ..block import HybridBlock
+import torch
 
-__all__ = ["Dense", "Embedding", "LayerNorm", "Activation"]
+from ... import autograd
+from ... import symbol as sym_mod
+from ...ndarray import NDArray
+from ...ops import registry as _reg
+from ..block import Block, HybridBlock
+
+__all__ = ["Sequential", "HybridSequential", "Dense", "Embedding",
+           "BatchNorm", "LayerNorm", "Flatten", "Activation"]
+
+
+class _Stack:
+    """What both sequential containers share: ``add`` and indexing."""
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+
+class Sequential(_Stack, Block):
+    """Stack of Blocks, run in the order added."""
+
+    def forward(self, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+
+class HybridSequential(_Stack, HybridBlock):
+    """Stack of HybridBlocks, run in the order added; hybridizes as one
+    graph."""
+
+    def hybrid_forward(self, F, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
 
 
 class Dense(HybridBlock):
@@ -66,6 +116,68 @@ class Embedding(HybridBlock):
                            sparse_grad=self._sparse_grad)
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalization over *axis*, with moving statistics
+    (``running_mean``, ``running_var``) kept as auxiliary states.
+
+    In training (``autograd.train_mode()`` or ``record()``) the batch's
+    statistics normalize and the moving ones move by *momentum*; in
+    inference the moving ones normalize.  Hybridized, the graph writes
+    the moving statistics back through the op's ``aux_states``; eagerly,
+    this block writes them back itself."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=(in_channels,),
+                init=running_variance_initializer,
+                allow_deferred_init=True, differentiable=False)
+
+    def cast(self, dtype):
+        if str(dtype) in ("float16", "bfloat16"):
+            dtype = "float32"       # the statistics stay in float32
+        super().cast(dtype)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        if F is sym_mod:
+            # the node is named after the parameters' prefix, so every
+            # BatchNorm of an exported graph has its own name
+            prefix = gamma.name[:-len("gamma")]
+            return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                               name=prefix + "fwd", **self._kwargs)
+        training = autograd.is_training() and \
+            not self._kwargs["use_global_stats"]
+        out = _reg.get_op("BatchNorm").fn(
+            x._data, gamma._data, beta._data, running_mean._data,
+            running_var._data, training=training, **self._kwargs)
+        if training:
+            with torch.no_grad():
+                running_mean._data.copy_(out[3])
+                running_var._data.copy_(out[4])
+        return NDArray(out[0])
+
+
 class LayerNorm(HybridBlock):
     """Layer normalization over *axis*."""
 
@@ -88,6 +200,13 @@ class LayerNorm(HybridBlock):
     def hybrid_forward(self, F, x, gamma, beta):
         return F.LayerNorm(x, gamma, beta, axis=self._axis,
                            eps=self._epsilon)
+
+
+class Flatten(HybridBlock):
+    """(N, ...) -> (N, product of the rest)."""
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
 
 
 class Activation(HybridBlock):

@@ -17,7 +17,7 @@ from collections import OrderedDict
 import torch
 
 from .. import autograd
-from ..base import MXNetError, dtype_name
+from ..base import MXNetError, dtype_name, torch_dtype
 from ..context import Context, current_context
 from .. import ndarray as nd
 from ..ndarray import NDArray
@@ -194,6 +194,16 @@ class Parameter:
             nd.array(data, ctx=self._data.context)._data
         with torch.no_grad():
             self._data._data.copy_(src.to(self._data._data.dtype))
+
+    def cast(self, dtype):
+        """Cast the data (and the gradient buffer) to *dtype*; the cast
+        data is the marked variable from now on."""
+        self.dtype = dtype_name(dtype)
+        if self._data is None:
+            return
+        with torch.no_grad():
+            self._data = NDArray(self._data._data.to(torch_dtype(dtype)))
+        self._init_grad()
 
     def var(self):
         """The variable Symbol standing for this parameter in a trace."""

@@ -48,8 +48,8 @@ class Op:
         self.param_names = tuple(
             p.name for p in inspect.signature(fn).parameters.values()
             if p.default is not inspect.Parameter.empty)
-        # {input_idx: output_idx} of mutable auxiliary states; none of
-        # the ported ops has one, the executor still honors the contract
+        # {input_idx: output_idx} of mutable auxiliary states (BatchNorm's
+        # moving statistics), written back by the executor's caller
         self.aux_states = {}
         self.active_inputs = None
 

@@ -1,5 +1,6 @@
 """Shape and indexing ops (port of ``mxnet_tpu/ops/tensor.py``, subset:
-Reshape, reshape_like, transpose, slice_like, pick, Embedding)."""
+Reshape, reshape_like, Flatten, transpose, slice, slice_like,
+space_to_depth, pick, Embedding)."""
 
 from __future__ import annotations
 
@@ -76,12 +77,43 @@ def _reshape_like(x, y):
     return torch.reshape(x, y.shape)
 
 
+@register_op("Flatten", aliases=("flatten",))
+def _flatten(x):
+    return torch.reshape(x, (x.shape[0], -1))
+
+
 @register_op("transpose")
 def _transpose(x, axes=None):
     axes = _axes_tuple(axes)
     if not axes:
         axes = tuple(range(x.dim() - 1, -1, -1))
     return x.permute(*axes)
+
+
+def _slice_axis(x, axis, begin, end, step):
+    """``x[begin:end:step]`` along *axis* with Python's slice semantics
+    (None, negative bounds, negative steps); torch indexing takes no
+    negative step, so one is a flip of the covered range."""
+    if step is None or step > 0:
+        idx = [slice(None)] * x.dim()
+        idx[axis] = slice(begin, end, step)
+        return x[tuple(idx)]
+    picked = range(*slice(begin, end, step).indices(x.shape[axis]))
+    if not picked:
+        return x.narrow(axis, 0, 0)
+    seg = x.narrow(axis, picked[-1], picked[0] - picked[-1] + 1).flip(axis)
+    return _slice_axis(seg, axis, None, None, -step)
+
+
+@register_op("slice")
+def _slice(x, begin=(), end=(), step=()):
+    """``x[b0:e0:s0, b1:e1:s1, ...]`` over the leading axes; None in
+    *begin*, *end* or *step* is Python's default."""
+    begin, end = _axes_tuple(begin), _axes_tuple(end)
+    step = _axes_tuple(step) or (None,) * len(begin)
+    for axis, (b, e, st) in enumerate(zip(begin, end, step)):
+        x = _slice_axis(x, axis, b, e, st)
+    return x
 
 
 @register_op("slice_like")
@@ -91,6 +123,18 @@ def _slice_like(x, y, axes=()):
     for a in axes:
         idx[a] = slice(0, y.shape[a])
     return x[tuple(idx)]
+
+
+@register_op("space_to_depth")
+def _space_to_depth(x, block_size=1):
+    """(N, C, H, W) -> (N, C * b * b, H / b, W / b), channels ordered
+    (row offset, column offset, channel), as the JAX package orders
+    them."""
+    n, c, h, w = x.shape
+    b = block_size
+    x = x.reshape(n, c, h // b, b, w // b, b)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
 
 
 @register_op("pick")

@@ -11,7 +11,8 @@ which parses back as the int 1; this package accepts both spellings.
 
 Shape inference (``_infer_shapes``, which resolves deferred parameter
 shapes at a block's first forward) runs per-op rules where parameter
-shapes are deduced bottom-up (FullyConnected, LayerNorm, Embedding), and
+shapes are deduced bottom-up (FullyConnected, Convolution, BatchNorm,
+LayerNorm, Embedding), and
 otherwise runs the op itself on ``meta`` tensors, which carry shapes and
 no data.
 """
@@ -27,6 +28,7 @@ import torch
 
 from ..base import MXNetError, dtype_name
 from ..ops import registry as _reg
+from ..ops.nn import _tup
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json"]
 
@@ -321,6 +323,41 @@ def _fc_shape(params, ins):
     return ins, [out]
 
 
+def _conv_shape(params, ins):
+    """Convolution: weight (num_filter, C / num_group, *kernel), bias
+    (num_filter,), and the output's spatial extent from stride, pad and
+    dilation (mirrors ``mxnet_tpu/symbol/symbol.py`` ``_conv_shape``)."""
+    kernel = _as_shape(params.get("kernel", ()))
+    nd = len(kernel)
+    nf = int(params.get("num_filter", 0))
+    ng = int(params.get("num_group", 1))
+    stride = _tup(params.get("stride"), nd, 1)
+    dilate = _tup(params.get("dilate"), nd, 1)
+    pad = _tup(params.get("pad"), nd, 0)
+    data = ins[0]
+    if data is None:
+        return ins, [None]
+    ins = list(ins)
+    ins[1] = (nf, data[1] // ng) + kernel
+    if len(ins) > 2:
+        ins[2] = (nf,)
+    spatial = tuple(
+        (data[2 + i] + 2 * pad[i] - ((kernel[i] - 1) * dilate[i] + 1))
+        // stride[i] + 1 for i in range(nd))
+    return ins, [(data[0], nf) + spatial]
+
+
+def _bn_shape(params, ins):
+    """BatchNorm: gamma, beta and both moving statistics are (C,), C the
+    data's extent on ``axis``; outputs (data, C, C, C, C)."""
+    data = ins[0]
+    if data is None:
+        return ins, [None] * 5
+    c = (data[int(params.get("axis", 1)) % len(data)],)
+    ins = [data] + [c] * (len(ins) - 1)
+    return ins, [data, c, c, c, c]
+
+
 def _ln_shape(params, ins):
     data = ins[0]
     if data is None:
@@ -342,7 +379,8 @@ def _emb_shape(params, ins):
 
 # rule(params, in_shapes) -> (in_shapes, out_shapes) for ops whose
 # parameter shapes are deduced bottom-up (the reference's FInferShape)
-_SHAPE_RULES = {"FullyConnected": _fc_shape, "LayerNorm": _ln_shape,
+_SHAPE_RULES = {"FullyConnected": _fc_shape, "Convolution": _conv_shape,
+                "BatchNorm": _bn_shape, "LayerNorm": _ln_shape,
                 "Embedding": _emb_shape}
 
 

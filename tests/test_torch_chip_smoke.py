@@ -1,8 +1,15 @@
-"""``chip_smoke.py``'s build gate on the CPU: it reads registers and
-spills from nvcc's ``-Xptxas -v`` logs and fails the run when an
-instantiation the paths run (``PATH_ENTRIES``: flash_fwd, flash_bwd_dkdv
-and flash_bwd_dq, f32, D = 64) spills or is missing from its source's
-log, on a fresh build and on one that an earlier run left behind."""
+"""``chip_smoke.py``'s logic on the CPU.
+
+The build gate reads registers and spills from nvcc's ``-Xptxas -v``
+logs and fails the run when an instantiation the paths run
+(``PATH_ENTRIES``: flash_fwd, flash_bwd_dkdv and flash_bwd_dq, f32,
+D = 64) spills or is missing from its source's log, on a fresh build and
+on one that an earlier run left behind.
+
+Phase 6 (ResNet-50): its limits against float64 pass f32-sized errors
+and fail TF32-sized ones (the sizes its first run on an H100 measured),
+its TF32 pass really switches the port's f32 convolutions to TF32, and
+the phase raises without CUDA."""
 
 import os
 import sys
@@ -161,3 +168,52 @@ def test_build_gate_reads_a_library_built_before(tmp_path, monkeypatch,
         assert results[0] == results[1] == {
             "flash_fwd": CLEAN, "flash_bwd_dkdv": CLEAN,
             "flash_bwd_dq": dict(CLEAN, registers=214)}
+
+
+# phase 6's first run on an NVIDIA H100 80GB HBM3 (PERF.md): the
+# served logits' error against f64 as a share of max |logit|, and the
+# worst gradient gap as a share of max |g| with the ReLU masks frozen
+SERVED_F32, SERVED_TF32 = 2.16e-6, 4.27e-4
+GRAD_F32, GRAD_TF32 = 1.896e-3, 0.1494
+
+
+@pytest.mark.parametrize("scale", [4546.0, 0.5])
+def test_resnet_serve_limit_passes_f32_and_fails_tf32(scale):
+    top = max(1.0, scale)
+    _, ok = chip_smoke.within(SERVED_F32 * top, scale,
+                              chip_smoke.TOL_RESNET_SERVE)
+    ratio, tf32_ok = chip_smoke.within(SERVED_TF32 * top, scale,
+                                       chip_smoke.TOL_RESNET_SERVE)
+    assert ok and not tf32_ok and ratio > 1.0
+
+
+def test_resnet_grad_limit_passes_f32_and_fails_tf32():
+    f32 = {"stem": (GRAD_F32, 4.6e-4), "fc": (1e-6, 1e-7)}
+    tf32 = {"stem": (0.02, 0.01), "bn": (GRAD_TF32, 0.142)}
+    assert chip_smoke.worst_share(f32) <= chip_smoke.TOL_RESNET_GRAD
+    assert chip_smoke.worst_share(tf32) > chip_smoke.TOL_RESNET_GRAD
+    # a gradient that is not finite fails the limit (grad_gaps gives inf)
+    import torch
+    gaps = chip_smoke.grad_gaps(
+        torch, {"w": torch.tensor([1.0, float("nan")])},
+        {"w": torch.tensor([1.0, 2.0])})
+    assert not chip_smoke.worst_share(gaps) <= chip_smoke.TOL_RESNET_GRAD
+
+
+def test_resnet_tf32_pass_switches_the_f32_convolutions():
+    """Inside ``tf32_convolutions`` a float32 Convolution asks cuDNN for
+    TF32; outside it, full float32."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    assert nn_ops.conv_precision(torch.float32) == "ieee"
+    with chip_smoke.tf32_convolutions(torch):
+        assert nn_ops.conv_precision(torch.float32) == "tf32"
+        assert nn_ops.conv_precision(torch.bfloat16) is None
+    assert nn_ops.conv_precision(torch.float32) == "ieee"
+
+
+def test_resnet_phase_raises_without_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chip_smoke.phase_resnet(torch, "no card", 0)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: ``flash_fwd``, ``flash_bwd_dkdv``
 and ``flash_bwd_dq`` against their plain versions, the wrappers'
-refusals, and the launch counts of the serving and training paths.
+refusals, and the launch counts of the serving and training paths; and
+the float32 ``Convolution`` on cuDNN held to float64 (no TF32).
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one.
 This file imports neither jax nor the JAX package, so it runs on a
@@ -462,3 +463,48 @@ def test_trained_lm_goes_through_the_kernels(cuda):
     for n, w in weights[1].items():
         np.testing.assert_allclose(w, weights[2][n], rtol=0,
                                    atol=1e-4 * max(1.0, np.abs(w).max()))
+
+
+@pytest.mark.parametrize("shape,w,stride,pad", [
+    ((8, 3, 224, 224), (64, 3, 7, 7), 2, 3),      # ResNet's stem
+    ((8, 64, 56, 56), (64, 64, 3, 3), 1, 1),
+    ((8, 256, 56, 56), (128, 256, 1, 1), 2, 0)])
+def test_f32_convolution_runs_full_f32_forward_and_backward(
+        cuda, monkeypatch, shape, w, stride, pad):
+    """A float32 Convolution on the card, its output and its data and
+    weight gradients, against the same in float64: within 1e-4 of each
+    array's max |value| (f32 rounding), with cuDNN's process default at
+    TF32; the same call with TF32 convolutions must miss that limit
+    (TF32 rounds the products' inputs to 10 bits)."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    from mxnet_tpu_torch.ops import registry
+    conv = registry.get_op("Convolution").fn
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda)
+    wt = torch.randn(w, generator=g, device=cuda) / math.sqrt(
+        w[1] * w[2] * w[3])
+    dout = None
+
+    def run(dtype):
+        nonlocal dout
+        xs = x.to(dtype).requires_grad_()
+        ws = wt.to(dtype).requires_grad_()
+        out = conv(xs, ws, kernel=w[2:], stride=(stride,) * 2,
+                   pad=(pad,) * 2, num_filter=w[0], no_bias=True)
+        if dout is None:
+            dout = torch.randn(out.shape, generator=g, device=cuda)
+        out.backward(dout.to(dtype))
+        return [t.detach().double() for t in (out, xs.grad, ws.grad)]
+
+    monkeypatch.setattr(torch.backends.cudnn.conv, "fp32_precision", "tf32")
+    want = run(torch.float64)
+
+    def worst(got):
+        return max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(got, want))
+    f32 = worst(run(torch.float32))
+    monkeypatch.setattr(nn_ops, "conv_precision",
+                        lambda dt: "tf32" if dt == torch.float32 else None)
+    tf32 = worst(run(torch.float32))
+    assert f32 <= 1e-4 < tf32, (f32, tf32)

@@ -39,6 +39,8 @@ def _env_without_cuda():
 def test_import_leaves_jax_and_mxnet_tpu_unloaded():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
             "mxnet_tpu_torch.gluon.model_zoo.transformer, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision, "
+            "mxnet_tpu_torch.gluon.nn.conv_layers, "
             "mxnet_tpu_torch.autograd, mxnet_tpu_torch.optimizer, "
             "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.loss; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
@@ -86,7 +88,8 @@ def test_gpu_context_without_cuda_raises(no_cuda):
 
 
 @pytest.mark.parametrize("entry", ["nd.array", "nd.zeros", "initialize",
-                                   "load_checkpoint", "nd.load", "Trainer"])
+                                   "load_checkpoint", "nd.load", "Trainer",
+                                   "resnet initialize"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -96,6 +99,9 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
     elif entry == "initialize":
         net = get_transformer_lm(vocab=10, dim=8, heads=2, layers=1,
                                  max_seq=4)
+        call = net.initialize
+    elif entry == "resnet initialize":
+        net = mx.gluon.model_zoo.vision.get_model("resnet18_v1")
         call = net.initialize
     elif entry == "Trainer":
         # a deferred parameter waits for its shape on gpu(0): the new
