@@ -47,6 +47,25 @@ Phases, each reported on its own line; any failure exits non-zero:
              Train: a fresh net, batch 128, six steps of SGD (lr 0.01,
              momentum 0.9), steps 2-6 timed, the loss must fall, peak
              memory, and one profiled step beside its f32 bound.
+7. north-star — ``parallel.ParallelTrainer`` as bench.py and
+             tools/benchmark_lm.py drive it: bf16 compute weights with
+             float32 masters.  (a) ResNet-50, lbsgd (lr 0.1, eta 0.001,
+             momentum 0.9), batch 128 x 224^2: 2 warm-up and 10 timed
+             steps, images/s beside the bf16 bound, device-time shares
+             (convolutions, BatchNorm and elementwise, the optimizer by
+             its profiler range), idle share with ``coalesce_small`` on
+             and off, peak memory; the loss must fall from step 1 to 6.
+             (e) Its checkpoint loads into a fresh trainer bit for bit.
+             (b) At batch 32, one step's gradients applied by the
+             coalesced and the per-tensor paths against a float64 LARS +
+             mp_sgd_mom update (two wrong variants must fail).  (c) The
+             bf16 loss and gradients against float64 (ReLU masks
+             frozen).  (d) The LM, sgd lr 0.01 momentum 0.9, int32 ids,
+             batch 8 x 2048: the main path whose launches are counted
+             (the bf16 kernels, 12 of each a step), the loss must fall
+             over four steps, step 1's loss against the plain
+             attention's, shares; then the same step with PyTorch's SDPA
+             in the kernels' place, timed only.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -839,11 +858,13 @@ ATTENTION_SHARES = (
     ("GEMM", lambda k: "gemm" in k or "cutlass" in k or "sm90" in k))
 
 
-def profile(torch, run, what, card, shares=ATTENTION_SHARES):
+def profile(torch, run, what, card, shares=ATTENTION_SHARES, ranges=()):
     """Where one run's device time goes, by kernel (torch.profiler):
     the device-time share of each (label, predicate on the lowercased
-    kernel name) of *shares*, the idle share and the top kernels.
-    Returns {label: share}, or None when the trace holds no device
+    kernel name) of *shares*, the idle share and the top kernels; for each
+    ``record_function`` name in *ranges*, the share of the kernels launched
+    inside it.  Returns {label: share} (ranges under their names, and
+    "idle" when it can be read), or None when the trace holds no device
     time (reported as not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -856,8 +877,10 @@ def profile(torch, run, what, card, shares=ATTENTION_SHARES):
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue        # host-side ops also carry their kernels' time
+        if e.device_type != DeviceType.CUDA or e.key in ranges:
+            # host-side ops also carry their kernels' time, and a range
+            # also appears as a device-side annotation spanning its kernels
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
@@ -884,6 +907,14 @@ def profile(torch, run, what, card, shares=ATTENTION_SHARES):
             what, card, total / 1e3, wall_us / 1e3, idle,
             ", ".join("%s %.3f" % kv for kv in shares.items() if kv[1] > 0),
             1.0 - sum(shares.values())))
+    for name in ranges:
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.name == name and e.device_type == DeviceType.CPU)
+        shares[name] = us / total
+        log("  range %s: %.3f ms of device time, share %.3f"
+            % (name, us / 1e3, us / total))
+    if total <= wall_us:
+        shares["idle"] = 1.0 - total / wall_us
     for us, key, count in sorted(rows, reverse=True)[:10]:
         log("  %9.3f ms  x%-4d %s" % (us / 1e3, count, key[:110]))
     return shares
@@ -1493,6 +1524,555 @@ def phase_resnet(torch, card, seed):
     return res
 
 
+# phase 7: the north-star trainer, ``ParallelTrainer`` with bf16 compute
+# weights, float32 masters and LARS, as bench.py:223-272 drives it
+# (lbsgd, lr 0.1, eta 0.001, momentum 0.9, multi_precision, dp = 1 mesh,
+# batch 128 x 224^2, bench.py:1814-1838), and the transformer LM as
+# tools/benchmark_lm.py:60-92 drives it (sgd, lr 0.01, momentum 0.9,
+# multi_precision, int32 ids, batch 8 x 2048).
+NS_OPT = {"learning_rate": 0.1, "eta": 0.001, "momentum": 0.9}
+NS_WARMUP, NS_STEPS = 2, 10
+NS_FALL = 6                  # the loss must fall from step 1 to step 6
+NS_OFF_STEPS = 3             # timed steps with coalesce_small=False
+NS_CHECK_BATCH = 32
+LM_NS_OPT = {"learning_rate": 0.01, "momentum": 0.9}
+LM_NS_STEPS = 4              # the loss must fall from step 1 to step 4
+# (b) the update against float64 LARS + mp_sgd_mom from the same
+# gradients and masters.  The float32 update rounds w + m, momentum * m
+# and lr_n * g' once each (2**-24 relative), and lr_n carries the float32
+# norms' summation error (a reduction over up to 2.4e6 terms that adds
+# some tens of terms in sequence in each thread before its tree: some
+# tens of units of 2**-24 relative): each master element is held to
+# 2**-UPDATE_BITS times |w| + momentum |m| + |lr_n g'|, 256 units of
+# float32 rounding.  Both wrong variants move an element by far more:
+# dropping eta scales the step by 1000, and starting from the bf16
+# weight moves w by up to 2**-9 |w|.
+UPDATE_BITS = 16
+# (c) and (d): bf16 compute against float64 and the LM's kernels against
+# the plain attention, both in units of bf16's unit roundoff 2**-8.  bf16
+# rounds every convolution output, and BatchNorm's mean subtraction
+# amplifies that rounding wherever a channel's mean is large against its
+# spread, 53 times over: at ResNet-50's initial weights (batch 32, ReLU
+# masks frozen) the first H100 run measured the bf16 loss 13.2 units from
+# f64's and the whole gradient 103.5 units (L2, 0.40 relative), against
+# 1.8e-5 and 0.034 units for f32; the bf16 gradient of another batch sits
+# at 363 units.  The gradient limit is near the geometric mean of 103.5
+# and 363, the loss limit the power of two above 2 x 13.2 (PERF.md,
+# north-star findings); f32 must sit within 1/16 of each.
+BF16_U = 2.0 ** -8
+TOL_NS_LOSS = 32.0           # x BF16_U x max(1, |loss|)
+TOL_NS_GRAD = 192.0          # x BF16_U, ||g - g64|| / ||g64|| over all
+TOL_LM_NS_LOSS = 1.0         # x BF16_U x max(1, |loss|)
+# device-time shares of the north-star ResNet step: kernels by name, the
+# optimizer by its profiler range
+NS_RANGE = "ParallelTrainer._apply_update"
+GEMM_KEYS = ("gemm", "cutlass", "nvjet", "sm90_xmma")
+NS_SHARES = (
+    ("convolution", lambda k: any(c in k for c in CONV_KEYS)),
+    ("GEMM", lambda k: not any(c in k for c in CONV_KEYS) and
+     any(g in k for g in GEMM_KEYS)))
+LM_NS_SHARES = (
+    ("flash_fwd bf16", lambda k: "flash_fwd" in k and "bfloat16" in k),
+    ("flash_bwd_dkdv bf16", lambda k: "dkdv" in k and "bfloat16" in k),
+    ("flash_bwd_dq bf16", lambda k: "flash_bwd_dq" in k and
+     "bfloat16" in k),
+    ("flash, not bf16", lambda k: "flash" in k and "bfloat16" not in k),
+    ("bf16 GEMM", lambda k: "flash" not in k and
+     any(g in k for g in GEMM_KEYS)))
+
+
+def ns_trainer(torch, mx, net, optimizer, opt_params, device, **kw):
+    """A multi-precision ``ParallelTrainer`` on a dp = 1 mesh of
+    *device*."""
+    from mxnet_tpu_torch.parallel import ParallelTrainer, make_mesh
+    return ParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer=optimizer,
+        optimizer_params=dict(opt_params),
+        mesh=make_mesh({"dp": 1}, [device]), multi_precision=True, **kw)
+
+
+def lars_mp_f64(torch, w, m, g, lr, opt, eta=True):
+    """One LARS + mp_sgd_mom update in float64 from master *w*, momentum
+    *m* and gradient *g*: (new w, new m, the bound's scale |w| + momentum
+    |m| + |lr_n g'|).  ``eta=False`` is the wrong variant that drops eta
+    from the trust ratio."""
+    w, m, g = w.double(), m.double(), g.double()
+    wd = float(opt.get("wd", 0.0))
+    momentum = float(opt.get("momentum", 0.0))
+    wn, gn = torch.linalg.vector_norm(w), torch.linalg.vector_norm(g)
+    trust = (float(opt.get("eta", 0.001)) if eta else 1.0) * wn / (
+        gn + wd * wn + float(opt.get("epsilon", 1e-9)))
+    if not (wn > 0 and gn > 0):
+        trust = torch.ones_like(wn)
+    step = lr * trust * (g * float(opt.get("rescale_grad", 1.0)) + wd * w)
+    m_new = momentum * m - step
+    return w + m_new, m_new, w.abs() + momentum * m.abs() + step.abs()
+
+
+def copy_state(torch, src, dst):
+    """Give trainer *dst* the params, optimizer states, aux and update
+    count of *src* (same net, both built)."""
+    with torch.no_grad():
+        for n in src.param_names:
+            dst._params[n].copy_(src._params[n])
+            for a, b in zip(src._opt_state[n], dst._opt_state[n]):
+                b.copy_(a)
+        for n in src.aux_names:
+            dst._aux[n].copy_(src._aux[n])
+    dst._num_update = src._num_update
+
+
+def check_update(torch, coalesced, per_tensor, x, y):
+    """Phase 7 (b) on two built trainers of one net, LARS with
+    mp_sgd_mom, one coalesced and one per-tensor: *per_tensor* takes
+    *coalesced*'s state, the gradients of one step come from
+    *coalesced*'s own gradient function, and both apply them.  Returns the
+    worst error/limit (limit ``2**-UPDATE_BITS`` x the f64 update's scale)
+    of {"f64": either path's masters against the float64 update, "paths":
+    coalesced against per-tensor, "no eta" and "bf16 weight": the
+    coalesced masters against the wrong variants (each must exceed 1)},
+    with "bf16_equal" (every bf16 weight is its master rounded) and
+    "small" (the coalesced count)."""
+    copy_state(torch, coalesced, per_tensor)
+    opt = coalesced.opt_params
+    _, grads, _ = coalesced._value_and_grad(coalesced._device_batch(x),
+                                            coalesced._label_batch(y))
+    lr = coalesced._current_lr()
+    t = coalesced._num_update + 1
+    before = {n: (coalesced._opt_state[n][-1].double(),
+                  coalesced._opt_state[n][0].double(),
+                  coalesced._params[n].double())
+              for n in coalesced.param_names}
+    for tr in (coalesced, per_tensor):
+        tr._apply_update(grads, lr, t)
+    res = {"f64": 0.0, "paths": 0.0, "no eta": 0.0, "bf16 weight": 0.0,
+           "bf16_equal": True, "small": len(coalesced._small)}
+
+    def worst(key, a, b, scale):
+        ratio = ((a - b).abs() / scale).max().item()
+        res[key] = max(res[key], ratio)
+
+    for n, (w, m, wb) in before.items():
+        want, _, scale = lars_mp_f64(torch, w, m, grads[n], lr, opt)
+        scale = (2.0 ** -UPDATE_BITS * scale).clamp_min(1e-30)
+        got = [tr._opt_state[n][-1].double() for tr in (coalesced,
+                                                          per_tensor)]
+        for a in got:
+            worst("f64", a, want, scale)
+        worst("paths", got[0], got[1], scale)
+        worst("no eta", got[0], lars_mp_f64(torch, w, m, grads[n], lr, opt,
+                                            eta=False)[0], scale)
+        worst("bf16 weight", got[0],
+              lars_mp_f64(torch, wb, m, grads[n], lr, opt)[0], scale)
+        for tr in (coalesced, per_tensor):
+            res["bf16_equal"] &= bool(torch.equal(
+                tr._params[n], tr._opt_state[n][-1].to(tr._params[n].dtype)))
+    return res
+
+
+def graph_loss_grads(torch, graph, params, aux, x, y, dtype, op_impls):
+    """Loss (mean of the loss output in float64 for a float64 run, else
+    float32) and the gradient of every parameter, of *graph*'s training
+    evaluation with *params*, *aux* and *x* cast to *dtype* (floats only).
+    Returns (loss, {name: grad})."""
+    from mxnet_tpu_torch.executor import _build_eval
+    ev = _build_eval(graph, True, op_impls=op_impls)
+    leaves = {n: t.detach().to(dtype).requires_grad_()
+              for n, t in params.items()}
+    amap = dict(leaves, data0=x.to(dtype) if x.is_floating_point() else x,
+                label0=y)
+    with torch.enable_grad():
+        outs, _ = ev(amap, {n: a.to(torch.float64 if dtype == torch.float64
+                                    else a.dtype) for n, a in aux.items()})
+        acc = torch.float64 if dtype == torch.float64 else torch.float32
+        loss = torch.mean(outs[0].to(acc))
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.item(), dict(zip(leaves, grads))
+
+
+def total_l2(torch, a, b):
+    """||a - b|| / ||b|| over all the gradients together, in float64."""
+    num = sum(float(((a[n].double() - b[n].double()) ** 2).sum()) for n in b)
+    den = sum(float((b[n].double() ** 2).sum()) for n in b)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def check_bf16_vs_f64(torch, card, trainer, x, y, x_other):
+    """Phase 7 (c): the bf16 step's loss and gradients against float64 on
+    the same weights (the bf16 compute weights) and batch, ReLU masks
+    frozen to the float64 run's; the float32 run beside it; and the bf16
+    gradients of the batch *x_other*, which must break the limit.
+    Returns {"loss": (bf16, f32) gaps in units of BF16_U x max(1,
+    |loss|), "grad": (bf16, f32, other batch) gaps ||g - g64|| / ||g64||
+    over all parameters, in units of BF16_U}."""
+    graph, params, aux = trainer._graph, trainer._params, trainer._aux
+    xd, yd = trainer._device_batch(x), trainer._label_batch(y)
+    relu64, masks = relu_op(torch)
+    t0 = time.perf_counter()
+    loss64, g64 = graph_loss_grads(torch, graph, params, aux, xd, yd,
+                                   torch.float64, {"Activation": relu64})
+    t64 = time.perf_counter() - t0     # .item() waited for the loss
+    out = {"loss": [], "grad": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        relu, seen = relu_op(torch, masks)
+        loss, g = graph_loss_grads(torch, graph, params, aux, xd, yd, dtype,
+                                   {"Activation": relu})
+        flips = sum(int((a != b).sum()) for a, b in zip(seen, masks))
+        gaps = grad_gaps(torch, {n: v.float() for n, v in g.items()},
+                         {n: v.float() for n, v in g64.items()})
+        out["loss"].append(abs(loss - loss64) / (BF16_U * max(1.0,
+                                                              abs(loss64))))
+        out["grad"].append(total_l2(torch, g, g64) / BF16_U)
+        log("north-star check, batch %d on %s: %s vs f64 (f64 forward and "
+            "backward %.2f s): loss %.7f vs %.7f; ReLU units on the other "
+            "branch %d of %d (frozen to f64's); gradients, masks frozen: "
+            "all together L2 %.4g, per parameter %s" % (
+                x.shape[0], card, str(dtype).split(".")[-1], t64, loss,
+                loss64, flips, sum(int(m.numel()) for m in masks),
+                out["grad"][-1] * BF16_U, gap_text(gaps)))
+        del g, seen
+    _, g = graph_loss_grads(torch, graph, params, aux,
+                            trainer._device_batch(x_other), yd,
+                            torch.bfloat16, {})
+    out["grad"].append(total_l2(torch, g, g64) / BF16_U)
+    return out
+
+
+def ns_steps(torch, trainer, x, y, n):
+    """*n* ``fit_batch`` calls; returns (the loss tensors, host seconds to
+    the readback of the last)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [trainer.fit_batch(x, y) for _ in range(n)]
+    float(losses[-1])
+    return losses, time.perf_counter() - t0
+
+
+def ranged(torch, trainer):
+    """Wrap *trainer*'s update in a profiler range named ``NS_RANGE``."""
+    apply = trainer._apply_update
+
+    def wrapped(*args):
+        with torch.profiler.record_function(NS_RANGE):
+            return apply(*args)
+    trainer._apply_update = wrapped
+
+
+def ns_resnet(torch, card, mx, vision, gen, rng, ctx, failures):
+    """Phase 7 (a) and (e): the mp LARS ResNet-50 step at batch 128,
+    timed and profiled with coalesce_small on and off; then the
+    checkpoint round trip."""
+    b = RESNET_BATCH
+    x = mx.nd.array(rng.randn(b, 3, RESNET_IMAGE, RESNET_IMAGE)
+                    .astype("float32"), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, RESNET_CLASSES, (b,)).astype("float32"),
+                    ctx=ctx)
+    dev = ctx.torch_device
+    net = resnet_net(mx, vision, gen, ctx)
+    trainer = ns_trainer(torch, mx, net, "lbsgd", NS_OPT, dev)
+    off = ns_trainer(torch, mx, net, "lbsgd", NS_OPT, dev,
+                     coalesce_small=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm, _ = ns_steps(torch, trainer, x, y, NS_WARMUP)
+    log("north-star resnet: built the trainer (%d arrays, %d coalesced) and "
+        "ran %d warm-up steps in %.2f s" % (
+            len(trainer.param_names), len(trainer._small), NS_WARMUP,
+            time.perf_counter() - t0))
+    timed, dt = ns_steps(torch, trainer, x, y, NS_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in warm + timed]
+    ms = 1e3 * dt / NS_STEPS
+    bound = 3 * RESNET_FWD_FLOP * b / PEAK_FLOPS["bfloat16"] * 1e3
+    log("north-star resnet: losses of steps 1-%d: %s" % (
+        len(losses), ", ".join("%.4f" % v for v in losses)))
+    log("north-star resnet: batch %d x %d^2, lbsgd (eta %g) lr %g momentum "
+        "%g, bf16 compute weights, f32 masters, coalesce_small on: ms per "
+        "step %.3f (%d steps after %d warm-up, to a readback of the last "
+        "loss), %.1f images/s; bf16 bound %.3f ms (3 x %.4g x %d flop over "
+        "%.0f TFLOP/s), step at %.2f%% of it; peak device memory %.3f GB "
+        "on %s" % (
+            b, RESNET_IMAGE, NS_OPT["eta"], NS_OPT["learning_rate"],
+            NS_OPT["momentum"], ms, NS_STEPS, NS_WARMUP, b / ms * 1e3, bound,
+            RESNET_FWD_FLOP, b, PEAK_FLOPS["bfloat16"] / 1e12,
+            100.0 * bound / ms, peak / 1e9, card))
+    ranged(torch, trainer)
+    shares = profile(torch, lambda: float(trainer.fit_batch(x, y)),
+                     "north-star resnet profile, one step, coalesce_small "
+                     "on", card, NS_SHARES, ranges=(NS_RANGE,))
+    if shares is not None:
+        rest = 1.0 - shares["convolution"] - shares["GEMM"] - \
+            shares[NS_RANGE]
+        log("north-star resnet shares of device time: convolutions %.3f, "
+            "BatchNorm and elementwise (the rest) %.3f, optimizer with LARS "
+            "%.3f, GEMM %.3f; idle %s" % (
+                shares["convolution"], rest, shares[NS_RANGE],
+                shares["GEMM"], "%.3f" % shares["idle"]
+                if "idle" in shares else "not measured"))
+    _, dt_off = ns_steps(torch, off, x, y, NS_OFF_STEPS + 1)
+    _, dt_off = ns_steps(torch, off, x, y, NS_OFF_STEPS)
+    ranged(torch, off)
+    profile(torch, lambda: float(off.fit_batch(x, y)),
+            "north-star resnet profile, one step, coalesce_small off", card,
+            NS_SHARES, ranges=(NS_RANGE,))
+    log("north-star resnet: coalesce_small off: ms per step %.3f (%d steps); "
+        "on: %.3f" % (1e3 * dt_off / NS_OFF_STEPS, NS_OFF_STEPS, ms))
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[NS_FALL - 1] < losses[0]:
+        failures.append("the north-star ResNet loss did not fall from step "
+                        "1 to step %d: %s" % (NS_FALL, losses))
+    del off
+    ns_checkpoint(torch, mx, vision, gen, ctx, trainer, x, y, failures)
+    del trainer, net
+    torch.cuda.empty_cache()
+    return {"ms": ms, "images_s": b / ms * 1e3, "bound_ms": bound,
+            "peak_gb": peak / 1e9, "losses": losses, "shares": shares}
+
+
+def bits(torch, t):
+    """*t*'s bit patterns as integers (so a NaN equals itself)."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def ns_checkpoint(torch, mx, vision, gen, ctx, trainer, x, y, failures):
+    """Phase 7 (e): save *trainer*, build a fresh trainer on a fresh net
+    (``fit_batch`` once), load, and hold params, states, aux and
+    num_update bit-equal."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ns_")
+    try:
+        path = trainer.save_checkpoint(os.path.join(tmp, "ns"), 3)
+        fresh = ns_trainer(torch, mx, resnet_net(mx, vision, gen, ctx),
+                           "lbsgd", NS_OPT, ctx.torch_device)
+        fresh.fit_batch(x, y)
+        fresh.load_checkpoint(os.path.join(tmp, "ns"), 3)
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the fresh net's names carry another counter: match by graph order
+    names = list(zip(trainer.param_names, fresh.param_names))
+    pairs = [(trainer._params[a], fresh._params[b]) for a, b in names]
+    pairs += [(s, t) for a, b in names
+              for s, t in zip(trainer._opt_state[a], fresh._opt_state[b])]
+    pairs += [(trainer._aux[a], fresh._aux[b])
+              for a, b in zip(trainer.aux_names, fresh.aux_names)]
+    equal = sum(bool(torch.equal(bits(torch, a), bits(torch, b)))
+                for a, b in pairs)
+    ok = equal == len(pairs) and fresh._num_update == trainer._num_update
+    log("north-star checkpoint: %.1f MB written; %d of %d arrays (params, "
+        "optimizer states, aux) bit-equal after load, num_update %d vs %d "
+        "-> %s" % (size / 2 ** 20, equal, len(pairs), fresh._num_update,
+                   trainer._num_update, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("the checkpoint round trip changed the state")
+
+
+def ns_checks(torch, card, mx, vision, gen, rng, ctx, failures):
+    """Phase 7 (b) and (c) at batch 32 on a fresh net."""
+    b = NS_CHECK_BATCH
+    x = mx.nd.array(rng.randn(b, 3, RESNET_IMAGE, RESNET_IMAGE)
+                    .astype("float32"), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, RESNET_CLASSES, (b,)).astype("float32"),
+                    ctx=ctx)
+    net = resnet_net(mx, vision, gen, ctx)
+    coalesced = ns_trainer(torch, mx, net, "lbsgd", NS_OPT, ctx.torch_device)
+    per_tensor = ns_trainer(torch, mx, net, "lbsgd", NS_OPT,
+                            ctx.torch_device, coalesce_small=False)
+    for tr in (coalesced, per_tensor):
+        tr.fit_batch(x, y)       # builds; the momenta are not zero after
+    res = check_update(torch, coalesced, per_tensor, x, y)
+    ok = res["f64"] <= 1.0 and res["paths"] <= 1.0 and res["bf16_equal"] \
+        and res["no eta"] > 1.0 and res["bf16 weight"] > 1.0
+    log("north-star update check, batch %d on %s (%d arrays, %d coalesced): "
+        "f32 masters vs the f64 LARS + mp_sgd_mom update, worst error/limit "
+        "%.4f (limit 2**-%d x (|w| + momentum |m| + |lr_n g|)); coalesced vs "
+        "per-tensor %.4f; every bf16 weight its master rounded: %s; wrong "
+        "variants (must exceed 1): trust ratio without eta %.4g, update "
+        "from the bf16 weight %.4g -> %s" % (
+            b, card, len(coalesced.param_names), res["small"], res["f64"],
+            UPDATE_BITS, res["paths"], res["bf16_equal"], res["no eta"],
+            res["bf16 weight"], "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("the update check failed")
+    del per_tensor
+    x_other = mx.nd.array(rng.randn(*x.shape).astype("float32"), ctx=ctx)
+    gaps = check_bf16_vs_f64(torch, card, coalesced, x, y, x_other)
+    ok = gaps["loss"][0] <= TOL_NS_LOSS and gaps["grad"][0] <= TOL_NS_GRAD \
+        and gaps["loss"][1] <= TOL_NS_LOSS / 16 and \
+        gaps["grad"][1] <= TOL_NS_GRAD / 16 and gaps["grad"][2] > TOL_NS_GRAD
+    log("north-star check, bf16 vs f64: loss gap %.4f units of 2**-8 x "
+        "max(1, |loss|) (limit %g), gradient gap (all together, L2) %.4f "
+        "units of 2**-8 (limit %g); f32 vs f64: loss %.4g, gradients %.4g "
+        "(each within 1/16 of its limit); the bf16 gradients of another "
+        "batch %.4f (must exceed the limit) -> %s" % (
+            gaps["loss"][0], TOL_NS_LOSS, gaps["grad"][0], TOL_NS_GRAD,
+            gaps["loss"][1], gaps["grad"][1], gaps["grad"][2],
+            "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("bf16 compute against f64 broke its limits")
+    del coalesced, net
+    torch.cuda.empty_cache()
+    return res, gaps
+
+
+def ns_lm(torch, card, mx, gen, rng, ctx, failures):
+    """Phase 7 (d): the mp LM trainer at 8 x 2048 through the bf16
+    kernels; the main path whose launches are counted."""
+    from mxnet_tpu_torch.executor import _build_eval
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        get_transformer_lm
+    from mxnet_tpu_torch.ops import attention as att
+    x = mx.nd.array(rng.randint(0, VOCAB, (BATCH, SEQ)).astype("int32"),
+                    ctx=ctx, dtype="int32")
+    y = mx.nd.array(rng.randint(0, VOCAB, (BATCH, SEQ)).astype("float32"),
+                    ctx=ctx)
+    net = get_transformer_lm(vocab=VOCAB, dim=DIM, heads=HEADS,
+                             layers=LAYERS, max_seq=SEQ)
+    net.initialize(ctx=ctx, generator=gen)
+    trainer = ns_trainer(torch, mx, net, "sgd", LM_NS_OPT, ctx.torch_device)
+    t0 = time.perf_counter()
+    first = float(trainer.evaluate_batch(x, y))     # builds the trainer
+
+    def plain_dpa(query, key, value, causal=False, sm_scale=None,
+                  chunk=512):
+        return att._chunked_attention(query, key, value, bool(causal),
+                                      sm_scale, chunk)
+    ev = _build_eval(trainer._graph, True, op_impls={
+        "_contrib_DotProductAttention": plain_dpa})
+    with torch.no_grad():
+        outs, _ = ev(dict(trainer._params, data0=x._data, label0=y._data),
+                     trainer._aux)
+        plain = torch.mean(outs[0].float()).item()
+    del outs, ev
+    log("north-star LM: built the trainer (%d arrays) and the plain-"
+        "attention loss in %.2f s" % (len(trainer.param_names),
+                                      time.perf_counter() - t0))
+    counters = (att.flash_fwd, att.flash_bwd_dkdv, att.flash_bwd_dq)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0      # the north-star LM path's counts start here
+    step1, _ = ns_steps(torch, trainer, x, y, 1)
+    timed, dt = ns_steps(torch, trainer, x, y, LM_NS_STEPS - 1)
+    shares = profile(torch, lambda: float(trainer.fit_batch(x, y)),
+                     "north-star LM profile, one step of batch %d x %d"
+                     % (BATCH, SEQ), card, LM_NS_SHARES)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in step1 + timed]
+    steps = LM_NS_STEPS + 1
+    ms = 1e3 * dt / (LM_NS_STEPS - 1)
+    gap = abs(losses[0] - plain) / (BF16_U * max(1.0, abs(plain)))
+    log("north-star LM: vocab %d, dim %d, %d heads, %d layers, batch %d x "
+        "%d int32 ids, sgd lr %g momentum %g, bf16 compute weights: losses "
+        "%s; ms per step %.3f (steps 2-%d), %.0f tokens/s, peak device "
+        "memory %.3f GB on %s; launches %s (expected %d each: %d layers x %d "
+        "steps)" % (
+            VOCAB, DIM, HEADS, LAYERS, BATCH, SEQ,
+            LM_NS_OPT["learning_rate"], LM_NS_OPT["momentum"],
+            ", ".join("%.5f" % v for v in losses), ms, LM_NS_STEPS,
+            BATCH * SEQ / ms * 1e3, peak / 1e9, card, launches,
+            LAYERS * steps, LAYERS, steps))
+    log("north-star LM: step 1's loss with the bf16 kernels %.6f, the same "
+        "weights through the plain attention %.6f (inference evaluation "
+        "%.6f): gap %.4f of 2**-8 x max(1, |loss|) (limit %g)"
+        % (losses[0], plain, first, gap, TOL_LM_NS_LOSS))
+    if shares is not None:
+        log("north-star LM shares of device time: bf16 flash kernels "
+            "together %.3f (fwd %.3f, dkdv %.3f, dq %.3f), bf16 GEMMs %.3f, "
+            "the rest %.3f; flash kernels not in bf16 %.3f (must be 0)" % (
+                sum(shares[k] for k in ("flash_fwd bf16",
+                                        "flash_bwd_dkdv bf16",
+                                        "flash_bwd_dq bf16")),
+                shares["flash_fwd bf16"], shares["flash_bwd_dkdv bf16"],
+                shares["flash_bwd_dq bf16"], shares["bf16 GEMM"],
+                1.0 - sum(v for k, v in shares.items() if k != "idle"),
+                shares["flash, not bf16"]))
+        if shares["flash, not bf16"] > 0 or not all(
+                shares[k] > 0 for k in ("flash_fwd bf16",
+                                        "flash_bwd_dkdv bf16",
+                                        "flash_bwd_dq bf16")):
+            failures.append("the mp LM step did not run the bf16 "
+                            "instantiations of all three kernels")
+    if any(n != LAYERS * steps for n in launches.values()):
+        failures.append("north-star LM launch counts %s" % launches)
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        failures.append("the north-star LM loss did not fall: %s" % losses)
+    if not gap <= TOL_LM_NS_LOSS:
+        failures.append("the LM step's loss with the kernels is %.4f units "
+                        "of 2**-8 from the plain attention's" % gap)
+    lib_ms = sdpa_step_ms(torch, trainer, x, y)
+    log("north-star LM with PyTorch's scaled_dot_product_attention in place "
+        "of the three kernels (a measurement only, after the counted path: "
+        "what tensor-core attention would leave of the step): ms per step "
+        "%.3f (%d steps), %.0f tokens/s, against %.3f with the kernels"
+        % (lib_ms, LM_NS_STEPS - 1, BATCH * SEQ / lib_ms * 1e3, ms))
+    del trainer, net
+    torch.cuda.empty_cache()
+    return launches, {"ms": ms, "tokens_s": BATCH * SEQ / ms * 1e3,
+                      "peak_gb": peak / 1e9, "losses": losses,
+                      "shares": shares, "plain_gap": gap}
+
+
+def sdpa_step_ms(torch, trainer, x, y):
+    """ms per ``fit_batch`` of *trainer* with its attention op evaluated by
+    ``scaled_dot_product_attention`` (fresh weights do not matter: only
+    the time is kept); the trainer's own evaluation is restored after."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.executor import _build_eval
+
+    def sdpa(query, key, value, causal=False, sm_scale=None, chunk=512):
+        return F.scaled_dot_product_attention(query, key, value,
+                                              is_causal=bool(causal),
+                                              scale=sm_scale)
+    own = trainer._eval
+    trainer._eval = _build_eval(trainer._graph, True, op_impls={
+        "_contrib_DotProductAttention": sdpa})
+    try:
+        ns_steps(torch, trainer, x, y, 1)
+        _, dt = ns_steps(torch, trainer, x, y, LM_NS_STEPS - 1)
+    finally:
+        trainer._eval = own
+    return 1e3 * dt / (LM_NS_STEPS - 1)
+
+
+def phase_north_star(torch, card, seed):
+    """Phase 7: the north-star trainer on the card.  Raises without CUDA:
+    it never runs on the CPU; raises after the phase when any check
+    failed.  Returns the LM path's launches."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 7 needs a CUDA device")
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    ctx = mx.gpu(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 3)
+    rng = np.random.RandomState(seed + 3)
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    failures = []
+    # bf16 convolutions take cuDNN's default (tensor-core) path and set
+    # no precision; the process default must come out as it went in
+    before = torch.backends.cudnn.conv.fp32_precision
+    ns_resnet(torch, card, mx, vision, gen, rng, ctx, failures)
+    ns_checks(torch, card, mx, vision, gen, rng, ctx, failures)
+    launches, _ = ns_lm(torch, card, mx, gen, rng, ctx, failures)
+    after = torch.backends.cudnn.conv.fp32_precision
+    log("north-star: bf16 convolutions set precision %r; cuDNN's process "
+        "default f32 convolution precision %r before the phase, %r after"
+        % (nn_ops.conv_precision(torch.bfloat16), before, after))
+    if after != before or nn_ops.conv_precision(torch.bfloat16) is not None:
+        failures.append("the phase changed cuDNN's convolution precision")
+    if failures:
+        raise RuntimeError("phase 7 failed: " + "; ".join(failures))
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1513,6 +2093,7 @@ def main():
     serve_launches = phase_serve(torch, card, args.seed)
     train_launches = phase_train(torch, card, args.seed)
     phase_resnet(torch, card, args.seed)
+    ns_launches = phase_north_star(torch, card, args.seed)
     b, h, sq, sk, d = PATH_SHAPE
     kernels = []
     for name, source, replaces in (
@@ -1521,7 +2102,8 @@ def main():
              "mxnet_tpu/ops/attention.py:335"),
             ("flash_bwd_dq", "flash_bwd.cu",
              "mxnet_tpu/ops/attention.py:380")):
-        by_path = {"train": train_launches[name]}
+        by_path = {"train": train_launches[name],
+                   "north-star LM train (bf16)": ns_launches[name]}
         if name == "flash_fwd":
             by_path = {"serve": serve_launches, **by_path}
         kernels.append(dict({

@@ -21,6 +21,8 @@ from . import symbol as sym  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import lr_scheduler  # noqa: F401
 from . import gluon  # noqa: F401
 from . import model  # noqa: F401
 from . import serve  # noqa: F401
+from . import parallel  # noqa: F401

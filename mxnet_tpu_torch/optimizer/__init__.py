@@ -1,4 +1,7 @@
-"""Optimizers (port of ``mxnet_tpu/optimizer/``, subset)."""
+"""Optimizers (port of ``mxnet_tpu/optimizer/``: the 16 optimizers,
+multi-precision, ``Updater``)."""
 
-from .optimizer import (Optimizer, SGD, Updater, create, register,  # noqa: F401
-                        get_updater)
+from .optimizer import (Optimizer, SGD, Signum, SignSGD, FTML,  # noqa: F401
+                        LBSGD, DCASGD, NAG, SGLD, Adam, AdaGrad, RMSProp,
+                        AdaDelta, Ftrl, Adamax, Nadam, Test, Updater,
+                        create, register, get_updater)

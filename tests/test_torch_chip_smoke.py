@@ -9,7 +9,14 @@ on one that an earlier run left behind.
 Phase 6 (ResNet-50): its limits against float64 pass f32-sized errors
 and fail TF32-sized ones (the sizes its first run on an H100 measured),
 its TF32 pass really switches the port's f32 convolutions to TF32, and
-the phase raises without CUDA."""
+the phase raises without CUDA.
+
+Phase 7 (the north-star trainer): the update check passes the trainer's
+coalesced and per-tensor LARS + mp_sgd_mom updates against the float64
+formula and fails its two wrong variants, on a small net on the CPU; the
+bf16-vs-f64 check's limits pass the gaps its first H100 run measured and
+fail the other batch's; the checkpoint round trip holds a ResNet
+trainer's state bit for bit; the phase raises without CUDA."""
 
 import os
 import sys
@@ -217,3 +224,140 @@ def test_resnet_phase_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         chip_smoke.phase_resnet(torch, "no card", 0)
+
+
+def _small_trainers(coalesce=(None, False)):
+    """Two multi-precision LARS trainers (bench.py's optimizer) of one
+    small conv + BatchNorm net on the CPU, coalesced and per-tensor."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    nn = mx.gluon.nn
+    net = nn.HybridSequential(prefix="ns_")
+    with net.name_scope():
+        net.add(nn.Conv2D(8, 3, padding=1), nn.BatchNorm(),
+                nn.Activation("relu"), nn.Conv2D(16, 3, padding=1),
+                nn.BatchNorm(), nn.Activation("relu"), nn.Dense(5))
+    net.initialize(mx.init.Xavier(rnd_type="gaussian"), ctx=mx.cpu())
+    rs = np.random.RandomState(0)
+    x = mx.nd.array(rs.randn(8, 3, 8, 8).astype("float32"), ctx=mx.cpu())
+    y = mx.nd.array(rs.randint(0, 5, (8,)).astype("float32"), ctx=mx.cpu())
+    net(x)
+    trainers = [chip_smoke.ns_trainer(torch, mx, net, "lbsgd",
+                                      chip_smoke.NS_OPT, torch.device("cpu"),
+                                      coalesce_small=c) for c in coalesce]
+    for tr in trainers:
+        tr.fit_batch(x, y)
+    return trainers, x, y
+
+
+def test_update_check_passes_the_trainer_and_fails_wrong_updates():
+    import torch
+    (coalesced, per_tensor), x, y = _small_trainers()
+    res = chip_smoke.check_update(torch, coalesced, per_tensor, x, y)
+    assert res["small"] >= 2 and not per_tensor._small
+    assert res["f64"] <= 1.0 and res["paths"] <= 1.0 and res["bf16_equal"]
+    assert res["no eta"] > 1.0 and res["bf16 weight"] > 1.0
+
+
+def test_lars_f64_reference_is_the_update_op():
+    """The float64 formula of phase 7 (b) is the mp_sgd_mom update with
+    the LARS rate, and its trust ratio is 1 where a norm is 0."""
+    import torch
+    from mxnet_tpu_torch.ops.registry import get_op
+    g = torch.Generator()
+    g.manual_seed(0)
+    w32 = torch.randn(40, generator=g)
+    mom = torch.randn(40, generator=g) * 1e-3
+    grad = torch.randn(40, generator=g).to(torch.bfloat16)
+    opt = dict(chip_smoke.NS_OPT, wd=1e-4)
+    want, m64, scale = chip_smoke.lars_mp_f64(torch, w32, mom, grad, 0.1,
+                                              opt)
+    wn, gn = w32.double().norm(), grad.double().norm()
+    lr_n = 0.1 * 0.001 * wn / (gn + 1e-4 * wn + 1e-9)
+    w, m, w32c = w32.to(torch.bfloat16), mom.clone(), w32.clone()
+    get_op("mp_sgd_mom_update").fn(w, grad, m, w32c, lr=float(lr_n),
+                                   momentum=0.9, wd=1e-4)
+    assert ((w32c.double() - want).abs() <= 2.0 ** -20 * scale).all()
+    assert ((m.double() - m64).abs() <= 2.0 ** -20 * scale).all()
+    zero, _, _ = chip_smoke.lars_mp_f64(torch, torch.zeros(3),
+                                        torch.zeros(3), torch.ones(3),
+                                        0.1, opt)
+    assert torch.allclose(zero, torch.full((3,), -0.1, dtype=zero.dtype))
+
+
+# phase 7's first run on an NVIDIA H100 80GB HBM3 (PERF.md): bf16 and f32
+# against f64 at ResNet-50's initial weights, batch 32, in units of 2**-8
+# (the loss times max(1, |loss|), the whole gradient's L2 gap), and the
+# bf16 gradient of another batch
+NS_LOSS_BF16, NS_LOSS_F32 = 13.2468, 1.83e-05
+NS_GRAD_BF16, NS_GRAD_F32, NS_GRAD_OTHER = 103.4988, 0.03409, 363.2012
+
+
+def test_bf16_limits_pass_the_measured_gaps_and_fail_another_batch():
+    assert NS_LOSS_BF16 <= chip_smoke.TOL_NS_LOSS
+    assert NS_LOSS_F32 <= chip_smoke.TOL_NS_LOSS / 16
+    assert NS_GRAD_BF16 <= chip_smoke.TOL_NS_GRAD < NS_GRAD_OTHER
+    assert NS_GRAD_F32 <= chip_smoke.TOL_NS_GRAD / 16
+    import torch
+    a = {"w": torch.tensor([3.0, 4.0]), "b": torch.tensor([0.0])}
+    b = {"w": torch.tensor([3.0, 0.0]), "b": torch.tensor([0.0])}
+    assert chip_smoke.total_l2(torch, a, b) == pytest.approx(4.0 / 3.0)
+
+
+def test_bf16_check_runs_and_orders_the_gaps():
+    """On the small net on the CPU: f32 sits far nearer f64 than bf16,
+    and another batch's gradient is farther than either."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    import torch
+    (tr,), x, y = _small_trainers(coalesce=(None,))
+    other = mx.nd.array(np.random.RandomState(1).randn(*x.shape)
+                        .astype("float32"), ctx=mx.cpu())
+    gaps = chip_smoke.check_bf16_vs_f64(torch, "cpu", tr, x, y, other)
+    assert gaps["grad"][1] < gaps["grad"][0] / 16 < gaps["grad"][2]
+    assert gaps["loss"][1] < gaps["loss"][0]
+
+
+def test_checkpoint_round_trip_of_a_resnet_trainer(monkeypatch):
+    """Phase 7 (e) on a ResNet-18 of 10 classes (the phase's net, cut to
+    size for the CPU)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    monkeypatch.setattr(chip_smoke, "RESNET", "resnet18_v1")
+    monkeypatch.setattr(chip_smoke, "RESNET_CLASSES", 10)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    rs = np.random.RandomState(0)
+    x = mx.nd.array(rs.randn(2, 3, 32, 32).astype("float32"), ctx=mx.cpu())
+    y = mx.nd.array(rs.randint(0, 10, (2,)).astype("float32"),
+                    ctx=mx.cpu())
+    tr = chip_smoke.ns_trainer(
+        torch, mx, chip_smoke.resnet_net(mx, vision, gen, mx.cpu()),
+        "lbsgd", chip_smoke.NS_OPT, torch.device("cpu"))
+    tr.fit_batch(x, y)
+    tr.fit_batch(x, y)
+    failures = []
+    chip_smoke.ns_checkpoint(torch, mx, vision, gen, mx.cpu(), tr, x, y,
+                             failures)
+    assert failures == []
+
+
+def test_bits_tell_every_pattern_apart():
+    import torch
+    nan = torch.tensor([float("nan"), 0.0, -0.0])
+    assert torch.equal(chip_smoke.bits(torch, nan), chip_smoke.bits(
+        torch, nan.clone()))
+    assert not torch.equal(chip_smoke.bits(torch, nan[1:2]),
+                           chip_smoke.bits(torch, nan[2:3]))
+    assert chip_smoke.bits(torch, nan.to(torch.bfloat16)).dtype == \
+        torch.int16
+
+
+def test_north_star_phase_raises_without_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chip_smoke.phase_north_star(torch, "no card", 0)

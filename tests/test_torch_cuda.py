@@ -508,3 +508,49 @@ def test_f32_convolution_runs_full_f32_forward_and_backward(
                         lambda dt: "tf32" if dt == torch.float32 else None)
     tf32 = worst(run(torch.float32))
     assert f32 <= 1e-4 < tf32, (f32, tf32)
+
+
+def test_mp_lars_step_on_the_card_matches_the_cpu(cuda):
+    """Two ParallelTrainer steps of a thumbnail ResNet-18 (bench.py's
+    north-star optimizer: lbsgd, lr 0.1, eta 0.001, momentum 0.9, bf16
+    compute weights with float32 masters, small arrays coalesced) on the
+    card and on the CPU from the same weights: the losses, masters,
+    momenta and running statistics within 16 x 2**-8 x max(1, max |x|)
+    (bf16 rounds in other places on the two devices; the CPU parity
+    tests against the JAX package hold the same limit), and every bf16
+    weight is its master rounded on both."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import ParallelTrainer, make_mesh
+    rng = np.random.RandomState(0)
+    x = rng.randn(4, 3, 32, 32).astype("float32")
+    y = rng.randint(0, 10, (4,)).astype("float32")
+    net = mx.gluon.model_zoo.vision.get_model(
+        "resnet18_v1", classes=10, thumbnail=True, prefix="r18_")
+    net.initialize(mx.init.Xavier(rnd_type="gaussian"), ctx=mx.cpu())
+    net(mx.nd.array(x, ctx=mx.cpu()))
+    trainers = [ParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="lbsgd",
+        optimizer_params={"learning_rate": 0.1, "eta": 0.001,
+                          "momentum": 0.9},
+        mesh=make_mesh({"dp": 1}, [dev]), multi_precision=True)
+        for dev in (cuda, torch.device("cpu"))]
+    losses = [[float(tr.fit_batch(x, y)) for _ in range(2)]
+              for tr in trainers]
+    tol = 16 * 2.0 ** -8
+    np.testing.assert_allclose(losses[0], losses[1], rtol=tol, atol=tol)
+    gpu, cpu = trainers
+    assert gpu._params[gpu.param_names[0]].device.type == cuda.type
+    assert len(gpu._small) > 2
+
+    def close(a, b):
+        a, b = a.float().cpu(), b.float()
+        assert (a - b).abs().max().item() <= tol * max(
+            1.0, b.abs().max().item())
+    for n in gpu.param_names:
+        for a, b in zip(gpu._opt_state[n], cpu._opt_state[n]):
+            close(a, b)
+        for tr in trainers:
+            assert torch.equal(tr._params[n],
+                               tr._opt_state[n][-1].to(torch.bfloat16))
+    for n in gpu.aux_names:
+        close(gpu._aux[n], cpu._aux[n])

@@ -42,7 +42,8 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.gluon.model_zoo.vision, "
             "mxnet_tpu_torch.gluon.nn.conv_layers, "
             "mxnet_tpu_torch.autograd, mxnet_tpu_torch.optimizer, "
-            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.loss; "
+            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.loss, "
+            "mxnet_tpu_torch.parallel, mxnet_tpu_torch.lr_scheduler; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')))")
@@ -89,7 +90,8 @@ def test_gpu_context_without_cuda_raises(no_cuda):
 
 @pytest.mark.parametrize("entry", ["nd.array", "nd.zeros", "initialize",
                                    "load_checkpoint", "nd.load", "Trainer",
-                                   "resnet initialize"])
+                                   "resnet initialize", "make_mesh",
+                                   "make_mesh gpu", "ParallelTrainer"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -109,6 +111,17 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         p = mx.gluon.Parameter("w", shape=(0,), allow_deferred_init=True)
         p.initialize(ctx=mx.gpu(0))
         call = lambda: mx.gluon.Trainer([p], "sgd")
+    elif entry == "make_mesh":
+        call = mx.parallel.make_mesh
+    elif entry == "make_mesh gpu":
+        call = lambda: mx.parallel.make_mesh({"dp": 1}, [mx.gpu(0)])
+    elif entry == "ParallelTrainer":
+        # no mesh: the default one is cuda:0; only an explicit CPU mesh
+        # trains on the CPU
+        net = mx.gluon.model_zoo.vision.get_model("resnet18_v1")
+        call = lambda: mx.parallel.ParallelTrainer(
+            net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "lbsgd",
+            {"learning_rate": 0.1}, multi_precision=True)
     else:
         mx.nd.save(str(tmp_path / "m-0000.params"),
                    {"arg:w": mx.nd.array(np.ones(2), ctx=mx.cpu())})

@@ -139,10 +139,13 @@ def test_updater_refuses_a_blob_that_holds_an_optimizer():
 
 
 def test_create_refuses_what_is_not_ported():
-    with pytest.raises(tmx.MXNetError, match="not ported"):
-        topt.create("adam")
-    with pytest.raises(tmx.MXNetError, match="multi_precision"):
-        topt.create("sgd", multi_precision=True)
+    # every optimizer of the JAX package is ported (and multi_precision
+    # with them, tests/test_torch_optimizer_mp.py); a name neither
+    # package registers raises
+    with pytest.raises(tmx.MXNetError, match="not registered"):
+        topt.create("lamb")
+    assert isinstance(topt.create("adam"), topt.Adam)
+    assert topt.create("sgd", multi_precision=True).multi_precision
     sgd = topt.SGD(learning_rate=0.3)
     assert topt.create(sgd) is sgd
     sgd.set_learning_rate(0.7)
