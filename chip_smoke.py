@@ -17,13 +17,26 @@ Phases, each reported on its own line; any failure exits non-zero:
              plain version and one PyTorch library call at the paths'
              shape, and the wide-head kernels beside their plain
              versions.
-4. serve   — the serving path at full width: build the transformer LM
+4. serve   — batch serving at full width: build the transformer LM
              (vocab 32000, dim 1024, heads 16, 12 layers, seq 2048),
              hybridize, forward, export a checkpoint, load it into a
-             ``serve.ModelRegistry`` and answer requests of 1, 3 and 8
-             rows.  Every answer is checked against the same exported
-             graph evaluated with the plain attention, and the kernel
-             launch counts show the path ran the kernel.
+             ``serve.ModelRegistry`` on the ladder (1, 2, 4, 8) with the
+             sequence rounded to 512, one CUDA graph captured per rung;
+             answer direct requests of 1, 3 and 8 rows; then serve
+             ``registry.submit`` traffic through the DynamicBatcher: a
+             closed loop of 8 client threads x 13 requests of 1-4 rows,
+             an open loop of 100 requests at half its request rate, and
+             two direct requests of 700 and 900 tokens (one capture of
+             the 1024 rung).  Every answer is held against the same
+             graph with the plain attention; every coalesced answer is
+             bit-equal to predict of its stacked batch (by CRC-32, so
+             the loops hold no answer past its digest); the 700-token
+             answer's first 700 positions match an unpadded eager
+             forward; replay matches eager at each rung (timed side by
+             side); the requests coalesce, no capture happens beyond the
+             planned one, no future is left unresolved, and replays x
+             captured launches equal 12 layers x dispatches; a profiled
+             replay runs flash_fwd.
 5. train   — the training path at full width: the same LM, batch 8 x
              2048 tokens, ``autograd.record`` -> SoftmaxCrossEntropyLoss
              -> ``backward`` -> ``gluon.Trainer.step`` (SGD lr 0.01,
@@ -37,10 +50,11 @@ Phases, each reported on its own line; any failure exits non-zero:
              and depth on the same paths, with Convolution, BatchNorm,
              Pooling and Flatten on PyTorch and cuDNN (no TPU kernel lies
              on it).  Serve: hybridize, export, ``ModelRegistry``, warm
-             rungs 1, 8, 32 and answer requests of 1, 8 and 32 images of
-             224 x 224, each held against the same graph and weights in
-             float64 on the card; the same requests with TF32
-             convolutions must break that limit.  Check step, batch 32:
+             rungs 1, 8, 32 (a CUDA graph each) and answer requests of 1,
+             8 and 32 images of 224 x 224, each held against the same
+             graph and weights in float64 on the card; the same requests
+             with TF32 convolutions must break that limit; graph against
+             eager per rung, timed.  Check step, batch 32:
              loss, every gradient (ReLU masks frozen to the f64 run's) and
              the running statistics against a float64 step; a TF32 run
              must break the gradient limit (SGD lr 0.1, momentum 0.9).
@@ -85,6 +99,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -111,6 +126,21 @@ BIG_BH_PLAIN_MB = 1024
 RUNGS = (1, 2, 4, 8)
 REQUESTS = (1, 3, 8)
 TRAIN_STEPS = 4
+# phase 4's batched serving, shaped as bench.py --serve drives it
+# (bench.py:709-903): closed-loop client threads, then an open loop at a
+# fixed arrival rate, requests of 1 to 4 rows; the ladder rounds the
+# sequence axis to 512 up to the model's 2048
+SERVE_SEQ_AXES, SERVE_SEQ_MAX = {1: 512}, {1: SEQ}
+CLOSED_THREADS, CLOSED_PER_THREAD = 8, 13      # 104 requests
+MAX_ROWS = 4
+MAX_WAIT_MS = 2.0
+OPEN_SHARE, OPEN_REQUESTS = 0.5, 100    # at half the closed loop's rate
+# a nearest-rank p99 of fewer requests is the slowest one or next to it:
+# below this sample it is reported as not measured
+P99_MIN_REQUESTS = 100
+DIGEST_WORKERS = 3                      # threads that CRC the answers
+DIRECT_SEQS = (700, 900)                # both round to the 1024 rung
+GRAPH_ITERS = 3                         # runs per rung, graph and eager
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s by type
 PEAK_BYTES = 3.35e12
@@ -742,7 +772,290 @@ def phase_kernel(torch, card, seed):
     return rows
 
 
+def percentile(values, q):
+    """The *q*-th percentile of *values*, by nearest rank."""
+    s = sorted(values)
+    rank = int(math.ceil(q / 100.0 * len(s)))
+    return s[min(len(s), max(1, rank)) - 1]
+
+
+def request_tokens(rng, n, seq=SEQ):
+    """*n* requests of 1 to MAX_ROWS rows (uniform) of *seq* token ids."""
+    return [rng.randint(0, VOCAB, (int(rng.randint(1, MAX_ROWS + 1)), seq))
+            .astype("float32") for _ in range(n)]
+
+
+def record_batches(pred):
+    """Keep each stacked input the batcher dispatches (it calls
+    ``pred.predict``).  Returns (the list, a function that restores
+    ``pred.predict``)."""
+    real = pred.predict
+    batches = []
+
+    def recording(data, key=None):
+        batches.append(data["data0"].copy())
+        return real(data, key=key)
+
+    pred.predict = recording
+    return batches, lambda: pred.__dict__.pop("predict", None)
+
+
+class Answers:
+    """The answered requests of one loop, each reduced by a few worker
+    threads to its latency (submit to answer), its rows and the CRC-32
+    of its output, then let go: an LM answer is 262 MB a row, so a loop
+    of 100 requests cannot keep them all."""
+
+    def __init__(self, n, timeout=600.0):
+        self.records = [None] * n
+        self._pool = concurrent.futures.ThreadPoolExecutor(DIGEST_WORKERS)
+        self._jobs = []
+        self._timeout = timeout
+
+    def add(self, i, fut):
+        """Digest request *i*'s future once it resolves."""
+        self._jobs.append(self._pool.submit(self._digest, i, fut))
+
+    def _digest(self, i, fut):
+        out = fut.result(self._timeout)[0]
+        self.records[i] = {"latency": fut._t_resolved - fut._t_enq,
+                           "resolved": fut._t_resolved,
+                           "rows": out.shape[0], "crc": crc32(out)}
+
+    def wait(self):
+        """Every record (None for a request never answered); re-raises
+        the first failed answer."""
+        try:
+            for job in self._jobs:
+                job.result()
+        finally:
+            self._pool.shutdown()
+        return self.records
+
+
+def crc32(a):
+    """CRC-32 of a C-contiguous array's bytes (zlib drops the GIL)."""
+    import zlib
+    return zlib.crc32(memoryview(a).cast("B"))
+
+
+def closed_loop(reg, name, xs, threads, answers, timeout=600.0):
+    """*threads* clients, each submitting its share of *xs* one after
+    another through ``reg.submit``, waiting for each answer and handing
+    it to *answers*.  Returns the wall seconds until the last answer."""
+    errors = []
+
+    def client(mine):
+        try:
+            for i in mine:
+                fut = reg.submit(name, xs[i])
+                fut.result(timeout)
+                answers.add(i, fut)
+        except Exception as e:          # re-raised below
+            errors.append(e)
+
+    share = [list(range(t, len(xs), threads)) for t in range(threads)]
+    workers = [threading.Thread(target=client, args=(m,)) for m in share]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout)
+    wall = time.perf_counter() - t0
+    if any(w.is_alive() for w in workers):
+        raise RuntimeError("a closed-loop client did not finish in %.0f s"
+                           % timeout)
+    if errors:
+        raise errors[0]
+    return wall
+
+
+def open_loop(reg, name, xs, rate, answers):
+    """Submit xs[i] at i / *rate* seconds after the first, whatever the
+    answers, each handed to *answers*; then wait for all.  Returns the
+    seconds from the first submit to the last answer."""
+    t0 = time.monotonic()
+    for i, x in enumerate(xs):
+        delay = t0 + i / rate - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+        answers.add(i, reg.submit(name, x))
+    return max(r["resolved"] for r in answers.wait()) - t0
+
+
+def traffic_stats(records, wall, seq=SEQ):
+    """Latency percentiles and rates of one loop's answered *records*.
+    p99 is None below P99_MIN_REQUESTS requests."""
+    lat = [r["latency"] for r in records]
+    rows = sum(r["rows"] for r in records)
+    return {"requests": len(records), "rows": rows,
+            "p50_ms": percentile(lat, 50) * 1e3,
+            "p99_ms": percentile(lat, 99) * 1e3
+            if len(lat) >= P99_MIN_REQUESTS else None,
+            "requests_s": len(records) / wall,
+            "tokens_s": rows * seq / wall, "wall_s": wall}
+
+
+def batch_members(stacked, xs):
+    """[(request index, first row)] of the requests a dispatched batch
+    carried, in order: the batcher concatenates whole requests."""
+    first = {x[0].tobytes(): i for i, x in enumerate(xs)}
+    out, j = [], 0
+    while j < len(stacked):
+        i = first.get(stacked[j].tobytes())
+        if i is None or not (stacked[j:j + len(xs[i])] == xs[i]).all():
+            raise RuntimeError("batch row %d is no request's" % j)
+        out.append((i, j))
+        j += len(xs[i])
+    return out
+
+
+def check_coalesced(torch, pred, ev, batches, xs, records):
+    """Hold each coalesced answer against the predictor's own predict of
+    the stacked batch, bit for bit (the CRC-32 of each request's rows),
+    and that predict against the same graph with the plain attention at
+    the batch's rung (TOL_SERVE): an answer bit-equal to a predict within
+    the limit is within it too.  Returns the mean occupancy (rows /
+    rung), whether every answer was bit-equal, and the worst ratio of
+    error to its limit."""
+    bit_equal, worst, occupancy = True, 0.0, []
+    dev = pred._dev
+    host = None                         # one pinned readback buffer
+    pool = concurrent.futures.ThreadPoolExecutor(DIGEST_WORKERS)
+    try:
+        for stacked in batches:
+            rows = stacked.shape[0]
+            shape = pred.ladder.pad_shape(stacked.shape)
+            occupancy.append(rows / float(shape[0]))
+            want = pred.predict(stacked)[0]._data
+            pad = torch.zeros(shape, dtype=torch.float32, device=dev)
+            pad[:rows, :stacked.shape[1]] = torch.from_numpy(stacked).to(dev)
+            with torch.no_grad():
+                plain = ev(dict(pred._params, data0=pad), {})[0][0][:rows]
+            scale = max(1.0, plain.abs().max().item())
+            err = (want - plain).abs().max().item()
+            worst = max(worst, err / (TOL_SERVE * scale))
+            if host is None or host.numel() < want.numel():
+                host = torch.empty(want.numel(), dtype=want.dtype,
+                                   pin_memory=dev.type == "cuda")
+            got = host[:want.numel()].view(want.shape)
+            got.copy_(want)
+            got = got.numpy()
+            members = batch_members(stacked, xs)
+            crcs = pool.map(lambda m: crc32(got[m[1]:m[1] + len(xs[m[0]])]),
+                            members)
+            for (i, _), crc in zip(members, crcs):
+                bit_equal = bit_equal and records[i]["crc"] == crc
+            del want, plain, pad, got
+    finally:
+        pool.shutdown()
+    return {"occupancy": sum(occupancy) / len(occupancy),
+            "bit_equal": bit_equal, "worst": worst}
+
+
+def serve_failures(s):
+    """The checks of phase 4 over its record *s*; returns what failed
+    (an empty list when every check passed)."""
+    out = []
+    if not s["closed_batches"] < s["closed_requests"]:
+        out.append("the closed loop did not coalesce: %d batches for %d "
+                   "requests" % (s["closed_batches"], s["closed_requests"]))
+    if s["compiles_after"] != s["compiles_warm"] + 1:
+        out.append("compile_count %d -> %d through the traffic, expected "
+                   "one capture (the 1024 rung)"
+                   % (s["compiles_warm"], s["compiles_after"]))
+    if s["unresolved"]:
+        out.append("%d futures unresolved" % s["unresolved"])
+    for rung, got in sorted(s["captured"].items()):
+        if got != {"flash_fwd": LAYERS}:
+            out.append("rung %s captured launches %s, expected flash_fwd %d"
+                       % (rung, got, LAYERS))
+    if s["graph_launches"] != LAYERS * s["dispatches"]:
+        out.append("graph launches %d != %d layers x %d dispatches"
+                   % (s["graph_launches"], LAYERS, s["dispatches"]))
+    if s["replays"] != s["dispatches"]:
+        out.append("%d replays for %d dispatches" % (s["replays"],
+                                                     s["dispatches"]))
+    if s["traffic_wrapper"] != LAYERS:
+        out.append("the traffic launched flash_fwd %d times from its "
+                   "wrapper, expected %d (the 1024 rung's warm-up)"
+                   % (s["traffic_wrapper"], LAYERS))
+    if s["traffic_captured"] != LAYERS:
+        out.append("the traffic captured flash_fwd %d times, expected %d "
+                   "(the 1024 rung's capture)"
+                   % (s["traffic_captured"], LAYERS))
+    for what in ("bit_equal_closed", "bit_equal_open"):
+        if not s[what]:
+            out.append("%s: a coalesced answer is not bit-equal to predict "
+                       "of its stacked batch" % what)
+    for what in ("worst_closed", "worst_open", "worst_direct",
+                 "worst_graph_eager", "pad_ratio"):
+        if not s[what] <= 1.0:
+            out.append("%s: %.4g of the limit" % (what, s[what]))
+    if not s["profile_flash_fwd"] > 0:
+        out.append("no flash_fwd kernel in the profiled replay")
+    return out
+
+
+def graph_vs_eager(torch, pred, rng, card, what, rows_list, make_input,
+                   limit):
+    """For each rung: ms of a request, from its host input to its
+    answer on the device, through the graph (``predict``: pad on the
+    host, copy in, replay, clone out) against the same eager graph (pad
+    on the host, copy in, run op by op), each over GRAPH_ITERS runs, and
+    the replay's error against eager as a share of *limit* x max(1,
+    max |eager|).  Returns the worst share."""
+    worst = 0.0
+    name = next(iter(pred._data_shapes))
+    for rows in rows_list:
+        x = make_input(rng, rows)
+        shape = pred.ladder.pad_shape(x.shape)
+        times, peak = {}, {}
+
+        def eager():
+            pad = torch.zeros(shape, dtype=torch.float32)
+            pad[:rows] = torch.from_numpy(x)
+            return pred._run({name: pad.to(pred._dev)})[0][:rows]
+        for mode, run in (
+                ("graph", lambda: pred.predict(x)[0]._data),
+                ("eager", eager)):
+            out = run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_ITERS):
+                out = run()
+            torch.cuda.synchronize()
+            times[mode] = (time.perf_counter() - t0) * 1e3 / GRAPH_ITERS
+            peak[mode] = torch.cuda.max_memory_allocated() / 1e9
+            if mode == "graph":
+                got = out
+            else:
+                want = out
+        scale = max(1.0, want.abs().max().item())
+        share = (got - want).abs().max().item() / (limit * scale)
+        worst = max(worst, share)
+        log("%s: %d rows (rung %d): graph %.3f ms, eager %.3f ms per "
+            "request (%d runs each), peak device memory %.3f / %.3f GB; "
+            "replay vs eager %.4f of the limit (%g x max(1, max|eager|)), "
+            "bit-equal %s on %s" % (
+                what, rows, shape[0], times["graph"], times["eager"],
+                GRAPH_ITERS, peak["graph"], peak["eager"], share, limit,
+                torch.equal(got, want), card))
+        del got, want, out
+    return worst
+
+
 def phase_serve(torch, card, seed):
+    """Phase 4: the LM served through ``registry.submit`` with one CUDA
+    graph per rung.  Raises without CUDA: it never runs on the CPU.
+    Returns the path's flash_fwd launches: the wrapper's ("eager": the
+    first forward and each rung's warm-up run; a capture only records)
+    and the graphs' (replays x captured) of the warm replays and direct
+    requests ("direct") and of the batched traffic's dispatches
+    ("traffic")."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 4 needs a CUDA device")
     import numpy as np
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.executor import _build_eval
@@ -757,8 +1070,11 @@ def phase_serve(torch, card, seed):
     torch.cuda.reset_peak_memory_stats()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     prefix = os.path.join(tmp, "lm")
+    rec = {}
 
-    att.flash_fwd.launches = 0      # the serving path's count starts here
+    # the main path, in segments: the wrapper's count is set to 0 before
+    # each and read after it; comparisons run between segments
+    att.flash_fwd.launches = att.flash_fwd.captured = 0
     t0 = time.perf_counter()
     net = get_transformer_lm(vocab=VOCAB, dim=DIM, heads=HEADS,
                              layers=LAYERS, max_seq=SEQ)
@@ -778,76 +1094,210 @@ def phase_serve(torch, card, seed):
         raise RuntimeError("first forward: bad output %s" % (first.shape,))
 
     reg = mx.serve.ModelRegistry()
+    ladder = mx.serve.BucketLadder(batches=RUNGS, seq_axes=SERVE_SEQ_AXES,
+                                   seq_max=SERVE_SEQ_MAX)
     t0 = time.perf_counter()
-    pred = reg.load_checkpoint(
-        "lm", prefix, 0, data_shapes={"data0": (1, SEQ)},
-        ladder=mx.serve.BucketLadder(batches=RUNGS), ctx=ctx)
-    log("serve: load_checkpoint + warm of %d rungs in %.2f s" % (
-        len(RUNGS), time.perf_counter() - t0))
+    pred = reg.load_checkpoint("lm", prefix, 0,
+                               data_shapes={"data0": (1, SEQ)},
+                               ladder=ladder, ctx=ctx)
+    rec["captured"] = {b: pred.captured_launches(pred.rung_shapes(b))
+                       for b in RUNGS}
+    rec["compiles_warm"] = pred.compile_count
+    log("serve: load_checkpoint + warm of %r in %.2f s: %d CUDA graphs "
+        "captured (compile_count), flash_fwd launches captured per rung %s; "
+        "graph pool and the rest: %.3f GB allocated, %.3f GB reserved" % (
+            ladder, time.perf_counter() - t0, pred.compile_count,
+            rec["captured"], torch.cuda.memory_allocated() / 1e9,
+            torch.cuda.memory_reserved() / 1e9))
     answers = []
     for rows in REQUESTS:
         x = rng.randint(0, VOCAB, (rows, SEQ)).astype("float32")
-        before = att.flash_fwd.launches
+        w0, g0 = att.flash_fwd.launches, pred.graph_launches()["flash_fwd"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = reg.predict("lm", x)[0]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        grew = att.flash_fwd.launches - before
+        grew = (att.flash_fwd.launches - w0,
+                pred.graph_launches()["flash_fwd"] - g0)
         log("serve: request of %d rows (rung %d): %.2f ms, %.0f tokens/s, "
-            "flash_fwd launches +%d on %s" % (
+            "flash_fwd wrapper +%d, graph launches +%d on %s" % (
                 rows, pred.ladder.batch_for(rows), dt * 1e3,
-                rows * SEQ / dt, grew, card))
-        if grew != LAYERS:
-            raise RuntimeError("request of %d rows launched flash_fwd %d "
-                               "times, expected %d (one per layer)"
+                rows * SEQ / dt, grew[0], grew[1], card))
+        if grew != (0, LAYERS):
+            raise RuntimeError("request of %d rows: flash_fwd wrapper and "
+                               "graph launches grew %s, expected (0, %d)"
                                % (rows, grew, LAYERS))
         answers.append((x, out._data))
-    launches = att.flash_fwd.launches
-    expected = LAYERS * (1 + len(RUNGS) + len(REQUESTS))
-    log("serve: flash_fwd launches on the serving path %d (expected %d: "
-        "%d layers x (1 forward + %d warm rungs + %d requests))" % (
-            launches, expected, LAYERS, len(RUNGS), len(REQUESTS)))
-    if launches != expected:
-        raise RuntimeError("serving path launch count %d != %d"
-                           % (launches, expected))
-    log("serve: peak device memory %.3f GB" % (
-        torch.cuda.max_memory_allocated() / 1e9))
+    wrapper, captured = att.flash_fwd.launches, att.flash_fwd.captured
+    direct_graph = pred.graph_launches()["flash_fwd"]
+    expected = (LAYERS * (1 + len(RUNGS)), LAYERS * len(RUNGS))
+    log("serve: flash_fwd on the load path: %d launches from the wrapper "
+        "(expected %d: %d layers x (1 forward + %d rung warm-ups)), %d "
+        "recorded by captures (expected %d)"
+        % (wrapper, expected[0], LAYERS, len(RUNGS), captured, expected[1]))
+    if (wrapper, captured) != expected:
+        raise RuntimeError("serving path launches and captures %s != %s"
+                           % ((wrapper, captured), expected))
 
-    # the same exported graph, with the plain attention called explicitly
+    # the direct requests against the same graph with the plain attention
     def plain_dpa(query, key, value, causal=False, sm_scale=None,
                   chunk=512):
         return att._chunked_attention(query, key, value, bool(causal),
                                       sm_scale, chunk)
     ev = _build_eval(pred._symbol, False, op_impls={
         "_contrib_DotProductAttention": plain_dpa})
+    rec["worst_direct"] = 0.0
     for x, got in answers:
         rows = x.shape[0]
-        rung = pred.ladder.batch_for(rows)
-        pad = torch.zeros((rung, SEQ), dtype=torch.float32, device="cuda")
+        pad = torch.zeros((pred.ladder.batch_for(rows), SEQ),
+                          dtype=torch.float32, device="cuda")
         pad[:rows] = torch.from_numpy(x).cuda()
-        amap = dict(pred._params, data0=pad)
         with torch.no_grad():
-            want = ev(amap, {})[0][0][:rows]
+            want = ev(dict(pred._params, data0=pad), {})[0][0][:rows]
         if tuple(got.shape) != (rows, SEQ, VOCAB) or \
                 not bool(torch.isfinite(got).all()):
             raise RuntimeError("request of %d rows: bad output" % rows)
         scale = max(1.0, want.abs().max().item())
         err = (got - want).abs().max().item()
-        ok = err <= TOL_SERVE * scale
+        rec["worst_direct"] = max(rec["worst_direct"],
+                                  err / (TOL_SERVE * scale))
         log("serve: request of %d rows vs plain-attention graph: max abs "
             "err %.3g, max |logit| %.3g (tol %g x max(1, max|logit|)) -> %s"
-            % (rows, err, scale, TOL_SERVE, "ok" if ok else "FAIL"))
-        if not ok:
-            raise RuntimeError("served logits disagree with the plain graph")
-    x = answers[-1][0]
-    reg.predict("lm", x)
-    profile(torch, lambda: reg.predict("lm", x),
-            "serve profile, request of %d rows" % x.shape[0], card)
-    del answers, reg, pred, ev
+            % (rows, err, scale, TOL_SERVE,
+               "ok" if err <= TOL_SERVE * scale else "FAIL"))
+    del answers
+
+    # the batched traffic: closed loop, open loop at half its rate, then
+    # two direct requests that round to the 1024 rung
+    batcher = reg.batcher("lm", max_wait_ms=MAX_WAIT_MS)
+    xs_closed = request_tokens(rng, CLOSED_THREADS * CLOSED_PER_THREAD)
+    rec.update(traffic_wrapper=0, traffic_captured=0, replays=0,
+               dispatches=0, graph_launches=0, unresolved=0)
+
+    def segment(run):
+        """Run one traffic segment with the wrapper's counts set to 0;
+        returns (its result, its graph launches)."""
+        att.flash_fwd.launches = att.flash_fwd.captured = 0
+        r0, d0 = pred.replay_count, pred.dispatch_count
+        g0 = pred.graph_launches()["flash_fwd"]
+        out = run()
+        grew = pred.graph_launches()["flash_fwd"] - g0
+        rec["traffic_wrapper"] += att.flash_fwd.launches
+        rec["traffic_captured"] += att.flash_fwd.captured
+        rec["replays"] += pred.replay_count - r0
+        rec["dispatches"] += pred.dispatch_count - d0
+        rec["graph_launches"] += grew
+        return out, grew
+
+    loops, traffic_graph = {}, 0
+    for loop in ("closed", "open"):
+        batches, restore = record_batches(pred)
+        b0, q0 = batcher.batch_count, batcher.request_count
+        torch.cuda.reset_peak_memory_stats()
+        if loop == "closed":
+            xs = xs_closed
+            answers = Answers(len(xs))
+            wall, grew = segment(lambda: closed_loop(
+                reg, "lm", xs, CLOSED_THREADS, answers))
+            records = answers.wait()
+        else:
+            rate = OPEN_SHARE * loops["closed"]["requests_s"]
+            xs = request_tokens(rng, OPEN_REQUESTS)
+            answers = Answers(len(xs))
+            wall, grew = segment(lambda: open_loop(reg, "lm", xs, rate,
+                                                   answers))
+            records = answers.records
+        traffic_graph += grew
+        restore()
+        peak = torch.cuda.max_memory_allocated()
+        rec["unresolved"] += sum(1 for r in records if r is None)
+        rec["%s_batches" % loop] = batcher.batch_count - b0
+        rec["%s_requests" % loop] = batcher.request_count - q0
+        st = loops[loop] = traffic_stats([r for r in records if r], wall)
+        chk = check_coalesced(torch, pred, ev, batches, xs, records)
+        rec["bit_equal_%s" % loop] = chk["bit_equal"]
+        rec["worst_%s" % loop] = chk["worst"]
+        log("serve %s loop on %s: %d requests (%d rows of %d tokens) in %d "
+            "batches%s: p50 %.2f ms, p99 %s, %.3f requests/s, %.0f "
+            "tokens/s over %.3f s; occupancy %.3f rows/rung; every answer "
+            "bit-equal to predict of its stacked batch: %s; worst vs the "
+            "plain-attention graph %.4f of the limit; peak device memory "
+            "%.3f GB" % (
+                loop, card, st["requests"], st["rows"], SEQ,
+                len(batches), "" if loop == "closed" else
+                " (arrivals at %.3f requests/s, %.0f %% of the closed "
+                "loop's)" % (rate, 100 * OPEN_SHARE), st["p50_ms"],
+                "not measured (fewer than %d requests)" % P99_MIN_REQUESTS
+                if st["p99_ms"] is None else "%.2f ms" % st["p99_ms"],
+                st["requests_s"], st["tokens_s"], st["wall_s"],
+                chk["occupancy"], chk["bit_equal"], chk["worst"],
+                peak / 1e9))
+        del answers, records, batches
+
+    def direct():
+        outs = []
+        for seq in DIRECT_SEQS:
+            x = rng.randint(0, VOCAB, (1, seq)).astype("float32")
+            outs.append((x, reg.predict("lm", x)[0]._data))
+            log("serve: direct request of %d tokens -> bucket %s, "
+                "compile_count %d" % (seq, ladder.pad_shape(x.shape),
+                                      pred.compile_count))
+        return outs
+    short, grew = segment(direct)
+    rec["compiles_after"] = pred.compile_count
+    wrapper += rec["traffic_wrapper"]
+    direct_graph += grew
+
+    # pad invariance: the first 700 positions of the 1024-padded answer
+    x, got = short[0]
+    with torch.no_grad():
+        want = pred._run({"data0": torch.from_numpy(x).cuda()})[0]
+    scale = max(1.0, want.abs().max().item())
+    err = (got[:, :x.shape[1]] - want).abs().max().item()
+    rec["pad_ratio"] = err / (TOL_SERVE * scale)
+    log("serve: %d tokens padded to %d vs unpadded eager: max abs err %.3g, "
+        "%.4f of the limit" % (x.shape[1], got.shape[1], err,
+                               rec["pad_ratio"]))
+    del short, got, want
+
+    rec["worst_graph_eager"] = graph_vs_eager(
+        torch, pred, rng, card, "serve graph vs eager", RUNGS,
+        lambda r, rows: r.randint(0, VOCAB, (rows, SEQ)).astype("float32"),
+        TOL_SERVE)
+    x8 = rng.randint(0, VOCAB, (RUNGS[-1], SEQ)).astype("float32")
+    shares = profile(torch, lambda: reg.predict("lm", x8),
+                     "serve profile, one graph replay of rung %d"
+                     % RUNGS[-1], card)
+    rec["profile_flash_fwd"] = (shares or {}).get("flash_fwd", 0.0)
+    # the batcher's readback of a coalesced answer, alone
+    out = reg.predict("lm", x8)[0]._data
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = out.cpu()
+    dt = time.perf_counter() - t0
+    gb = out.numel() * out.element_size() / 1e9
+    log("serve: readback of one rung-%d answer (%.3f GB, .cpu() as the "
+        "batcher does): %.2f ms, %.2f GB/s on %s" % (
+            RUNGS[-1], gb, dt * 1e3, gb / dt, card))
+    del out, host
+    log("serve: the path's flash_fwd launches: %d from the wrapper (first "
+        "forward, %d rung warm-ups), %d by graph replays x captured of the "
+        "warm replays and direct requests, %d of the batched traffic's "
+        "dispatches; %d replays for %d dispatches in the traffic; peak "
+        "device memory %.3f GB" % (
+            wrapper, len(RUNGS) + 1, direct_graph, traffic_graph,
+            rec["replays"], rec["dispatches"],
+            torch.cuda.max_memory_allocated() / 1e9))
+    failures = serve_failures(rec)
+    reg.close()
+    del reg, pred, ev
     shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches
+    if failures:
+        raise RuntimeError("phase 4 failed: " + "; ".join(failures))
+    return {"eager": wrapper, "direct": direct_graph,
+            "traffic": traffic_graph}
 
 
 # kernel-name shares the attention paths' profiles report
@@ -1310,7 +1760,17 @@ def resnet_serve(torch, card, mx, ctx, net, rng, tmp):
     if not ok:
         raise RuntimeError("served ResNet logits against the f64 graph "
                            "failed (above)")
-    del answers, reg, pred, ev, p64, a64
+    del answers, ev, p64, a64
+    worst = graph_vs_eager(
+        torch, pred, rng, card, "resnet serve graph vs eager",
+        RESNET_REQUESTS,
+        lambda r, rows: r.randn(rows, *shape[1:]).astype("float32"),
+        TOL_RESNET_SERVE)
+    if not worst <= 1.0:
+        raise RuntimeError("a ResNet replay disagrees with eager: %.4f of "
+                           "the limit" % worst)
+    reg.close()
+    del reg, pred
 
 
 def resnet_check_step(torch, card, mx, ctx, vision, net, loss_fn, trainer,
@@ -2105,7 +2565,13 @@ def main():
         by_path = {"train": train_launches[name],
                    "north-star LM train (bf16)": ns_launches[name]}
         if name == "flash_fwd":
-            by_path = {"serve": serve_launches, **by_path}
+            by_path = {
+                "serve (eager: first forward, rung warm-ups)":
+                serve_launches["eager"],
+                "serve (graph replays: warm, direct requests)":
+                serve_launches["direct"],
+                "batched serve (graph replays: traffic dispatches)":
+                serve_launches["traffic"], **by_path}
         kernels.append(dict({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/" + source,

@@ -1,0 +1,118 @@
+"""Environment-knob registry (port of ``mxnet_tpu/config.py``, subset: the
+knobs that serving, the sanitizer bridge, events and chaos read).
+
+Every knob is declared here with type, default and doc, and read at call
+time (not import time) so tests can monkeypatch the environment.  A read
+resolves, in precedence order: an explicit argument (the caller's), the
+exported environment variable, the registered default.  The JAX
+package's tuned layers (the per-call tuned value, the process-wide
+override and the tuning store behind them) are not ported.
+"""
+
+from __future__ import annotations
+
+import os
+
+__all__ = ["register_env", "get_env", "resolve_env"]
+
+_REGISTRY = {}
+
+
+class _Knob:
+    __slots__ = ("name", "type", "default", "doc")
+
+    def __init__(self, name, typ, default, doc):
+        self.name = name
+        self.type = typ
+        self.default = default
+        self.doc = doc
+
+
+def register_env(name, typ, default, doc):
+    """Declare an environment knob (type in {int, float, str, bool})."""
+    _REGISTRY[name] = _Knob(name, typ, default, doc)
+    return _REGISTRY[name]
+
+
+def _coerce(knob, value):
+    if knob.type is bool and isinstance(value, str):
+        return value.lower() not in ("0", "false", "off", "")
+    try:
+        return knob.type(value)
+    except (TypeError, ValueError):
+        raise ValueError("env %s=%r is not a valid %s"
+                         % (knob.name, value, knob.type.__name__))
+
+
+def get_env(name):
+    """Read a registered knob: exported env > registered default."""
+    return resolve_env(name)
+
+
+def resolve_env(name):
+    """Read a registered knob: exported env var > registered default,
+    typed.  (The JAX signature's per-call ``tuned`` value is not ported:
+    nothing in the port tunes.)"""
+    knob = _REGISTRY[name]
+    raw = os.environ.get(name)
+    if raw is not None:
+        return _coerce(knob, raw)
+    return knob.default
+
+
+# ---------------------------------------------------------------------------
+# Knob declarations (the JAX package's names, types and defaults).
+# ---------------------------------------------------------------------------
+
+register_env("MXNET_SAN", str, "",
+             "graftsan runtime sanitizer components to enable: comma "
+             "list of race,recompile,donation,transfer,sched, or 'all'; "
+             "empty = off.  The sanitizer suite is not ported: setting "
+             "a component makes the port's factories raise")
+register_env("MXNET_OBS", str, "",
+             "Structured run-event categories to record to "
+             "events.jsonl: comma list (serve, chaos, retry, warning, "
+             "...) or 'all'; empty = off (no file, zero per-event cost)")
+register_env("MXNET_OBS_PATH", str, "events.jsonl",
+             "Path of the structured run-event log (created lazily on "
+             "the first recorded event)")
+register_env("MXNET_OBS_RATE", int, 200,
+             "Max run events recorded per second; excess events are "
+             "counted and surfaced as 'dropped' on the next admitted "
+             "event (0 = uncapped)")
+register_env("MXNET_CHAOS", str, "",
+             "Fault-injection spec for the chaos harness, e.g. "
+             "'dispatch_raise_at=1,slow_dispatch_ms=400'; 'on' enables "
+             "the harness with nothing armed; empty = off")
+register_env("MXNET_SERVE_MAX_WAIT_MS", float, 2.0,
+             "How long the serve DynamicBatcher holds a non-full "
+             "batch open for more arrivals, measured from the oldest "
+             "queued request (milliseconds, monotonic clock); 0 = "
+             "dispatch immediately, no coalescing window")
+register_env("MXNET_SERVE_MAX_BATCH", int, 0,
+             "Row cap per coalesced serve batch; 0 = the model's "
+             "bucket-ladder top rung")
+register_env("MXNET_SERVE_MAX_QUEUE", int, 1024,
+             "Admission control: max requests waiting in one serve "
+             "DynamicBatcher — submit past the cap raises a typed "
+             "OverloadError instead of queueing unboundedly; "
+             "0 = unbounded")
+register_env("MXNET_SERVE_MAX_QUEUE_BYTES", int, 1 << 28,
+             "Admission control: max payload bytes waiting in one "
+             "serve DynamicBatcher; 0 = unbounded")
+register_env("MXNET_SERVE_DEFAULT_DEADLINE_MS", float, 0.0,
+             "Default per-request serving deadline (milliseconds, "
+             "monotonic clock) applied when submit() passes none: an "
+             "expired request is shed before padding and dispatch and "
+             "its future resolves with DeadlineExceededError; "
+             "0 = no deadline")
+register_env("MXNET_SERVE_DISPATCHER_RESTARTS", int, 3,
+             "How many serve dispatcher-thread crashes (an exception "
+             "escaping the batching loop, not a per-batch dispatch "
+             "failure) are restarted with jittered backoff before the "
+             "batcher declares itself unhealthy and fails every "
+             "queued future")
+register_env("MXNET_SERVE_DRAIN_TIMEOUT", float, 30.0,
+             "Default bound (seconds) on graceful drain: how long "
+             "Registry.drain / unload(drain=True) / an alias-cutover "
+             "flush waits for accepted serve requests to finish")

@@ -29,6 +29,11 @@ Layout is (batch, heads, seq, head_dim) at every public function.
 - ``flash_attention``: the dispatcher.  A CUDA tensor launches the kernels
   or raises; there is no fallback to the plain versions.
 - ``_contrib_DotProductAttention``: the registered operator.
+
+Each wrapper counts its kernel's launches in its ``launches`` attribute.
+A call made while its stream is being captured into a CUDA graph only
+records the kernel into the graph, and counts in ``captured`` instead;
+``launch_counts`` and ``capture_counts`` read both per kernel.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ from . import _cuda
 from .registry import register_op
 
 __all__ = ["flash_attention", "attention_reference", "flash_fwd",
-           "flash_bwd", "flash_bwd_dkdv", "flash_bwd_dq"]
+           "flash_bwd", "flash_bwd_dkdv", "flash_bwd_dq", "launch_counts",
+           "capture_counts"]
 
 _NEG_INF = -1e30
 
@@ -282,6 +288,15 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _count(wrapper, capturing):
+    """One kernel launch of *wrapper*, or, when its stream was
+    *capturing*, one record of the kernel into a CUDA graph."""
+    if capturing:
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def _bind_fwd(lib):
     vp = ctypes.c_void_p
     lib.flash_fwd.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
@@ -321,14 +336,16 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None, with_lse=False):
                            lse.data_ptr() if with_lse else None,
                            b * h, sq, sk, d, float(sm_scale), int(causal),
                            _KERNEL_DTYPES[q.dtype], _stream(q))
+        capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise MXNetError("flash_fwd: kernel launch failed with CUDA error "
                          "%d" % rc)
-    flash_fwd.launches += 1
+    _count(flash_fwd, capturing)
     return (o, lse) if with_lse else o
 
 
 flash_fwd.launches = 0
+flash_fwd.captured = 0
 
 
 def flash_bwd_dkdv(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
@@ -353,14 +370,16 @@ def flash_bwd_dkdv(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b * h, sq, sk, d, float(sm_scale), int(causal),
             _KERNEL_DTYPES[q.dtype], _stream(q))
+        capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise MXNetError("flash_bwd_dkdv: kernel launch failed with CUDA "
                          "error %d" % rc)
-    flash_bwd_dkdv.launches += 1
+    _count(flash_bwd_dkdv, capturing)
     return dk, dv
 
 
 flash_bwd_dkdv.launches = 0
+flash_bwd_dkdv.captured = 0
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
@@ -382,14 +401,30 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b * h, sq, sk, d, float(sm_scale), int(causal),
             _KERNEL_DTYPES[q.dtype], _stream(q))
+        capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise MXNetError("flash_bwd_dq: kernel launch failed with CUDA "
                          "error %d" % rc)
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, capturing)
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.captured = 0
+
+
+_WRAPPERS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq)
+
+
+def launch_counts():
+    """{kernel: launches} of every kernel wrapper."""
+    return {w.__name__: w.launches for w in _WRAPPERS}
+
+
+def capture_counts():
+    """{kernel: calls recorded into CUDA graphs} of every kernel
+    wrapper."""
+    return {w.__name__: w.captured for w in _WRAPPERS}
 
 
 def flash_bwd(q, k, v, o, lse, dout, causal=False, sm_scale=None):

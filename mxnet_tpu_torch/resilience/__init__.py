@@ -1,0 +1,20 @@
+"""Resilience (port of ``mxnet_tpu/resilience``, subset: what serving
+uses):
+
+* :mod:`.retry` — jittered-exponential-backoff with a deadline and an
+  injectable clock (the batcher's restart schedule);
+* :mod:`.chaos` — the deterministic fault-injection spec;
+* :mod:`.servechaos` — the serving-path injection points (dispatch
+  raise / hang / slow, program-build reject).
+
+Checkpoints, the supervisor, elastic resize, netchaos and job state are
+not ported.
+"""
+
+from __future__ import annotations
+
+from . import chaos  # noqa: F401
+from . import servechaos  # noqa: F401
+from .retry import backoff_delays, retry_call  # noqa: F401
+
+__all__ = ["chaos", "servechaos", "backoff_delays", "retry_call"]

@@ -1,10 +1,32 @@
-"""``mxnet_tpu_torch.serve`` — bucketed inference (port of
-``mxnet_tpu/serve/``, subset: :class:`BucketLadder`,
-:class:`CompiledPredictor`, :class:`ModelRegistry`)."""
+"""``mxnet_tpu_torch.serve`` — batch serving (port of ``mxnet_tpu/serve/``,
+subset):
 
-from .buckets import BucketLadder, ServeError  # noqa: F401
+* :class:`BucketLadder` — the finite set of padded shapes a model may run
+  at, with batch rungs and sequence rounding (buckets.py);
+* :class:`CompiledPredictor` — one program per bucket, built at load
+  time: on the card one CUDA graph per rung, on the CPU the eager graph
+  (predictor.py);
+* :class:`DynamicBatcher` / :class:`ServeFuture` — many callers, one
+  padded dispatch, with admission control (:class:`OverloadError`),
+  deadlines (:class:`DeadlineExceededError`), cancellation
+  (:class:`RequestCancelled`), supervised dispatcher restarts and
+  graceful drain (batcher.py);
+* :class:`ModelRegistry` — load/unload/alias with warm programs,
+  drain-before-teardown and the ``health``/``ready``/``live`` probes
+  backed by :class:`HealthBoard` (registry.py, health.py).
+
+Decode, the KV pool, quantized loads, the fleet and the C predict ABI's
+registry are not ported.
+"""
+
+from .buckets import (BucketLadder, DeadlineExceededError,  # noqa: F401
+                      OverloadError, RequestCancelled, ServeError)
+from .health import STATES, HealthBoard  # noqa: F401
 from .predictor import CompiledPredictor  # noqa: F401
+from .batcher import DynamicBatcher, ServeFuture  # noqa: F401
 from .registry import ModelRegistry  # noqa: F401
 
-__all__ = ["BucketLadder", "ServeError", "CompiledPredictor",
-           "ModelRegistry"]
+__all__ = ["BucketLadder", "ServeError", "OverloadError",
+           "DeadlineExceededError", "RequestCancelled",
+           "CompiledPredictor", "DynamicBatcher", "ServeFuture",
+           "ModelRegistry", "HealthBoard", "STATES"]

@@ -1,0 +1,897 @@
+"""DynamicBatcher — continuous batching over per-rung programs (port of
+``mxnet_tpu/serve/batcher.py``).
+
+Callers submit single examples (or small batches) and get a future; a
+dispatcher thread coalesces whatever is queued up to the bucket capacity
+or a max-wait deadline, runs ONE padded-bucket dispatch for the whole
+group (on the card: one CUDA graph replay), and resolves each caller's
+future with its own row slice.
+
+Fault-tolerance discipline, as in the JAX package:
+
+* **Admission control / load shedding** — the queue is bounded in
+  requests (``MXNET_SERVE_MAX_QUEUE``) and bytes
+  (``MXNET_SERVE_MAX_QUEUE_BYTES``); a submit past either cap raises a
+  typed :class:`~mxnet_tpu_torch.serve.buckets.OverloadError`.
+* **Deadlines** — ``submit(data, deadline_ms=...)`` (default
+  ``MXNET_SERVE_DEFAULT_DEADLINE_MS``) propagates into the dispatcher:
+  an expired request is shed before padding and dispatch and resolves
+  with :class:`DeadlineExceededError`; a caller that gives up calls
+  :meth:`ServeFuture.cancel` to reclaim its queue slot.
+* **Dispatcher supervision** — a dispatch failure fails only that
+  batch's futures; an exception escaping the loop fails exactly the
+  in-flight batch, then restarts the thread with the shared jittered
+  backoff, bounded by ``MXNET_SERVE_DISPATCHER_RESTARTS``; past the
+  budget the batcher marks itself unhealthy and fails every queued
+  future.
+* **Graceful drain** — :meth:`drain` stops admissions and waits
+  (bounded) for accepted work; :meth:`close` that cannot join the
+  dispatcher surfaces ``closed_dirty``.
+
+Every lock/condition/thread comes from the :mod:`..sanitizer`
+factories, and all deadlines run on ``time.monotonic``.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import random
+import time as _time
+
+from .buckets import (DeadlineExceededError, OverloadError,
+                      RequestCancelled, ServeError)
+from .. import sanitizer as _san
+from ..observability import events as _obs_events
+from ..observability import metrics as _obs_metrics
+from ..resilience import servechaos as _servechaos
+from ..resilience.retry import backoff_delays
+
+__all__ = ["ServeFuture", "DynamicBatcher"]
+
+log = logging.getLogger(__name__)
+
+# module-level instrument refs (hot path discipline, see metrics.py)
+_REQUEST_SECONDS = _obs_metrics.histogram(
+    "serve_request_seconds",
+    "end-to-end request latency: submit to future resolution "
+    "(queue wait + batching + dispatch)")
+_QUEUE_DEPTH = _obs_metrics.gauge(
+    "serve_queue_depth",
+    "requests waiting across all dynamic batchers (delta-maintained)")
+_QUEUE_AGE = _obs_metrics.histogram(
+    "serve_queue_age_seconds",
+    "how long each request waited in the batcher queue before being "
+    "taken for dispatch")
+_BATCH_OCCUPANCY = _obs_metrics.histogram(
+    "serve_batch_occupancy",
+    "real rows / bucket capacity per dispatched batch",
+    buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+_BATCHES_TOTAL = _obs_metrics.counter(
+    "serve_batches_total", "coalesced batches dispatched")
+_REQUESTS_TOTAL = _obs_metrics.counter(
+    "serve_requests_total", "requests submitted to dynamic batchers")
+_SHED_TOTAL = _obs_metrics.counter(
+    "serve_requests_shed_total",
+    "requests rejected at submit time by admission control "
+    "(queue request/byte caps, draining, unhealthy)")
+_EXPIRED_TOTAL = _obs_metrics.counter(
+    "serve_requests_expired_total",
+    "requests whose deadline passed before dispatch — shed by the "
+    "dispatcher BEFORE padding, never dispatched")
+_CANCELLED_TOTAL = _obs_metrics.counter(
+    "serve_requests_cancelled_total",
+    "queued requests abandoned by their caller (ServeFuture.cancel) "
+    "whose slot was reclaimed before dispatch")
+_RESTARTS_TOTAL = _obs_metrics.counter(
+    "serve_dispatcher_restarts_total",
+    "serve dispatcher threads restarted after a crash escaped the "
+    "batching loop")
+_DIRTY_CLOSES_TOTAL = _obs_metrics.counter(
+    "serve_batcher_dirty_closes_total",
+    "batcher closes that could not join the dispatcher thread within "
+    "the close timeout (closed_dirty)")
+
+
+class ServeFuture:
+    """Per-caller handle for one submitted request.
+
+    Single-writer (the dispatcher — or the cancel path, arbitrated by
+    the batcher lock — resolves it exactly once); readers synchronize
+    through the event, so result/exception fields need no extra
+    lock."""
+
+    __slots__ = ("_event", "_result", "_exc", "_t_enq", "_t_resolved",
+                 "_cancel_cb")
+
+    def __init__(self):
+        self._event = _san.event()
+        self._result = None
+        self._exc = None
+        self._t_enq = _time.monotonic()
+        self._t_resolved = None
+        self._cancel_cb = None
+
+    def done(self):
+        return self._event.is_set()
+
+    def result(self, timeout=None):
+        """The request's outputs as a list of host numpy arrays (rows
+        = what was submitted) — results cross the service boundary, so
+        the batcher reads each batch back once and hands out row
+        views.  Blocks up to *timeout* seconds; raises the dispatch
+        error if the batch failed.  A caller that gives up on a
+        ``TimeoutError`` should call :meth:`cancel` so its queue slot
+        is reclaimed instead of being padded and dispatched for
+        nobody."""
+        if not self._event.wait(timeout):
+            raise TimeoutError("serve request still pending after %ss"
+                               % timeout)
+        if self._exc is not None:
+            raise self._exc
+        return self._result
+
+    def cancel(self):
+        """Abandon the request.  True when the queue slot was
+        reclaimed before dispatch (the future resolves with
+        :class:`RequestCancelled`); False when the request already
+        dispatched or resolved — the result is still readable."""
+        cb = self._cancel_cb
+        if cb is None or self._event.is_set():
+            return False
+        return cb()
+
+    def _resolve(self, result=None, exc=None):
+        if self._event.is_set():
+            return
+        # drop the cancel closure: it pins the request payload and the
+        # batcher (and cycles through req.future) long after resolution
+        self._cancel_cb = None
+        self._result = result
+        self._exc = exc
+        self._t_resolved = _time.monotonic()
+        _REQUEST_SECONDS.observe(self._t_resolved - self._t_enq)
+        self._event.set()
+
+
+class _Request:
+    __slots__ = ("data", "rows", "nbytes", "deadline", "dispatch_by",
+                 "future", "taken", "cancelled")
+
+    def __init__(self, data, rows, nbytes, deadline, dispatch_by,
+                 future):
+        self.data = data
+        self.rows = rows
+        self.nbytes = nbytes
+        self.deadline = deadline      # monotonic, or None
+        # when this request heads the queue, its coalescing window
+        # closes no later than dispatch_by — a margin BEFORE the
+        # deadline, so a deadline-bound head dispatches instead of
+        # expiring at the boundary.  Expiry (deadline passed while the
+        # dispatcher could not get to the request) stays a _take_locked
+        # decision against .deadline itself.
+        self.dispatch_by = dispatch_by
+        self.future = future
+        self.taken = False
+        self.cancelled = False
+
+
+class DynamicBatcher:
+    """Continuous/dynamic request batching in front of one
+    :class:`~mxnet_tpu.serve.predictor.CompiledPredictor`.
+
+    Parameters
+    ----------
+    predictor : CompiledPredictor
+    max_wait_ms : float, optional
+        How long the dispatcher holds a non-full batch open for more
+        arrivals, measured from the OLDEST queued request (default:
+        the ``MXNET_SERVE_MAX_WAIT_MS`` knob).
+    max_batch : int, optional
+        Coalescing cap in rows (default: the ``MXNET_SERVE_MAX_BATCH``
+        knob, 0 = the ladder's top rung).
+    max_queue : int, optional
+        Admission cap in queued requests (default
+        ``MXNET_SERVE_MAX_QUEUE``; 0 = unbounded).
+    max_queue_bytes : int, optional
+        Admission cap in queued payload bytes (default
+        ``MXNET_SERVE_MAX_QUEUE_BYTES``; 0 = unbounded).
+    default_deadline_ms : float, optional
+        Deadline applied to submits that pass none (default
+        ``MXNET_SERVE_DEFAULT_DEADLINE_MS``; 0 = no deadline).
+    max_restarts : int, optional
+        Dispatcher crash-restart budget (default
+        ``MXNET_SERVE_DISPATCHER_RESTARTS``).
+    on_state : callable, optional
+        ``on_state(state)`` hook the registry wires to its health
+        board; called with ``"unhealthy"`` when the restart budget is
+        exhausted.
+    tuning : dict, optional
+        Per-model tuned knob values.  Kept for the JAX signature: the
+        tuning store is not ported, so a non-empty dict raises
+        :class:`ServeError`.
+    """
+
+    def __init__(self, predictor, max_wait_ms=None, max_batch=None,
+                 name=None, max_queue=None, max_queue_bytes=None,
+                 default_deadline_ms=None, max_restarts=None,
+                 on_state=None, tuning=None):
+        from ..config import resolve_env
+        if tuning:
+            raise ServeError("tuning= is not ported (the tuning store); "
+                             "pass the knobs as arguments or set their "
+                             "MXNET_SERVE_* variables")
+        self._predictor = predictor
+        self.name = name or predictor.name
+        if max_wait_ms is None:
+            max_wait_ms = resolve_env("MXNET_SERVE_MAX_WAIT_MS")
+        self._max_wait = max(0.0, float(max_wait_ms)) / 1e3
+        if max_batch is None:
+            max_batch = resolve_env("MXNET_SERVE_MAX_BATCH")
+        self._max_batch = int(max_batch) or predictor.ladder.max_batch
+        if self._max_batch > predictor.ladder.max_batch:
+            raise ServeError(
+                "max_batch %d exceeds the ladder's top rung %d"
+                % (self._max_batch, predictor.ladder.max_batch))
+        if max_queue is None:
+            max_queue = resolve_env("MXNET_SERVE_MAX_QUEUE")
+        self._max_queue = max(0, int(max_queue))
+        if max_queue_bytes is None:
+            max_queue_bytes = resolve_env("MXNET_SERVE_MAX_QUEUE_BYTES")
+        self._max_queue_bytes = max(0, int(max_queue_bytes))
+        if default_deadline_ms is None:
+            default_deadline_ms = resolve_env(
+                "MXNET_SERVE_DEFAULT_DEADLINE_MS")
+        self._default_deadline = max(0.0, float(default_deadline_ms)) / 1e3
+        if max_restarts is None:
+            max_restarts = resolve_env("MXNET_SERVE_DISPATCHER_RESTARTS")
+        self._max_restarts = max(0, int(max_restarts))
+        self._on_state = on_state
+        fixed = set(predictor._data_shapes) - predictor._bucket_inputs
+        if fixed:
+            raise ServeError(
+                "model %r has fixed-shape inputs %s — dynamic batching "
+                "concatenates every input along the batch axis; call "
+                "predictor.predict directly"
+                % (predictor.name, sorted(fixed)))
+        self._lock = _san.lock(label="serve.batcher.%s" % self.name)
+        self._cond = _san.condition(self._lock,
+                                    label="serve.batcher.%s" % self.name)
+        self._pending = collections.deque()
+        self._rows_pending = 0
+        self._bytes_pending = 0
+        self._flush_horizon = 0.0
+        self._inflight = ()
+        self._stopped = False
+        self._draining = False
+        self._unhealthy = False
+        self._closed_dirty = False
+        self._batches = 0
+        self._requests = 0
+        self._restarts_used = 0
+        self._last_drain_stats = None
+        self._last_tick = _time.monotonic()
+        # the shared jittered backoff schedule of resilience.retry;
+        # one delay per crash-restart (tests patch _restart_sleep)
+        self._backoff = backoff_delays(
+            self._max_restarts + 1, base_delay=0.05, max_delay=2.0,
+            multiplier=2.0, jitter=0.5, rng=random.Random())
+        self._restart_sleep = _time.sleep
+        self._thread = _san.thread(
+            target=self._run, name="serve-batcher-%s" % self.name,
+            daemon=True)
+        _san.track(self, ("_pending", "_rows_pending", "_bytes_pending",
+                          "_flush_horizon", "_inflight", "_stopped",
+                          "_draining", "_unhealthy", "_closed_dirty",
+                          "_batches", "_requests", "_restarts_used",
+                          "_last_drain_stats"),
+                   label="serve.batcher.%s" % self.name)
+        self._thread.start()
+
+    # -- stats / health ----------------------------------------------------
+    @property
+    def batch_count(self):
+        with self._lock:
+            return self._batches
+
+    @property
+    def request_count(self):
+        with self._lock:
+            return self._requests
+
+    @property
+    def queue_depth(self):
+        with self._lock:
+            return len(self._pending)
+
+    @property
+    def restart_count(self):
+        with self._lock:
+            return self._restarts_used
+
+    @property
+    def unhealthy(self):
+        with self._lock:
+            return self._unhealthy
+
+    @property
+    def draining(self):
+        with self._lock:
+            return self._draining
+
+    @property
+    def closed_dirty(self):
+        with self._lock:
+            return self._closed_dirty
+
+    def _accepted_locked(self):
+        """Requests the batcher currently OWES an answer: queued (not
+        cancelled) plus the in-flight batch.  Caller holds the lock."""
+        return (sum(1 for r in self._pending if not r.cancelled)
+                + len(self._inflight))
+
+    @property
+    def accepted_count(self):
+        """The work a drain would have to wait on, right now."""
+        with self._lock:
+            return self._accepted_locked()
+
+    @property
+    def last_drain_stats(self):
+        """Machine-readable record of the most recent :meth:`drain`:
+        ``{"waited_requests": N, "timed_out": bool}`` (None before
+        any drain).  The registry's ``drain_complete`` event and the
+        fleet's rolling deploy gate on this instead of inferring
+        'drain completed with zero abandoned work' from counters."""
+        with self._lock:
+            return dict(self._last_drain_stats) \
+                if self._last_drain_stats is not None else None
+
+    def dispatcher_alive(self):
+        """Is the dispatcher thread running (restarts included)?"""
+        with self._lock:
+            thread, unhealthy = self._thread, self._unhealthy
+        return bool(thread.is_alive()) and not unhealthy
+
+    def last_tick_age(self):
+        """Seconds since the dispatcher last ticked its liveness
+        stamp.  The loop ticks at least every ~0.5s even when idle, so
+        a large age with work pending means a wedged dispatch (the
+        health surface's hang signal)."""
+        with self._lock:
+            return _time.monotonic() - self._last_tick
+
+    def health_state(self):
+        """The batcher's own contribution to the model health state
+        machine: ``unhealthy`` / ``draining`` / ``ready``."""
+        with self._lock:
+            if self._unhealthy:
+                return "unhealthy"
+            if self._stopped or self._draining:
+                return "draining"
+            return "ready"
+
+    # -- client side -------------------------------------------------------
+    def submit(self, data, deadline_ms=None):
+        """Queue one request ({input: array}, or a bare array for
+        single-input models; arrays may be single examples or small
+        row batches up to the coalescing cap).  Returns a
+        :class:`ServeFuture`.
+
+        *deadline_ms* bounds how long the request may WAIT: the
+        coalescing window never holds a head past its deadline (the
+        dispatcher cuts the window short and dispatches with margin to
+        spare), and a request the dispatcher could not reach in time —
+        backlog ahead of it, a slow or wedged dispatch — is shed
+        (typed :class:`DeadlineExceededError`) instead of padded and
+        dispatched as a row nobody wants.  ``None`` applies the
+        ``MXNET_SERVE_DEFAULT_DEADLINE_MS`` knob; 0 there = no
+        deadline.  Raises :class:`OverloadError` when the queue is at
+        its request or byte cap — overload sheds at the front door."""
+        pred = self._predictor
+        if not isinstance(data, dict):
+            if len(pred._data_shapes) != 1:
+                raise ServeError(
+                    "model %r has %d inputs — submit a dict"
+                    % (pred.name, len(pred._data_shapes)))
+            data = {next(iter(pred._data_shapes)): data}
+        arrays = {}
+        rows = None
+        nbytes = 0
+        from .predictor import _as_host
+        for n, spec in pred._data_shapes.items():
+            if n not in data:
+                raise ServeError("request is missing input %r" % n)
+            a = _as_host(data[n])
+            if a.ndim == len(spec) - 1:
+                a = a[None]
+            if a.ndim != len(spec):
+                raise ServeError(
+                    "input %r: rank %d does not match the bound "
+                    "example rank %d" % (n, a.ndim, len(spec)))
+            if rows is None:
+                rows = a.shape[0]
+            elif a.shape[0] != rows:
+                raise ServeError("request inputs disagree on rows "
+                                 "(%d vs %d)" % (a.shape[0], rows))
+            arrays[n] = a
+            nbytes += int(a.nbytes)
+        if rows < 1:
+            raise ServeError("request has no rows")
+        if rows > self._max_batch:
+            raise ServeError(
+                "request of %d rows exceeds the batcher cap %d — "
+                "split it, or call predictor.predict directly"
+                % (rows, self._max_batch))
+        if deadline_ms is not None and float(deadline_ms) <= 0:
+            raise ServeError("deadline_ms must be > 0, got %r"
+                             % (deadline_ms,))
+        budget = (float(deadline_ms) / 1e3 if deadline_ms is not None
+                  else self._default_deadline)
+        if budget > 0:
+            now = _time.monotonic()
+            deadline = now + budget
+            # reserve up to 50ms (never more than a quarter of the
+            # budget) of dispatch headroom: the window a deadline
+            # closes must close BEFORE the deadline, or the head would
+            # always wake exactly expired
+            dispatch_by = deadline - min(0.05, budget * 0.25)
+        else:
+            deadline = dispatch_by = None
+        fut = req = None         # allocated only if admission passes —
+        shed_reason = err = None  # the shed path is the overload-hot one
+        with self._lock:
+            if self._stopped:
+                raise ServeError("batcher %r is closed" % self.name)
+            if self._unhealthy:
+                shed_reason, err = "unhealthy", ServeError(
+                    "batcher %r is unhealthy (dispatcher failed past "
+                    "its %d-restart budget)" % (self.name,
+                                                self._max_restarts))
+            elif self._draining:
+                shed_reason, err = "draining", ServeError(
+                    "batcher %r is draining — admissions are stopped"
+                    % self.name)
+            elif self._max_queue and \
+                    len(self._pending) >= self._max_queue:
+                shed_reason, err = "max_queue", OverloadError(
+                    "batcher %r queue is full (%d requests, cap %d) — "
+                    "shedding at submit" % (self.name,
+                                            len(self._pending),
+                                            self._max_queue))
+            elif self._max_queue_bytes and \
+                    self._bytes_pending + nbytes > self._max_queue_bytes:
+                shed_reason, err = "max_queue_bytes", OverloadError(
+                    "batcher %r queue is at its byte cap (%d + %d > %d)"
+                    % (self.name, self._bytes_pending, nbytes,
+                       self._max_queue_bytes))
+            else:
+                fut = ServeFuture()
+                req = _Request(arrays, rows, nbytes, deadline,
+                               dispatch_by, fut)
+                # wire the cancel hook BEFORE the dispatcher can see
+                # the request (same lock): assigning after release
+                # would re-pin a payload _resolve already dropped
+                fut._cancel_cb = lambda: self._cancel(req)
+                self._pending.append(req)
+                self._rows_pending += rows
+                self._bytes_pending += nbytes
+                self._requests += 1
+                # delta accounting: the gauge aggregates across batchers
+                _QUEUE_DEPTH.inc()
+                self._cond.notify()
+        if shed_reason is not None:
+            # counter bump + event-file write happen OUTSIDE the lock:
+            # during an overload storm this path is the hot one, and
+            # I/O under the lock would serialize every submitter and
+            # the dispatcher behind the events fd
+            self._shed(shed_reason)
+            raise err
+        _REQUESTS_TOTAL.inc()
+        return fut
+
+    def detach_state_hook(self):
+        """Unwire the on_state health hook.  The registry calls this
+        when the batcher is displaced (load-replace) or its model
+        unloaded, so a late dispatcher crash cannot mark the board
+        entry now owned by a healthy replacement — or resurrect a
+        dropped one."""
+        self._on_state = None
+
+    def _shed(self, reason):
+        """Account one shed admission (called after the lock is
+        released; the caller raises the typed error itself)."""
+        _SHED_TOTAL.inc()
+        _obs_events.emit("serve", kind="shed", model=self.name,
+                         reason=reason)
+
+    def _cancel(self, req):
+        """ServeFuture.cancel target: reclaim *req*'s queue slot if it
+        has not been taken for dispatch."""
+        with self._lock:
+            if req.taken or req.cancelled or req.future.done():
+                return False
+            try:
+                self._pending.remove(req)
+            except ValueError:
+                # unreachable today: every path that removes a pending
+                # request marks it taken/cancelled under this lock and
+                # the guard above returns False for those.  Never fall
+                # through to the accounting — that would re-decrement
+                # a slot someone else already settled.
+                return False
+            req.cancelled = True
+            self._rows_pending -= req.rows
+            self._bytes_pending -= req.nbytes
+            _QUEUE_DEPTH.dec()
+            # wake the dispatcher (a cancelled head must not pin the
+            # coalescing window of whatever queued behind it) AND any
+            # drain() waiter this cancellation may have unblocked
+            self._cond.notify_all()
+        _CANCELLED_TOTAL.inc()
+        _obs_events.emit("serve", kind="cancelled", model=self.name,
+                         rows=req.rows)
+        req.future._resolve(exc=RequestCancelled(
+            "request cancelled by its caller before dispatch "
+            "(batcher %r)" % self.name))
+        return True
+
+    def __call__(self, data, timeout=None):
+        """Synchronous convenience: submit + wait."""
+        return self.submit(data).result(timeout)
+
+    # -- dispatcher --------------------------------------------------------
+    def _take_locked(self):
+        """Pop the next coalesced group (caller holds the lock).
+        Cancelled slots are discarded; expired requests are shed here,
+        BEFORE any padding or dispatch, and returned for resolution
+        outside the lock."""
+        taken = []
+        expired = []
+        rows = 0
+        now = _time.monotonic()
+        while self._pending:
+            req = self._pending[0]
+            if req.cancelled:
+                # accounting already done by _cancel
+                self._pending.popleft()
+                continue
+            if req.deadline is not None and now >= req.deadline:
+                self._pending.popleft()
+                # taken = "off the queue, accounting settled, the
+                # batcher owns resolution" — set under the lock so a
+                # racing ServeFuture.cancel() cannot re-decrement the
+                # rows/bytes/depth accounting or double-resolve
+                req.taken = True
+                # both callers hold self._lock (submit writes do too)
+                self._rows_pending -= req.rows
+                self._bytes_pending -= req.nbytes
+                expired.append(req)
+                continue
+            if rows + req.rows > self._max_batch:
+                break
+            self._pending.popleft()
+            self._rows_pending -= req.rows
+            self._bytes_pending -= req.nbytes
+            req.taken = True
+            rows += req.rows
+            taken.append(req)
+            _QUEUE_AGE.observe(now - req.future._t_enq)
+        shed = len(taken) + len(expired)
+        if shed:
+            _QUEUE_DEPTH.dec(shed)
+        return taken, rows, expired
+
+    def _run(self):
+        """Dispatcher thread body: the batching loop under
+        supervision.  A dispatch failure is handled INSIDE the loop
+        (only that batch's futures fail); anything escaping it lands
+        here and goes through crash handling — fail exactly the
+        in-flight batch, restart with backoff within the budget, or
+        go unhealthy and fail everything queued, loudly."""
+        try:
+            self._loop()
+        except Exception as exc:
+            self._dispatcher_crashed(exc)
+
+    def _loop(self):
+        import numpy as np
+        pred = self._predictor
+        while True:
+            with self._cond:
+                self._last_tick = _time.monotonic()
+                while not self._pending and not self._stopped:
+                    # bounded idle wait so the liveness tick stays
+                    # fresh even with no traffic (health surface)
+                    self._cond.wait(timeout=0.5)
+                    self._last_tick = _time.monotonic()
+                if self._stopped and not self._pending:
+                    return
+                # hold the batch open for late arrivals until the rows
+                # fill the cap, the OLDEST request's max-wait window
+                # closes, or its deadline approaches (monotonic clock
+                # only); a draining batcher dispatches immediately.
+                # The head is re-derived every iteration: a cancelled
+                # or expired head hands the window to its successor
+                # instead of pinning it.
+                while not self._stopped and not self._draining and \
+                        self._pending:
+                    head = self._pending[0]
+                    if head.cancelled:
+                        # defensive: _cancel removes cancelled requests
+                        # from the queue under this lock, so this is
+                        # unreachable today — but discarding inline
+                        # keeps the successor's own window intact
+                        # rather than dispatching it immediately
+                        self._pending.popleft()
+                        continue
+                    if head.future._t_enq <= self._flush_horizon:
+                        break       # flushed: dispatch without waiting
+                    now = _time.monotonic()
+                    window = head.future._t_enq + self._max_wait
+                    # any queued request that FITS this batch closes
+                    # the window EARLY at its dispatch-before-deadline
+                    # margin — not just the head's, or a tight-deadline
+                    # request behind a deadline-less head would expire
+                    # on an idle server.  A request only expires when
+                    # the dispatcher could not get to it by then
+                    # (backlog, wedged dispatch).
+                    fit = 0
+                    for r in self._pending:
+                        if r.cancelled:
+                            continue
+                        if fit + r.rows > self._max_batch:
+                            break
+                        fit += r.rows
+                        if r.dispatch_by is not None:
+                            window = min(window, r.dispatch_by)
+                    if self._rows_pending >= self._max_batch or \
+                            now >= window:
+                        break
+                    self._cond.wait(timeout=window - now)
+                    self._last_tick = _time.monotonic()
+                taken, rows, expired = self._take_locked()
+                if taken:
+                    self._inflight = tuple(taken)
+                elif not self._pending:
+                    # a shed-only round (expired / cancelled heads) can
+                    # empty the queue without ever reaching the
+                    # dispatch path's notify — wake drain()/flush()
+                    # waiters now instead of letting them sleep out
+                    # their full timeout
+                    self._cond.notify_all()
+            for req in expired:
+                _EXPIRED_TOTAL.inc()
+                _obs_events.emit("serve", kind="expired",
+                                 model=self.name, rows=req.rows)
+                req.future._resolve(exc=DeadlineExceededError(
+                    "request expired after %.3fs in the %r queue — "
+                    "shed before dispatch"
+                    % (_time.monotonic() - req.future._t_enq,
+                       self.name)))
+            if not taken:
+                continue
+            # chaos choke point, deliberately OUTSIDE the per-batch
+            # isolation below: an injected raise here escapes the loop
+            # and exercises the supervision path
+            _servechaos.on_dispatch(self.name)
+            try:
+                stacked = {
+                    n: np.concatenate([r.data[n] for r in taken], axis=0)
+                    if len(taken) > 1 else taken[0].data[n]
+                    for n in pred._data_shapes}
+                outs = pred.predict(stacked)
+                # ONE device->host readback per coalesced batch; the
+                # per-caller row splits below are numpy views (results
+                # are leaving the process anyway)
+                host = [o.asnumpy() for o in outs]
+                # count successful dispatches only, in lockstep with
+                # the serve_batches_total instrument
+                with self._lock:
+                    self._batches += 1
+                _BATCHES_TOTAL.inc()
+                _BATCH_OCCUPANCY.observe(
+                    rows / float(pred.ladder.batch_for(rows)))
+                lo = 0
+                for req in taken:
+                    hi = lo + req.rows
+                    req.future._resolve(result=[
+                        h[lo:hi] if h.ndim and h.shape[0] == rows
+                        else h for h in host])
+                    lo = hi
+            except Exception as exc:
+                # per-batch isolation: a failed dispatch fails exactly
+                # this batch's callers, the loop keeps serving
+                for req in taken:
+                    req.future._resolve(exc=exc)
+            finally:
+                with self._cond:
+                    self._inflight = ()
+                    self._cond.notify_all()    # drain/flush waiters
+
+    def _dispatcher_crashed(self, exc):
+        """An exception escaped the batching loop: resolve exactly the
+        in-flight batch with it, then restart within the budget or go
+        unhealthy (failing everything queued)."""
+        with self._cond:
+            inflight = self._inflight
+            self._inflight = ()
+            self._restarts_used += 1
+            crashes = self._restarts_used
+            give_up = crashes > self._max_restarts or self._stopped
+            orphans = ()
+            if give_up and not self._stopped:
+                self._unhealthy = True
+                orphans = tuple(r for r in self._pending
+                                if not r.cancelled)
+                for r in orphans:
+                    r.taken = True  # cancel() races the resolve below
+                self._pending.clear()
+                self._rows_pending = 0
+                self._bytes_pending = 0
+                if orphans:
+                    _QUEUE_DEPTH.dec(len(orphans))
+            stopped = self._stopped
+        log.error("serve batcher %r: dispatcher crashed (%s: %s) — "
+                  "crash %d/%d-restart budget", self.name,
+                  type(exc).__name__, exc, crashes, self._max_restarts)
+        for req in inflight:
+            # exactly the failing batch gets the crash error
+            req.future._resolve(exc=exc)
+        if give_up and not stopped:
+            err = ServeError(
+                "batcher %r is unhealthy: dispatcher crashed %d times "
+                "(budget %d); last error: %s: %s"
+                % (self.name, crashes, self._max_restarts,
+                   type(exc).__name__, exc))
+            for req in orphans:
+                req.future._resolve(exc=err)
+        # wake drain()/flush()/close() waiters only AFTER every future
+        # their contract covers is resolved — notifying from the lock
+        # block above let drain() return True while the crashed
+        # batch's futures were still unset
+        with self._cond:
+            self._cond.notify_all()
+        if stopped:
+            return
+        if give_up:
+            _obs_events.emit("serve", kind="unhealthy", model=self.name,
+                             crashes=crashes, failed_queued=len(orphans),
+                             error="%s: %s" % (type(exc).__name__,
+                                               str(exc)[:200]))
+            log.error("serve batcher %r: restart budget exhausted — "
+                      "unhealthy, failed %d queued futures", self.name,
+                      len(orphans))
+            if self._on_state is not None:
+                try:
+                    self._on_state("unhealthy")
+                except Exception:
+                    log.exception("serve batcher %r: on_state hook "
+                                  "failed", self.name)
+            return
+        delay = next(self._backoff)
+        _RESTARTS_TOTAL.inc()
+        _obs_events.emit("serve", kind="dispatcher_restart",
+                         model=self.name, restart=crashes,
+                         backoff_s=round(delay, 4),
+                         error="%s: %s" % (type(exc).__name__,
+                                           str(exc)[:200]))
+        self._restart_sleep(delay)
+        with self._lock:
+            if self._stopped:
+                return
+            self._thread = _san.thread(
+                target=self._run,
+                name="serve-batcher-%s-r%d" % (self.name, crashes),
+                daemon=True)
+            self._thread.start()
+
+    # -- lifecycle ---------------------------------------------------------
+    def drain(self, timeout=None):
+        """Graceful drain: stop admissions (submits raise a typed
+        ServeError), then wait up to *timeout* seconds (default the
+        ``MXNET_SERVE_DRAIN_TIMEOUT`` knob) for every accepted request
+        — queued and in-flight — to resolve.  Returns True when the
+        queue fully drained, False on timeout (accepted work may still
+        be in flight).  Idempotent."""
+        if timeout is None:
+            from ..config import get_env
+            timeout = get_env("MXNET_SERVE_DRAIN_TIMEOUT")
+        deadline = _time.monotonic() + max(0.0, float(timeout))
+        with self._cond:
+            self._draining = True
+            # the drain's machine-readable record: how many accepted
+            # requests it had to wait on, and whether it timed out —
+            # rolling deploys gate on "zero abandoned work" from this
+            # instead of inferring it from counters
+            waited = self._accepted_locked()
+            self._cond.notify_all()
+            timed_out = False
+            while self._pending or self._inflight:
+                remaining = deadline - _time.monotonic()
+                if remaining <= 0:
+                    timed_out = True
+                    break
+                self._cond.wait(timeout=remaining)
+            self._last_drain_stats = {"waited_requests": waited,
+                                      "timed_out": timed_out}
+        return not timed_out
+
+    def undrain(self):
+        """Resume admissions after a drain (an aborted rolling deploy
+        must hand the replica back to service, not leave it shedding
+        forever).  No-op on a closed or unhealthy batcher.  Returns
+        True when admissions are open again."""
+        with self._cond:
+            if self._stopped or self._unhealthy:
+                return False
+            self._draining = False
+            self._cond.notify_all()
+        return True
+
+    def flush(self, timeout=None):
+        """Wait (bounded) for every request ALREADY accepted to
+        resolve, without stopping admissions — the alias-cutover
+        primitive: after repointing traffic, flush the old target so
+        the requests it accepted are never dropped by a follow-up
+        teardown.  Returns True when they all resolved in time."""
+        if timeout is None:
+            from ..config import get_env
+            timeout = get_env("MXNET_SERVE_DRAIN_TIMEOUT")
+        deadline = _time.monotonic() + max(0.0, float(timeout))
+        with self._lock:
+            # everything accepted up to now dispatches without waiting
+            # out its coalescing window — flush means "land it"
+            self._flush_horizon = max(self._flush_horizon,
+                                      _time.monotonic())
+            futs = [r.future for r in self._pending if not r.cancelled]
+            futs.extend(r.future for r in self._inflight)
+            self._cond.notify_all()
+        for fut in futs:
+            remaining = deadline - _time.monotonic()
+            if remaining <= 0 or not fut._event.wait(remaining):
+                return False
+        return True
+
+    def close(self, timeout=5.0):
+        """Stop the dispatcher.  Queued-but-undispatched requests fail
+        with a :class:`ServeError`; the in-flight batch (if any)
+        completes.  A dispatcher that cannot be joined within
+        *timeout* (wedged in a dispatch) is surfaced: ``closed_dirty``
+        turns True, the dirty-close counter bumps and a structured
+        warning event records it — close never lies about being
+        clean.  Returns True on a clean close."""
+        with self._lock:
+            if self._stopped:
+                return not self._closed_dirty
+            self._stopped = True
+            orphans = [r for r in self._pending if not r.cancelled]
+            for r in orphans:
+                r.taken = True      # cancel() races the resolve below
+            self._pending.clear()
+            self._rows_pending = 0
+            self._bytes_pending = 0
+            if orphans:
+                _QUEUE_DEPTH.dec(len(orphans))
+            self._cond.notify_all()
+            thread = self._thread
+        for req in orphans:
+            req.future._resolve(
+                exc=ServeError("batcher %r closed before dispatch"
+                               % self.name))
+        thread.join(timeout)
+        if thread.is_alive():
+            with self._lock:
+                self._closed_dirty = True
+            _DIRTY_CLOSES_TOTAL.inc()
+            _obs_events.emit(
+                "warning", source="serve.batcher", kind="dirty_close",
+                model=self.name,
+                detail="dispatcher thread still alive %.1fs after "
+                       "close — wedged dispatch" % timeout)
+            log.warning(
+                "serve batcher %r: close could not join the dispatcher "
+                "within %.1fs (closed_dirty; the thread is daemonic and "
+                "will not block exit)", self.name, timeout)
+            return False
+        return True

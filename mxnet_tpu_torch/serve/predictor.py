@@ -1,58 +1,164 @@
-"""CompiledPredictor — bucketed inference for one model (port of
-``mxnet_tpu/serve/predictor.py``, subset: construction, ``warm``,
-``ensure_program``, ``predict``).
+"""CompiledPredictor — one program per padding bucket (port of
+``mxnet_tpu/serve/predictor.py``, without decode).
 
 A predictor owns the model's inference graph (``executor._build_eval``
-over the symbol), its parameters on the target device, and one
-"program" per bucket of the :class:`BucketLadder`.  In this port a
-program is the eager evaluation of the graph at that bucket's shapes;
-``warm`` runs each one once on zeros, so one-time costs (kernel builds,
-allocator growth, library handles) land at load time, not on the first
-request.  Requests are zero-padded up to their bucket and the outputs
-trimmed back.
+over the symbol, ``training=False``), its parameters on the target
+device (its own copies: ``set_params`` writes them in place), and one
+program per bucket of the :class:`~.buckets.BucketLadder`, built at
+load time by :meth:`CompiledPredictor.warm` (or once, on first demand,
+for a bucket warm did not plan) and never in the request path.
+
+**On the card a rung's program is one CUDA graph** — the counterpart of
+the JAX package's ahead-of-time compiled program per rung.  Building it
+runs the graph once eagerly on zeros on the predictor's own stream
+(library handles, workspaces and kernel builds land there), then
+captures it on that stream with ``torch.cuda.graph`` over static input
+buffers of the rung's padded shape.  A request copies its padded input
+into those buffers, replays the graph, and clones the outputs, all on
+the predictor's stream and under its lock: the next replay overwrites
+the static outputs.  All rungs of one predictor capture into one graph
+memory pool (``torch.cuda.graph_pool_handle``).  The lock orders the
+replays on the host and the one stream orders them on the card, so
+callers on any stream share the pool safely: the predictor's stream
+waits for the caller's before the copy, and the caller's waits for the
+clone.  Capture runs with
+``capture_error_mode="thread_local"``, so work that other threads queue
+meanwhile does not break it.  A capture that fails raises
+:class:`~.buckets.ServeError`; nothing falls back to eager execution on
+the card, where the eager graph runs only in the warm-up before each
+capture.  A replay calls no kernel wrapper, so each program records the
+kernel calls its capture recorded (the wrappers' ``captured`` counts)
+and counts its replays
+(:meth:`CompiledPredictor.graph_launches`).
+
+**On the CPU** (``ctx=mx.cpu()``) a program is the eager graph.
+
+Requests are zero-padded up to their bucket (batch rung, and any
+``seq_axes`` rounding) and the outputs trimmed back to the natural batch.
 """
 
 from __future__ import annotations
 
-import threading
+import time as _time
 
 import numpy as _np
 import torch
 
 from .buckets import BucketLadder, ServeError
+from .. import sanitizer as _san
 from ..base import torch_dtype
 from ..context import Context, current_context
 from ..executor import _build_eval
 from ..ndarray import NDArray
+from ..ndarray.ndarray import _from_numpy
+from ..observability import events as _obs_events
+from ..observability import metrics as _obs_metrics
+from ..ops.attention import capture_counts as _capture_counts
+from ..resilience import servechaos as _servechaos
 
 __all__ = ["CompiledPredictor"]
 
+# module-level instrument refs (hot path: no registry lookup per call)
+_DISPATCH_SECONDS = _obs_metrics.histogram(
+    "serve_dispatch_seconds",
+    "host-side latency of one serve dispatch (one graph replay on the "
+    "card)")
+_COMPILES_TOTAL = _obs_metrics.counter(
+    "serve_compiles_total",
+    "rung programs built (CUDA graph captures on the card); flat after "
+    "warmup or the request path is building programs")
+_PADDED_ROWS = _obs_metrics.counter(
+    "serve_padded_rows_total",
+    "zero-padded rows dispatched (bucket size minus real rows)")
 
-def _as_tensor(x, device):
-    """A request array (numpy / NDArray / tensor) as a tensor on
-    *device*."""
+def _as_tensor(x):
+    """A request or parameter array (numpy / NDArray / tensor) as a
+    tensor where it lies (numpy on the CPU)."""
     if isinstance(x, NDArray):
-        x = x._data
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(_np.ascontiguousarray(x))
-    return x.to(device)
+        return x._data
+    if isinstance(x, torch.Tensor):
+        return x
+    return _from_numpy(_np.asarray(x))
+
+
+def _as_host(x):
+    """A request array as host numpy (the batcher queues host data)."""
+    if isinstance(x, NDArray):
+        return x.asnumpy()
+    if isinstance(x, torch.Tensor):
+        return NDArray(x).asnumpy()
+    return _np.asarray(x)
+
+
+class _EagerProgram:
+    """A rung's program on the CPU: the eager graph, run under the
+    predictor's lock like a replay (``set_params`` writes in place)."""
+
+    def __init__(self, pred):
+        self._pred = pred
+        self.captured = {}
+        self.replays = 0
+
+    def __call__(self, padded):
+        pred = self._pred
+        with pred._lock:
+            outs = pred._run({n: t.to(pred._dev) for n, t in padded.items()})
+            self.replays += 1
+        return outs
+
+
+class _GraphProgram:
+    """A rung's program on the card: one captured CUDA graph over static
+    input buffers; ``captured`` holds the kernel launches its capture
+    recorded, ``replays`` counts its replays."""
+
+    def __init__(self, pred, graph, inputs, outputs, captured):
+        self._pred = pred
+        self._graph = graph
+        self._inputs = inputs
+        self._outputs = outputs
+        self.captured = captured
+        self.replays = 0
+
+    def __call__(self, padded):
+        pred = self._pred
+        with torch.cuda.device(pred._dev), pred._lock:
+            caller = torch.cuda.current_stream(pred._dev)
+            own = pred._stream
+            own.wait_stream(caller)
+            with torch.cuda.stream(own):
+                for n, t in padded.items():
+                    self._inputs[n].copy_(t)
+                self._graph.replay()
+                outs = [o.clone() for o in self._outputs]
+            caller.wait_stream(own)
+            for o in outs:
+                o.record_stream(caller)
+            self.replays += 1
+        return outs
 
 
 class CompiledPredictor:
-    """Bucketed inference for one model.
+    """Bucketed inference programs for one model.
 
     symbol : the inference graph.
-    arg_params : {name: array} for every non-data argument of *symbol*.
+    arg_params : {name: array} for every non-data argument of *symbol*;
+        copied onto the target device at construction.
     aux_params : {name: array} of auxiliary states.
     data_shapes : {input name: natural full shape}; the trailing dims seed
         :meth:`warm` and the key set names the request inputs.
     ladder : BucketLadder (default: powers of two).
     data_dtypes : {input name: dtype} (default float32); inputs are cast.
-    ctx : the target device (default: the current context).
+    ctx : the target device (default: the current context, ``gpu(0)``).
+    name : model name used in events and errors.
+    bucket_inputs : the data inputs whose leading dim is a batch axis
+        subject to the ladder (default: all).  Inputs left out are
+        fixed-shape: requests must match their declared shape exactly.
     """
 
     def __init__(self, symbol, arg_params, aux_params=None, data_shapes=None,
-                 ladder=None, data_dtypes=None, ctx=None, name="model"):
+                 ladder=None, data_dtypes=None, ctx=None, name="model",
+                 bucket_inputs=None):
         if not data_shapes:
             raise ServeError("CompiledPredictor needs data_shapes "
                              "({input name: full shape})")
@@ -65,6 +171,14 @@ class CompiledPredictor:
                              for n, s in data_shapes.items()}
         self._data_dtypes = {n: torch_dtype((data_dtypes or {}).get(
             n, "float32")) for n in self._data_shapes}
+        if bucket_inputs is None:
+            self._bucket_inputs = frozenset(self._data_shapes)
+        else:
+            self._bucket_inputs = frozenset(bucket_inputs)
+            bad = self._bucket_inputs - set(self._data_shapes)
+            if bad:
+                raise ServeError("model %r: bucket_inputs %s are not data "
+                                 "inputs" % (name, sorted(bad)))
         arg_names = symbol.list_arguments()
         missing = [n for n in arg_names if n not in self._data_shapes and
                    n not in (arg_params or {})]
@@ -76,8 +190,8 @@ class CompiledPredictor:
             raise ServeError("model %r: data inputs %s are not arguments of "
                              "the symbol (it has %s)"
                              % (name, unknown, arg_names[:4]))
-        self._params = {n: _as_tensor(v, self._dev)
-                        for n, v in (arg_params or {}).items()
+        own = lambda v: _as_tensor(v).to(self._dev, copy=True)
+        self._params = {n: own(v) for n, v in (arg_params or {}).items()
                         if n in arg_names and n not in self._data_shapes}
         aux_params = aux_params or {}
         aux_names = symbol.list_auxiliary_states()
@@ -85,64 +199,216 @@ class CompiledPredictor:
         if missing_aux:
             raise ServeError("model %r: missing auxiliary states %s"
                              % (name, missing_aux))
-        self._aux = {n: _as_tensor(aux_params[n], self._dev)
-                     for n in aux_names}
+        self._aux = {n: own(aux_params[n]) for n in aux_names}
         self._eval = _build_eval(symbol, False)
-        self._rungs = set()
-        self._lock = threading.Lock()
+        self._programs = {}        # bucket key -> program
+        self._lock = _san.lock(label="serve.predictor.%s" % name)
+        self._compiles = 0
         self._dispatches = 0
+        self._pool = None          # the rungs' shared CUDA graph pool
+        self._stream = None        # warm-up, capture and replay stream
 
+    # -- introspection -----------------------------------------------------
     @property
     def compile_count(self):
-        """Rungs readied so far; flat after ``warm``.  A program is the
-        eager graph, so nothing is built per rung yet: this counts the
-        rung keys that have been seen."""
-        return len(self._rungs)
+        """Programs built so far (CUDA graph captures on the card).  Flat
+        after warmup — a growing count means the request path builds."""
+        return self._compiles
 
     @property
     def dispatch_count(self):
         return self._dispatches
 
+    @property
+    def replay_count(self):
+        """Program runs so far (graph replays on the card; warm's priming
+        runs included)."""
+        with self._lock:
+            return sum(p.replays for p in self._programs.values())
+
+    def graph_launches(self):
+        """{kernel: launches its graphs ran}: over every program, the
+        kernel launches its capture recorded times its replays.  (A
+        replay does not call the kernel wrappers, so their ``launches``
+        counters do not see it.)"""
+        out = {}
+        with self._lock:
+            for p in self._programs.values():
+                for k, c in p.captured.items():
+                    out[k] = out.get(k, 0) + c * p.replays
+        return out
+
+    def captured_launches(self, shapes):
+        """The kernel launches the capture of *shapes*' program recorded
+        ({} for an eager program)."""
+        prog = self._programs.get(self.ladder.bucket_key(shapes))
+        if prog is None:
+            raise ServeError("model %r has no program for %s"
+                             % (self.name, shapes))
+        return dict(prog.captured)
+
+    def jit_cache_size(self):
+        """0: the port traces nothing per call (the JAX contract for the
+        size of its traced-call cache)."""
+        return 0
+
+    def program_keys(self):
+        return sorted(self._programs)
+
+    def output_shapes(self, n):
+        """Output shapes for a natural batch of *n* rows (trimmed), by
+        evaluating the graph on meta tensors (no device work)."""
+        shapes = {nm: ((n,) + self._data_shapes[nm][1:])
+                  if nm in self._bucket_inputs else self._data_shapes[nm]
+                  for nm in self._data_shapes}
+        meta = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
+        amap = {k: meta(v) for k, v in self._params.items()}
+        amap.update({nm: torch.empty(s, dtype=self._data_dtypes[nm],
+                                     device="meta")
+                     for nm, s in shapes.items()})
+        with torch.no_grad():
+            outs, _ = self._eval(amap, {k: meta(v)
+                                        for k, v in self._aux.items()})
+        return [tuple(o.shape) for o in outs]
+
+    # -- programs ----------------------------------------------------------
     def _run(self, data):
+        """The eager graph over *data* ({input: tensor on the device})."""
         amap = dict(self._params)
         amap.update(data)
         with torch.no_grad():
             outs, _ = self._eval(amap, self._aux)
         return outs
 
+    def _bucket_shapes(self, natural_shapes):
+        """{name: padded full shape} for a request's natural shapes —
+        batch dims must agree across the bucketed inputs; fixed-shape
+        inputs must match their declared shape exactly."""
+        batches = {s[0] for n, s in natural_shapes.items()
+                   if s and n in self._bucket_inputs}
+        if len(batches) > 1:
+            raise ServeError("model %r: inputs disagree on batch size (%s)"
+                             % (self.name, sorted(batches)))
+        out = {}
+        for n, s in natural_shapes.items():
+            if n in self._bucket_inputs:
+                out[n] = self.ladder.pad_shape(s)
+            elif tuple(s) != self._data_shapes[n]:
+                raise ServeError(
+                    "model %r fixed-shape input %r: %s does not match the "
+                    "declared %s (it is outside bucket_inputs — no padding "
+                    "applies)" % (self.name, n, tuple(s),
+                                  self._data_shapes[n]))
+            else:
+                out[n] = tuple(s)
+        return out
+
+    def _capture(self, shapes):
+        """One warm-up run on zeros, then the CUDA graph of *shapes*'
+        bucket (caller holds the lock)."""
+        dev = self._dev
+        with torch.cuda.device(dev):
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+                self._stream = torch.cuda.Stream(dev)
+            inputs = {n: torch.zeros(s, dtype=self._data_dtypes[n],
+                                     device=dev)
+                      for n, s in shapes.items()}
+            side = self._stream
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._run(inputs)
+            before = _capture_counts()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                      capture_error_mode="thread_local"):
+                    outputs = self._run(inputs)
+            except Exception as exc:
+                raise ServeError(
+                    "model %r: CUDA graph capture of bucket %s failed "
+                    "(%s: %s); the card runs no eager fallback"
+                    % (self.name, shapes, type(exc).__name__, exc)) from exc
+            captured = {k: c - before[k]
+                        for k, c in _capture_counts().items()
+                        if c > before[k]}
+        return _GraphProgram(self, graph, inputs, outputs, captured)
+
     def ensure_program(self, shapes):
-        """The program for a {name: padded full shape} bucket, counting
-        the rung in ``compile_count`` the first time it is seen."""
+        """Get-or-build the program for a {name: padded full shape}
+        bucket.  Builds are serialized, timed, counted and evented
+        (``serve`` category, ``kind="compile"``, blamed on the bucket);
+        the hit path is one lock-free dict read."""
         key = self.ladder.bucket_key(shapes)
-        if key not in self._rungs:
-            with self._lock:
-                self._rungs.add(key)
-        return self._run
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog
+        with self._lock:
+            prog = self._programs.get(key)
+            if prog is not None:
+                return prog
+            # chaos choke point (reject_warm_at): a failed build must
+            # propagate as a typed error, never half-register a model
+            _servechaos.on_warm(self.name)
+            t0 = _time.perf_counter()
+            if self._dev.type == "cuda":
+                prog = self._capture(shapes)
+            else:
+                prog = _EagerProgram(self)
+            dt = _time.perf_counter() - t0
+            self._programs[key] = prog
+            self._compiles += 1
+            _COMPILES_TOTAL.inc()
+            _obs_events.emit(
+                "serve", kind="compile", model=self.name,
+                bucket=[list(s) for _, s in key], seconds=round(dt, 4),
+                programs=len(self._programs),
+                graph=self._dev.type == "cuda", launches=prog.captured)
+            return prog
 
     def rung_shapes(self, b):
-        """The padded input shapes of the rung serving *b* rows."""
-        return {n: (self.ladder.batch_for(b),) + s[1:]
-                for n, s in self._data_shapes.items()}
+        """The padded input shapes of the rung that serves a natural batch
+        of *b* rows (construction data shapes, bucket-rounded)."""
+        return {n: ((self.ladder.batch_for(b),) + tuple(
+            self.ladder.round_axis(ax, d)
+            for ax, d in enumerate(s[1:], start=1)))
+            if n in self._bucket_inputs else s
+            for n, s in self._data_shapes.items()}
 
     def warm(self, batches=None):
-        """Run every rung's program once on zeros.  Returns the number of
-        rungs readied for the first time."""
-        before = self.compile_count
+        """Build one program per batch rung (at the construction data
+        shapes) and run each once on zeros, so one-time costs land at load
+        time.  Returns the number of programs built."""
+        before = self._compiles
         for b in (batches or self.ladder.batches):
             shapes = self.rung_shapes(b)
             prog = self.ensure_program(shapes)
-            prog({n: torch.zeros(s, dtype=self._data_dtypes[n],
-                                 device=self._dev)
+            prog({n: torch.zeros(s, dtype=self._data_dtypes[n])
                   for n, s in shapes.items()})
         if self._dev.type == "cuda":
             torch.cuda.synchronize(self._dev)
-        return self.compile_count - before
+        return self._compiles - before
 
-    def predict(self, data):
-        """One padded-bucket dispatch.  *data*: {input name: array}, or
-        one array when the model has one input; an array missing the
-        batch dim is one example.  Returns the outputs as NDArrays,
-        trimmed to the natural batch."""
+    def lowered_text(self, shapes):
+        raise ServeError("lowered_text is not ported: the port lowers to no "
+                         "StableHLO (quantization, queue A item 6)")
+
+    def make_decoder(self, *args, **kwargs):
+        raise ServeError("make_decoder is not ported (decode, queue A "
+                         "item 6)")
+
+    def make_paged_decoder(self, *args, **kwargs):
+        raise ServeError("make_paged_decoder is not ported (decode, queue "
+                         "A item 6)")
+
+    # -- request path ------------------------------------------------------
+    def predict(self, data, key=None):
+        """One padded-bucket dispatch.  *data*: {input name: array}, or one
+        array when the model has one input; an array missing the batch
+        dim is one example.  Returns the outputs as NDArrays on the
+        predictor's device, trimmed to the natural batch (and not to the
+        natural length of a rounded axis).  *key* is accepted for the JAX
+        signature: no inference op of the port draws random numbers."""
         if not isinstance(data, dict):
             if len(self._data_shapes) != 1:
                 raise ServeError("model %r has %d inputs — pass a dict"
@@ -153,34 +419,64 @@ class CompiledPredictor:
             if n not in data:
                 raise ServeError("model %r: request is missing input %r"
                                  % (self.name, n))
-            a = _as_tensor(data[n], self._dev)
+            a = _as_tensor(data[n])
             if a.dim() == len(full) - 1:
-                a = a[None]
+                a = a[None]         # single example -> batch of one
             if a.dim() != len(full):
                 raise ServeError("model %r input %r: rank %d does not match "
                                  "the bound example rank %d"
                                  % (self.name, n, a.dim(), len(full)))
             arrays[n] = a
-        batches = {a.shape[0] for a in arrays.values()}
-        if len(batches) > 1:
-            raise ServeError("model %r: inputs disagree on batch size (%s)"
-                             % (self.name, sorted(batches)))
-        rows = batches.pop()
-        shapes = {n: self.ladder.pad_shape(a.shape)
-                  for n, a in arrays.items()}
+        natural = {n: tuple(a.shape) for n, a in arrays.items()}
+        bucketed = [n for n in natural if n in self._bucket_inputs]
+        rows = natural[bucketed[0]][0] if bucketed else None
+        shapes = self._bucket_shapes(natural)
         prog = self.ensure_program(shapes)
         padded = {}
         for n, a in arrays.items():
             dt = self._data_dtypes[n]
-            if tuple(a.shape) == shapes[n] and a.dtype == dt:
-                padded[n] = a
+            if tuple(a.shape) == shapes[n]:
+                padded[n] = a.to(dt)
                 continue
-            buf = torch.zeros(shapes[n], dtype=dt, device=self._dev)
+            buf = torch.zeros(shapes[n], dtype=dt, device=a.device)
             buf[tuple(slice(0, s) for s in a.shape)] = a
             padded[n] = buf
-        outs = prog(padded)
+        bucket_rows = shapes[bucketed[0]][0] if bucketed else None
+        if bucketed and bucket_rows > rows:
+            _PADDED_ROWS.inc(bucket_rows - rows)
+        t0 = _time.perf_counter()
+        with _san.transfer_guard("serve dispatch (%s)" % self.name):
+            outs = prog(padded)
+        _DISPATCH_SECONDS.observe(_time.perf_counter() - t0)
         with self._lock:
             self._dispatches += 1
-        bucket_rows = next(iter(shapes.values()))[0]
-        return [NDArray(o[:rows] if o.dim() and o.shape[0] == bucket_rows
-                        and rows != bucket_rows else o) for o in outs]
+        return [NDArray(o[:rows] if bucketed and rows != bucket_rows and
+                        o.dim() and o.shape[0] == bucket_rows else o)
+                for o in outs]
+
+    # -- parameter refresh -------------------------------------------------
+    def set_params(self, arg_params, aux_params=None):
+        """Write new parameter values in place, without rebuilding a
+        program: the captured graphs read the same tensors, so the next
+        replay sees the new values.  Shapes and dtypes must match (a
+        changed shape raises; that is a new model, load it under a new
+        name).  Nothing is written unless every value checks out."""
+        staged = []
+        for table, values, what in ((self._params, arg_params, "parameter"),
+                                    (self._aux, aux_params, "aux state")):
+            for n, v in (values or {}).items():
+                if n not in table:
+                    raise ServeError("model %r has no %s %r"
+                                     % (self.name, what, n))
+                cur, new = table[n], _as_tensor(v)
+                if tuple(new.shape) != tuple(cur.shape) or \
+                        new.dtype != cur.dtype:
+                    raise ServeError(
+                        "%s %r changed shape/dtype (%s %s -> %s %s) — "
+                        "programs are shape-specialized"
+                        % (what, n, tuple(cur.shape), cur.dtype,
+                           tuple(new.shape), new.dtype))
+                staged.append((cur, new))
+        with self._lock:
+            for cur, new in staged:
+                cur.copy_(new)

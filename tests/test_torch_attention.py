@@ -153,6 +153,18 @@ def test_mixed_dtypes_promote_once_and_return_query_dtype():
                                want.to(torch.bfloat16).float().numpy())
 
 
+def test_count_readers_cover_every_wrapper():
+    wrappers = (tatt.flash_fwd, tatt.flash_bwd_dkdv, tatt.flash_bwd_dq)
+    assert tatt.launch_counts() == {w.__name__: w.launches
+                                    for w in wrappers}
+    assert tatt.capture_counts() == {w.__name__: w.captured
+                                     for w in wrappers}
+    q, k, v = _qkv(1, 2, 16, 16, 8)
+    before = (tatt.launch_counts(), tatt.capture_counts())
+    tatt.flash_attention(*_t(q, k, v), causal=True)
+    assert (tatt.launch_counts(), tatt.capture_counts()) == before
+
+
 def test_cpu_dispatch_runs_plain_version_and_launches_nothing():
     q, k, v = _qkv(1, 2, 16, 16, 8)
     before = tatt.flash_fwd.launches

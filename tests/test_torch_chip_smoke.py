@@ -361,3 +361,227 @@ def test_north_star_phase_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         chip_smoke.phase_north_star(torch, "no card", 0)
+
+
+# phase 4 (batch serving): the traffic loops, the coalesced-answer
+# check and the phase's checks, on a small LM served on the CPU
+def _served_small_lm(tmp_path, monkeypatch):
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        get_transformer_lm
+    monkeypatch.setattr(chip_smoke, "VOCAB", 40)
+    monkeypatch.setattr(chip_smoke, "SEQ", 16)
+    net = get_transformer_lm(vocab=40, dim=32, heads=4, layers=2,
+                             max_seq=32, prefix="p4_")
+    net.initialize(ctx=mx.cpu())
+    net.hybridize()
+    net(mx.nd.array(np.zeros((1, 16), "float32"), ctx=mx.cpu()))
+    net.export(str(tmp_path / "lm"), 0)
+    reg = mx.serve.ModelRegistry()
+    pred = reg.load_checkpoint(
+        "lm", str(tmp_path / "lm"), 0, data_shapes={"data0": (1, 16)},
+        ladder=mx.serve.BucketLadder(batches=(1, 2, 4, 8), seq_axes={1: 8},
+                                     seq_max={1: 16}), ctx=mx.cpu())
+    return reg, pred
+
+
+def _plain_eval(pred):
+    from mxnet_tpu_torch.executor import _build_eval
+    from mxnet_tpu_torch.ops import attention as att
+
+    def plain(query, key, value, causal=False, sm_scale=None, chunk=512):
+        return att._chunked_attention(query, key, value, bool(causal),
+                                      sm_scale, chunk)
+    return _build_eval(pred._symbol, False, op_impls={
+        "_contrib_DotProductAttention": plain})
+
+
+def test_serve_traffic_coalesces_and_checks_pass(tmp_path, monkeypatch):
+    """The closed and open loops through ``registry.submit`` on the CPU:
+    every request is answered and digested, batches carry whole
+    requests, each coalesced answer is bit-equal to predict of its
+    stacked batch and within TOL_SERVE of the plain-attention graph —
+    and a corrupted answer, or a graph outside the limit, fails."""
+    import numpy as np
+    import torch
+    reg, pred = _served_small_lm(tmp_path, monkeypatch)
+    try:
+        reg.batcher("lm", max_wait_ms=50)
+        rng = np.random.RandomState(0)
+        ev = _plain_eval(pred)
+        for loop in ("closed", "open"):
+            xs = chip_smoke.request_tokens(rng, 12, seq=16)
+            assert {x.shape[1] for x in xs} == {16}
+            assert 1 <= min(len(x) for x in xs) <= max(len(x) for x in xs) \
+                <= chip_smoke.MAX_ROWS
+            batches, restore = chip_smoke.record_batches(pred)
+            answers = chip_smoke.Answers(len(xs))
+            if loop == "closed":
+                wall = chip_smoke.closed_loop(reg, "lm", xs, 4, answers)
+                records = answers.wait()
+            else:
+                wall = chip_smoke.open_loop(reg, "lm", xs, 200.0, answers)
+                records = answers.records
+            restore()
+            assert "predict" not in pred.__dict__
+            assert all(r is not None for r in records)
+            assert [r["rows"] for r in records] == [len(x) for x in xs]
+            st = chip_smoke.traffic_stats(records, wall, seq=16)
+            assert st["requests"] == 12 and st["rows"] == sum(map(len, xs))
+            assert st["p50_ms"] > 0 and st["tokens_s"] > 0
+            assert st["p99_ms"] is None         # 12 requests: too few
+            assert sum(len(b) for b in batches) == st["rows"]
+            seen = sorted(i for b in batches
+                          for i, _ in chip_smoke.batch_members(b, xs))
+            assert seen == list(range(12))
+            chk = chip_smoke.check_coalesced(torch, pred, ev, batches, xs,
+                                              records)
+            assert chk["bit_equal"] and chk["worst"] <= 1.0
+            assert 0 < chk["occupancy"] <= 1.0
+        records[0] = dict(records[0], crc=records[0]["crc"] ^ 1)
+        chk = chip_smoke.check_coalesced(torch, pred, ev, batches, xs,
+                                          records)
+        assert not chk["bit_equal"] and chk["worst"] <= 1.0
+        records[0] = dict(records[0], crc=records[0]["crc"] ^ 1)
+
+        def off(amap, aux):
+            outs, upd = ev(amap, aux)
+            return [outs[0] + 1.0], upd
+        chk = chip_smoke.check_coalesced(torch, pred, off, batches, xs,
+                                          records)
+        assert chk["bit_equal"] and chk["worst"] > 1.0
+    finally:
+        reg.close()
+
+
+def test_answers_digest_every_row_and_re_raise():
+    """A record holds the latency, rows and CRC-32 of the answer's bytes;
+    a failed answer is re-raised by ``wait``."""
+    import zlib
+    import numpy as np
+
+    class Fut:
+        def __init__(self, out=None, exc=None):
+            self._out, self._exc = out, exc
+            self._t_enq, self._t_resolved = 1.0, 1.25
+
+        def result(self, timeout=None):
+            if self._exc:
+                raise self._exc
+            return [self._out]
+
+    out = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+    answers = chip_smoke.Answers(2)
+    answers.add(1, Fut(out[1:]))
+    rec = answers.wait()
+    assert rec[0] is None
+    assert rec[1] == {"latency": 0.25, "resolved": 1.25, "rows": 1,
+                      "crc": zlib.crc32(out[1:].tobytes())}
+    answers = chip_smoke.Answers(1)
+    answers.add(0, Fut(exc=KeyError("lost")))
+    with pytest.raises(KeyError):
+        answers.wait()
+
+
+def test_p99_is_reported_from_a_sample_of_100_requests():
+    recs = [{"latency": i / 1e3, "rows": 1} for i in range(1, 101)]
+    st = chip_smoke.traffic_stats(recs, 10.0, seq=16)
+    assert st["p99_ms"] == pytest.approx(99.0) and st["p50_ms"] == \
+        pytest.approx(50.0)
+    assert chip_smoke.traffic_stats(recs[:99], 10.0, seq=16)["p99_ms"] \
+        is None
+
+
+def test_batch_members_refuses_rows_of_no_request():
+    import numpy as np
+    xs = [np.full((2, 3), 1.0), np.full((1, 3), 2.0)]
+    stacked = np.concatenate([xs[1], xs[0]])
+    assert chip_smoke.batch_members(stacked, xs) == [(1, 0), (0, 1)]
+    with pytest.raises(RuntimeError, match="no request"):
+        chip_smoke.batch_members(np.full((1, 3), 5.0), xs)
+    with pytest.raises(RuntimeError, match="no request"):
+        chip_smoke.batch_members(np.concatenate([xs[0][:1], xs[1]]), xs)
+
+
+def test_percentile_by_nearest_rank():
+    vals = [5.0, 1.0, 3.0, 2.0, 4.0]
+    assert chip_smoke.percentile(vals, 50) == 3.0
+    assert chip_smoke.percentile(vals, 99) == 5.0
+    assert chip_smoke.percentile([7.0], 1) == 7.0
+
+
+def _good_serve_record():
+    L = chip_smoke.LAYERS
+    return {"closed_batches": 12, "closed_requests": 32,
+            "compiles_warm": 4, "compiles_after": 5, "unresolved": 0,
+            "captured": {b: {"flash_fwd": L} for b in chip_smoke.RUNGS},
+            "graph_launches": L * 30, "replays": 30, "dispatches": 30,
+            "traffic_wrapper": L, "traffic_captured": L,
+            "bit_equal_closed": True,
+            "bit_equal_open": True, "worst_closed": 0.1, "worst_open": 0.1,
+            "worst_direct": 0.1, "worst_graph_eager": 0.0,
+            "pad_ratio": 0.05, "profile_flash_fwd": 0.15}
+
+
+@pytest.mark.parametrize("fault,value", [
+    ("closed_batches", 32), ("compiles_after", 6), ("compiles_after", 4),
+    ("unresolved", 1), ("captured", {1: {"flash_fwd": 11}}),
+    ("graph_launches", 12 * 29), ("replays", 31), ("traffic_wrapper", 24),
+    ("traffic_captured", 0),
+    ("bit_equal_closed", False), ("bit_equal_open", False),
+    ("worst_closed", 1.5), ("worst_open", float("nan")),
+    ("worst_direct", 2.0), ("worst_graph_eager", 1.01), ("pad_ratio", 3.0),
+    ("profile_flash_fwd", 0.0)])
+def test_serve_checks_are_wired(fault, value):
+    """Each of phase 4's checks fails the phase on its own."""
+    rec = _good_serve_record()
+    assert chip_smoke.serve_failures(rec) == []
+    rec[fault] = value
+    assert len(chip_smoke.serve_failures(rec)) == 1
+
+
+def test_serve_phase_raises_without_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chip_smoke.phase_serve(torch, "no card", 0)
+
+
+def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
+    """With every phase stubbed, ``main`` prints the kernels line with
+    the batched-serving launches, then exactly the contract's line."""
+    import json
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    row = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
+           "bound_by": "operations", "library_ms": 1.5, "library": "x"}
+    kernels = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+    stub = {
+        "phase_device": lambda t: "card, 700.00 W",
+        "phase_build": lambda: {},
+        "phase_kernel": lambda t, c, s: {(k, d): dict(row) for k in kernels
+                                         for d in ("float32", "bfloat16")},
+        "phase_serve": lambda t, c, s: {"eager": 72, "direct": 108,
+                                        "traffic": 420},
+        "phase_train": lambda t, c, s: {k: 60 for k in kernels},
+        "phase_resnet": lambda t, c, s: None,
+        "phase_north_star": lambda t, c, s: {k: 60 for k in kernels}}
+    for name, fn in stub.items():
+        monkeypatch.setattr(chip_smoke, name, fn)
+    assert chip_smoke.main() == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "card", "count": 1}}
+    fwd = json.loads(lines[-2])["kernels"][0]
+    assert fwd["name"] == "flash_fwd"
+    assert fwd["launches_by_path"]["batched serve (graph replays: "
+                                   "traffic dispatches)"] == 420
+    assert fwd["launches"] == 72 + 108 + 420 + 60 + 60
+    for k in json.loads(lines[-2])["kernels"]:
+        assert {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"} <= set(k)

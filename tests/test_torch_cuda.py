@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: ``flash_fwd``, ``flash_bwd_dkdv``
 and ``flash_bwd_dq`` against their plain versions, the wrappers'
-refusals, and the launch counts of the serving and training paths; and
-the float32 ``Convolution`` on cuDNN held to float64 (no TF32).
+refusals, and the launch counts of the serving and training paths; the
+float32 ``Convolution`` on cuDNN held to float64 (no TF32); and serving's
+CUDA graph per rung (replay against eager, outputs that never alias,
+``set_params`` seen by the next replay, a capture failure that raises).
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one.
 This file imports neither jax nor the JAX package, so it runs on a
@@ -146,6 +148,33 @@ def test_dispatch_launches_the_kernel(cuda):
     assert att.flash_fwd.launches == before + 1
 
 
+def test_a_captured_call_records_and_does_not_launch(cuda):
+    """Under CUDA graph capture the wrapper records its kernel into the
+    graph: ``captured`` grows, ``launches`` does not, and a replay runs
+    the kernel without calling the wrapper."""
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v = _qkv(cuda, 1, 2, 128, 128, 64, torch.float32)
+    want = att.flash_fwd(q, k, v, causal=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        att.flash_fwd(q, k, v, causal=True)     # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    before = (att.launch_counts(), att.capture_counts())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = att.flash_fwd(q, k, v, causal=True)
+    launches, captured = att.launch_counts(), att.capture_counts()
+    assert launches == before[0]
+    assert captured["flash_fwd"] == before[1]["flash_fwd"] + 1
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert att.launch_counts() == launches
+    assert att.capture_counts() == captured
+    assert torch.equal(out, want)
+
+
 @pytest.mark.parametrize("fault", ["dtype", "head_dim", "strides",
                                    "shape", "device"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, fault):
@@ -185,17 +214,177 @@ def test_served_lm_goes_through_the_kernel(cuda, tmp_path):
     want = net(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
     net.export(str(tmp_path / "lm"), 0)
     reg = mx.serve.ModelRegistry()
+    loaded = (att.flash_fwd.launches, att.flash_fwd.captured)
     reg.load_checkpoint("lm", str(tmp_path / "lm"), 0,
                         data_shapes={"data0": (1, 64)},
                         ladder=mx.serve.BucketLadder(batches=(1, 4)),
                         ctx=mx.gpu(0))
+    # 2 rungs: a warm-up run of 3 launches each, a capture of 3 records
+    assert (att.flash_fwd.launches - loaded[0],
+            att.flash_fwd.captured - loaded[1]) == (6, 6)
+    pred = reg.get("lm")
+    # each rung is a CUDA graph: the wrapper recorded its 3 launches at
+    # capture (counted apart from launches), a request replays them
+    # without calling it
+    assert pred.captured_launches(pred.rung_shapes(4)) == {"flash_fwd": 3}
     before = att.flash_fwd.launches
+    graph = pred.graph_launches()["flash_fwd"]
     got = reg.predict("lm", x)[0].asnumpy()
-    assert att.flash_fwd.launches == before + 3
+    assert att.flash_fwd.launches == before
+    assert pred.graph_launches()["flash_fwd"] == graph + 3
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-4 * max(1.0, np.abs(want).max()))
     assert math.isfinite(float(got.sum()))
+
+
+# serving: one CUDA graph per bucket rung
+TOL_SERVE = 1e-3        # x max(1, max|logit|), chip_smoke.py's limit
+
+
+def _served_lm(tmp_path, ladder=(1, 4)):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        get_transformer_lm
+    net = get_transformer_lm(vocab=50, dim=64, heads=4, layers=3,
+                             max_seq=64, prefix="glm_")
+    net.initialize(ctx=mx.gpu(0))
+    net.hybridize()
+    net(mx.nd.array(np.zeros((1, 64), "float32"), ctx=mx.gpu(0)))
+    net.export(str(tmp_path / "glm"), 0)
+    reg = mx.serve.ModelRegistry()
+    pred = reg.load_checkpoint(
+        "lm", str(tmp_path / "glm"), 0, data_shapes={"data0": (1, 64)},
+        ladder=mx.serve.BucketLadder(batches=ladder), ctx=mx.gpu(0))
+    return reg, pred
+
+
+def _tokens(rows, seed, seq=64):
+    return np.random.RandomState(seed).randint(0, 50, (rows, seq)) \
+        .astype("float32")
+
+
+def test_graph_replay_of_a_rung_matches_eager(cuda, tmp_path):
+    reg, pred = _served_lm(tmp_path)
+    assert pred.compile_count == 2
+    x = _tokens(3, 0)
+    got = pred.predict(x)[0]._data
+    pad = torch.zeros((4, 64), device=cuda)
+    pad[:3] = torch.from_numpy(x).to(cuda)
+    want = pred._run({"data0": pad})[0][:3]
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    print("replay vs eager: max abs err %.3g, bit-equal %s"
+          % (err, torch.equal(got, want)))
+    assert err <= TOL_SERVE * scale
+    assert pred.compile_count == 2
+
+
+def test_consecutive_predicts_do_not_alias(cuda, tmp_path):
+    reg, pred = _served_lm(tmp_path)
+    a = pred.predict(_tokens(4, 1))[0]._data
+    kept = a.clone()
+    b = pred.predict(_tokens(4, 2))[0]._data
+    assert a.data_ptr() != b.data_ptr()
+    assert torch.equal(a, kept)         # the second replay left a alone
+    assert not torch.equal(a, b)
+
+
+def test_predicts_from_two_streams_do_not_overlap(cuda, tmp_path):
+    """Two threads predicting on two streams of their own: the
+    predictor replays on its own stream, so neither replay overwrites
+    the static outputs before the other's clone read them, and each
+    answer is bit-equal to a predict of the same input alone."""
+    import threading
+    reg, pred = _served_lm(tmp_path)
+    xs = [_tokens(4, 20 + i) for i in range(2)]
+    want = [pred.predict(x)[0]._data.clone() for x in xs]
+    got, errors = [[None] * 8 for _ in xs], []
+
+    def client(i):
+        try:
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                for r in range(8):
+                    out = pred.predict(xs[i])[0]._data
+                    # work queued after the answer on the caller's
+                    # stream sees the finished clone
+                    got[i][r] = out * 1.0
+                s.synchronize()
+        except Exception as e:          # re-raised below
+            errors.append(e)
+
+    workers = [threading.Thread(target=client, args=(i,)) for i in (0, 1)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(120)
+    assert not errors and not any(w.is_alive() for w in workers)
+    for i in (0, 1):
+        for out in got[i]:
+            assert torch.equal(out, want[i])
+
+
+def test_set_params_is_seen_by_the_next_replay(cuda, tmp_path):
+    reg, pred = _served_lm(tmp_path)
+    x = _tokens(4, 3)
+    before = pred.predict(x)[0]._data
+    name = next(n for n in pred._params if n.endswith("dense0_weight"))
+    new = {name: pred._params[name] * 2.0}
+    pred.set_params(new)
+    after = pred.predict(x)[0]._data
+    want = pred._run({"data0": torch.from_numpy(x).to(cuda)})[0]
+    assert pred.compile_count == 2
+    assert not torch.equal(before, after)
+    assert (after - want).abs().max().item() <= \
+        TOL_SERVE * max(1.0, want.abs().max().item())
+
+
+def test_capture_failure_raises_and_never_runs_eager(cuda, tmp_path):
+    import mxnet_tpu_torch as mx
+    reg, good = _served_lm(tmp_path)
+    pred = mx.serve.CompiledPredictor(
+        good._symbol, good._params, data_shapes={"data0": (1, 64)},
+        ladder=mx.serve.BucketLadder(batches=(2,)), ctx=mx.gpu(0))
+    real, calls = pred._eval, []
+
+    def syncing(amap, aux, generator=None):
+        outs, upd = real(amap, aux)
+        calls.append(float(outs[0].sum()))  # a host read: no capture
+        return outs, upd
+
+    pred._eval = syncing
+    with pytest.raises(mx.serve.ServeError, match="capture"):
+        pred.warm()
+    assert pred.compile_count == 0 and pred.program_keys() == []
+    assert len(calls) == 1                  # the warm-up before capture
+    with pytest.raises(mx.serve.ServeError, match="capture"):
+        pred.predict(_tokens(2, 4))
+    assert pred.dispatch_count == 0
+    # the process serves on: the registry's model still replays
+    assert good.predict(_tokens(2, 5))[0].shape == (2, 64, 50)
+    # through the registry: the load fails typed and registers nothing
+    from unittest import mock
+    with mock.patch.object(mx.serve.predictor, "_build_eval",
+                           lambda sym, training: syncing):
+        with pytest.raises(mx.serve.ServeError, match="capture"):
+            reg.load("bad", good._symbol, good._params,
+                     data_shapes={"data0": (1, 64)}, ctx=mx.gpu(0),
+                     ladder=mx.serve.BucketLadder(batches=(1,)))
+    assert reg.names() == ["lm"] and "bad" not in reg.health()
+
+
+def test_submit_on_the_card_replays_the_rung(cuda, tmp_path):
+    reg, pred = _served_lm(tmp_path)
+    b = reg.batcher("lm", max_wait_ms=60000)
+    xs = [_tokens(1, 6), _tokens(2, 7)]
+    futs = [reg.submit("lm", x) for x in xs]
+    assert b.flush(timeout=60)
+    got = np.concatenate([f.result(1)[0] for f in futs])
+    want = pred.predict(np.concatenate(xs))[0].asnumpy()
+    assert b.batch_count == 1
+    assert np.array_equal(got, want)
+    assert pred.compile_count == 2
 
 
 def _bwd_inputs(cuda, b, h, sq, sk, d, dtype, causal, seed=1):

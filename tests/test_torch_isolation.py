@@ -43,7 +43,10 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.gluon.nn.conv_layers, "
             "mxnet_tpu_torch.autograd, mxnet_tpu_torch.optimizer, "
             "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.loss, "
-            "mxnet_tpu_torch.parallel, mxnet_tpu_torch.lr_scheduler; "
+            "mxnet_tpu_torch.parallel, mxnet_tpu_torch.lr_scheduler, "
+            "mxnet_tpu_torch.serve.batcher, mxnet_tpu_torch.serve.health, "
+            "mxnet_tpu_torch.config, mxnet_tpu_torch.sanitizer, "
+            "mxnet_tpu_torch.observability, mxnet_tpu_torch.resilience; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')))")
