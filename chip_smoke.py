@@ -80,6 +80,24 @@ Phases, each reported on its own line; any failure exits non-zero:
              over four steps, step 1's loss against the plain
              attention's, shares; then the same step with PyTorch's SDPA
              in the kernels' place, timed only.
+8. decode  — generation from the same LM at full width and depth:
+             export, ``registry.load_checkpoint`` ->
+             ``pred.make_paged_decoder`` (blocks of 16 tokens, sessions up
+             to 1024, a CUDA graph per tick rung 1-16 and per prefill rung
+             16-1024, a pool of 1025 blocks) -> ``DecodeBatcher.start``,
+             16 client threads x 2 sessions (prompts 64-512, 64-256 new
+             tokens): tokens/s, time to first token, per-token latency,
+             ticks and rung occupancy, graph against eager per tick
+             rung, prefill replays; the prefill runs the model's graph,
+             so flash_fwd (the main path's launches counted).  Checks: (a)
+             the step's teacher-forced logits against the forward; (b)
+             4 sessions served batched against their serial dense decode
+             through ``make_decoder`` (the reference's comparison, timed),
+             a divergence allowed only at a tie within the limit; (c) no
+             failed session, no build under traffic, no block left in
+             use; (d) a prompt with ids 32000 and -1 gets NaN logits and
+             the argmax over NaN, and the same 4 sessions served again on
+             its freed NaN blocks are bit-equal.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -2533,6 +2551,556 @@ def phase_north_star(torch, card, seed):
     return launches
 
 
+# phase 8: paged decode of the LM of tools/benchmark_lm.py:40-45 at full
+# width and depth (vocab 32000, dim 1024, 16 heads, 12 layers, max_seq
+# 2048, f32).  The engine: blocks of 16 tokens, sessions of up to 1024
+# (64 blocks each), tick rungs 1-16, prefill rungs 16-1024, a pool of
+# 16 x 64 blocks + the null block (1.61 GB: 98,304 B a token).  Traffic:
+# 16 client threads x 2 sessions, prompts of 64-512 ids, 64-256 new
+# tokens each, the batcher's default coalescing window — what a chat or
+# completion endpoint sees.
+DEC_BLOCK, DEC_MAX_LEN = 16, 1024
+DEC_RUNGS = (1, 2, 4, 8, 16)
+DEC_PREFILL_RUNGS = (16, 32, 64, 128, 256, 512, 1024)
+DEC_BLOCKS = DEC_RUNGS[-1] * DEC_MAX_LEN // DEC_BLOCK + 1
+DEC_THREADS, DEC_PER_THREAD = 16, 2
+DEC_PROMPT, DEC_NEW = (64, 512), (64, 256)
+# (a)'s teacher-forced prompt; the reference's serial-vs-batched
+# comparison (bench.py:1206-1325): sessions x prompt x new tokens
+DEC_CHECK_LEN = 300
+DEC_CMP = (4, 64, 32)
+DEC_TIMED_RUNGS, DEC_TIMED_PREFILL = (1, 4, 16), (64, 512)
+# (d): ids past the table and below zero in one prompt
+DEC_BAD = {10: VOCAB, 20: -1}
+DEC_CHECK_WAIT_MS = 200.0   # the check batcher coalesces 4 starts
+
+
+def lm_decode_fns(torch, pred, heads, with_logits=False):
+    """The decode contract's plug-in for the transformer LM served by
+    *pred* (``get_transformer_lm``): ``(step_fn, prefill_fn, token_spec,
+    input_spec)`` reading the predictor's parameters by name.
+
+    The cache holds each layer's K and V per token, ``(layers, heads,
+    dim / heads)`` each.  ``prefill_fn`` runs the model's own graph over
+    the zero-padded prefix and records every layer's K and V at its
+    ``_contrib_DotProductAttention`` (flash_fwd on the card).
+    ``step_fn`` runs one query per session: embedding plus
+    ``pos_embed[pos]``, the pre-norm blocks writing K and V exactly at
+    ``pos``, attention over the view on PyTorch with scores AND values
+    past ``pos`` masked (a freed block may hold NaN, and 0 * NaN is
+    NaN), the final LayerNorm, the head and the argmax (int32).  With
+    *with_logits* it returns ``(tokens, logits)``."""
+    from mxnet_tpu_torch.executor import _build_eval
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import registry as reg
+
+    params = pred._params
+    pre, layers, _, dh = lm_geometry(pred, heads)
+    dim = heads * dh
+    scale = 1.0 / math.sqrt(dh)
+    layer_norm = reg.get_op("LayerNorm").fn
+    embedding = reg.get_op("Embedding").fn
+    data_name = next(iter(pred._data_shapes))
+
+    def ln(x, name):
+        out = layer_norm(x, params[name + "_gamma"], params[name + "_beta"])
+        return out[0] if isinstance(out, (tuple, list)) else out
+
+    def dense(x, name, bias=False):
+        out = torch.matmul(x, params[name + "_weight"].t())
+        return out + params[name + "_bias"] if bias else out
+
+    def step_fn(p, view, inputs, pos):
+        tok = inputs["tok"]
+        s = tok.shape[0]
+        at = pos.long()
+        x = embedding(tok, p[pre + "embedding0_weight"]) + \
+            p[pre + "pos_embed"][0][at]
+        kv, vv = view["k"], view["v"]          # (S, L, layers, H, dh)
+        idx = torch.arange(s, device=x.device)
+        seen = torch.arange(kv.shape[1], device=x.device)[None, :] <= \
+            at[:, None]                        # (S, L)
+        for i in range(layers):
+            b = "%sh%d_" % (pre, i)
+            a = b + "multiheadattention0_"
+            h = ln(x, b + "layernorm0")
+            q = dense(h, a + "query").view(s, heads, dh)
+            kv[idx, at, i] = dense(h, a + "key").view(s, heads, dh)
+            vv[idx, at, i] = dense(h, a + "value").view(s, heads, dh)
+            # (masked_fill with a Python number: capture copies nothing
+            # from the host)
+            sc = (torch.einsum("shd,slhd->shl", q, kv[:, :, i]) * scale) \
+                .masked_fill(~seen[:, None, :], float("-inf"))
+            v = vv[:, :, i].masked_fill(~seen[:, :, None, None], 0.0)
+            o = torch.einsum("shl,slhd->shd", torch.softmax(sc, dim=-1), v)
+            x = x + dense(o.reshape(s, dim), a + "out")
+            h = torch.relu(dense(ln(x, b + "layernorm1"), b + "dense0",
+                                 True))
+            x = x + dense(h, b + "dense1", True)
+        logits = dense(ln(x, pre + "layernorm0"), pre + "dense0")
+        out = torch.argmax(logits, dim=-1).to(torch.int32)
+        return ((out, logits) if with_logits else out), view
+
+    recorded = []
+
+    def recording_dpa(query, key, value, causal=False, sm_scale=None,
+                      chunk=512):
+        recorded.append((key, value))
+        return att._dot_product_attention(query, key, value, causal=causal,
+                                          sm_scale=sm_scale, chunk=chunk)
+    graph = _build_eval(pred._symbol, False, op_impls={
+        "_contrib_DotProductAttention": recording_dpa})
+
+    def prefill_fn(p, inputs, length):
+        del recorded[:]
+        graph(dict(p, **{data_name: inputs["tok"].float()}), {})
+        # (1, H, Lr, dh) per layer -> (1, Lr, layers, H, dh)
+        k = torch.stack([kk[0].transpose(0, 1) for kk, _ in recorded], 1)
+        v = torch.stack([vv[0].transpose(0, 1) for _, vv in recorded], 1)
+        del recorded[:]
+        return {"k": k[None], "v": v[None]}
+
+    meta = torch.empty((layers, heads, dh), dtype=torch.float32,
+                       device="meta")
+    return (step_fn, prefill_fn, {"k": meta, "v": meta},
+            {"tok": torch.empty((), dtype=torch.int32, device="meta")})
+
+
+def dense_decoder(torch, pred, step_fn, max_len, heads):
+    """A dense ``DecodeSession`` (``pred.make_decoder``) of *step_fn*
+    over one worst-case cache: one dispatch a token."""
+    _, layers, _, dh = lm_geometry(pred, heads)
+    dev = pred._dev
+    cache = {n: torch.zeros((1, max_len, layers, heads, dh), device=dev)
+             for n in ("k", "v")}
+
+    def step(p, c, inputs, t):
+        return step_fn(p, c, inputs, t.reshape(1))
+    return pred.make_decoder(step, cache, {"tok": (1,)},
+                             input_dtypes={"tok": "int32"})
+
+
+def dense_stream(sess, prompt, n_new):
+    """Greedy decode through a dense session, the reference's serial
+    path: the prompt fed token by token, the last prompt token's output
+    the first generated token, one readback a token."""
+    import numpy as np
+    cur = None
+    for tok in prompt:
+        cur = int(sess.step({"tok": np.asarray([tok], np.int32)})[0])
+    stream = []
+    for _ in range(n_new):
+        stream.append(cur)
+        if len(stream) >= n_new:
+            break
+        cur = int(sess.step({"tok": np.asarray([cur], np.int32)})[0])
+    return stream
+
+
+def dense_logits(torch, sess, tokens):
+    """Teacher-forced logits, one row a token, through a dense session of
+    the ``with_logits`` step."""
+    import numpy as np
+    return torch.cat([sess.step({"tok": np.asarray([t], np.int32)})[1]
+                      for t in tokens])
+
+
+def lm_geometry(pred, heads):
+    """(parameter name prefix, layers, heads, head dim) of the LM *pred*
+    serves, read from its parameter names."""
+    params = pred._params
+    pre = next(n[:-len("pos_embed")] for n in params
+               if n.endswith("pos_embed"))
+    layers = sum(1 for n in params if n.startswith(pre + "h") and
+                 n.endswith("_layernorm0_gamma"))
+    return pre, layers, heads, params[pre + "pos_embed"].shape[-1] // heads
+
+
+def serve_streams(batcher, prompts, n_new, timeout=600.0):
+    """Start every prompt on *batcher* at once; returns (streams, the
+    finished sessions)."""
+    sess = [batcher.start({"tok": p}, max_new_tokens=n_new)
+            for p in prompts]
+    return [[int(t) for t in s.result(timeout)] for s in sess], sess
+
+
+def forward_logits(pred, tokens):
+    """The predictor's forward (one graph replay on the card) of one
+    sequence: (len, vocab)."""
+    import numpy as np
+    return pred.predict(np.asarray(tokens, "float32")[None])[0]._data[0]
+
+
+def divergence(torch, pred, heads, a, b, prompt, max_len):
+    """Where streams *a* and *b* of *prompt* first differ: (index, error
+    of the dense step's logits there against the forward, the forward's
+    margin between the two tokens, the limit), or None when they are
+    equal.  The paged tick emits tokens only, so the forward is the
+    arbiter: the step's logits must be within the serve limit of it, and
+    the two tokens' logits closer than the limit — a tie within f32
+    noise, which either order of summation may break."""
+    if a == b:
+        return None
+    i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+    ctx = list(prompt) + a[:i]
+    step_l, _, _, _ = lm_decode_fns(torch, pred, heads, with_logits=True)
+    sess = dense_decoder(torch, pred, step_l, max_len, heads)
+    got = dense_logits(torch, sess, ctx)[-1]
+    want = forward_logits(pred, ctx)[-1]
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    margin = abs(want[a[i]].item() - want[b[i]].item())
+    return i, err, margin, TOL_SERVE * scale
+
+
+def record_ticks(eng):
+    """Keep (sessions, rung) of each tick the batcher dispatches, and the
+    monotonic start of each prefill.  Returns (ticks, prefill starts, a
+    function that restores ``eng.tick`` and ``eng.prefill``)."""
+    real_tick, real_prefill = eng.tick, eng.prefill
+    ticks, prefills = [], []
+
+    def tick(sessions):
+        ready = real_tick(sessions)
+        if ready:
+            ticks.append((len(ready), eng.ladder.batch_for(len(ready))))
+        return ready
+
+    def prefill(sess):
+        prefills.append(time.monotonic())
+        return real_prefill(sess)
+
+    eng.tick, eng.prefill = tick, prefill
+
+    def restore():
+        eng.__dict__.pop("tick", None)
+        eng.__dict__.pop("prefill", None)
+    return ticks, prefills, restore
+
+
+def decode_traffic(batcher, specs, threads):
+    """*threads* clients, each starting its share of *specs* (prompt,
+    new tokens) one after another and waiting for each stream.  Returns
+    (per session: (start stamp, delivery stamps, tokens, error), wall
+    seconds)."""
+    out = [None] * len(specs)
+    per = len(specs) // threads
+
+    def client(c):
+        for i in range(c * per, (c + 1) * per):
+            prompt, n_new = specs[i]
+            t0 = time.monotonic()
+            try:
+                s = batcher.start({"tok": prompt}, max_new_tokens=n_new)
+                toks = s.result(600)
+                out[i] = (t0, s.stamps(), len(toks), None)
+            except Exception as exc:   # recorded, and fails the phase
+                out[i] = (t0, [], 0, "%s: %s" % (type(exc).__name__, exc))
+
+    t0 = time.monotonic()
+    pool = [threading.Thread(target=client, args=(c,)) for c in
+            range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    return out, time.monotonic() - t0
+
+
+def decode_failures(s):
+    """The checks of phase 8 over its record *s*; returns what failed
+    (an empty list when every check passed)."""
+    out = []
+    if s["session_errors"]:
+        out.append("%d sessions failed: %s" % (len(s["session_errors"]),
+                                                s["session_errors"][:3]))
+    if s["tokens"] != s["tokens_asked"]:
+        out.append("%d tokens delivered, %d asked"
+                   % (s["tokens"], s["tokens_asked"]))
+    if s["compiles_after"] != s["compiles_before"]:
+        out.append("compile_count %d -> %d under traffic"
+                   % (s["compiles_before"], s["compiles_after"]))
+    if s["blocks_in_use"]:
+        out.append("%d pool blocks in use after the last session"
+                   % s["blocks_in_use"])
+    if not s["mean_sessions"] > 1.0:
+        out.append("ticks served %.3f sessions on average: no batching"
+                   % s["mean_sessions"])
+    if s["tick_captured"]:
+        out.append("a tick program captured kernel launches %s (decode "
+                   "attention is PyTorch's)" % s["tick_captured"])
+    for rung, got in sorted(s["prefill_captured"].items()):
+        if got != {"flash_fwd": s["layers"]}:
+            out.append("prefill rung %d captured %s, expected flash_fwd %d"
+                       % (rung, got, s["layers"]))
+    if s["traffic_wrapper"]:
+        out.append("the traffic launched flash_fwd %d times from its "
+                   "wrapper (the card runs graphs only)"
+                   % s["traffic_wrapper"])
+    if s["traffic_prefill_graph"] != s["layers"] * s["prefills"]:
+        out.append("prefill graph launches %d != %d layers x %d prefills"
+                   % (s["traffic_prefill_graph"], s["layers"],
+                      s["prefills"]))
+    if not s["logits_ratio"] <= 1.0:
+        out.append("(a) teacher-forced logits at %.4g of the limit"
+                   % s["logits_ratio"])
+    for i, d in enumerate(s["divergences"]):
+        if d is not None and not (d[1] <= d[3] and d[2] <= d[3]):
+            out.append("(b) session %d diverged at token %d: step logits "
+                       "%.3g from the forward, margin %.3g, limit %.3g"
+                       % ((i,) + tuple(d)))
+    if not s["bad_nan_logits"]:
+        out.append("(d) the bad ids did not give NaN logits")
+    if s["bad_stream"] != s["bad_expected"]:
+        out.append("(d) the bad session's stream %s is not the argmax "
+                   "over NaN %s" % (s["bad_stream"][:4],
+                                    s["bad_expected"][:4]))
+    if not s["poisoned_blocks"]:
+        out.append("(d) no freed block held NaN")
+    if not s["reused_blocks"]:
+        out.append("(d) the next sessions reused none of the NaN blocks")
+    if not s["after_bad_equal"]:
+        out.append("(d) the sessions served on the NaN blocks are not "
+                   "bit-equal to the same sessions before them")
+    if not s["prefill_launches"] > 0:
+        out.append("the decode prefill launched no flash_fwd")
+    return out
+
+
+def phase_decode(torch, card, seed):
+    """Phase 8: generation from the full-width LM through
+    ``registry.load_checkpoint`` -> ``pred.make_paged_decoder`` ->
+    ``DecodeBatcher.start``, one CUDA graph per session rung and per
+    prefill rung.  Raises without CUDA: it never runs on the CPU; raises
+    after the phase when any check failed.  Returns the flash_fwd
+    launches of its main path (engine build and traffic)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 8 needs a CUDA device")
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        get_transformer_lm
+    from mxnet_tpu_torch.ops import attention as att
+
+    t_phase = time.perf_counter()
+    ctx = mx.gpu(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 8)
+    rng = np.random.RandomState(seed + 8)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_decode_")
+    prefix = os.path.join(tmp, "lm")
+    net = get_transformer_lm(vocab=VOCAB, dim=DIM, heads=HEADS,
+                             layers=LAYERS, max_seq=SEQ)
+    net.initialize(ctx=ctx, generator=gen)
+    net.hybridize()
+    net(mx.nd.array(np.zeros((1, DEC_BLOCK), "float32"), ctx=ctx))
+    net.export(prefix, 0)
+    del net
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reg = mx.serve.ModelRegistry()
+    pred = reg.load_checkpoint(
+        "lm", prefix, 0, data_shapes={"data0": (1, DEC_MAX_LEN)},
+        ladder=mx.serve.BucketLadder(batches=(1,)), ctx=ctx, warm=False)
+    rec = {"layers": LAYERS}
+
+    # the main path: the engine's build and the traffic, with the
+    # wrapper's counts set to 0 before it and read after it
+    att.flash_fwd.launches = att.flash_fwd.captured = 0
+    t0 = time.perf_counter()
+    step_fn, prefill_fn, token_spec, input_spec = lm_decode_fns(
+        torch, pred, HEADS)
+    eng = pred.make_paged_decoder(
+        step_fn, prefill_fn, token_spec, input_spec, max_len=DEC_MAX_LEN,
+        block_size=DEC_BLOCK, num_blocks=DEC_BLOCKS,
+        session_rungs=DEC_RUNGS, prefill_rungs=DEC_PREFILL_RUNGS)
+    warm_s = time.perf_counter() - t0
+    warm_wrapper = att.flash_fwd.launches
+    rec["compiles_before"] = eng.compile_count
+    rec["tick_captured"] = {r: c for r in DEC_RUNGS for c in
+                            [eng.captured_launches("tick", r)] if c}
+    rec["prefill_captured"] = {r: eng.captured_launches("prefill", r)
+                               for r in DEC_PREFILL_RUNGS}
+    warm_graph = eng.graph_launches("prefill").get("flash_fwd", 0)
+    log("decode: make_paged_decoder built %d CUDA graphs in %.2f s (tick "
+        "rungs %s, prefill rungs %s); pool %d blocks of %d tokens, %.3f GB "
+        "(%d B a token); flash_fwd: %d wrapper launches (the prefill "
+        "rungs' warm-ups), %d captured, %d by the priming replays; %.3f GB "
+        "allocated on %s" % (
+            eng.compile_count, warm_s, DEC_RUNGS, DEC_PREFILL_RUNGS,
+            DEC_BLOCKS, DEC_BLOCK,
+            DEC_BLOCKS * eng.pool.bytes_per_block / 1e9,
+            eng.pool.bytes_per_block // DEC_BLOCK, warm_wrapper,
+            att.flash_fwd.captured, warm_graph,
+            torch.cuda.memory_allocated() / 1e9, card))
+
+    batcher = mx.serve.DecodeBatcher(eng)
+    specs = [(rng.randint(0, VOCAB, int(rng.randint(DEC_PROMPT[0],
+                                                    DEC_PROMPT[1] + 1)))
+              .astype(np.int32), int(rng.randint(DEC_NEW[0],
+                                                 DEC_NEW[1] + 1)))
+             for _ in range(DEC_THREADS * DEC_PER_THREAD)]
+    ticks, _, restore = record_ticks(eng)
+    d0 = eng.dispatch_count
+    sessions, wall = decode_traffic(batcher, specs, DEC_THREADS)
+    restore()
+    batcher.close()
+    rec["compiles_after"] = eng.compile_count
+    rec["blocks_in_use"] = eng.pool.blocks_in_use
+    rec["traffic_wrapper"] = att.flash_fwd.launches - warm_wrapper
+    prefill_graph = eng.graph_launches("prefill").get("flash_fwd", 0)
+    rec["traffic_prefill_graph"] = prefill_graph - warm_graph
+    rec["prefills"] = eng.dispatch_count - d0 - len(ticks)
+    rec["prefill_launches"] = att.flash_fwd.launches + prefill_graph
+    main_launches = rec["prefill_launches"]
+    rec["session_errors"] = [e for _, _, _, e in sessions if e]
+    rec["tokens"] = sum(n for _, _, n, _ in sessions)
+    rec["tokens_asked"] = sum(n for _, n in specs)
+    ttft = [(st[0] - t) * 1e3 for t, st, _, _ in sessions if st]
+    gaps = [(b - a) * 1e3 for _, st, _, _ in sessions
+            for a, b in zip(st, st[1:])]
+    rec["mean_sessions"] = sum(n for n, _ in ticks) / max(1, len(ticks))
+    occupancy = sum(n for n, _ in ticks) / max(1, sum(r for _, r in ticks))
+    by_rung = {r: sum(1 for _, x in ticks if x == r) for r in DEC_RUNGS}
+    peak = torch.cuda.max_memory_allocated()
+    log("decode traffic on %s: %d sessions (%d threads x %d), prompts "
+        "%d-%d, %d tokens generated in %.3f s = %.1f tokens/s; time to "
+        "first token p50 %.2f ms, p99 %.2f ms (%d sessions); per-token "
+        "latency p50 %.2f ms, p99 %.2f ms (%d gaps); %d ticks, %.3f "
+        "sessions a tick, rung occupancy %.3f, ticks by rung %s; "
+        "compile_count %d before, %d after; peak device memory %.3f GB"
+        % (card, len(specs), DEC_THREADS, DEC_PER_THREAD,
+           min(len(p) for p, _ in specs), max(len(p) for p, _ in specs),
+           rec["tokens"], wall, rec["tokens"] / wall,
+           percentile(ttft, 50), percentile(ttft, 99), len(ttft),
+           percentile(gaps, 50), percentile(gaps, 99), len(gaps),
+           len(ticks), rec["mean_sessions"], occupancy, by_rung,
+           rec["compiles_before"], rec["compiles_after"], peak / 1e9))
+    log("decode: flash_fwd on the main path: %d wrapper launches (%d in "
+        "the traffic), %d by prefill graph replays (%d priming, %d for "
+        "the traffic's %d prefills): %d in all"
+        % (att.flash_fwd.launches, rec["traffic_wrapper"], prefill_graph,
+           warm_graph, rec["traffic_prefill_graph"], rec["prefills"],
+           main_launches))
+
+    # graph against eager per tick rung, and the prefill rungs' replays
+    # (zero tables: every write lands in the null block)
+    with eng._lock:
+        for prog in eng._programs():
+            for b in prog._buffers.values():
+                b.zero_()
+        for r in DEC_TIMED_RUNGS:
+            prog = eng._tick_progs[r]
+            g = time_ms(torch, lambda: prog({}), 10)
+            with torch.no_grad():
+                e = time_ms(torch, lambda: prog._body(prog._buffers), 10)
+            log("decode tick rung %d on %s: graph %.3f ms, eager %.3f ms "
+                "(%.3f ms a session)" % (r, card, g, e, g / r))
+        for r in DEC_TIMED_PREFILL:
+            prog = eng._prefill_progs[r]
+            log("decode prefill rung %d on %s: graph %.3f ms"
+                % (r, card, time_ms(torch, lambda: prog({}), 5)))
+
+    # (a) the step's teacher-forced logits against the forward
+    step_l, _, _, _ = lm_decode_fns(torch, pred, HEADS, with_logits=True)
+    x = rng.randint(0, VOCAB, DEC_CHECK_LEN)
+    got = dense_logits(torch, dense_decoder(torch, pred, step_l,
+                                            DEC_MAX_LEN, HEADS), x)
+    want = forward_logits(pred, x)
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    rec["logits_ratio"] = err / (TOL_SERVE * scale)
+    log("decode (a): %d-token teacher-forced step logits vs the "
+        "predictor's forward: max abs err %.3g, max |logit| %.3g (tol %g "
+        "x max(1, max|logit|)) -> %.4f of the limit"
+        % (DEC_CHECK_LEN, err, scale, TOL_SERVE, rec["logits_ratio"]))
+    del got, want
+
+    # (b) serial (make_decoder, one dispatch a token) against batched
+    # (DecodeBatcher), the reference's comparison; the streams must agree
+    n_cmp, l_cmp, new_cmp = DEC_CMP
+    prompts = [rng.randint(0, VOCAB, l_cmp).astype(np.int32)
+               for _ in range(n_cmp)]
+    dense = [dense_decoder(torch, pred, step_fn, DEC_MAX_LEN, HEADS)
+             for _ in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = [dense_stream(s, p, new_cmp) for s, p in zip(dense, prompts)]
+    serial_s = time.perf_counter() - t0
+    del dense
+    check = mx.serve.DecodeBatcher(eng, max_wait_ms=DEC_CHECK_WAIT_MS,
+                                   name="check")
+    ticks, prefills, restore = record_ticks(eng)
+    batched, sess = serve_streams(check, prompts, new_cmp)
+    restore()
+    # from the first prefill (the coalescing window over) to the last
+    # delivery
+    batched_s = max(s.stamps()[-1] for s in sess) - prefills[0]
+    total = n_cmp * new_cmp
+    rec["divergences"] = [divergence(torch, pred, HEADS, a, b, p,
+                                     DEC_MAX_LEN)
+                          for a, b, p in zip(serial, batched, prompts)]
+    log("decode (b) on %s: %d sessions of %d-token prompts x %d new "
+        "tokens: serial through make_decoder %.1f tokens/s (%.3f s), "
+        "batched through the DecodeBatcher %.1f tokens/s (%.3f s from its "
+        "first prefill, after a %.0f ms coalescing window; ticks at rungs "
+        "%s): %.2fx"
+        % (card, n_cmp, l_cmp, new_cmp, total / serial_s, serial_s,
+           total / batched_s, batched_s, DEC_CHECK_WAIT_MS,
+           sorted({r for _, r in ticks}), serial_s / batched_s))
+    for i, d in enumerate(rec["divergences"]):
+        log("decode (b) session %d: %s" % (i, "bit-equal to its solo dense "
+            "decode" if d is None else "first divergence at token %d: the "
+            "dense step's logits %.3g from the forward, the two tokens' "
+            "forward margin %.3g, limit %.3g" % d))
+
+    # (d) a prompt holding ids past the table and below zero: the
+    # reference's rows (NaN for 32000, row 31999 for -1), so NaN logits
+    # and the argmax over NaN; its freed blocks hold NaN, and the same 4
+    # sessions served again on them stay bit-equal
+    bad = rng.randint(0, VOCAB, l_cmp).astype(np.int32)
+    for at, tok in DEC_BAD.items():
+        bad[at] = tok
+    (bad_stream,), (bad_sess,) = serve_streams(check, [bad], new_cmp)
+    bad_blocks = sorted(int(b) for b in bad_sess.table if b)
+    idx = torch.tensor(bad_blocks, device=eng.device)
+    rec["poisoned_blocks"] = [b for b, nan in zip(
+        bad_blocks, torch.isnan(eng.pool.arrays["k"][idx]).flatten(1)
+        .any(1).tolist()) if nan]
+    bad_logits = dense_logits(torch, dense_decoder(
+        torch, pred, step_l, DEC_MAX_LEN, HEADS), bad)[-1]
+    rec["bad_nan_logits"] = bool(torch.isnan(bad_logits).all())
+    nan_argmax = int(torch.argmax(torch.full((VOCAB,), float("nan"),
+                                             device=eng.device)))
+    rec["bad_stream"] = bad_stream
+    rec["bad_expected"] = [nan_argmax] * new_cmp
+    again, sess = serve_streams(check, prompts, new_cmp)
+    rec["reused_blocks"] = sorted(set(bad_blocks) & {
+        int(b) for s in sess for b in s.table if b})
+    rec["after_bad_equal"] = again == batched
+    check.close()
+    log("decode (d): ids %s at %s: logits all NaN %s, stream %s... "
+        "(argmax over NaN is %d); %d of its %d freed blocks hold NaN, the "
+        "next %d sessions took %d of them and are bit-equal to the same "
+        "sessions before: %s" % (
+            list(DEC_BAD.values()), list(DEC_BAD), rec["bad_nan_logits"],
+            bad_stream[:4], nan_argmax, len(rec["poisoned_blocks"]),
+            len(bad_blocks), n_cmp, len(rec["reused_blocks"]),
+            rec["after_bad_equal"]))
+    rec["blocks_in_use"] += eng.pool.blocks_in_use
+    log("decode: peak device memory %.3f GB; phase %.1f s"
+        % (torch.cuda.max_memory_allocated() / 1e9,
+           time.perf_counter() - t_phase))
+    failures = decode_failures(rec)
+    reg.close()
+    del reg, pred, eng
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError("phase 8 failed: " + "; ".join(failures))
+    return main_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2554,6 +3122,7 @@ def main():
     train_launches = phase_train(torch, card, args.seed)
     phase_resnet(torch, card, args.seed)
     ns_launches = phase_north_star(torch, card, args.seed)
+    decode_launches = phase_decode(torch, card, args.seed)
     b, h, sq, sk, d = PATH_SHAPE
     kernels = []
     for name, source, replaces in (
@@ -2571,7 +3140,8 @@ def main():
                 "serve (graph replays: warm, direct requests)":
                 serve_launches["direct"],
                 "batched serve (graph replays: traffic dispatches)":
-                serve_launches["traffic"], **by_path}
+                serve_launches["traffic"], **by_path,
+                "decode prefill": decode_launches}
         kernels.append(dict({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/" + source,

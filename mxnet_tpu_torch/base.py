@@ -18,8 +18,8 @@ class MXNetError(RuntimeError):
     """Framework error type (mirrors ``mxnet_tpu.base.MXNetError``)."""
 
 
-_NP_NAMES = ("float32", "float64", "float16", "uint8", "int8", "int32",
-             "int64", "bool")
+_NP_NAMES = ("float32", "float64", "float16", "uint8", "uint16", "uint32",
+             "int8", "int16", "int32", "int64", "bool")
 
 _TORCH = {
     "float32": torch.float32,
@@ -27,11 +27,16 @@ _TORCH = {
     "float16": torch.float16,
     "bfloat16": torch.bfloat16,
     "uint8": torch.uint8,
+    # (torch.uint16 and torch.uint32 exist from PyTorch 2.3)
+    "uint16": getattr(torch, "uint16", None),
+    "uint32": getattr(torch, "uint32", None),
     "int8": torch.int8,
+    "int16": torch.int16,
     "int32": torch.int32,
     "int64": torch.int64,
     "bool": torch.bool,
 }
+_TORCH = {k: v for k, v in _TORCH.items() if v is not None}
 _TORCH_NAMES = {v: k for k, v in _TORCH.items()}
 
 

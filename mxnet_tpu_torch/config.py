@@ -1,5 +1,6 @@
 """Environment-knob registry (port of ``mxnet_tpu/config.py``, subset: the
-knobs that serving, the sanitizer bridge, events and chaos read).
+knobs that serving, decode, the sanitizer bridge, events and chaos
+read).
 
 Every knob is declared here with type, default and doc, and read at call
 time (not import time) so tests can monkeypatch the environment.  A read
@@ -116,3 +117,29 @@ register_env("MXNET_SERVE_DRAIN_TIMEOUT", float, 30.0,
              "Default bound (seconds) on graceful drain: how long "
              "Registry.drain / unload(drain=True) / an alias-cutover "
              "flush waits for accepted serve requests to finish")
+register_env("MXNET_SERVE_KV_BLOCK_SIZE", int, 16,
+             "Tokens per paged KV-cache block (serve.kvpool): the "
+             "granularity decode sessions allocate cache memory at — "
+             "smaller blocks waste less tail memory per session, "
+             "larger blocks mean fewer scatter rows per tick")
+register_env("MXNET_SERVE_KV_BLOCKS", int, 256,
+             "Paged KV pool capacity in blocks (per decode engine, "
+             "including the reserved null block): bounds TOTAL cache "
+             "memory across every concurrent decode session; an "
+             "admission that cannot get its blocks sheds with a "
+             "typed KVPoolExhausted")
+register_env("MXNET_SERVE_DECODE_MAX_WAIT_MS", float, 2.0,
+             "How long an IDLE decode batcher holds its first tick "
+             "open for more sessions to arrive (milliseconds, "
+             "monotonic clock) so co-arriving sessions share one "
+             "session-count rung from the start; once decoding, "
+             "ticks run back-to-back and joins land between ticks")
+register_env("MXNET_SERVE_DECODE_REBUILDS", int, 2,
+             "How many decode tick-loop crashes a DecodeBatcher "
+             "survives by quarantine-and-rebuild: the suspect KVPool "
+             "is quarantined, a fresh same-shape pool takes over its "
+             "tensors, zeroed in place, so the already-built "
+             "tick/prefill programs run it (zero new compiles), and "
+             "journaled sessions are re-admitted via re-prefill + "
+             "replayed ticks; past the budget the batcher degrades to "
+             "unhealthy typed-fail")

@@ -33,7 +33,9 @@ def _to_numpy(t):
 
 
 def _from_numpy(arr):
-    arr = _np.ascontiguousarray(arr)
+    if not arr.flags.c_contiguous:
+        # (np.ascontiguousarray alone would turn a 0-d array into (1,))
+        arr = _np.ascontiguousarray(arr)
     if not arr.flags.writeable:     # torch tensors always share writably
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":
@@ -169,15 +171,25 @@ def imperative_invoke(op_name, *nd_inputs, out=None, **params):
     return outs[0] if len(outs) == 1 else outs
 
 
+# host data's 64-bit dtypes as the reference stores them (JAX without
+# x64): float64 -> float32, int64 -> int32, uint64 -> uint32
+_NARROW = {"float64": "float32", "int64": "int32", "uint64": "uint32"}
+
+
 def array(source_array, ctx=None, dtype=None):
     """An NDArray on *ctx* (default: the current context) from array-like
-    data; float64 data defaults to float32, as in the reference."""
+    data.  As in the reference, float64 data defaults to float32 and
+    integer data (int64 numpy arrays, Python ints) to int32; a 0-d source
+    stays 0-d."""
     if isinstance(source_array, NDArray):
         t = source_array._data
     elif isinstance(source_array, torch.Tensor):
         t = source_array
     else:
-        t = _from_numpy(_np.asarray(source_array))
+        arr = _np.asarray(source_array)
+        if dtype is None and arr.dtype.name in _NARROW:
+            arr = arr.astype(_NARROW[arr.dtype.name])
+        t = _from_numpy(arr)
     if dtype is None and t.dtype == torch.float64:
         dtype = "float32"
     dev = (Context(ctx) if ctx is not None else current_context()).torch_device

@@ -1,6 +1,10 @@
 """Shape and indexing ops (port of ``mxnet_tpu/ops/tensor.py``, subset:
 Reshape, reshape_like, Flatten, transpose, slice, slice_like,
-space_to_depth, pick, Embedding)."""
+space_to_depth, pick, Embedding).
+
+``pick`` and ``Embedding`` read an index as the reference's ``jnp.take``
+family does: negative indices in range wrap, and an index out of range
+reads NaN instead of being clipped or tripping a device assert."""
 
 from __future__ import annotations
 
@@ -137,18 +141,58 @@ def _space_to_depth(x, block_size=1):
     return x.reshape(n, c * b * b, h // b, w // b)
 
 
+def _fill_value(dtype):
+    """What an out-of-range index reads (``jnp.take``'s "fill" mode): NaN
+    for a floating dtype, the most negative value for a signed integer,
+    the largest for an unsigned one, True for bool."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+def _wrap_index(index, n):
+    """(index wrapped into [0, n), in range) for integer-valued *index*
+    along an axis of *n*: an index in [-n, 0) counts from the end, one
+    outside [-n, n) is out of range.  Index arithmetic only, so the
+    device never asserts and nothing waits on the host: an out-of-range
+    index gathers row 0 and its result is masked afterwards."""
+    i = index.long()
+    ok = (i >= -n) & (i < n)
+    i = torch.where(i < 0, i + n, i)
+    return torch.where(ok, i, torch.zeros_like(i)), ok
+
+
 @register_op("pick")
 def _pick(data, index, axis=-1, keepdims=False, mode="clip"):
-    """data's element at *index* along *axis*; indices arrive as floats
-    or ints and are clipped into range (mode 'clip')."""
-    idx = index.long().clamp(0, data.shape[axis] - 1).unsqueeze(axis)
-    out = torch.gather(data, axis, idx)
+    """data's element at *index* along *axis*, with the reference's
+    ``jnp.take_along_axis`` semantics whatever *mode* says: an index in
+    [-n, 0) wraps, one outside [-n, n) reads NaN (and passes no
+    gradient).  Indices arrive as floats or ints."""
+    axis = axis % data.dim()
+    j, ok = _wrap_index(index, data.shape[axis])
+    out = torch.gather(data, axis, j.unsqueeze(axis))
+    out = torch.where(ok.unsqueeze(axis), out,
+                      torch.full((), _fill_value(data.dtype),
+                                 dtype=data.dtype, device=data.device))
     return out if keepdims else out.squeeze(axis)
 
 
 @register_op("Embedding")
 def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
                sparse_grad=False):
-    # token ids arrive as floats (serving inputs default to float32) or
-    # ints; rows are gathered with long indices
-    return weight[data.long()]
+    """Rows of *weight* by id, with the reference's ``jnp.take`` rules: an
+    id in [-input_dim, 0) wraps, one outside [-input_dim, input_dim)
+    gives a NaN row (and passes no gradient).  Token ids arrive as
+    floats (serving inputs default to float32) or ints.  Safe under CUDA
+    graph capture: no id reaches the device's index assert and nothing
+    is read back to the host."""
+    j, ok = _wrap_index(data, weight.shape[0])
+    rows = torch.index_select(weight, 0, j.reshape(-1)).reshape(
+        tuple(j.shape) + tuple(weight.shape[1:]))
+    return torch.where(ok.reshape(tuple(ok.shape) + (1,) *
+                                  (weight.dim() - 1)), rows,
+                       torch.full((), _fill_value(weight.dtype),
+                                  dtype=weight.dtype, device=weight.device))

@@ -1,13 +1,15 @@
 """Deterministic fault injection for the serving request path (port of
-``mxnet_tpu/resilience/servechaos.py``, subset: the batcher and
-predictor choke points).
+``mxnet_tpu/resilience/servechaos.py``, subset: the batcher, predictor
+and decode choke points).
 
 The injection points are consulted by the production serving code — the
 :class:`~mxnet_tpu_torch.serve.batcher.DynamicBatcher` dispatcher right
-before it runs a coalesced batch, and
+before it runs a coalesced batch,
 :meth:`~mxnet_tpu_torch.serve.predictor.CompiledPredictor.ensure_program`
-before it builds a rung's program — so a chaos-armed test drives the
-exact supervision / shedding / drain code a real outage exercises.
+before it builds a rung's program, and
+:meth:`~mxnet_tpu_torch.serve.decode.DecodeEngine.tick` before its
+dispatch — so a chaos-armed test drives the exact supervision /
+shedding / drain / rebuild code a real outage exercises.
 Spec keys (all integers, on the :mod:`.chaos` spec):
 
 ``dispatch_raise_at=K`` (+ optional ``dispatch_raise_for=N``)
@@ -22,8 +24,14 @@ Spec keys (all integers, on the :mod:`.chaos` spec):
 ``reject_warm_at=K``
     The K-th program build (warm or on demand) raises a typed
     :class:`~mxnet_tpu_torch.serve.buckets.ServeError`.
+``decode_tick_raise_at=K`` (+ optional ``decode_tick_raise_for=N``)
+    Raise ``RuntimeError`` out of the K-th decode-engine tick (and the
+    following N-1) — the crash escapes the DecodeBatcher loop, so the
+    quarantine-and-rebuild path must run.
 
-The fleet and decode keys of the JAX module are not ported.
+The fleet keys of the JAX module (``replica_kill_decode_at`` and the
+router's partition keys) wait for the fleet: arming
+``replica_kill_decode_at`` makes the decode tick raise.
 """
 
 from __future__ import annotations
@@ -34,7 +42,8 @@ import time
 from . import chaos
 from .. import sanitizer as _san
 
-__all__ = ["on_dispatch", "on_warm", "release_hangs", "reset_hangs"]
+__all__ = ["on_dispatch", "on_warm", "on_decode_tick", "release_hangs",
+           "reset_hangs"]
 
 log = logging.getLogger(__name__)
 
@@ -109,3 +118,32 @@ def on_warm(model):
         raise ServeError(
             "servechaos: injected warm-compile failure (build %d, "
             "model %r)" % (n, model))
+
+
+def on_decode_tick(name):
+    """Decode tick choke point, consulted by
+    :meth:`~mxnet_tpu_torch.serve.decode.DecodeEngine.tick` before the
+    coalesced tick dispatch.  ``decode_tick_raise_at=K`` (+
+    ``decode_tick_raise_for=N``) raises ``RuntimeError`` so the crash
+    escapes the DecodeBatcher loop — the quarantine-and-rebuild path
+    (fresh pool, built programs, journaled re-admission) must run."""
+    if not chaos.enabled():
+        return
+    spec = chaos.active()
+    if spec.get("replica_kill_decode_at") is not None:
+        from ..base import MXNetError
+        raise MXNetError("servechaos: replica_kill_decode_at is not ported "
+                         "(it kills a fleet replica; the fleet is queue A "
+                         "item 7)")
+    raise_at = spec.get("decode_tick_raise_at")
+    if raise_at is None:
+        return
+    n = chaos.tick("decode_tick")
+    if raise_at <= n < raise_at + spec.get("decode_tick_raise_for", 1):
+        chaos.note_injection("decode_tick_raise_at", at=n, engine=name)
+        log.warning("servechaos: raising on decode tick %d of engine %r",
+                    n, name)
+        raise RuntimeError(
+            "servechaos: injected decode tick failure (tick %d, engine %r)"
+            % (n, name))
+

@@ -13,20 +13,32 @@ subset):
   graceful drain (batcher.py);
 * :class:`ModelRegistry` — load/unload/alias with warm programs,
   drain-before-teardown and the ``health``/``ready``/``live`` probes
-  backed by :class:`HealthBoard` (registry.py, health.py).
+  backed by :class:`HealthBoard` (registry.py, health.py);
+* decode: the dense :class:`DecodeSession`
+  (``CompiledPredictor.make_decoder``), and continuously-batched paged
+  decode — :class:`KVPool` / :class:`KVPoolExhausted` (kvpool.py),
+  :class:`DecodeEngine` with one CUDA graph per session rung and per
+  prefill rung on the card, :class:`DecodeBatcher`,
+  :class:`DecodeJournal`, :class:`PagedSession` and
+  :class:`SpeculativeDecoder` (decode.py).
 
-Decode, the KV pool, quantized loads, the fleet and the C predict ABI's
-registry are not ported.
+Quantized loads, the fleet and the C predict ABI's registry are not
+ported.
 """
 
 from .buckets import (BucketLadder, DeadlineExceededError,  # noqa: F401
                       OverloadError, RequestCancelled, ServeError)
 from .health import STATES, HealthBoard  # noqa: F401
-from .predictor import CompiledPredictor  # noqa: F401
+from .predictor import CompiledPredictor, DecodeSession  # noqa: F401
+from .kvpool import KVPool, KVPoolExhausted  # noqa: F401
+from .decode import (DecodeBatcher, DecodeEngine,  # noqa: F401
+                     DecodeJournal, PagedSession, SpeculativeDecoder)
 from .batcher import DynamicBatcher, ServeFuture  # noqa: F401
 from .registry import ModelRegistry  # noqa: F401
 
 __all__ = ["BucketLadder", "ServeError", "OverloadError",
            "DeadlineExceededError", "RequestCancelled",
            "CompiledPredictor", "DynamicBatcher", "ServeFuture",
-           "ModelRegistry", "HealthBoard", "STATES"]
+           "ModelRegistry", "HealthBoard", "STATES", "DecodeSession",
+           "KVPool", "KVPoolExhausted", "DecodeEngine", "DecodeBatcher",
+           "DecodeJournal", "PagedSession", "SpeculativeDecoder"]

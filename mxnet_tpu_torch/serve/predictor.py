@@ -1,5 +1,6 @@
-"""CompiledPredictor — one program per padding bucket (port of
-``mxnet_tpu/serve/predictor.py``, without decode).
+"""CompiledPredictor — one program per padding bucket, and the dense
+autoregressive :class:`DecodeSession` (port of
+``mxnet_tpu/serve/predictor.py``).
 
 A predictor owns the model's inference graph (``executor._build_eval``
 over the symbol, ``training=False``), its parameters on the target
@@ -13,8 +14,9 @@ the JAX package's ahead-of-time compiled program per rung.  Building it
 runs the graph once eagerly on zeros on the predictor's own stream
 (library handles, workspaces and kernel builds land there), then
 captures it on that stream with ``torch.cuda.graph`` over static input
-buffers of the rung's padded shape.  A request copies its padded input
-into those buffers, replays the graph, and clones the outputs, all on
+buffers of the rung's padded shape (graphs.py).  A request copies its
+padded input into those buffers, replays the graph, and clones the
+outputs, all on
 the predictor's stream and under its lock: the next replay overwrites
 the static outputs.  All rungs of one predictor capture into one graph
 memory pool (``torch.cuda.graph_pool_handle``).  The lock orders the
@@ -33,6 +35,13 @@ and counts its replays
 
 **On the CPU** (``ctx=mx.cpu()``) a program is the eager graph.
 
+Autoregressive decode: :meth:`CompiledPredictor.make_decoder` builds one
+step program (a CUDA graph on the card) over a cache the session owns
+and updates in place every step — the port's counterpart of the
+reference's donated cache; :meth:`CompiledPredictor.make_paged_decoder`
+builds the continuously-batched paged engine (decode.py) bound to this
+model.
+
 Requests are zero-padded up to their bucket (batch rung, and any
 ``seq_axes`` rounding) and the outputs trimmed back to the natural batch.
 """
@@ -45,6 +54,8 @@ import numpy as _np
 import torch
 
 from .buckets import BucketLadder, ServeError
+from .decode import _leaves, _tree_map
+from .graphs import capture, on_stream
 from .. import sanitizer as _san
 from ..base import torch_dtype
 from ..context import Context, current_context
@@ -53,10 +64,9 @@ from ..ndarray import NDArray
 from ..ndarray.ndarray import _from_numpy
 from ..observability import events as _obs_events
 from ..observability import metrics as _obs_metrics
-from ..ops.attention import capture_counts as _capture_counts
 from ..resilience import servechaos as _servechaos
 
-__all__ = ["CompiledPredictor"]
+__all__ = ["CompiledPredictor", "DecodeSession"]
 
 # module-level instrument refs (hot path: no registry lookup per call)
 _DISPATCH_SECONDS = _obs_metrics.histogram(
@@ -70,6 +80,10 @@ _COMPILES_TOTAL = _obs_metrics.counter(
 _PADDED_ROWS = _obs_metrics.counter(
     "serve_padded_rows_total",
     "zero-padded rows dispatched (bucket size minus real rows)")
+_DEVICE_PUT_ELIDED = _obs_metrics.counter(
+    "device_put_elided_total",
+    "host->device transfers skipped because the array was already on "
+    "its target device (device-resident input)")
 
 def _as_tensor(x):
     """A request or parameter array (numpy / NDArray / tensor) as a
@@ -79,6 +93,12 @@ def _as_tensor(x):
     if isinstance(x, torch.Tensor):
         return x
     return _from_numpy(_np.asarray(x))
+
+
+def _device_resident(x, dev):
+    """Is *x* a tensor already on *dev* (the previous decode step's
+    output fed back), so its host round trip can be skipped?"""
+    return isinstance(x, torch.Tensor) and x.device == dev
 
 
 def _as_host(x):
@@ -122,16 +142,12 @@ class _GraphProgram:
 
     def __call__(self, padded):
         pred = self._pred
-        with torch.cuda.device(pred._dev), pred._lock:
-            caller = torch.cuda.current_stream(pred._dev)
-            own = pred._stream
-            own.wait_stream(caller)
-            with torch.cuda.stream(own):
+        with pred._lock:
+            with on_stream(pred._dev, pred._stream) as caller:
                 for n, t in padded.items():
                     self._inputs[n].copy_(t)
                 self._graph.replay()
                 outs = [o.clone() for o in self._outputs]
-            caller.wait_stream(own)
             for o in outs:
                 o.record_stream(caller)
             self.replays += 1
@@ -207,6 +223,7 @@ class CompiledPredictor:
         self._dispatches = 0
         self._pool = None          # the rungs' shared CUDA graph pool
         self._stream = None        # warm-up, capture and replay stream
+        self._decode_engines = []  # paged engines bound to this model
 
     # -- introspection -----------------------------------------------------
     @property
@@ -303,35 +320,23 @@ class CompiledPredictor:
                 out[n] = tuple(s)
         return out
 
+    def _graph_stream(self):
+        """(graph pool, stream) of this predictor's programs, made at the
+        first capture."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self._dev)
+        return self._pool, self._stream
+
     def _capture(self, shapes):
-        """One warm-up run on zeros, then the CUDA graph of *shapes*'
-        bucket (caller holds the lock)."""
-        dev = self._dev
-        with torch.cuda.device(dev):
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-                self._stream = torch.cuda.Stream(dev)
-            inputs = {n: torch.zeros(s, dtype=self._data_dtypes[n],
-                                     device=dev)
-                      for n, s in shapes.items()}
-            side = self._stream
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self._run(inputs)
-            before = _capture_counts()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                                      capture_error_mode="thread_local"):
-                    outputs = self._run(inputs)
-            except Exception as exc:
-                raise ServeError(
-                    "model %r: CUDA graph capture of bucket %s failed "
-                    "(%s: %s); the card runs no eager fallback"
-                    % (self.name, shapes, type(exc).__name__, exc)) from exc
-            captured = {k: c - before[k]
-                        for k, c in _capture_counts().items()
-                        if c > before[k]}
+        """The CUDA graph of *shapes*' bucket, after one warm-up run on
+        zeros (caller holds the lock)."""
+        inputs = {n: torch.zeros(s, dtype=self._data_dtypes[n],
+                                 device=self._dev)
+                  for n, s in shapes.items()}
+        graph, outputs, captured = capture(
+            self._dev, *self._graph_stream(), lambda: self._run(inputs),
+            "model %r, bucket %s" % (self.name, shapes))
         return _GraphProgram(self, graph, inputs, outputs, captured)
 
     def ensure_program(self, shapes):
@@ -391,15 +396,53 @@ class CompiledPredictor:
 
     def lowered_text(self, shapes):
         raise ServeError("lowered_text is not ported: the port lowers to no "
-                         "StableHLO (quantization, queue A item 6)")
+                         "StableHLO (quantization, queue A item 6b)")
 
-    def make_decoder(self, *args, **kwargs):
-        raise ServeError("make_decoder is not ported (decode, queue A "
-                         "item 6)")
+    # -- autoregressive decode ---------------------------------------------
+    def make_decoder(self, step_fn, cache, input_shapes, input_dtypes=None,
+                     donate=None, label="decode"):
+        """Build an autoregressive step program and return a
+        :class:`DecodeSession` that threads its cache.
 
-    def make_paged_decoder(self, *args, **kwargs):
-        raise ServeError("make_paged_decoder is not ported (decode, queue "
-                         "A item 6)")
+        *step_fn(params, cache, inputs, step)* returns ``(outputs,
+        new_cache)`` with ``new_cache`` matching *cache*'s leaves in
+        shape and dtype; *step* is a 0-d int32 tensor the session
+        advances.  The session owns a copy of *cache* on the predictor's
+        device and writes each step's ``new_cache`` into it in place
+        (the reference donates it; *donate* is accepted and ignored).
+        On the card the step is one CUDA graph captured here over static
+        inputs (the step runs under capture: no host reads); on the CPU
+        it runs eagerly.  *input_shapes*: {name: shape}; *input_dtypes*:
+        {name: dtype} (default float32)."""
+        dtypes = input_dtypes or {}
+        specs = {n: (tuple(int(d) for d in s), torch_dtype(
+            dtypes.get(n, "float32"))) for n, s in input_shapes.items()}
+        cache = {n: _as_tensor(a).to(self._dev, copy=True)
+                 for n, a in cache.items()}
+        t0 = _time.perf_counter()
+        prog = _DecodeProgram(self, step_fn, cache, specs, label)
+        dt = _time.perf_counter() - t0
+        with self._lock:
+            self._compiles += 1
+        _COMPILES_TOTAL.inc()
+        _obs_events.emit("serve", kind="compile", model=self.name,
+                         decoder=label, graph=self._dev.type == "cuda",
+                         launches=prog.captured, seconds=round(dt, 4))
+        return DecodeSession(self, prog, cache, specs, label)
+
+    def make_paged_decoder(self, step_fn, prefill_fn=None, token_spec=None,
+                           input_spec=None, **kwargs):
+        """Build a continuously-batched paged-KV decode engine bound to
+        this model: it shares the predictor's parameters (``set_params``
+        reaches it), device and compile accounting, and the registry's
+        unload/alias cutover drains it with the model.  See
+        :class:`~.decode.DecodeEngine` for the step/prefill contract and
+        knobs."""
+        from .decode import DecodeEngine
+        kwargs.setdefault("label", "%s.decode" % self.name)
+        return DecodeEngine(step_fn, prefill_fn=prefill_fn,
+                            token_spec=token_spec, input_spec=input_spec,
+                            predictor=self, **kwargs)
 
     # -- request path ------------------------------------------------------
     def predict(self, data, key=None):
@@ -480,3 +523,130 @@ class CompiledPredictor:
         with self._lock:
             for cur, new in staged:
                 cur.copy_(new)
+
+
+class _DecodeProgram:
+    """The dense decode step: on the card one CUDA graph over static
+    input and step buffers, captured on the predictor's stream into its
+    graph pool after one eager warm-up run (the cache is restored after
+    it); on the CPU the eager step.  Both write ``new_cache`` into the
+    session's cache in place."""
+
+    def __init__(self, pred, step_fn, cache, specs, label):
+        self._pred = pred
+        dev = pred._dev
+        self._inputs = {n: torch.zeros(s, dtype=dt, device=dev)
+                        for n, (s, dt) in specs.items()}
+        self._step = torch.zeros((), dtype=torch.int32, device=dev)
+        self.captured = {}
+        self.replays = 0
+
+        def body():
+            outs, new = step_fn(pred._params, cache, dict(self._inputs),
+                                self._step)
+            for n, c in cache.items():
+                if new[n] is not c:
+                    c.copy_(new[n])
+            return outs
+        self._body = body
+        self._graph = None
+        if dev.type != "cuda":
+            return
+
+        def warm():
+            # the eager run writes the cache: put it back after
+            saved = {n: c.clone() for n, c in cache.items()}
+            body()
+            for n, c in cache.items():
+                c.copy_(saved[n])
+        with pred._lock:
+            self._graph, self._outputs, self.captured = capture(
+                dev, *pred._graph_stream(), body,
+                "model %r, decoder %r" % (pred.name, label), warm=warm)
+
+    def __call__(self, data, step):
+        """One step over *data* ({name: tensor of the input's shape}) at
+        *step*; returns the step outputs (the caller's to keep)."""
+        pred = self._pred
+        if self._graph is None:
+            with pred._lock:
+                for n, t in data.items():
+                    self._inputs[n].copy_(t)
+                self._step.fill_(step)
+                with torch.no_grad():
+                    outs = self._body()
+                self.replays += 1
+            return outs
+        with pred._lock:
+            with on_stream(pred._dev, pred._stream) as caller:
+                for n, t in data.items():
+                    self._inputs[n].copy_(t)
+                self._step.fill_(step)
+                self._graph.replay()
+                outs = _tree_map(torch.Tensor.clone, self._outputs)
+            for o in _leaves(outs):
+                o.record_stream(caller)
+            self.replays += 1
+        return outs
+
+
+class DecodeSession:
+    """One live autoregressive decode: holds the cache (updated in place
+    every step, never copied) and threads it through the step program —
+    the serve-side mirror of the training step's in-place state."""
+
+    def __init__(self, predictor, program, cache, specs, label):
+        self._predictor = predictor
+        self._program = program
+        self._cache = cache
+        self._specs = specs
+        self._label = label
+        self._t = 0
+
+    @property
+    def step_count(self):
+        return self._t
+
+    @property
+    def cache(self):
+        """The live cache (the same tensors every step)."""
+        return self._cache
+
+    def lowered_text(self):
+        raise ServeError("lowered_text is not ported: the port lowers to "
+                         "no StableHLO (decoder %r)" % self._label)
+
+    def step(self, inputs):
+        """Run one decode step; returns the step outputs (tensors on the
+        predictor's device) and advances the cache in place.  An input
+        that is already a tensor on the predictor's device (the previous
+        step's output fed back) skips the host round trip, counted by
+        ``device_put_elided_total``."""
+        pred = self._predictor
+        data = {}
+        for n, (shape, dt) in self._specs.items():
+            if n not in inputs:
+                raise ServeError("decode %r: missing input %r"
+                                 % (self._label, n))
+            raw = inputs[n]
+            if isinstance(raw, NDArray):
+                raw = raw._data
+            if _device_resident(raw, pred._dev):
+                a = raw
+                _DEVICE_PUT_ELIDED.inc()
+            else:
+                a = _as_tensor(_as_host(raw))
+            if tuple(a.shape) != shape:
+                raise ServeError(
+                    "decode %r input %r: shape %s does not match the "
+                    "built %s (decode programs are fixed-shape; pad "
+                    "upstream)" % (self._label, n, tuple(a.shape), shape))
+            data[n] = a.to(dt)
+        t0 = _time.perf_counter()
+        with _san.transfer_guard("serve decode step (%s)" % self._label):
+            outs = self._program(data, self._t)
+        _DISPATCH_SECONDS.observe(_time.perf_counter() - t0)
+        with pred._lock:
+            pred._dispatches += 1
+        self._t += 1
+        return outs

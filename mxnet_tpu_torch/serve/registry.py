@@ -1,6 +1,6 @@
 """ModelRegistry — multi-model serving with warm per-rung programs (port
-of ``mxnet_tpu/serve/registry.py``, without decode, quantization, tuning
-and the C predict ABI's process-wide instance).
+of ``mxnet_tpu/serve/registry.py``, without quantization, tuning and the
+C predict ABI's process-wide instance).
 
 The registry is the process's serving control plane:
 
@@ -15,7 +15,11 @@ The registry is the process's serving control plane:
   model, its aliases and its batcher down;
 * ``batcher``/``submit`` attach the dynamic batcher to a model by name;
 * ``health``/``ready``/``live`` expose the per-model state machine (see
-  health.py) plus queue depth and dispatcher liveness.
+  health.py) plus queue depth and dispatcher liveness;
+* the paged decode engines a model carries
+  (:meth:`CompiledPredictor.make_paged_decoder`) drain with it: unload
+  and replacement drain and close their batchers, an alias cutover
+  flushes them, and ``health``/``live`` cover them.
 
 Every load/unload/alias/drain/health transition is a ``serve`` event and
 every program build is counted and blamed (see predictor.py).
@@ -70,7 +74,7 @@ class ModelRegistry:
         if quantize is not None or calib is not None or \
                 calib_batches is not None:
             raise ServeError("load(%r): quantized serving is not ported "
-                             "(queue A item 6)" % name)
+                             "(queue A item 6b)" % name)
 
         def _check_not_alias():
             if name in self._aliases:
@@ -105,6 +109,7 @@ class ModelRegistry:
             raise
         with self._lock:
             _check_not_alias()      # racing alias() may have won
+            displaced = self._models.get(name)
             old_batcher = self._batchers.pop(name, None)
             if name not in self._models:
                 _MODELS_GAUGE.inc()  # delta: aggregates across registries
@@ -120,6 +125,12 @@ class ModelRegistry:
             old_batcher.detach_state_hook()
             old_batcher.drain()
             old_batcher.close()
+        if displaced is not None and displaced is not pred:
+            # the displaced model's decode sessions are accepted work:
+            # finish or typed-fail them, release their pool blocks
+            self._drain_decoders(displaced, name)
+            for eng in list(displaced._decode_engines):
+                eng.close()
         _obs_events.emit("serve", kind="load", model=name, programs=built,
                          warm=bool(warm), buckets=list(pred.ladder.batches))
         return pred
@@ -164,13 +175,48 @@ class ModelRegistry:
             self._aliases[alias] = target
             old_batcher = self._batchers.get(old) \
                 if old is not None and old != target else None
+            old_pred = self._models.get(old) \
+                if old is not None and old != target else None
         _obs_events.emit("serve", kind="alias", alias=alias, model=target)
         if old_batcher is not None:
             complete = old_batcher.flush()
             _obs_events.emit("serve", kind="cutover_flush", alias=alias,
                              model=old, complete=bool(complete))
+        if old_pred is not None:
+            # decode sessions riding the old target are accepted work
+            # too: let them finish (bounded), typed-fail the rest and
+            # release their pool blocks.  Flush, not close — the old
+            # model may still serve through other aliases or its direct
+            # name (the predict path's cutover rule)
+            self._drain_decoders(old_pred, old, close=False)
 
     # -- graceful drain / teardown -----------------------------------------
+    def _drain_decoders(self, pred, name, timeout=None, drain=True,
+                        close=True):
+        """Decode half of the never-drop-accepted-work deploy contract.
+        With *close* (unload / load-replace: the model is going away)
+        every decode batcher is drained (bounded, when *drain*) and
+        closed; sessions finish or typed-fail and their pool blocks are
+        released either way.  Without *close* (alias cutover: the model
+        may still be reachable through other aliases or its direct name)
+        accepted sessions are FLUSHED — they land or typed-fail at the
+        deadline — but admissions continue and the batcher keeps
+        serving."""
+        for eng in list(pred._decode_engines):
+            for db in list(eng._batchers):
+                if not close:
+                    complete = db.flush(timeout)
+                    _obs_events.emit(
+                        "decode", kind="cutover_drain", model=name,
+                        batcher=db.name, complete=bool(complete))
+                    continue
+                if drain:
+                    drained = db.drain(timeout)
+                    _obs_events.emit(
+                        "decode", kind="cutover_drain", model=name,
+                        batcher=db.name, complete=bool(drained))
+                db.close()
+
     def drain(self, name, timeout=None):
         """Stop admissions to *name*'s batcher (submits raise a typed
         ServeError) and wait up to *timeout* seconds (default the
@@ -282,6 +328,12 @@ class ModelRegistry:
             # not resurrect it under the dropped name
             batcher.detach_state_hook()
             batcher.close()
+        # decode sessions drain with the model: with drain=True they
+        # finish (bounded) before the typed-fail sweep; either way every
+        # pool block is released before the engine closes
+        self._drain_decoders(pred, name, timeout, drain=drain)
+        for eng in list(pred._decode_engines):
+            eng.close()
         self._board.drop(name)
         _obs_events.emit("serve", kind="unload", model=name,
                          aliases_dropped=dropped,
@@ -349,6 +401,26 @@ class ModelRegistry:
                 closed_dirty=batcher.closed_dirty,
                 requests=batcher.request_count,
                 batches=batcher.batch_count)
+        engines = list(pred._decode_engines) if pred is not None else []
+        if engines:
+            dbs = [db for eng in engines for db in eng._batchers]
+            info["decode"] = {
+                "sessions": sum(e.active_sessions for e in engines),
+                "kv_blocks_in_use": sum(e.pool.blocks_in_use
+                                        for e in engines),
+                "kv_blocks_total": sum(e.pool.blocks_total
+                                       for e in engines),
+                "batchers": [db.health_state() for db in dbs],
+                # quarantine-and-rebuild surface: spent/budgeted
+                # rebuilds and whether one is in flight right now
+                "rebuilds": sum(db.rebuild_count for db in dbs),
+                "rebuild_budget": sum(db.rebuild_budget for db in dbs),
+                "rebuilding": any(db.rebuilding for db in dbs),
+            }
+            if info["state"] == "ready" and any(db.unhealthy for db in dbs):
+                info["state"] = "unhealthy"
+            elif info["state"] == "ready" and info["decode"]["rebuilding"]:
+                info["state"] = "rebuilding"
         return info
 
     def ready(self, name):
@@ -359,15 +431,32 @@ class ModelRegistry:
             return False
 
     def live(self, max_tick_age=5.0):
-        """Liveness probe: every dispatcher thread is running and — when
-        it has work queued — has ticked within *max_tick_age* seconds."""
+        """Liveness probe: every dispatcher thread (the predict batchers'
+        and the decode batchers') is running and — when it has work
+        queued — has ticked within *max_tick_age* seconds."""
         with self._lock:
             batchers = list(self._batchers.values())
+            preds = list(self._models.values())
         for b in batchers:
             if b.unhealthy or not b.dispatcher_alive():
                 return False
             if b.queue_depth > 0 and b.last_tick_age() > max_tick_age:
                 return False
+        for pred in preds:
+            for eng in list(pred._decode_engines):
+                for db in list(eng._batchers):
+                    if db.unhealthy:
+                        return False
+                    if db.rebuilding:
+                        # a quarantine-and-rebuild in flight: the old
+                        # dispatcher thread is executing the rebuild,
+                        # not ticking — alive, not wedged
+                        continue
+                    if not db.stopped and not db.dispatcher_alive():
+                        return False
+                    if db.session_count > 0 and \
+                            db.last_tick_age() > max_tick_age:
+                        return False
         return True
 
     # -- request routing ---------------------------------------------------

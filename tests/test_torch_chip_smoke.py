@@ -16,7 +16,15 @@ coalesced and per-tensor LARS + mp_sgd_mom updates against the float64
 formula and fails its two wrong variants, on a small net on the CPU; the
 bf16-vs-f64 check's limits pass the gaps its first H100 run measured and
 fail the other batch's; the checkpoint round trip holds a ResNet
-trainer's state bit for bit; the phase raises without CUDA."""
+trainer's state bit for bit; the phase raises without CUDA.
+
+Phase 8 (paged decode): on a 2-layer LM (dim 64, vocab 97) served on the
+CPU with the JAX package's weights, the decode step's teacher-forced
+logits are within 1e-5 of the JAX ``TransformerLM`` forward; paged
+streams equal the dense ``make_decoder`` streams; a freed block filled
+with NaN — by ids past the table, or by hand — leaves the next
+sessions' streams unchanged; every check of the phase is wired; the
+phase raises without CUDA."""
 
 import os
 import sys
@@ -569,7 +577,8 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
                                         "traffic": 420},
         "phase_train": lambda t, c, s: {k: 60 for k in kernels},
         "phase_resnet": lambda t, c, s: None,
-        "phase_north_star": lambda t, c, s: {k: 60 for k in kernels}}
+        "phase_north_star": lambda t, c, s: {k: 60 for k in kernels},
+        "phase_decode": lambda t, c, s: 552}
     for name, fn in stub.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     assert chip_smoke.main() == 0
@@ -580,8 +589,157 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
     assert fwd["name"] == "flash_fwd"
     assert fwd["launches_by_path"]["batched serve (graph replays: "
                                    "traffic dispatches)"] == 420
-    assert fwd["launches"] == 72 + 108 + 420 + 60 + 60
+    assert fwd["launches_by_path"]["decode prefill"] == 552
+    assert fwd["launches"] == 72 + 108 + 420 + 60 + 60 + 552
     for k in json.loads(lines[-2])["kernels"]:
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"} <= set(k)
+
+
+# phase 8 (paged decode), on a small LM served on the CPU
+DEC_CFG = dict(vocab=97, dim=64, heads=4, layers=2, max_seq=128,
+               prefix="p8_")
+DEC_TOL = 1e-5     # x max(1, max |logit|): f32 summation order only
+
+
+@pytest.fixture(scope="module")
+def decode_lm(tmp_path_factory):
+    """The JAX LM and the port's predictor serving the same weights (from
+    the port's export)."""
+    import numpy as np
+    import mxnet_tpu as jmx
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu.gluon.model_zoo.transformer import \
+        get_transformer_lm as jax_lm
+    from mxnet_tpu_torch.gluon import load_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        get_transformer_lm
+    x = np.zeros((1, 16), "float32")
+    jnet = jax_lm(**DEC_CFG)
+    jnet.initialize(ctx=jmx.cpu())
+    jnet.hybridize()
+    jnet(jmx.nd.array(x))
+    net = get_transformer_lm(**DEC_CFG)
+    net.initialize(ctx=mx.cpu())
+    load_jax_params(net, {k: v.data().asnumpy()
+                          for k, v in jnet.collect_params().items()})
+    net.hybridize()
+    net(mx.nd.array(x, ctx=mx.cpu()))
+    prefix = str(tmp_path_factory.mktemp("decode") / "lm")
+    net.export(prefix, 0)
+    reg = mx.serve.ModelRegistry()
+    pred = reg.load_checkpoint(
+        "lm", prefix, 0, data_shapes={"data0": (1, 64)},
+        ladder=mx.serve.BucketLadder(batches=(1,)), ctx=mx.cpu(),
+        warm=False)
+    yield jnet, pred
+    reg.close()
+
+
+def _decode_engine(pred):
+    import torch
+    import mxnet_tpu_torch as mx
+    step, prefill, token_spec, input_spec = chip_smoke.lm_decode_fns(
+        torch, pred, DEC_CFG["heads"])
+    eng = pred.make_paged_decoder(
+        step, prefill, token_spec, input_spec, max_len=64, block_size=16,
+        num_blocks=9, session_rungs=(1, 2), prefill_rungs=(16, 32, 64))
+    return eng, mx.serve.DecodeBatcher(eng, max_wait_ms=100.0), step
+
+
+def test_decode_step_logits_match_the_jax_forward(decode_lm):
+    """The step, fed 40 tokens one at a time through a dense decoder,
+    gives the JAX TransformerLM's logits at every position."""
+    import numpy as np
+    import torch
+    import mxnet_tpu as jmx
+    jnet, pred = decode_lm
+    step_l, _, _, _ = chip_smoke.lm_decode_fns(torch, pred, DEC_CFG["heads"],
+                                               with_logits=True)
+    toks = np.random.RandomState(0).randint(0, DEC_CFG["vocab"], 40)
+    got = chip_smoke.dense_logits(torch, chip_smoke.dense_decoder(
+        torch, pred, step_l, 64, DEC_CFG["heads"]), toks).numpy()
+    want = jnet(jmx.nd.array(toks[None].astype("float32"))).asnumpy()[0]
+    scale = max(1.0, np.abs(want).max())
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= DEC_TOL * scale
+    fwd = chip_smoke.forward_logits(pred, toks).numpy()
+    assert np.abs(fwd - want).max() <= DEC_TOL * scale
+
+
+def test_decode_paged_streams_and_nan_garbage(decode_lm):
+    """Paged streams (prefill through the model's graph, batched ticks)
+    equal the dense decoder's; a prompt with ids past the table and
+    below zero gets NaN logits and the argmax over NaN, its freed blocks
+    hold NaN, and the same sessions served again on them — and again
+    after every free block is filled with NaN by hand — are unchanged."""
+    import numpy as np
+    import torch
+    jnet, pred = decode_lm
+    eng, bat, step = _decode_engine(pred)
+    heads, vocab = DEC_CFG["heads"], DEC_CFG["vocab"]
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, vocab, 20).astype(np.int32) for _ in range(2)]
+    first, _ = chip_smoke.serve_streams(bat, prompts, 12)
+    assert first == [chip_smoke.dense_stream(chip_smoke.dense_decoder(
+        torch, pred, step, 64, heads), p, 12) for p in prompts]
+    bad = prompts[0].copy()
+    bad[3], bad[5] = vocab, -1
+    (bad_stream,), (bad_sess,) = chip_smoke.serve_streams(bat, [bad], 12)
+    assert bad_stream == [0] * 12         # argmax over NaN logits
+    blocks = [int(b) for b in bad_sess.table if b]
+    assert bool(torch.isnan(eng.pool.arrays["k"][blocks]).any())
+    again, sess = chip_smoke.serve_streams(bat, prompts, 12)
+    assert again == first
+    assert set(blocks) & {int(b) for s in sess for b in s.table if b}
+    with eng._lock:
+        for a in eng.pool.arrays.values():
+            a.fill_(float("nan"))
+    assert chip_smoke.serve_streams(bat, prompts, 12)[0] == first
+    assert eng.pool.blocks_in_use == 0
+    bat.close()
+    eng.close()
+
+
+def _good_decode_record():
+    L = chip_smoke.LAYERS
+    return {"layers": L, "session_errors": [], "tokens": 5000,
+            "tokens_asked": 5000, "compiles_before": 12,
+            "compiles_after": 12, "blocks_in_use": 0, "mean_sessions": 9.5,
+            "tick_captured": {},
+            "prefill_captured": {r: {"flash_fwd": L}
+                                 for r in chip_smoke.DEC_PREFILL_RUNGS},
+            "traffic_wrapper": 0, "traffic_prefill_graph": L * 32,
+            "prefills": 32, "logits_ratio": 0.05,
+            "divergences": [None, (3, 1e-4, 2e-4, 5e-3), None, None],
+            "bad_nan_logits": True, "bad_stream": [0] * 32,
+            "bad_expected": [0] * 32, "poisoned_blocks": [7, 8],
+            "reused_blocks": [7], "after_bad_equal": True,
+            "prefill_launches": 552}
+
+
+@pytest.mark.parametrize("fault,value", [
+    ("session_errors", ["ServeError: x"]), ("tokens", 4999),
+    ("compiles_after", 13), ("blocks_in_use", 1), ("mean_sessions", 1.0),
+    ("tick_captured", {1: {"flash_fwd": 12}}),
+    ("prefill_captured", {16: {}}), ("traffic_wrapper", 12),
+    ("traffic_prefill_graph", 12 * 31), ("logits_ratio", 1.5),
+    ("divergences", [(3, 6e-3, 1e-4, 5e-3)]),
+    ("divergences", [(3, 1e-4, 6e-3, 5e-3)]),
+    ("bad_nan_logits", False), ("bad_stream", [1] * 32),
+    ("poisoned_blocks", []), ("reused_blocks", []),
+    ("after_bad_equal", False), ("prefill_launches", 0)])
+def test_decode_checks_are_wired(fault, value):
+    """Each of phase 8's checks fails the phase on its own."""
+    rec = _good_decode_record()
+    assert chip_smoke.decode_failures(rec) == []
+    rec[fault] = value
+    assert len(chip_smoke.decode_failures(rec)) == 1
+
+
+def test_decode_phase_raises_without_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chip_smoke.phase_decode(torch, "no card", 0)

@@ -3,7 +3,11 @@ and ``flash_bwd_dq`` against their plain versions, the wrappers'
 refusals, and the launch counts of the serving and training paths; the
 float32 ``Convolution`` on cuDNN held to float64 (no TF32); and serving's
 CUDA graph per rung (replay against eager, outputs that never alias,
-``set_params`` seen by the next replay, a capture failure that raises).
+``set_params`` seen by the next replay, a capture failure that raises);
+the reference's index rules on the card (an id past the embedding table
+reads NaN, eagerly and under a graph, and serving goes on); and decode:
+the paged engine's CUDA graphs per rung over a pool updated in place, a
+pool rebuild under captured graphs, and the dense decoder's graph.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one.
 This file imports neither jax nor the JAX package, so it runs on a
@@ -385,6 +389,167 @@ def test_submit_on_the_card_replays_the_rung(cuda, tmp_path):
     assert b.batch_count == 1
     assert np.array_equal(got, want)
     assert pred.compile_count == 2
+
+
+def test_embedding_ids_past_the_table_on_the_card(cuda):
+    """ids [0, 3, 32000, -1] of a 32000-row table read rows 0, 3, NaN and
+    31999, eagerly and replayed from a CUDA graph; nothing asserts on
+    the device, so the next op still runs."""
+    from mxnet_tpu_torch.ops.tensor import _embedding
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    w = torch.randn((32000, 16), generator=g, device=cuda)
+    ids = torch.tensor([0, 3, 32000, -1], dtype=torch.float32, device=cuda)
+    eager = _embedding(ids, w)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _embedding(ids, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _embedding(ids, w)
+    graph.replay()
+    for got in (eager, out):
+        assert torch.equal(got[0], w[0]) and torch.equal(got[1], w[3])
+        assert bool(torch.isnan(got[2]).all())
+        assert torch.equal(got[3], w[31999])
+    torch.cuda.synchronize()           # a device assert would raise here
+    assert bool(torch.isfinite(w.sum()))
+
+
+def test_served_bad_ids_get_nan_rows_and_serving_goes_on(cuda, tmp_path):
+    """A request holding ids [0, 3, 50, -1] (vocab 50) is answered as the
+    reference answers it: the id past the table embeds as a NaN row, and
+    attention's P.V multiplies its NaN value by the zero weights of the
+    rows before it too, so every logit is NaN (the JAX package's forward
+    of the same ids on the CPU is NaN at every position).  Graph replay
+    and eager agree, nothing asserts on the device, and the next request
+    is still served, matching eager."""
+    reg, pred = _served_lm(tmp_path)
+    x = _tokens(1, 3)
+    x[0, :4] = [0, 3, 50, -1]
+    got = pred.predict(x)[0]._data
+    want = pred._run({"data0": torch.from_numpy(x).to(cuda)})[0]
+    assert bool(torch.isnan(got).all()) and bool(torch.isnan(want).all())
+    y = _tokens(4, 4)
+    got = pred.predict(y)[0]._data
+    want = pred._run({"data0": torch.from_numpy(y).to(cuda)})[0]
+    assert bool(torch.isfinite(got).all())
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= TOL_SERVE * scale
+
+
+# decode on the card
+def _tiny_engine(cuda, **kwargs):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.test_utils import tiny_attention_lm
+    params, step_fn, prefill_fn, token_spec, input_spec = \
+        tiny_attention_lm(vocab=32, dim=16, seed=0, ctx=mx.gpu(0))
+    kwargs.setdefault("max_len", 24)
+    kwargs.setdefault("block_size", 4)
+    kwargs.setdefault("num_blocks", 40)
+    kwargs.setdefault("session_rungs", (1, 2, 4))
+    eng = mx.serve.DecodeEngine(step_fn, prefill_fn, token_spec, input_spec,
+                                params=params, **kwargs)
+    return eng, params, step_fn
+
+
+def test_paged_decode_graphs_on_the_card(cuda):
+    """One CUDA graph per tick rung and per prefill rung, built at
+    construction; 4 staggered sessions through them give the dense
+    decode's streams, with no build under traffic and the pool's own
+    tensors written in place."""
+    from mxnet_tpu_torch.test_utils import dense_decode_reference
+    eng, params, step_fn = _tiny_engine(cuda)
+    assert eng.compile_count == 3 + len(eng.prefill_rungs)
+    ptrs = {k: a.data_ptr() for k, a in eng.pool.arrays.items()}
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 32, n).astype(np.int32) for n in (1, 3, 7, 12)]
+    n_new = [9, 4, 6, 2]
+    sess = [eng.admit({"tok": p}, max_new_tokens=n)
+            for p, n in zip(prompts, n_new)]
+    for s in sess:
+        eng.prefill(s)
+    while any(not s.done() for s in sess):
+        eng.tick([s for s in sess if not s.done()])
+    for s, p, n in zip(sess, prompts, n_new):
+        assert [int(o) for o in s.result(10)] == dense_decode_reference(
+            params, step_fn, p, n, eng.padded_len, 16)
+    assert eng.compile_count == 3 + len(eng.prefill_rungs)
+    assert {k: a.data_ptr() for k, a in eng.pool.arrays.items()} == ptrs
+    assert eng.pool.blocks_in_use == 0
+    eng.close()
+
+
+def test_pool_rebuild_under_captured_graphs(cuda):
+    """A tick crash quarantines the pool; the fresh pool takes over its
+    tensors zeroed in place, so the captured graphs run it with no new
+    build and the resumed stream is the dense decode's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.resilience import chaos
+    from mxnet_tpu_torch.test_utils import dense_decode_reference
+    eng, params, step_fn = _tiny_engine(cuda, session_rungs=(1,),
+                                        prefill_rungs=(4,))
+    built = eng.compile_count
+    ptrs = {k: a.data_ptr() for k, a in eng.pool.arrays.items()}
+    bat = mx.serve.DecodeBatcher(eng, max_wait_ms=1.0, rebuilds=1)
+    p = np.asarray([3, 1, 4], np.int32)
+    chaos.configure(decode_tick_raise_at=2)
+    try:
+        got = [int(o) for o in bat.start({"tok": p}, max_new_tokens=6)
+               .result(60)]
+    finally:
+        chaos.reset()
+    assert got == dense_decode_reference(params, step_fn, p, 6,
+                                         eng.padded_len, 16)
+    assert bat.rebuild_count == 1 and eng.compile_count == built
+    assert {k: a.data_ptr() for k, a in eng.pool.arrays.items()} == ptrs
+    bat.close()
+    eng.close()
+
+
+def test_speculative_verify_graph_on_the_card(cuda):
+    """The K-step verify program (the steps unrolled in one CUDA graph)
+    with a perfect draft gives the dense decode's stream from fewer
+    target dispatches than tokens."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.test_utils import dense_decode_reference
+    target, params, step_fn = _tiny_engine(cuda, session_rungs=(1,),
+                                           spec_k=4, prefill_rungs=(4,))
+    draft, _, _ = _tiny_engine(cuda, session_rungs=(1,), prefill_rungs=(4,))
+    assert target.compile_count == 1 + len(target.prefill_rungs) + 1
+    spec = mx.serve.SpeculativeDecoder(target, draft)
+    p = np.asarray([1, 2, 3], np.int32)
+    sess = spec.run({"tok": p}, max_new_tokens=12)
+    assert [int(o) for o in sess.outputs()] == dense_decode_reference(
+        params, step_fn, p, 12, target.padded_len, 16)
+    assert spec.stats["accepted"] == spec.stats["proposed"]
+    assert spec.stats["target_dispatches"] < 12
+    target.close()
+    draft.close()
+
+
+def test_dense_decoder_graph_on_the_card(cuda, tmp_path):
+    """make_decoder captures one CUDA graph; each step replays it over
+    the session's cache, written in place, and a device-resident input
+    skips the host."""
+    reg, pred = _served_lm(tmp_path)
+    built = pred.compile_count
+
+    def step(p, cache, inputs, t):
+        new = cache["kv"].index_copy(1, t.long().reshape(1),
+                                     inputs["tok"][:, None])
+        return new.sum(dim=1), {"kv": new}
+    sess = pred.make_decoder(step, {"kv": np.zeros((2, 6), np.float32)},
+                             {"tok": (2,)})
+    assert pred.compile_count == built + 1
+    cache = sess.cache["kv"]
+    out = sess.step({"tok": np.ones((2,), np.float32)})
+    out = sess.step({"tok": out})
+    assert out.is_cuda and out.tolist() == [2.0, 2.0]
+    assert sess.cache["kv"] is cache
+    assert cache.tolist() == [[1.0, 1.0, 0, 0, 0, 0]] * 2
 
 
 def _bwd_inputs(cuda, b, h, sq, sk, d, dtype, causal, seed=1):

@@ -45,6 +45,9 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.loss, "
             "mxnet_tpu_torch.parallel, mxnet_tpu_torch.lr_scheduler, "
             "mxnet_tpu_torch.serve.batcher, mxnet_tpu_torch.serve.health, "
+            "mxnet_tpu_torch.serve.kvpool, mxnet_tpu_torch.serve.decode, "
+            "mxnet_tpu_torch.serve.graphs, "
+            "mxnet_tpu_torch.test_utils, "
             "mxnet_tpu_torch.config, mxnet_tpu_torch.sanitizer, "
             "mxnet_tpu_torch.observability, mxnet_tpu_torch.resilience; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
@@ -94,7 +97,9 @@ def test_gpu_context_without_cuda_raises(no_cuda):
 @pytest.mark.parametrize("entry", ["nd.array", "nd.zeros", "initialize",
                                    "load_checkpoint", "nd.load", "Trainer",
                                    "resnet initialize", "make_mesh",
-                                   "make_mesh gpu", "ParallelTrainer"])
+                                   "make_mesh gpu", "ParallelTrainer",
+                                   "KVPool", "DecodeEngine",
+                                   "tiny_attention_lm"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -125,6 +130,19 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         call = lambda: mx.parallel.ParallelTrainer(
             net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "lbsgd",
             {"learning_rate": 0.1}, multi_precision=True)
+    elif entry == "KVPool":
+        call = lambda: mx.serve.KVPool(
+            {"k": torch.empty((4,), device="meta")}, 3, 2)
+    elif entry == "DecodeEngine":
+        from mxnet_tpu_torch.test_utils import tiny_attention_lm
+        params, step, prefill, token_spec, input_spec = tiny_attention_lm(
+            ctx=mx.cpu())
+        call = lambda: mx.serve.DecodeEngine(
+            step, prefill, token_spec, input_spec, params=params,
+            max_len=8, block_size=4, num_blocks=5, session_rungs=(1,))
+    elif entry == "tiny_attention_lm":
+        from mxnet_tpu_torch.test_utils import tiny_attention_lm
+        call = tiny_attention_lm
     else:
         mx.nd.save(str(tmp_path / "m-0000.params"),
                    {"arg:w": mx.nd.array(np.ones(2), ctx=mx.cpu())})

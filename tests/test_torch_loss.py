@@ -84,3 +84,18 @@ def test_lm_loss_is_mean_nll_per_sample():
     np.testing.assert_allclose(loss.asnumpy(), nll.mean(axis=(1, 2)),
                                rtol=1e-5)
     assert tgluon.loss.SoftmaxCELoss is tgluon.loss.SoftmaxCrossEntropyLoss
+
+
+@pytest.mark.parametrize("hybridize", [False, True])
+def test_softmax_ce_out_of_range_labels_match_jax(hybridize):
+    """Labels [5, -1] over 4 classes: the reference's pick reads NaN for
+    5 and the last class for -1, so the losses are [nan, finite]."""
+    pred = np.random.RandomState(0).standard_normal((2, 4)).astype(
+        np.float32)
+    label = np.array([5, -1], np.float32)
+    jl, _ = _run(jmx, jag, jgluon, {}, pred, label, None, hybridize)
+    tl, _ = _run(tmx, tag, tgluon, {}, pred, label, None, hybridize)
+    assert np.isnan(tl[0]) and np.isnan(jl[0])
+    logp = pred[1] - np.log(np.exp(pred[1]).sum())
+    np.testing.assert_allclose(tl[1], -logp[-1], **TOL)
+    np.testing.assert_allclose(tl[1], jl[1], **TOL)

@@ -138,3 +138,99 @@ def test_dot_product_attention(causal):
 def test_attr_strings_parse_like_jax(value):
     s = tsym._stringify(value)
     assert tsym._parse_attr(s) == jsym._parse_attr(s) == value
+
+
+# -- the reference's index rules (jnp.take / take_along_axis) -------------
+
+def _vjp_both(name, arrays, params, wrt):
+    """Forward and the gradient wrt input *wrt* of one op in both
+    packages, for an all-ones cotangent on the finite outputs."""
+    import jax
+    jargs = [jnp.asarray(a) for a in arrays]
+
+    def jf(x):
+        args = list(jargs)
+        args[wrt] = x
+        return jreg.get_op(name).fn(*args, **params)
+    jout, jvjp = jax.vjp(jf, jargs[wrt])
+    ct = jnp.where(jnp.isnan(jout), 0.0, 1.0).astype(jout.dtype)
+    targs = [torch.from_numpy(a) for a in arrays]
+    targs[wrt].requires_grad_()
+    tout = treg.get_op(name).fn(*targs, **params)
+    tout.backward(torch.from_numpy(np.array(ct)))
+    return (tout.detach().numpy(), np.asarray(jout),
+            targs[wrt].grad.numpy(), np.asarray(jvjp(ct)[0]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_embedding_out_of_range_ids_match_jax(dtype):
+    """An id >= input_dim or < -input_dim gives a NaN row, an id in
+    [-input_dim, 0) wraps, and neither passes gradient to a wrong row:
+    ids [0, 3, 4, -1] of a 4-row table read rows 0, 3, NaN and 3."""
+    ids = np.array([[0, 3, 4, -1], [-4, -5, 7, 2]], dtype)
+    got, want, g, jg = _vjp_both("Embedding", [ids, _rand(4, 3)],
+                                 dict(input_dim=4, output_dim=3), wrt=1)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[0, 2]).all() and np.isnan(got[1, 1:3]).all()
+    np.testing.assert_allclose(got[0, 3], got[0, 1], rtol=0, atol=0)
+    np.testing.assert_allclose(np.nan_to_num(got), np.nan_to_num(want),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(g, jg, rtol=0, atol=1e-6)
+
+
+def test_pick_out_of_range_index_matches_jax():
+    """``pick`` follows ``jnp.take_along_axis``: index 5 of a row of 4
+    is NaN, -1 is the last element; the gradient matches."""
+    data = _rand(3, 4)
+    idx = np.array([5, -1, -5], np.float32)
+    got, want, g, jg = _vjp_both("pick", [data, idx], dict(axis=-1), wrt=0)
+    assert np.isnan(got[0]) and np.isnan(got[2])
+    assert got[1] == data[1, -1]
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(np.nan_to_num(got), np.nan_to_num(want),
+                               rtol=0, atol=0)
+    np.testing.assert_allclose(g, jg, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("source", [
+    np.array(3.5), np.int64(7), 5, np.array(2, np.int64), [1, 2],
+    np.arange(3, dtype=np.int64), np.arange(2, dtype=np.uint64),
+    np.arange(3, dtype=np.float64), np.array([1, 2], np.int16)],
+    ids=["0d-f64", "np-int64-scalar", "py-int", "0d-int64", "py-list",
+         "int64", "uint64", "float64", "int16"])
+def test_nd_array_shape_and_dtype_match_jax(source):
+    """0-d stays 0-d; int64 data and Python ints become int32 (uint64
+    uint32, float64 float32), as the reference stores them without
+    x64."""
+    import mxnet_tpu as jmx
+    import mxnet_tpu_torch as tmx
+    got = tmx.nd.array(source, ctx=tmx.cpu())
+    want = jmx.nd.array(source)
+    assert got.shape == want.shape
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_saved_0d_and_int_arrays_cross_packages(writer, tmp_path):
+    """nd.save / nd.load keep 0-d shapes and give int32 for int64 data,
+    whichever package wrote the file and whichever reads it."""
+    import ml_dtypes
+    import mxnet_tpu as jmx
+    import mxnet_tpu_torch as tmx
+    data = {"s": np.array(2.5, np.float32), "i": np.arange(3),
+            "z": np.array(4, np.int64),
+            "b": np.array(1.5, ml_dtypes.bfloat16)}
+    fname = str(tmp_path / "x.params")
+    if writer == "jax":
+        jmx.nd.save(fname, {k: jmx.nd.array(v) for k, v in data.items()})
+    else:
+        tmx.nd.save(fname, {k: tmx.nd.array(v, ctx=tmx.cpu())
+                            for k, v in data.items()})
+    jgot = jmx.nd.load(fname)
+    tgot = tmx.nd.load(fname, ctx=tmx.cpu())
+    for k in data:
+        assert tgot[k].shape == jgot[k].shape == data[k].shape, k
+        assert tgot[k].dtype == jgot[k].dtype, k
+        np.testing.assert_array_equal(tgot[k].asnumpy(), jgot[k].asnumpy())
+    assert tgot["i"].dtype == np.int32 and tgot["z"].dtype == np.int32

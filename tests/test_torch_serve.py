@@ -266,3 +266,46 @@ def test_save_checkpoint_reads_back_in_the_jax_package(exported, tmp_path):
     assert sorted(jargs) == sorted(args) and jaux == {}
     for name, arr in args.items():
         np.testing.assert_array_equal(jargs[name].asnumpy(), arr.asnumpy())
+
+
+@pytest.mark.parametrize("value", [np.array(3.5, np.float32),
+                                   np.array(7, np.int32), np.float32(2.0)],
+                         ids=["0d-f32", "0d-i32", "np-scalar"])
+def test_predictor_as_tensor_keeps_0d_like_jax(value):
+    """A 0-d request array stays 0-d on its way to a tensor, as the JAX
+    predictor's host conversion keeps it."""
+    from mxnet_tpu.serve.predictor import _as_jnp
+    from mxnet_tpu_torch.serve.predictor import _as_tensor
+    got = _as_tensor(value)
+    want = _as_jnp(value)
+    assert tuple(got.shape) == want.shape == ()
+    assert got.item() == want.item()
+
+
+@pytest.mark.parametrize("bad", [[0, 3, 40, -1], [0, -40, 7, 1],
+                                 [-41, 3, 5, 1]],
+                         ids=["past-table", "wrap-to-0", "below-range"])
+def test_ids_out_of_range_served_like_jax(exported, bad):
+    """Both registries answer a request with ids outside [0, vocab) the
+    same way: -vocab..-1 wrap (finite, equal answers); an id past the
+    table or below -vocab embeds as NaN, and every logit of the
+    sequence is NaN in both (attention's zero weights times a NaN
+    value)."""
+    x = _tokens(1, 9)
+    x[0, :4] = bad
+    preg = tserve.ModelRegistry()
+    preg.load_checkpoint("lm", exported["port_prefix"], 0,
+                         data_shapes={"data0": (1, SEQ)},
+                         ladder=tserve.BucketLadder(batches=(1,)),
+                         ctx=tmx.cpu())
+    jreg = jserve.ModelRegistry()
+    jreg.load_checkpoint("lm", exported["port_prefix"], 0,
+                         data_shapes={"data0": (1, SEQ)},
+                         ladder=jserve.BucketLadder(batches=(1,)),
+                         ctx=jmx.cpu())
+    port_out = preg.predict("lm", x)[0].asnumpy()
+    jax_out = jreg.predict("lm", x)[0].asnumpy()
+    np.testing.assert_array_equal(np.isnan(port_out), np.isnan(jax_out))
+    assert np.isnan(port_out).all() == (bad != [0, -40, 7, 1])
+    np.testing.assert_allclose(np.nan_to_num(port_out),
+                               np.nan_to_num(jax_out), rtol=0, atol=1e-5)

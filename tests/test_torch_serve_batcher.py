@@ -1,12 +1,11 @@
 """``mxnet_tpu_torch.serve`` batch serving on the CPU, mirroring the
 JAX package's ``tests/test_serve.py`` case by case.
 
-Mirrored classes: TestBucketLadder, TestCompiledPredictor (its decode
-parts left out), TestDynamicBatcher, TestAdmissionControl,
+Mirrored classes: TestBucketLadder, TestCompiledPredictor, TestDynamicBatcher, TestAdmissionControl,
 TestDeadlines, TestCancel, TestDispatcherSupervision, TestDrain,
 TestHealth, TestModelRegistry (quantize left out) and
 TestRegistryDrainAndCutover, on the same ``_mlp`` model built with the
-port's ``sym``.  Left out: TestDecode (decode is not ported),
+port's ``sym``.  Left out: TestDecode (in ``test_torch_serve_decode.py``),
 TestCApiBridgeServes (no C predict ABI) and TestCompileCacheKnob (no
 persistent compile cache).  The eager reference is the graph evaluated
 by ``executor._build_eval`` at the natural shape (the port has no
@@ -320,11 +319,30 @@ class TestCompiledPredictor:
     @pytest.mark.parametrize("entry", ["make_decoder", "make_paged_decoder",
                                        "lowered_text"])
     def test_decode_entries_raise_not_ported(self, entry):
+        """make_decoder and make_paged_decoder are ported
+        (test_torch_serve_decode.py, test_torch_decode.py); what stays
+        unported is the StableHLO text: the predictor's, its dense
+        session's and its paged engine's lowered-text accessors raise."""
         net = _mlp()
         params, aux = _params_for(net, 12)
         pred = _predictor(net, params, aux)
+        if entry == "lowered_text":
+            call = lambda: pred.lowered_text({"data": (1, 12)})
+        elif entry == "make_decoder":
+            sess = pred.make_decoder(
+                lambda p, c, i, t: (i["tok"], c),
+                {"kv": np.zeros((1,), np.float32)}, {"tok": (1,)})
+            call = sess.lowered_text
+        else:
+            from mxnet_tpu_torch.test_utils import tiny_attention_lm
+            lm, step, prefill, token_spec, input_spec = tiny_attention_lm(
+                ctx=CPU)
+            eng = pred.make_paged_decoder(
+                step, prefill, token_spec, input_spec, params=lm,
+                max_len=8, block_size=4, num_blocks=5, session_rungs=(1,))
+            call = lambda: eng.tick_lowered_text(1)
         with pytest.raises(ServeError, match="not ported"):
-            getattr(pred, entry)({"data": (1, 12)})
+            call()
 
 
 # ---------------------------------------------------------------------------
