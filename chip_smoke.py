@@ -98,6 +98,18 @@ Phases, each reported on its own line; any failure exits non-zero:
              use; (d) a prompt with ids 32000 and -1 gets NaN logits and
              the argmax over NaN, and the same 4 sessions served again on
              its freed NaN blocks are bit-equal.
+9. user    — the eager user surface: every op name of the slice (the
+             cases of ``test_utils.op_sweep_cases``) through ``nd`` on the
+             card against the CPU (exact ones equal, float ones within
+             2**-18 of their scale, samplers and Dropout by moments and
+             by repeating under one seed); then the loop of
+             ``examples/train_transformer_lm.py`` (its TransformerBlock,
+             ``qkv[0]``, a standalone Parameter, ``Trainer(dict,
+             "adam")``, the copy task) at the LM's full width, eagerly
+             through ``nd``, ``gluon`` and ``autograd``: a check step
+             against the plain attention (loss within 1e-5), then six
+             steps whose loss must fall, each launching flash_fwd,
+             flash_bwd_dkdv and flash_bwd_dq 12 times.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -3101,6 +3113,277 @@ def phase_decode(torch, card, seed):
     return main_launches
 
 
+# phase 9: the eager user surface.  The loop of
+# examples/train_transformer_lm.py:91-183 (its TransformerBlock of gluon
+# Dense / LayerNorm, qkv[0] slicing, a standalone gluon.Parameter for the
+# positions, nd.contrib.DotProductAttention, Trainer(dict, "adam"), the
+# copy task with lag 7) at the full width of tools/benchmark_lm.py:40-45,
+# f32.  The loss must fall from step 1 to step 6; steps 2-6 are timed.
+# The learning rate is 1e-4, not the example's 3e-3: adam's first steps
+# move every weight by about lr whatever its gradient, and at dim 1024
+# 3e-3 throws the loss up (10.61 to 50.69 over six steps on an H100; at
+# dim 1024 and 2 layers on the CPU the JAX package goes 10.436 to 66.911
+# and the port alike), while 1e-4 lowers it there (10.436 to 9.411).
+USER_STEPS = 6
+USER_LR = 1e-4
+USER_LAG = 7
+# the op sweep, card against the port's CPU path: an "exact" case (shape,
+# index, comparison, integer and exactly-rounded ops) must be equal.  A
+# "float" case is held to 2**-18 (64 ulps of f32 at the array's scale,
+# max(1, max |cpu|)): CUDA's f32 math library and the CPU's differ by a
+# few ulps per call (the CUDA C Programming Guide lists maximum errors of
+# 1-9 ulps for these functions, more for lgammaf near its poles), and
+# the summing ops (sum, mean, norm, dot, ...) of at most 60 terms differ
+# by summation order, well under 2**-18 of the scale.  A "random" case is
+# held by distribution (4 standard errors) and must repeat under one seed.
+TOL_SWEEP = 2.0 ** -18
+SWEEP_DRAWS = 200000
+
+
+def sweep_equal(np, a, b):
+    if a.dtype.kind in "fc":
+        return bool(np.all((a == b) | (np.isnan(a) & np.isnan(b))))
+    return bool(np.all(a == b))
+
+
+def op_sweep(torch, mx, card, seed, devices=None, draws=SWEEP_DRAWS):
+    """Phase 9 (a): every case of ``test_utils.op_sweep_cases`` through
+    ``nd`` on the card and on the CPU (*devices*, default (gpu(0),
+    cpu())).  Returns the worst float ratio."""
+    import numpy as np
+    from mxnet_tpu_torch.test_utils import (SAMPLER_MOMENTS, moments_within,
+                                            op_sweep_cases)
+    from mxnet_tpu_torch.ops import registry as reg
+    cases = op_sweep_cases(seed=seed, draws=draws)
+    gpu, cpu = devices or (mx.gpu(0), mx.cpu())
+    failures, worst, kinds = [], 0.0, {}
+
+    def run(case, ctx):
+        ins = [mx.nd.array(a, ctx=ctx, dtype=a.dtype) for a in case["inputs"]]
+        out = mx.nd.imperative_invoke(case["name"], *ins, ctx=ctx,
+                                      **case["params"])
+        outs = out if isinstance(out, list) else [out]
+        return [o.asnumpy() for o in outs]
+
+    t0 = time.perf_counter()
+    for case in cases:
+        kinds[case["kind"]] = kinds.get(case["kind"], 0) + 1
+        try:
+            if case["kind"] == "random":
+                mx.random.seed(seed)
+                got = run(case, gpu)
+                mx.random.seed(seed)
+                again = run(case, gpu)
+                if not all(np.array_equal(g, a) for g, a in zip(got, again)):
+                    failures.append("%s: one seed gave other draws"
+                                    % case["id"])
+                    continue
+                want = run(case, cpu)
+                if [g.shape for g in got] != [w.shape for w in want] or \
+                        [g.dtype for g in got] != [w.dtype for w in want]:
+                    failures.append("%s: shape or dtype" % case["id"])
+                    continue
+                canon = reg.get_op(case["name"]).name
+                out = got[0].astype(np.float64)
+                if canon == "Dropout":
+                    p = case["params"]["p"]
+                    kept = out != 0
+                    ok, text = moments_within(kept.reshape(-1).astype(
+                        np.float64), 1 - p, p * (1 - p))
+                    ok = ok and bool(np.all(out[kept] ==
+                                            np.float32(1 / (1 - p))))
+                elif canon == "shuffle":
+                    ok = sorted(map(tuple, got[0])) == \
+                        sorted(map(tuple, case["inputs"][0]))
+                    text = "not a permutation of the rows"
+                else:
+                    mean, var = SAMPLER_MOMENTS[canon]
+                    rows = out.reshape(len(np.atleast_1d(mean)), -1)
+                    ok, text = True, ""
+                    for row, m, v in zip(rows, np.atleast_1d(mean),
+                                         np.atleast_1d(var)):
+                        r_ok, r_text = moments_within(row, m, v)
+                        ok, text = ok and r_ok, text + r_text + "; "
+                if not ok:
+                    failures.append("%s: %s" % (case["id"], text))
+                continue
+            got, want = run(case, gpu), run(case, cpu)
+            for g, w in zip(got, want):
+                if g.shape != w.shape or g.dtype != w.dtype:
+                    failures.append("%s: shape/dtype %s %s vs %s %s" % (
+                        case["id"], g.shape, g.dtype, w.shape, w.dtype))
+                elif case["kind"] == "exact":
+                    if not sweep_equal(np, g, w):
+                        failures.append("%s: not equal (max diff %s)" % (
+                            case["id"], np.nanmax(np.abs(
+                                g.astype(np.float64) - w))))
+                else:
+                    fin = np.isfinite(w)
+                    if not np.array_equal(fin, np.isfinite(g)):
+                        failures.append("%s: non-finite at other places"
+                                        % case["id"])
+                        continue
+                    scale = max(1.0, float(np.max(np.abs(w[fin])))
+                                if fin.any() else 1.0)
+                    err = float(np.max(np.abs(g[fin].astype(np.float64) -
+                                              w[fin]))) if fin.any() else 0.0
+                    ratio = err / (TOL_SWEEP * scale)
+                    worst = max(worst, ratio)
+                    if ratio > 1.0:
+                        failures.append("%s: %.3g of the limit"
+                                        % (case["id"], ratio))
+        except Exception as e:       # recorded, and the phase fails below
+            failures.append("%s: %s: %s" % (case["id"], type(e).__name__, e))
+    names = {c["name"] for c in cases}
+    log("user surface: op sweep of %d cases over %d op names (%s) on %s "
+        "and the CPU in %.1f s; worst float case %.3g of 2**-18 x scale; "
+        "%d failures" % (len(cases), len(names), ", ".join(
+            "%s %d" % kv for kv in sorted(kinds.items())), card,
+            time.perf_counter() - t0, worst, len(failures)))
+    if failures:
+        for f in failures[:40]:
+            log("  sweep failure: %s" % f)
+        raise RuntimeError("the op sweep failed %d of %d cases: %s"
+                           % (len(failures), len(cases), failures[:5]))
+    return worst
+
+
+def user_lm(mx, gen):
+    """The example's model at full width on the card, its parameters
+    collected as the example collects them."""
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    from train_transformer_lm import TransformerBlock
+    gluon = mx.gluon
+    embed = gluon.nn.Embedding(VOCAB, DIM, prefix="embed_")
+    blocks = [TransformerBlock(mx, DIM, HEADS, "blk%d_" % i)
+              for i in range(LAYERS)]
+    head = gluon.nn.Dense(VOCAB, flatten=False, prefix="head_")
+    pos = gluon.Parameter("pos_embed", shape=(1, SEQ, DIM))
+    all_blocks = [embed, head] + [b for blk in blocks for b in blk.blocks]
+    for b in all_blocks:
+        b.initialize(mx.init.Xavier(), generator=gen)
+    pos.initialize(mx.init.Normal(0.02), generator=gen)
+    params = {}
+    for b in all_blocks:
+        params.update(b.collect_params())
+    params[pos.name] = pos
+    return embed, blocks, head, pos, params
+
+
+def user_loss(mx, model, x, y, attention_fn):
+    """The example's forward and loss, under ``autograd.record``."""
+    embed, blocks, head, pos, _ = model
+    with mx.autograd.record():
+        h = embed(x) + pos.data()
+        for blk in blocks:
+            h = blk(h, attention_fn)
+        logits = head(h)
+        loss = mx.nd.mean(mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+            mx.nd.reshape(logits, (-1, VOCAB)), mx.nd.reshape(y, (-1,))))
+    return loss
+
+
+def phase_user_surface(torch, card, seed):
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 9 needs CUDA")
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import attention as att
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    from train_transformer_lm import copy_task_batch
+
+    # (a) every op name of the slice, on the card against the CPU
+    op_sweep(torch, mx, card, seed)
+
+    # (b) the eager LM
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 9)
+    t0 = time.perf_counter()
+    model = user_lm(mx, gen)
+    params = model[-1]
+    rng = np.random.RandomState(seed + 9)
+    batches = [copy_task_batch(rng, BATCH, SEQ, VOCAB, USER_LAG)
+               for _ in range(USER_STEPS)]
+
+    def kernel_attention(q, k, v):
+        return mx.nd.contrib.DotProductAttention(q, k, v, causal=True)
+
+    plain_op = attention_op(torch, att)
+
+    def plain_attention(q, k, v):
+        return mx.nd.NDArray(plain_op(q._data, k._data, v._data,
+                                      causal=True))
+
+    # the check step: one batch, the same weights, kernels against the
+    # plain attention (forward and backward), before any update
+    x, y = mx.nd.array(batches[0][0]), mx.nd.array(batches[0][1])
+    losses = {}
+    for what, fn in (("kernels", kernel_attention),
+                     ("plain", plain_attention)):
+        loss = user_loss(mx, model, x, y, fn)
+        loss.backward()
+        losses[what] = float(loss.asnumpy())
+    gap = abs(losses["kernels"] - losses["plain"])
+    ratio, ok = within(gap, abs(losses["plain"]), TOL_TRAIN_LOSS)
+    log("user surface: built the example's LM (%d params) and ran the "
+        "check step in %.2f s: loss %.6f with the kernels, %.6f with the "
+        "plain attention, gap %.3g (%.3f of the limit 1e-5 x max(1, "
+        "|loss|))" % (sum(int(np.prod(p.shape)) for p in params.values()),
+                      time.perf_counter() - t0, losses["kernels"],
+                      losses["plain"], gap, ratio))
+    if not ok:
+        raise RuntimeError("user surface: the check step's loss with the "
+                           "kernels is not the plain attention's")
+
+    # (c) the main path: the example's adam steps, launches counted
+    trainer = mx.gluon.Trainer(params, "adam", {"learning_rate": USER_LR})
+    counters = (att.flash_fwd, att.flash_bwd_dkdv, att.flash_bwd_dq)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    step_losses, times = [], []
+    for i, (xb, yb) in enumerate(batches):
+        t0 = time.perf_counter()
+        before = [c.launches for c in counters]
+        x, y = mx.nd.array(xb), mx.nd.array(yb)
+        loss = user_loss(mx, model, x, y, kernel_attention)
+        loss.backward()
+        trainer.step(1)
+        step_losses.append(float(loss.asnumpy()))    # waits for the step
+        times.append(time.perf_counter() - t0)
+        grew = [c.launches - b for c, b in zip(counters, before)]
+        log("user surface: step %d: loss %.6f, %.2f ms on %s; launches %s"
+            % (i + 1, step_losses[-1], times[-1] * 1e3, card, grew))
+        if grew != [LAYERS] * 3:
+            raise RuntimeError("user surface: a step launched flash_fwd, "
+                               "flash_bwd_dkdv, flash_bwd_dq %s times, "
+                               "expected %d each" % (grew, LAYERS))
+    launches = {c.__name__: c.launches for c in counters}
+    ms = 1e3 * sum(times[1:]) / len(times[1:])
+    log("user surface: %d adam steps: ms per step %.2f (steps 2-%d), %.0f "
+        "tokens/s, peak device memory %.3f GB on %s; launches %s (expected "
+        "%d each: %d layers x %d steps)" % (
+            USER_STEPS, ms, USER_STEPS, BATCH * SEQ / ms * 1e3,
+            torch.cuda.max_memory_allocated() / 1e9, card, launches,
+            LAYERS * USER_STEPS, LAYERS, USER_STEPS))
+    if not all(math.isfinite(v) for v in step_losses) or \
+            not step_losses[-1] < step_losses[0]:
+        raise RuntimeError("user surface: the loss did not fall from step "
+                           "1 to step %d: %s" % (USER_STEPS, step_losses))
+    if abs(step_losses[0] - losses["kernels"]) > \
+            TOL_TRAIN_LOSS * max(1.0, abs(losses["kernels"])):
+        raise RuntimeError("user surface: step 1's loss %.6f is not the "
+                           "check step's %.6f" % (step_losses[0],
+                                                  losses["kernels"]))
+    if any(n != LAYERS * USER_STEPS for n in launches.values()):
+        raise RuntimeError("user surface: launch counts %s" % launches)
+    del model, params, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3123,6 +3406,7 @@ def main():
     phase_resnet(torch, card, args.seed)
     ns_launches = phase_north_star(torch, card, args.seed)
     decode_launches = phase_decode(torch, card, args.seed)
+    user_launches = phase_user_surface(torch, card, args.seed)
     b, h, sq, sk, d = PATH_SHAPE
     kernels = []
     for name, source, replaces in (
@@ -3132,7 +3416,9 @@ def main():
             ("flash_bwd_dq", "flash_bwd.cu",
              "mxnet_tpu/ops/attention.py:380")):
         by_path = {"train": train_launches[name],
-                   "north-star LM train (bf16)": ns_launches[name]}
+                   "north-star LM train (bf16)": ns_launches[name],
+                   "user-surface LM train (eager nd, adam)":
+                   user_launches[name]}
         if name == "flash_fwd":
             by_path = {
                 "serve (eager: first forward, rung warm-ups)":

@@ -16,6 +16,8 @@ from .context import Context, cpu, gpu, tpu, current_context  # noqa: F401
 from . import autograd  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
+from .ndarray import waitall  # noqa: F401
+from . import random  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import initializer  # noqa: F401

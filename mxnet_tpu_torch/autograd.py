@@ -1,5 +1,5 @@
-"""Imperative autograd (port of ``mxnet_tpu/autograd.py``, subset: the
-recording scopes, ``mark_variables`` and ``backward``).
+"""Imperative autograd (port of ``mxnet_tpu/autograd.py``: the recording
+scopes, ``mark_variables``, ``backward``, ``grad`` and ``Function``).
 
 Built on ``torch.autograd``: PyTorch's tape takes the place of the JAX
 package's per-op tape and ``jax.vjp``.  The framework keeps its own
@@ -14,8 +14,10 @@ that requires grad.  Its gradient buffer is an NDArray; after each
 into that buffer by the variable's ``grad_req`` ('write' replaces it,
 'add' adds to it, 'null' drops it) and clears ``.grad``.
 
-Not ported yet: ``grad`` (functional gradients, create_graph) and the
-custom ``Function``.
+``grad`` is ``torch.autograd.grad``: it fills no gradient buffer, and with
+``create_graph`` its results are on the tape, so they can be
+differentiated again.  A custom ``Function`` runs as a
+``torch.autograd.Function`` whose backward calls the user's.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward"]
+           "backward", "grad", "Function"]
 
 _state = threading.local()
 
@@ -144,3 +146,102 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
                      else hg._data.to(h._data.dtype))
     if outs:
         torch.autograd.backward(outs, grads, retain_graph=retain_graph)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of *heads* with respect to *variables* (marked
+    variables or arrays computed under ``record()``), returned instead of
+    written to any gradient buffer; a variable the heads do not reach
+    gets zeros.  With *create_graph* the gradients are themselves on the
+    tape.  The graph is kept unless *retain_graph* is False."""
+    from .ndarray import NDArray
+    single = isinstance(variables, NDArray)
+    if single:
+        variables = [variables]
+    if isinstance(heads, NDArray):
+        heads = [heads]
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    elif isinstance(head_grads, NDArray):
+        head_grads = [head_grads]
+    for v in variables:
+        if not v._data.requires_grad:
+            raise ValueError(
+                "cannot take gradient w.r.t. an array that is not on the "
+                "tape (call attach_grad() / use it under record())")
+    outs, grads = [], []
+    for h, hg in zip(heads, head_grads):
+        if h._data.requires_grad:
+            outs.append(h._data)
+            grads.append(torch.ones_like(h._data) if hg is None
+                         else hg._data.to(h._data.dtype))
+    inputs = [v._data for v in variables]
+    res = [None] * len(inputs)
+    if outs:
+        res = torch.autograd.grad(
+            outs, inputs, grads,
+            retain_graph=True if retain_graph is None else retain_graph,
+            create_graph=create_graph, allow_unused=True)
+    out = [NDArray(g if g is not None else torch.zeros_like(x.detach()))
+           for g, x in zip(res, inputs)]
+    return out[0] if single else out
+
+
+class _FunctionNode(torch.autograd.Function):
+    """The tape node of a custom :class:`Function`."""
+
+    @staticmethod
+    def forward(ctx, func, *tensors):
+        from .ndarray import NDArray
+        with pause():
+            outputs = func.forward(*[NDArray(t) for t in tensors])
+        func._single = not isinstance(outputs, (list, tuple))
+        ctx.func = func
+        outs = [outputs] if func._single else list(outputs)
+        return tuple(o._data for o in outs)
+
+    @staticmethod
+    def backward(ctx, *out_grads):
+        from .ndarray import NDArray
+        # ops of the user's backward are taped only under create_graph
+        with _RecordingScope(torch.is_grad_enabled(), None):
+            grads = ctx.func.backward(*[NDArray(g) for g in out_grads])
+        if isinstance(grads, NDArray):
+            grads = [grads]
+        return (None,) + tuple(g._data if g is not None else None
+                               for g in grads)
+
+
+class Function:
+    """A custom differentiable function: subclass it with
+    ``forward(self, *inputs)`` and ``backward(self, *output_grads)`` over
+    NDArrays (``save_for_backward`` keeps what backward needs).  Under
+    ``record()`` a call puts one node on the tape whose backward is
+    yours; the forward itself is not taped."""
+
+    def __init__(self):
+        self._saved = None
+        self._single = True
+
+    def save_for_backward(self, *arrays):
+        self._saved = arrays
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray import NDArray
+        if not is_recording():
+            with pause():
+                return self.forward(*inputs)
+        outs = [NDArray(t) for t in
+                _FunctionNode.apply(self, *[x._data for x in inputs])]
+        return outs[0] if self._single else outs

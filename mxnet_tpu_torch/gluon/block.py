@@ -32,13 +32,14 @@ import torch
 
 from .. import autograd
 from .. import ndarray as nd
+from ..context import cpu
 from ..executor import _build_eval
 from ..ndarray import NDArray
 from .. import symbol as sym_mod
 from ..symbol.symbol import _infer_shapes
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _BlockScope:
@@ -98,6 +99,8 @@ def _name_unique(hint):
 def _flatten(args):
     if isinstance(args, (NDArray, sym_mod.Symbol)):
         return [args], 0
+    if args is None:        # an optional input left out (a loss's weight)
+        return [None], -1
     flat, fmts = [], []
     for a in args:
         f, fmt = _flatten(a)
@@ -108,7 +111,7 @@ def _flatten(args):
 
 def _regroup(args, fmt):
     if isinstance(fmt, int):
-        return args[0], args[1:]
+        return (None if fmt == -1 else args[0]), args[1:]
     ret = []
     for f in fmt:
         res, args = _regroup(args, f)
@@ -191,6 +194,63 @@ class Block(torch.nn.Module):
     def forward(self, *args):
         raise NotImplementedError
 
+    # -- parameter files ----------------------------------------------------
+    def _collect_params_with_prefix(self, prefix=""):
+        """{structural name: Parameter}: attribute names joined by '.'
+        ('0.weight', 'features.3.bias'), which name the same parameter
+        in either package whatever the blocks' prefixes are."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + key: val for key, val in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename):
+        """Write the parameters to *filename* (``nd.save``) under their
+        structural names; the JAX package reads the file as well."""
+        params = self._collect_params_with_prefix()
+        nd.save(filename, {key: val.data() for key, val in params.items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False):
+        """Set the parameters from a file of :meth:`save_parameters`
+        (either package's).  A parameter not created yet takes the
+        file's shape and is made on *ctx* (default: the current
+        context); an existing one keeps its device."""
+        loaded = nd.load(filename, ctx=cpu())
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise AssertionError("Parameter %r is missing in file %r"
+                                         % (name, filename))
+        for name, arr in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise AssertionError(
+                        "Parameter %r loaded from file %r is not present "
+                        "in this block" % (name, filename))
+                continue
+            params[name]._load_init(arr, ctx)
+
+    save_params = save_parameters
+
+    def load_params(self, filename, ctx=None, allow_missing=False,
+                    ignore_extra=False):
+        self.load_parameters(filename, ctx, allow_missing, ignore_extra)
+
+    def summary(self, *inputs):
+        """Run a forward on *inputs* and print the number of parameter
+        values; returns the forward's output."""
+        out = self(*inputs)
+        n = sum(p.data().size for p in self.collect_params().values()
+                if p._data is not None)
+        print("Total params: %d" % n)
+        return out
+
 
 class _CachedGraph:
     """The traced graph of a hybridized block (the CachedOp equivalent)."""
@@ -247,11 +307,17 @@ class HybridBlock(Block):
         self._cached_graph = None
         super().cast(dtype)
 
+    def infer_shape(self, *args):
+        """Resolve deferred parameter shapes from these inputs' shapes,
+        and create the parameters' data."""
+        self._infer_attrs(*args)
+
     def _infer_attrs(self, *args):
         """Resolve deferred parameter shapes by shape inference over the
         symbolic trace at these input shapes, then create the data."""
         flat, _ = _flatten(args)
-        data_shapes = {"data%d" % i: x.shape for i, x in enumerate(flat)}
+        data_shapes = {"data%d" % i: x.shape for i, x in enumerate(flat)
+                       if x is not None}
         data_syms = [sym_mod.var("data%d" % i) for i in range(len(flat))]
         param_syms = {n: sym_mod.var(p.name)
                       for n, p in self._reg_params.items()}
@@ -311,3 +377,68 @@ class HybridBlock(Block):
                          for n in self._cached_graph.aux_names})
         nd.save("%s-%04d.params" % (path, epoch), arg_dict)
         return sym_file
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol run as a Block: its arguments other than *inputs* become
+    parameters (its auxiliary states parameters with grad_req 'null'),
+    and a forward evaluates the graph eagerly on them, taped under
+    ``autograd.record()``."""
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock from an exported ``-symbol.json`` and, given,
+        its ``.params`` file (``arg:``/``aux:`` keys, either package's),
+        with the parameters made on *ctx* (default: the current
+        context)."""
+        symbol = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(symbol, [sym_mod.var(n) for n in input_names])
+        if param_file is not None:
+            loaded = {(k[4:] if k.startswith(("arg:", "aux:")) else k): v
+                      for k, v in nd.load(param_file, ctx=cpu()).items()}
+            for name, param in ret.collect_params().items():
+                if name in loaded:
+                    param._load_init(loaded[name], ctx)
+        return ret
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        if isinstance(outputs, (list, tuple)):
+            outputs = outputs[0] if len(outputs) == 1 else \
+                sym_mod.Group(outputs)
+        if isinstance(inputs, sym_mod.Symbol):
+            inputs = [inputs]
+        self._symbol = outputs
+        self._input_names = [i.name for i in inputs]
+        self._aux_names = list(outputs.list_auxiliary_states())
+        self._arg_names = [n for n in outputs.list_arguments()
+                           if n not in self._input_names]
+        for name in self._arg_names:
+            self.params.get(name, allow_deferred_init=True,
+                            grad_req="write")
+        for name in self._aux_names:
+            self.params.get(name, allow_deferred_init=True, grad_req="null")
+        self._evals = {}
+
+    def forward(self, *args):
+        flat, _ = _flatten(list(args))
+        params = dict(self.collect_params().items())
+        arg_map = {n: x._data for n, x in zip(self._input_names, flat)}
+        for name in self._arg_names:
+            arg_map[name] = params[name].data()._data
+        aux_map = {n: params[n].data()._data for n in self._aux_names}
+        training = autograd.is_training()
+        if training not in self._evals:
+            self._evals[training] = _build_eval(self._symbol, training)
+        with torch.set_grad_enabled(autograd.is_recording()):
+            outs, auxu = self._evals[training](arg_map, aux_map)
+        with torch.no_grad():
+            for n, v in auxu.items():
+                params[n].data()._data.copy_(v)
+        outs = [NDArray(o) for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError

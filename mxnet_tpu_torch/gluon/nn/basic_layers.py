@@ -1,19 +1,21 @@
-"""Basic Gluon layers (port of ``mxnet_tpu/gluon/nn/basic_layers.py``,
-subset: Sequential, HybridSequential, Dense, Embedding, BatchNorm,
-LayerNorm, Flatten, Activation)."""
+"""Basic Gluon layers (port of ``mxnet_tpu/gluon/nn/basic_layers.py``)."""
 
 from __future__ import annotations
 
 import torch
 
 from ... import autograd
+from ... import initializer
+from ... import ndarray as nd
 from ... import symbol as sym_mod
 from ...ndarray import NDArray
 from ...ops import registry as _reg
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Embedding",
-           "BatchNorm", "LayerNorm", "Flatten", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "Embedding", "BatchNorm", "InstanceNorm", "LayerNorm", "Flatten",
+           "Lambda", "HybridLambda", "Activation", "LeakyReLU", "PReLU",
+           "ELU", "SELU", "Swish", "GELU"]
 
 
 class _Stack:
@@ -94,6 +96,20 @@ class Dense(HybridBlock):
         if self.act is not None:
             out = self.act(out)
         return out
+
+
+class Dropout(HybridBlock):
+    """Zeroes each element with probability *rate* in training (one draw
+    per position, shared along *axes*), scaling the rest by
+    1 / (1 - rate); the identity otherwise."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes)
 
 
 class Embedding(HybridBlock):
@@ -178,6 +194,28 @@ class BatchNorm(HybridBlock):
         return NDArray(out[0])
 
 
+class InstanceNorm(HybridBlock):
+    """Normalization of each sample's channel over its spatial axes."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
 class LayerNorm(HybridBlock):
     """Layer normalization over *axis*."""
 
@@ -209,6 +247,42 @@ class Flatten(HybridBlock):
         return F.Flatten(x)
 
 
+class Lambda(Block):
+    """A function of NDArrays as a Block: a callable, or the name of an
+    ``nd`` function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            if not hasattr(nd, function):
+                raise AssertionError("Function name %s is not found in "
+                                     "ndarray." % function)
+            self._func_impl = getattr(nd, function)
+        else:
+            self._func_impl = function
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, x, *args)`` as a HybridBlock, or the name of an op
+    (run as ``F.<name>``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_name = function
+        else:
+            self._func_name = None
+            self._func_impl = function
+
+    def hybrid_forward(self, F, x, *args):
+        if self._func_name is not None:
+            return getattr(F, self._func_name)(x, *args)
+        return self._func_impl(F, x, *args)
+
+
 class Activation(HybridBlock):
     """Elementwise activation by name ('relu', ...)."""
 
@@ -224,3 +298,68 @@ class Activation(HybridBlock):
 
     def extra_repr(self):
         return self._act_type
+
+
+
+class LeakyReLU(HybridBlock):
+    """x for x > 0, alpha * x otherwise."""
+
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learned slope *alpha* (shape (1,), 0.25 at
+    start)."""
+
+    def __init__(self, alpha_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.alpha = self.params.get(
+                "alpha", shape=(1,),
+                init=alpha_initializer or initializer.Constant(0.25))
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """x for x > 0, alpha * (exp(x) - 1) otherwise."""
+
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """Scaled ELU of the self-normalizing networks."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class Swish(HybridBlock):
+    """x * sigmoid(beta * x)."""
+
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        if self._beta == 1.0:
+            return F.Activation(x, act_type="swish")
+        return x * F.sigmoid(self._beta * x)
+
+
+class GELU(HybridBlock):
+    """x * Phi(x), with the exact erf."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")

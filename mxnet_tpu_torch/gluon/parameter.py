@@ -18,7 +18,7 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError, dtype_name, torch_dtype
-from ..context import Context, current_context
+from ..context import Context, cpu, current_context
 from .. import ndarray as nd
 from ..ndarray import NDArray
 from .. import initializer as init_mod
@@ -195,6 +195,18 @@ class Parameter:
         with torch.no_grad():
             self._data._data.copy_(src.to(self._data._data.dtype))
 
+    def _load_init(self, arr, ctx):
+        """Set the data to *arr* from a file; a parameter not created yet
+        takes *arr*'s shape and is made on *ctx* (default: the current
+        context)."""
+        if self._data is None and self._deferred_init is not None:
+            self.shape = arr.shape
+            self._finish_deferred_init()
+        elif self._data is None:
+            self._shape = tuple(arr.shape)
+            self.initialize(ctx=ctx)
+        self.set_data(arr)
+
     def cast(self, dtype):
         """Cast the data (and the gradient buffer) to *dtype*; the cast
         data is the marked variable from now on."""
@@ -288,3 +300,44 @@ class ParameterDict:
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit,
                          generator=generator)
+
+    def setattr(self, name, value):
+        """Set attribute *name* of every parameter (``grad_req``,
+        ``lr_mult``, ...)."""
+        for p in self.values():
+            setattr(p, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter's data to *filename* (``nd.save``), keyed
+        by its name less *strip_prefix*."""
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError("Prefix %r is to be striped before saving, "
+                                 "but Parameter %r does not start with it"
+                                 % (strip_prefix, param.name))
+            arg_dict[param.name[len(strip_prefix):]] = param.data()
+        nd.save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Set the parameters from a file of :meth:`save` (either
+        package's), each name prefixed with *restore_prefix*; a parameter
+        not created yet takes the file's shape and is made on *ctx*
+        (default: the current context)."""
+        # read onto the host; set_data copies onto each parameter's device
+        loaded = {restore_prefix + k: v
+                  for k, v in nd.load(filename, ctx=cpu()).items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in loaded:
+                    raise IOError("Parameter %r is missing in file %r"
+                                  % (name, filename))
+        for name, arr in loaded.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise IOError("Parameter %r loaded from file %r is not "
+                                  "present in this ParameterDict"
+                                  % (name, filename))
+                continue
+            self[name]._load_init(arr, ctx)

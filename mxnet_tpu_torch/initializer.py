@@ -1,5 +1,4 @@
-"""Weight initializers (port of ``mxnet_tpu/initializer.py``, subset:
-Uniform, Normal, Zero, One, Constant, Xavier, MSRAPrelu).
+"""Weight initializers (port of ``mxnet_tpu/initializer.py``).
 
 Initializers fill an NDArray in place.  Random ones draw from an explicit
 ``torch.Generator`` on the array's device; the caller owns its seed.  The
@@ -9,10 +8,16 @@ the reference's ``Initializer.__call__`` routing.
 
 from __future__ import annotations
 
+import json
 import math
+import re
+
+import numpy as _np
+import torch
 
 __all__ = ["Initializer", "Uniform", "Normal", "Zero", "One", "Constant",
-           "Xavier", "MSRAPrelu", "create"]
+           "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias",
+           "Mixed", "InitDesc", "register", "create"]
 
 _REGISTRY = {}
 
@@ -23,13 +28,35 @@ def _register(cls, *names):
     return cls
 
 
+def register(cls):
+    """Class decorator: make *cls* creatable by its lower-cased name."""
+    return _register(cls)
+
+
 def create(name, **kwargs):
-    """An initializer by registered name ('uniform', 'normal', 'zeros')."""
+    """An initializer by registered name ('uniform', 'normal', 'zeros'),
+    or from its ``dumps()`` JSON; an Initializer passes through."""
+    if isinstance(name, Initializer):
+        return name
+    if name.startswith("["):
+        name, kwargs = json.loads(name)
     try:
         return _REGISTRY[name.lower()](**kwargs)
     except KeyError:
         raise KeyError("initializer %r is not registered; known: %s"
                        % (name, sorted(_REGISTRY)))
+
+
+class InitDesc(str):
+    """A parameter's name with its attributes: ``attrs["__init__"]`` names
+    the initializer (a ``dumps()`` string) that fills it, whatever the
+    name's suffix."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        obj = super().__new__(cls, name)
+        obj.attrs = attrs or {}
+        obj.global_init = global_init
+        return obj
 
 
 class Initializer:
@@ -38,8 +65,16 @@ class Initializer:
     def __init__(self, **kwargs):
         self._kwargs = kwargs
 
+    def dumps(self):
+        """``[name, kwargs]`` as JSON, which :func:`create` reads."""
+        return json.dumps([type(self).__name__.lower(), self._kwargs])
+
     def __call__(self, name, arr, generator=None):
         """Fill NDArray *arr*, the parameter called *name*."""
+        init = getattr(name, "attrs", {}).get("__init__", "")
+        if init:
+            create(init)._init_weight(name, arr, generator)
+            return
         name = name.lower()
         if name.endswith("weight"):
             self._init_weight(name, arr, generator)
@@ -142,10 +177,90 @@ class MSRAPrelu(Xavier):
         self._kwargs = {"factor_type": factor_type, "slope": slope}
 
 
+class Orthogonal(Initializer):
+    """*scale* times an orthogonal matrix: the singular vectors of a
+    (nout, nin) draw, U(-1, 1) (*rand_type* 'uniform') or N(0, 1)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr, generator):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:])
+        dev = arr._data.device
+        if self.rand_type == "uniform":
+            tmp = torch.rand((nout, nin), generator=generator, device=dev,
+                             dtype=torch.float64) * 2 - 1
+        else:
+            tmp = torch.randn((nout, nin), generator=generator, device=dev,
+                              dtype=torch.float64)
+        u, _, q = torch.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else q
+        with torch.no_grad():
+            arr._data.copy_((self.scale * res).reshape(arr.shape))
+
+
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel (for a Deconvolution's weight)."""
+
+    def _init_weight(self, name, arr, generator):
+        shape = arr.shape
+        weight = _np.zeros(shape, dtype=_np.float32)
+        f = shape[3] / 2.0
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(_np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight.flat[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        with torch.no_grad():
+            arr._data.copy_(torch.from_numpy(weight))
+
+
+class LSTMBias(Initializer):
+    """Zeros, but the forget gate's quarter (the second of four) set to
+    *forget_bias*."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr, generator):
+        n = arr.shape[0] // 4
+        with torch.no_grad():
+            arr._data.zero_()
+            arr._data[n:2 * n] = self.forget_bias
+
+    def __call__(self, name, arr, generator=None):
+        if str(name).lower().endswith("bias"):
+            self._init_weight(name, arr, generator)
+        else:
+            super().__call__(name, arr, generator)
+
+
+class Mixed:
+    """The first initializer whose pattern (a regular expression) matches
+    the parameter's name fills it."""
+
+    def __init__(self, patterns, initializers):
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr, generator=None):
+        for prog, init in self.map:
+            if prog.match(str(name)):
+                init(name, arr, generator)
+                return
+        raise ValueError("no initializer pattern matches %r" % str(name))
+
+
 _register(Zero, "zeros")
 _register(One, "ones")
 _register(Uniform)
 _register(Normal)
 _register(Constant)
+_register(Orthogonal)
 _register(Xavier)
 _register(MSRAPrelu)
+_register(Bilinear)
+_register(LSTMBias)

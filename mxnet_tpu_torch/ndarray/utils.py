@@ -10,6 +10,7 @@ a ``<name>/__dtype__`` tag.  Sparse storage is not ported.
 
 from __future__ import annotations
 
+import io
 import os
 
 import numpy as _np
@@ -17,7 +18,7 @@ import torch
 
 from .ndarray import NDArray, array
 
-__all__ = ["save", "load"]
+__all__ = ["save", "load", "save_bytes", "load_bytes"]
 
 _MAGIC = "mxnet_tpu_ndarray_v1"
 
@@ -65,9 +66,26 @@ def save(fname, data):
     os.replace(tmp, fname)
 
 
+def save_bytes(data):
+    """NDArrays (a dict, a list or one array) as the bytes of a
+    :func:`save` file."""
+    entries = _entries(data)
+    entries["__magic__"] = _np.array(_MAGIC)
+    buf = io.BytesIO()
+    _np.savez(buf, **entries)
+    return buf.getvalue()
+
+
+def load_bytes(raw, ctx=None):
+    """NDArrays from bytes of :func:`save_bytes` or of a :func:`save`
+    file (either package's), onto *ctx* (default: the current
+    context)."""
+    return load(io.BytesIO(raw), ctx=ctx)
+
+
 def load(fname, ctx=None):
-    """Load NDArrays saved by :func:`save` (from either package) onto
-    *ctx* (default: the current context)."""
+    """Load NDArrays saved by :func:`save` (from either package; a path
+    or a file object) onto *ctx* (default: the current context)."""
     with _np.load(fname, allow_pickle=False) as z:
         groups = {}
         for k in z.files:

@@ -7,3 +7,4 @@ from . import nn  # noqa: F401
 from . import attention  # noqa: F401
 from . import reduce  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import random_ops  # noqa: F401

@@ -1,6 +1,6 @@
 """Neural-network ops (port of ``mxnet_tpu/ops/nn.py``, subset:
 FullyConnected, Convolution, Pooling, Activation, BatchNorm, LayerNorm,
-softmax, log_softmax).
+InstanceNorm, Dropout, softmax, log_softmax).
 
 Matrix products and convolutions stay with PyTorch (cuBLAS and cuDNN on
 the card), as the JAX package left them to XLA.  A float32 contraction
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..runtime import rng as _rng
 from .registry import register_op, get_op
 
 
@@ -384,3 +385,36 @@ def _softmax(x, axis=-1, temperature=None, length=None):
 @register_op("log_softmax")
 def _log_softmax(x, axis=-1, temperature=None):
     return torch.log_softmax(_temper(x, temperature), dim=axis)
+
+
+@register_op("InstanceNorm")
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    """Each (sample, channel) normalized over its spatial axes."""
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(dim=red, keepdim=True)
+    var = data.var(dim=red, keepdim=True, unbiased=False)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * \
+        gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register_op("Dropout", num_outputs=2, needs_rng=True,
+             num_visible_outputs=1)
+def _dropout(rng, data, p=0.5, mode="training", axes=(), cudnn_off=False,
+             training=True):
+    """(data * mask, mask): each kept element (one draw per position of
+    the mask, which is 1 along *axes*) scaled by 1 / (1 - p), from the
+    ``torch.Generator`` *rng* (None: the global stream's on data's
+    device).  Outside training (unless *mode* is
+    "always"), or with p = 0, the identity and a mask of ones."""
+    if (not training and mode != "always") or p == 0.0:
+        return data, torch.ones_like(data)
+    shape = list(data.shape)
+    for a in axes or ():
+        shape[a] = 1
+    keep = 1.0 - p
+    if rng is None:
+        rng = _rng.generator(data.device)
+    u = torch.rand(shape, generator=rng, device=data.device)
+    mask = (u < keep).to(data.dtype) / keep
+    return data * mask, torch.broadcast_to(mask, data.shape)

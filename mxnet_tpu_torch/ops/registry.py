@@ -25,7 +25,10 @@ class Op:
     needs_rng : ``fn``'s first positional arg is a ``torch.Generator``.
     input_names : array-input names (default: positional params without
         defaults, the generator excluded).
-    param_names : op parameter names (params with defaults), in order.
+    param_names : op parameter names (default: params with defaults, in
+        order).  The JAX package registers some ops over a numpy function
+        (``broadcast_add`` is ``jnp.add``), whose keywords (``out``,
+        ``where``) are its parameter names; such an op declares them.
     active_inputs : optional ``f(params) -> input names`` for ops whose
         params drop an input (FullyConnected with ``no_bias``).
     """
@@ -35,7 +38,8 @@ class Op:
                  "aux_states", "active_inputs")
 
     def __init__(self, name, fn, num_outputs=1, needs_rng=False, doc=None,
-                 input_names=None, num_visible_outputs=None):
+                 input_names=None, num_visible_outputs=None,
+                 param_names=None):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
@@ -45,9 +49,11 @@ class Op:
             input_names = _infer_input_names(fn, needs_rng)
         self.input_names = tuple(input_names)
         self.num_visible_outputs = num_visible_outputs
-        self.param_names = tuple(
-            p.name for p in inspect.signature(fn).parameters.values()
-            if p.default is not inspect.Parameter.empty)
+        if param_names is None:
+            param_names = (
+                p.name for p in inspect.signature(fn).parameters.values()
+                if p.default is not inspect.Parameter.empty)
+        self.param_names = tuple(param_names)
         # {input_idx: output_idx} of mutable auxiliary states (BatchNorm's
         # moving statistics), written back by the executor's caller
         self.aux_states = {}
@@ -89,13 +95,15 @@ def _infer_input_names(fn, needs_rng):
 
 
 def register_op(name, num_outputs=1, needs_rng=False, aliases=(),
-                input_names=None, num_visible_outputs=None):
+                input_names=None, num_visible_outputs=None,
+                param_names=None):
     """Decorator registering a function on tensors as an operator."""
     def _reg(fn):
         if name in _OPS:
             raise ValueError("op %r registered twice" % name)
         op = Op(name, fn, num_outputs, needs_rng, input_names=input_names,
-                num_visible_outputs=num_visible_outputs)
+                num_visible_outputs=num_visible_outputs,
+                param_names=param_names)
         _OPS[name] = op
         for a in aliases:
             _OPS[a] = op

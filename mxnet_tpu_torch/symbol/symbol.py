@@ -454,6 +454,9 @@ def _eval_shape_op(node, in_shapes):
     """Output shapes of one op, by running it on meta tensors."""
     ins = [torch.empty(tuple(s), dtype=torch.float32, device="meta")
            for s in in_shapes]
+    if node.op.needs_rng:
+        # a random op draws on its data's device: meta, so no draw happens
+        ins.insert(0, torch.Generator())
     out = node.op.fn(*ins, **node.params)
     if not isinstance(out, tuple):
         out = (out,)

@@ -18,6 +18,10 @@ bf16-vs-f64 check's limits pass the gaps its first H100 run measured and
 fail the other batch's; the checkpoint round trip holds a ResNet
 trainer's state bit for bit; the phase raises without CUDA.
 
+Phase 9 (the eager user surface): the op sweep's checks pass every case
+with the CPU standing for both devices, and fail a case whose outputs
+differ; the phase raises without CUDA.
+
 Phase 8 (paged decode): on a 2-layer LM (dim 64, vocab 97) served on the
 CPU with the JAX package's weights, the decode step's teacher-forced
 logits are within 1e-5 of the JAX ``TransformerLM`` forward; paged
@@ -578,7 +582,8 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
         "phase_train": lambda t, c, s: {k: 60 for k in kernels},
         "phase_resnet": lambda t, c, s: None,
         "phase_north_star": lambda t, c, s: {k: 60 for k in kernels},
-        "phase_decode": lambda t, c, s: 552}
+        "phase_decode": lambda t, c, s: 552,
+        "phase_user_surface": lambda t, c, s: {k: 72 for k in kernels}}
     for name, fn in stub.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     assert chip_smoke.main() == 0
@@ -590,7 +595,11 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
     assert fwd["launches_by_path"]["batched serve (graph replays: "
                                    "traffic dispatches)"] == 420
     assert fwd["launches_by_path"]["decode prefill"] == 552
-    assert fwd["launches"] == 72 + 108 + 420 + 60 + 60 + 552
+    assert fwd["launches_by_path"][
+        "user-surface LM train (eager nd, adam)"] == 72
+    assert fwd["launches"] == 72 + 108 + 420 + 60 + 60 + 552 + 72
+    for k in json.loads(lines[-2])["kernels"][1:]:
+        assert k["launches"] == 60 + 60 + 72
     for k in json.loads(lines[-2])["kernels"]:
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -743,3 +752,40 @@ def test_decode_phase_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         chip_smoke.phase_decode(torch, "no card", 0)
+
+
+# phase 9 (the eager user surface)
+def test_op_sweep_passes_with_the_cpu_for_both_devices():
+    import torch
+    import mxnet_tpu_torch as mx
+    worst = chip_smoke.op_sweep(torch, mx, "cpu", 0,
+                                devices=(mx.cpu(), mx.cpu()), draws=20000)
+    assert worst == 0.0
+
+
+def test_op_sweep_fails_a_case_that_differs(monkeypatch):
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry as reg
+    calls = []
+    op = reg.get_op("sin")
+    fn = op.fn
+
+    def drifting(x):
+        calls.append(1)
+        return fn(x) * (1 + 1e-3 * (len(calls) % 2))
+    monkeypatch.setattr(op, "fn", drifting)
+    with pytest.raises(RuntimeError, match="sin: .* of the limit"):
+        chip_smoke.op_sweep(torch, mx, "cpu", 0,
+                            devices=(mx.cpu(), mx.cpu()), draws=20000)
+    a = np.array([1.0, np.nan])
+    assert chip_smoke.sweep_equal(np, a, a.copy())
+    assert not chip_smoke.sweep_equal(np, a, np.array([1.0, 2.0]))
+
+
+def test_user_surface_phase_raises_without_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chip_smoke.phase_user_surface(torch, "no card", 0)

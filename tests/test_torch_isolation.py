@@ -48,6 +48,11 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.serve.kvpool, mxnet_tpu_torch.serve.decode, "
             "mxnet_tpu_torch.serve.graphs, "
             "mxnet_tpu_torch.test_utils, "
+            "mxnet_tpu_torch.ndarray.random, mxnet_tpu_torch.ndarray.contrib, "
+            "mxnet_tpu_torch.ndarray.utils, mxnet_tpu_torch.random, "
+            "mxnet_tpu_torch.runtime.rng, mxnet_tpu_torch.ops.random_ops, "
+            "mxnet_tpu_torch.gluon.nn.basic_layers, "
+            "mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.initializer, "
             "mxnet_tpu_torch.config, mxnet_tpu_torch.sanitizer, "
             "mxnet_tpu_torch.observability, mxnet_tpu_torch.resilience; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
@@ -99,7 +104,11 @@ def test_gpu_context_without_cuda_raises(no_cuda):
                                    "resnet initialize", "make_mesh",
                                    "make_mesh gpu", "ParallelTrainer",
                                    "KVPool", "DecodeEngine",
-                                   "tiny_attention_lm"])
+                                   "tiny_attention_lm", "nd.ones",
+                                   "nd.full", "nd.arange", "nd.empty",
+                                   "nd._arange", "nd.random.uniform",
+                                   "nd.random.normal", "mx.random.randint",
+                                   "load_parameters"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -140,6 +149,26 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         call = lambda: mx.serve.DecodeEngine(
             step, prefill, token_spec, input_spec, params=params,
             max_len=8, block_size=4, num_blocks=5, session_rungs=(1,))
+    elif entry in ("nd.ones", "nd.empty"):
+        call = lambda: getattr(mx.nd, entry[3:])((2, 2))
+    elif entry == "nd.full":
+        call = lambda: mx.nd.full((2,), 1.0)
+    elif entry == "nd.arange":
+        call = lambda: mx.nd.arange(4)
+    elif entry == "nd._arange":
+        call = lambda: mx.nd._arange(start=0, stop=4)
+    elif entry == "nd.random.uniform":
+        call = lambda: mx.nd.random.uniform(shape=(2,))
+    elif entry == "nd.random.normal":
+        call = lambda: mx.nd.random.normal(shape=(2,))
+    elif entry == "mx.random.randint":
+        call = lambda: mx.random.randint(0, 3, shape=(2,))
+    elif entry == "load_parameters":
+        net = mx.gluon.nn.Dense(2, in_units=3, prefix="d_")
+        net.initialize(ctx=mx.cpu())
+        net.save_parameters(str(tmp_path / "d.params"))
+        fresh = mx.gluon.nn.Dense(2, in_units=3, prefix="d_")
+        call = lambda: fresh.load_parameters(str(tmp_path / "d.params"))
     elif entry == "tiny_attention_lm":
         from mxnet_tpu_torch.test_utils import tiny_attention_lm
         call = tiny_attention_lm
