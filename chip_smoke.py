@@ -110,6 +110,26 @@ Phases, each reported on its own line; any failure exits non-zero:
              against the plain attention (loss within 1e-5), then six
              steps whose loss must fall, each launching flash_fwd,
              flash_bwd_dkdv and flash_bwd_dq 12 times.
+10. module — the symbolic training path: the same LM traced to a Symbol
+             with a SoftmaxOutput head (normalization "valid"), trained
+             through ``mx.mod.Module(context=mx.gpu(0))`` on an
+             ``NDArrayIter`` of the copy task (lag 7), SGD lr 0.01,
+             momentum 0.9, rescale_grad 1/batch.  (a) A check step binds
+             the same weights with the kernels and with the plain
+             attention (``op_impls``): the loss within 1e-5, each layer's
+             dq, dk, dv at the op within phase 3's limits.  (b) One step
+             through the fused step (one CUDA graph) and one through
+             ``forward_backward`` + ``update`` from the same weights and
+             batch: weights and momenta bit-equal; then 5 timed steps of
+             each after 3 warm-ups (host clock, readback at the end); the
+             graph captured once and replayed every fused step.  (c)
+             ``fit``: one epoch of 6 batches, 2 eval batches,
+             ``eval_metric='perplexity'``, ``Speedometer(8, 1)``; the
+             training loss falls from batch 1 to 6, ``score`` equals the
+             perplexity of ``predict``'s outputs; tokens/s, peak memory.
+             (d) ``save_checkpoint`` with optimizer states ->
+             ``Module.load``: its next step bit-equal to the original's.
+             12 launches of each kernel a step, captured and replayed.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -3384,6 +3404,403 @@ def phase_user_surface(torch, card, seed):
     return launches
 
 
+# Phase 10: the symbolic training path.  The LM traced to a Symbol with a
+# SoftmaxOutput head with normalization "valid" and grad_scale = batch:
+# with the reference's rescale_grad of 1/batch the update follows the
+# token-mean gradient, as phase 5's gluon step does ("null" would sum
+# 16,384 tokens a batch, a step 2,048 times as large; "valid" alone,
+# one 8 times as small, which moves the loss less in six batches than
+# the batches differ).
+MODULE_BATCHES, MODULE_EVAL_BATCHES = 6, 2
+MODULE_WARM, MODULE_TIMED = 3, 5
+MODULE_OPT = {"learning_rate": 0.01, "momentum": 0.9}
+MODULE_LAG = 7
+MODULE_PATH = "module LM train (fused graph, legacy)"
+TOL_SCORE = 1e-9             # score vs perplexity from predict, relative
+# Two runs of one step are bit-equal except in the arrays an Embedding
+# reads: its backward (index_select's, index_add_ on the card) sums the
+# rows of repeated ids with atomic adds, in an order that changes from
+# run to run, so the table's gradient, and with it its momentum and
+# weight, may move by a few ulps of the summed rows.  Those arrays are
+# held to 2**-18 of their largest |value|; every other array bit for bit.
+TOL_SCATTER = 2.0 ** -18
+
+
+def module_symbol(mx, cfg, batch):
+    """The LM of *cfg* (vocab, dim, heads, layers, seq) traced to a Symbol
+    on ``sym.var('data')`` with a SoftmaxOutput head for *batch* rows."""
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        get_transformer_lm
+    vocab, dim, heads, layers, seq = cfg
+    net = get_transformer_lm(vocab=vocab, dim=dim, heads=heads,
+                             layers=layers, max_seq=seq, prefix="modlm_")
+    logits = net(mx.sym.var("data"))
+    return net, mx.sym.SoftmaxOutput(
+        logits, mx.sym.var("softmax_label"), preserve_shape=True,
+        normalization="valid", grad_scale=float(batch), name="softmax")
+
+
+def module_weights(mx, net, ctx, gen, seq):
+    """Random weights of the traced net from *gen*: {name: NDArray}."""
+    net.initialize(mx.init.Xavier(), ctx=ctx, generator=gen)
+    net._ensure_params(mx.nd.zeros((1, seq), ctx=ctx))   # deferred shapes
+    return {n: p.data() for n, p in net.collect_params().items()}
+
+
+def module_batches(mx, rng, n, batch, cfg):
+    """*n* batches of phase 9's copy task (lag 7) as one NDArrayIter."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    from train_transformer_lm import copy_task_batch
+    pairs = [copy_task_batch(rng, batch, cfg[4], cfg[0], MODULE_LAG)
+             for _ in range(n)]
+    x = np.concatenate([p[0] for p in pairs])
+    y = np.concatenate([p[1] for p in pairs])
+    return mx.io.NDArrayIter(x, y, batch_size=batch)
+
+
+def module_nll(torch, probs, label):
+    """(summed negative log-likelihood in float64, tokens) of a batch."""
+    p = probs._data.reshape(-1, probs.shape[-1])
+    ids = label._data.to(p.device).reshape(-1).long()
+    picked = p.gather(1, ids[:, None])[:, 0].double()
+    return float(-torch.log(torch.clamp(picked, min=1e-10)).sum()), \
+        ids.numel()
+
+
+def module_check_step(torch, mx, symbol, weights, ctx, x, y):
+    """(a): the same weights bound twice, with the kernels and with the
+    plain attention (``op_impls``), one forward and backward each: (mean
+    loss with the kernels, with the plain attention, the boundary
+    checker's worst ratios; on the card only, where the kernels run)."""
+    from mxnet_tpu_torch.executor import Executor
+    from mxnet_tpu_torch.ops import attention as att
+    shapes = {"data": x.shape, "softmax_label": y.shape}
+    worst = {}
+    boundary = boundary_checker(torch, att, worst) \
+        if ctx.device_type == "gpu" else None
+    plain = {"_contrib_DotProductAttention": attention_op(
+        torch, att, 512, boundary=boundary)}
+    losses = []
+    ex = Executor._simple_bind(symbol, ctx, "write", None, shapes)
+    ex.copy_params_from(weights)
+    for impls in (None, plain):
+        run = ex if impls is None else Executor._simple_bind(
+            symbol, ctx, "write", None, shapes, shared_exec=ex,
+            op_impls=impls)
+        out = run.forward(is_train=True, data=x, softmax_label=y)[0]
+        nll, n = module_nll(torch, out, y)
+        losses.append(nll / n)
+        run.backward()
+        del run, out
+    del ex
+    return losses[0], losses[1], worst
+
+
+def module_bits(torch, mod):
+    """Copies of the weights and momenta of *mod*, by name."""
+    args, _ = mod.get_params()
+    out = {n: a._data.clone() for n, a in args.items()}
+    names = mod._exec_group.param_names
+    for i, s in mod._updater.states.items():
+        out["mom:" + names[i]] = s._data.clone()
+    return out
+
+
+def module_step(torch, mod, batch, fused):
+    """One step of *mod* on *batch*, through the fused step or the legacy
+    forward_backward + update."""
+    os.environ["MXNET_MODULE_FUSED_STEP"] = "1" if fused else "0"
+    try:
+        mod.forward_backward_update(batch)
+    finally:
+        os.environ.pop("MXNET_MODULE_FUSED_STEP", None)
+
+
+def scatter_arrays(symbol):
+    """The weights an Embedding of *symbol* reads (their gradients are
+    summed by atomic adds on the card)."""
+    return {node.inputs[1][0].name for node in symbol._topo()
+            if not node.is_var and node.op.name == "Embedding"}
+
+
+def module_compare(got, want, scattered):
+    """(values that differ in the arrays held bit for bit, of how many,
+    their names, the worst ratio of an array of *scattered* to its
+    limit TOL_SCATTER x max |value|)."""
+    differ, total, names, worst = 0, 0, [], 0.0
+    for n, b in want.items():
+        a = got[n]
+        if n.split(":")[-1] in scattered:
+            gap = float((a - b).abs().max())
+            worst = max(worst, gap / (TOL_SCATTER * max(
+                float(b.abs().max()), 1e-30)))
+            continue
+        d = int((a != b).sum())
+        differ, total = differ + d, total + a.numel()
+        if d:
+            names.append(n)
+    return differ, total, names, worst
+
+
+def module_fused_vs_legacy(torch, mx, mod, batch, weights):
+    """(b): from *weights* and zero momenta, one fused step and one
+    legacy step on *batch*: {True: weights and momenta after the fused
+    step, False: after the legacy step}."""
+    def reset():
+        mod.set_params(weights, {})
+        for s in mod._updater.states.values():
+            s._data.zero_()
+        mod._optimizer._index_update_count.clear()
+        mod._optimizer.num_update = 0
+
+    got = {}
+    for fused in (True, False):
+        reset()
+        module_step(torch, mod, batch, fused)
+        got[fused] = module_bits(torch, mod)
+    return got
+
+
+def module_time(torch, mod, batch, fused, warm, timed):
+    """ms a step of *timed* steps after *warm*, host clock with a readback
+    at the end (bench.py:462-476)."""
+    def readback():
+        return float(mod.get_outputs()[0]._data[0, 0, 0])
+    for _ in range(warm):
+        module_step(torch, mod, batch, fused)
+    readback()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        module_step(torch, mod, batch, fused)
+    readback()
+    return 1e3 * (time.perf_counter() - t0) / timed
+
+
+def module_fit(torch, mx, mod, train, val, batch, weights):
+    """(c): one epoch of ``fit`` from *weights* with
+    ``Speedometer(batch, 1)`` and a perplexity metric; returns (per-batch training loss from each batch's
+    own outputs, ms per batch of batches 2 on, the Speedometer's last
+    samples/s, score, the perplexity recomputed from predict)."""
+    losses, stamps = [], []
+
+    def record(param):
+        nll, n = module_nll(torch, mod.get_outputs()[0],
+                            param.locals["data_batch"].label[0])
+        losses.append(nll / n)
+        stamps.append(time.perf_counter())
+
+    speed = mx.callback.Speedometer(batch, 1)
+    mod.fit(train, eval_data=val, eval_metric="perplexity", num_epoch=1,
+            batch_end_callback=[record, speed], arg_params=weights,
+            optimizer="sgd", optimizer_params=dict(MODULE_OPT))
+    ms = 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+    score = dict(mod.score(val, "perplexity"))["perplexity"]
+    preds = mod.predict(val)
+    val.reset()
+    labels = mx.nd.concatenate([b.label[0] for b in val])
+    nll, n = module_nll(torch, preds, labels)
+    del preds
+    return losses, ms, speed.rate, score, math.exp(nll / n)
+
+
+def module_checkpoint(torch, mod, prefix, batch):
+    """(d), first half: save *mod* with its optimizer states, then take
+    its next step on *batch*; returns the weights and momenta after it."""
+    mod.save_checkpoint(prefix, MODULE_BATCHES, save_optimizer_states=True)
+    module_step(torch, mod, batch, True)
+    return module_bits(torch, mod)
+
+
+def module_launches(att, programs):
+    """{kernel: launches}: the wrappers' own launches plus, for each fused
+    program's (captured launches, replays), replays x captured."""
+    out = dict(att.launch_counts())
+    for captured, replays in programs:
+        for k, c in captured.items():
+            out[k] = out.get(k, 0) + replays * c
+    return out
+
+
+def phase_module(torch, card, seed, cfg=None, ctx=None, batch=BATCH):
+    """Phase 10: the LM trained through ``mx.mod.Module`` (see the module
+    docstring).  *cfg*, *ctx* and *batch* size it down for the CPU test."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import attention as att
+    if ctx is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("phase 10 needs CUDA")
+        ctx = mx.gpu(0)
+    cfg = cfg or (VOCAB, DIM, HEADS, LAYERS, SEQ)
+    layers = cfg[3]
+    on_card = ctx.device_type == "gpu"
+    gen = torch.Generator(device=ctx.torch_device)
+    gen.manual_seed(seed + 10)
+    rng = np.random.RandomState(seed + 10)
+    t_phase = time.perf_counter()
+    net, symbol = module_symbol(mx, cfg, batch)
+    weights = module_weights(mx, net, ctx, gen, cfg[4])
+    del net
+    train = module_batches(mx, rng, MODULE_BATCHES, batch, cfg)
+    val = module_batches(mx, rng, MODULE_EVAL_BATCHES, batch, cfg)
+    first = next(iter(train))
+    train.reset()
+    x, y = first.data[0], first.label[0]
+    record = {"card": card}
+
+    # (a) the check step
+    k_loss, p_loss, worst = module_check_step(torch, mx, symbol, weights,
+                                              ctx, x, y)
+    gap = abs(k_loss - p_loss)
+    ratio, ok = within(gap, abs(p_loss), TOL_TRAIN_LOSS)
+    record["check"] = dict(worst, loss=k_loss, plain_loss=p_loss, gap=gap)
+    log("module: check step on %s: loss %.6f with the kernels, %.6f with "
+        "the plain attention, gap %.3g (%.3f of 1e-5 x max(1, |loss|)); at "
+        "the op over %d layers flash_fwd o worst error/limit %.3f, "
+        "max|lse-plain| %.3g, dq dk dv worst error/limit %.3f, bf16 least "
+        "%.3f (must exceed 1)" % (
+            card, k_loss, p_loss, gap, ratio, worst.get("layers", 0),
+            worst.get("fwd", 0), worst.get("lse", 0), worst.get("bwd", 0),
+            worst.get("bf16", 0)))
+    if not ok or on_card and not (
+            worst.get("layers") == layers and worst["fwd"] <= 1.0 and
+            worst["lse"] <= TOL_LSE and worst["bwd"] <= 1.0 and
+            worst["bf16"] > 1.0):
+        raise RuntimeError("module: the check step failed (above)")
+
+    # the main path: the Module's steps, fused and legacy, then fit
+    att_counters = (att.flash_fwd, att.flash_bwd_dkdv, att.flash_bwd_dq)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for c in att_counters:
+        c.launches = 0
+        c.captured = 0
+    programs = []
+
+    # (b) fused against legacy, then timed
+    mod = mx.mod.Module(symbol, context=ctx)
+    mod.bind(train.provide_data, train.provide_label)
+    mod.init_params(arg_params=weights)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(MODULE_OPT))
+    scattered = scatter_arrays(symbol)
+    steps = module_fused_vs_legacy(torch, mx, mod, first, weights)
+    differ, total, names, worst = module_compare(steps[True], steps[False],
+                                                 scattered)
+    del steps
+    record["bits"] = (differ, total, names[:5], worst)
+    log("module: one fused step against one legacy step from the same "
+        "weights and batch: %d of %d weight and momentum values differ%s; "
+        "the Embedding-read arrays (%s) worst gap / limit %.4f (limit "
+        "2**-18 x max |value|)" % (
+            differ, total, " (%s)" % ", ".join(names[:5]) if names else "",
+            ", ".join(sorted(scattered)), worst))
+    if differ or worst > 1.0:
+        raise RuntimeError("module: the fused step is not the legacy step")
+    before = {c.__name__: c.launches for c in att_counters}
+    ms = {}
+    for fused in (True, False):
+        ms[fused] = module_time(torch, mod, first, fused, MODULE_WARM,
+                                MODULE_TIMED)
+    legacy_steps = MODULE_WARM + MODULE_TIMED
+    grew = {c.__name__: c.launches - before[c.__name__]
+            for c in att_counters}
+    prog = mod.fused_step
+    programs.append((dict(prog.captured), prog.replays))
+    fused_steps = 1 + MODULE_WARM + MODULE_TIMED
+    record["timing"] = {"fused_ms": ms[True], "legacy_ms": ms[False],
+                        "captures": prog.captures, "replays": prog.replays,
+                        "captured": dict(prog.captured)}
+    log("module: %d timed steps after %d warm-ups on %s: fused (one CUDA "
+        "graph) %.2f ms a step, %.3f steps/s; legacy (forward_backward + "
+        "update) %.2f ms, %.3f steps/s; captures %d, replays %d, captured "
+        "%s" % (MODULE_TIMED, MODULE_WARM, card, ms[True], 1e3 / ms[True],
+                ms[False], 1e3 / ms[False], prog.captures, prog.replays,
+                prog.captured))
+    if on_card and (prog.captures != 1 or prog.replays != fused_steps or
+                    any(prog.captured.get(c.__name__) != layers
+                        for c in att_counters)):
+        raise RuntimeError("module: the fused step captured %d times with "
+                           "%d replays for %d steps, %s launches each"
+                           % (prog.captures, prog.replays, fused_steps,
+                              prog.captured))
+    if on_card and any(g != layers * legacy_steps for g in grew.values()):
+        raise RuntimeError("module: %d legacy steps launched %s, expected "
+                           "%d each" % (legacy_steps, grew,
+                                        layers * legacy_steps))
+    del mod, prog
+
+    # (c) fit from the same weights, then score against predict
+    mod = mx.mod.Module(symbol, context=ctx)
+    t0 = time.perf_counter()
+    losses, fit_ms, rate, score, recomputed = module_fit(
+        torch, mx, mod, train, val, batch, weights)
+    programs.append((dict(mod.fused_step.captured), mod.fused_step.replays))
+    tokens = batch * cfg[4]
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    record["fit"] = {"losses": losses, "ms": fit_ms,
+                     "tokens_per_s": tokens / fit_ms * 1e3,
+                     "speedometer_samples_per_s": rate, "score": score,
+                     "recomputed": recomputed, "peak_gb": peak,
+                     "seconds": time.perf_counter() - t0}
+    log("module: fit, one epoch of %d batches and %d eval batches on %s: "
+        "training loss by batch %s; %.2f ms a batch (batches 2-%d), %.0f "
+        "tokens/s (Speedometer %.2f samples/s); score perplexity %.6f, "
+        "from predict's outputs %.6f; peak device memory %.3f GB" % (
+            MODULE_BATCHES, MODULE_EVAL_BATCHES, card,
+            ", ".join("%.6f" % v for v in losses), fit_ms, MODULE_BATCHES,
+            tokens / fit_ms * 1e3, rate or 0.0, score, recomputed, peak))
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise RuntimeError("module: the training loss did not fall from "
+                           "batch 1 to %d: %s" % (MODULE_BATCHES, losses))
+    # fit's first batch is the check step's, from the same weights
+    if not within(abs(losses[0] - k_loss), abs(k_loss), TOL_TRAIN_LOSS)[1]:
+        raise RuntimeError("module: fit's first loss %.6f is not the check "
+                           "step's %.6f" % (losses[0], k_loss))
+    if abs(score - recomputed) > TOL_SCORE * abs(recomputed):
+        raise RuntimeError("module: score %.9f is not the perplexity of "
+                           "predict's outputs %.9f" % (score, recomputed))
+    launches = module_launches(att, programs)
+
+    # (d) the checkpoint: the original's next step against a loaded one's
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_module_")
+    try:
+        prefix = os.path.join(tmp, "lm")
+        want = module_checkpoint(torch, mod, prefix, first)
+        del mod
+        if on_card:
+            torch.cuda.empty_cache()
+        mod = mx.mod.Module.load(prefix, MODULE_BATCHES,
+                                 load_optimizer_states=True, context=ctx)
+        mod.bind(train.provide_data, train.provide_label)
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=dict(MODULE_OPT))
+        module_step(torch, mod, first, True)
+        got = module_bits(torch, mod)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    differ, total, names, worst = module_compare(got, want, scattered)
+    record["checkpoint"] = (differ, worst)
+    log("module: save_checkpoint (with optimizer states) -> Module.load: "
+        "the next step differs from the original's in %d of %d values "
+        "held bit for bit%s; the Embedding-read arrays worst gap / limit "
+        "%.4f" % (differ, total, " (%s)" % ", ".join(names[:5])
+                  if names else "", worst))
+    if differ or worst > 1.0 or set(got) != set(want):
+        raise RuntimeError("module: the loaded Module's step is not the "
+                           "original's")
+    del mod, want, got
+    if on_card:
+        torch.cuda.empty_cache()
+    log("module: phase 10 took %.1f s; main-path launches %s"
+        % (time.perf_counter() - t_phase, launches))
+    record["launches"] = launches
+    return record
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3407,6 +3824,7 @@ def main():
     ns_launches = phase_north_star(torch, card, args.seed)
     decode_launches = phase_decode(torch, card, args.seed)
     user_launches = phase_user_surface(torch, card, args.seed)
+    module_launches = phase_module(torch, card, args.seed)["launches"]
     b, h, sq, sk, d = PATH_SHAPE
     kernels = []
     for name, source, replaces in (
@@ -3418,7 +3836,8 @@ def main():
         by_path = {"train": train_launches[name],
                    "north-star LM train (bf16)": ns_launches[name],
                    "user-surface LM train (eager nd, adam)":
-                   user_launches[name]}
+                   user_launches[name],
+                   MODULE_PATH: module_launches[name]}
         if name == "flash_fwd":
             by_path = {
                 "serve (eager: first forward, rung warm-ups)":

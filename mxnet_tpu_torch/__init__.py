@@ -26,5 +26,14 @@ from . import optimizer  # noqa: F401
 from . import lr_scheduler  # noqa: F401
 from . import gluon  # noqa: F401
 from . import model  # noqa: F401
+from . import io  # noqa: F401
+from . import metric  # noqa: F401
+from . import callback  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
+from .module import Module  # noqa: F401
+from . import name  # noqa: F401
+from . import attribute  # noqa: F401
+from .symbol import AttrScope  # noqa: F401
 from . import serve  # noqa: F401
 from . import parallel  # noqa: F401

@@ -143,3 +143,30 @@ register_env("MXNET_SERVE_DECODE_REBUILDS", int, 2,
              "journaled sessions are re-admitted via re-prefill + "
              "replayed ticks; past the budget the batcher degrades to "
              "unhealthy typed-fail")
+register_env("MXNET_MODULE_FUSED_STEP", bool, True,
+             "Module.forward_backward_update runs forward + backward + "
+             "the optimizer update as one program when eligible (one "
+             "CUDA graph on the card); off = always run the legacy "
+             "per-parameter Updater loop")
+register_env("MXNET_GUARD_NONFINITE", bool, False,
+             "Skip optimizer updates whose loss/gradients contain "
+             "NaN/Inf: the fused step's non-finite check keeps params, "
+             "optimizer state and aux bit-identical on a bad step")
+register_env("MXNET_GUARD_READBACK_LAG", int, 0,
+             "Async non-finite-guard accounting on the fused step: "
+             "defer the skipped flag's readback by up to this many "
+             "steps (resolved FIFO; drained at epoch end); 0 = "
+             "synchronous")
+register_env("MXNET_GUARD_MAX_BAD_STEPS", int, 0,
+             "With the non-finite guard on, this many CONSECUTIVE "
+             "skipped steps trigger the divergence action (raise, or a "
+             "callable given to Module.set_nonfinite_guard); 0 = count "
+             "and skip only")
+register_env("MXNET_DEVICE_PREFETCH", int, 0,
+             "Ring depth of fit()'s device prefetcher; 0 = off.  The "
+             "device prefetcher is not ported: a depth above 0 makes "
+             "fit raise")
+register_env("MXNET_OPTSTATE_MISMATCH", str, "raise",
+             "What load_optimizer_states does when the blob was written "
+             "by another optimizer class or hyper-parameter signature: "
+             "'raise' or 'reinit' (warn and start from fresh state)")

@@ -1,0 +1,494 @@
+"""Data iterators (port of ``mxnet_tpu/io/io.py``: DataDesc, DataBatch,
+DataIter, NDArrayIter, ResizeIter, PrefetchingIter, MNISTIter, CSVIter).
+
+Iterators produce host batches: NDArrays on the CPU, which the executor
+copies onto its device (into the fused step's static buffers on the
+card).  ``PrefetchingIter`` decodes on a background thread.
+
+Not ported: ``LibSVMIter`` (CSR storage, ROADMAP queue A item 12); the
+device prefetcher and the record iterators (item 13); the elastic
+partitioning and resumable positions of the reference's iterators (items
+15 and 13).
+"""
+
+from __future__ import annotations
+
+import collections
+import gzip
+import queue
+import struct
+
+import numpy as _np
+
+from .. import ndarray as nd
+from .. import sanitizer as _san
+from ..base import MXNetError
+from ..context import cpu
+from ..ndarray import NDArray
+
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter", "MNISTIter", "CSVIter", "LibSVMIter"]
+
+
+class DataDesc(collections.namedtuple("DataDesc", ["name", "shape"])):
+    """Name and shape (and dtype, layout) of a data slot."""
+
+    def __new__(cls, name, shape, dtype=_np.float32, layout="NCHW"):
+        ret = super().__new__(cls, name, shape)
+        ret.dtype = dtype
+        ret.layout = layout
+        return ret
+
+    @staticmethod
+    def get_batch_axis(layout):
+        return 0 if layout is None else layout.find("N")
+
+
+class DataBatch:
+    """One mini-batch: lists of data and label arrays, the trailing pad
+    rows, and the sample indices."""
+
+    def __init__(self, data, label=None, pad=None, index=None,
+                 bucket_key=None, provide_data=None, provide_label=None):
+        if data is not None and not isinstance(data, (list, tuple)):
+            data = [data]
+        if label is not None and not isinstance(label, (list, tuple)):
+            label = [label]
+        self.data = data
+        self.label = label
+        self.pad = pad
+        self.index = index
+        self.bucket_key = bucket_key
+        self.provide_data = provide_data
+        self.provide_label = provide_label
+
+    def __str__(self):
+        data_shapes = [d.shape for d in self.data] if self.data else None
+        label_shapes = [l.shape for l in self.label] if self.label else None
+        return "{}: data shapes: {} label shapes: {}".format(
+            type(self).__name__, data_shapes, label_shapes)
+
+
+class DataIter:
+    """The iterator protocol: ``next`` -> DataBatch or StopIteration."""
+
+    def __init__(self, batch_size=0):
+        self.batch_size = batch_size
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        pass
+
+    def next(self):
+        if self.iter_next():
+            return DataBatch(data=self.getdata(), label=self.getlabel(),
+                             pad=self.getpad(), index=self.getindex())
+        raise StopIteration
+
+    def __next__(self):
+        return self.next()
+
+    def iter_next(self):
+        raise NotImplementedError
+
+    def getdata(self):
+        raise NotImplementedError
+
+    def getlabel(self):
+        raise NotImplementedError
+
+    def getindex(self):
+        return None
+
+    def getpad(self):
+        raise NotImplementedError
+
+
+def _init_data(data, allow_empty, default_name):
+    """Input data as a list of (name, numpy array)."""
+    assert data is not None or allow_empty
+    if data is None:
+        data = []
+    if isinstance(data, (_np.ndarray, NDArray)):
+        data = [data]
+    if isinstance(data, list):
+        if not allow_empty:
+            assert len(data) > 0
+        if len(data) == 1:
+            data = collections.OrderedDict([(default_name, data[0])])
+        else:
+            data = collections.OrderedDict(
+                [("_%d_%s" % (i, default_name), d)
+                 for i, d in enumerate(data)])
+    if not isinstance(data, dict):
+        raise TypeError("Input must be NDArray, numpy.ndarray, a list of "
+                        "them or dict with them as values")
+    return [(k, v.asnumpy() if isinstance(v, NDArray) else _np.asarray(v))
+            for k, v in data.items()]
+
+
+_NARROW = {"float64": "float32", "int64": "int32", "uint64": "uint32"}
+
+
+class NDArrayIter(DataIter):
+    """Batches over in-memory arrays, optionally shuffled each epoch.  A
+    last partial batch is padded by wrapping to the epoch's start
+    (``pad``, ``getpad`` counts the rows), dropped (``discard``), or
+    carried into the next epoch (``roll_over``)."""
+
+    def __init__(self, data, label=None, batch_size=1, shuffle=False,
+                 last_batch_handle="pad", data_name="data",
+                 label_name="softmax_label", shuffle_seed=None):
+        super().__init__(batch_size)
+        self.data = _init_data(data, allow_empty=False,
+                               default_name=data_name)
+        self.label = _init_data(label, allow_empty=True,
+                                default_name=label_name)
+        self.idx = _np.arange(self.data[0][1].shape[0])
+        self.shuffle = shuffle
+        # permutations come from a private stream seeded once from
+        # numpy's global one (np.random.seed keeps runs reproducible)
+        self._shuffle_seed = None
+        if shuffle:
+            self._shuffle_seed = int(shuffle_seed) if shuffle_seed is not \
+                None else int(_np.random.randint(0, 2 ** 31 - 1))
+        self._shuffle_drawn = 0
+        self.last_batch_handle = last_batch_handle
+        self.num_data = self.idx.shape[0]
+        if self.num_data < batch_size:
+            raise ValueError("batch_size %d exceeds the data size %d"
+                             % (batch_size, self.num_data))
+        self.cursor = -batch_size
+        self.num_source = len(self.data)
+        self.reset()
+
+    @property
+    def provide_data(self):
+        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
+                for k, v in self.data]
+
+    @property
+    def provide_label(self):
+        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
+                for k, v in self.label]
+
+    def _reshuffle(self):
+        rs = _np.random.RandomState([self._shuffle_seed,
+                                     self._shuffle_drawn])
+        self._shuffle_drawn += 1
+        rs.shuffle(self.idx)
+
+    def hard_reset(self):
+        if self.shuffle:
+            self._reshuffle()
+        self.cursor = -self.batch_size
+
+    def reset(self):
+        if self.shuffle:
+            self._reshuffle()
+        if self.last_batch_handle == "roll_over" and \
+                self.num_data - self.batch_size < self.cursor < \
+                self.num_data:
+            self.cursor = -self.batch_size + (self.cursor - self.num_data)
+        else:
+            self.cursor = -self.batch_size
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        return self.cursor < self.num_data
+
+    def next(self):
+        if not self.iter_next():
+            raise StopIteration
+        if self.last_batch_handle == "discard" and \
+                self.cursor + self.batch_size > self.num_data:
+            raise StopIteration
+        return DataBatch(data=self.getdata(), label=self.getlabel(),
+                         pad=self.getpad(), index=self.getindex())
+
+    def _sel(self):
+        """The dataset indices of the current batch; past the end they
+        wrap to the epoch's start."""
+        lo, hi = self.cursor, self.cursor + self.batch_size
+        if hi <= self.num_data:
+            return self.idx[max(lo, 0):hi] if lo >= 0 else _np.concatenate(
+                [self.idx[lo:], self.idx[:hi]])
+        return _np.concatenate(
+            [self.idx[lo:], self.idx[_np.arange(hi - self.num_data)
+                                     % self.num_data]])
+
+    def _getdata(self, source):
+        # 64-bit host data as the reference stores it (float32, int32)
+        sel = self._sel()
+        return [nd.array(v[sel], ctx=cpu(), dtype=_NARROW.get(
+            v.dtype.name, v.dtype.name)) for _, v in source]
+
+    def getdata(self):
+        return self._getdata(self.data)
+
+    def getlabel(self):
+        return self._getdata(self.label) if self.label else []
+
+    def getpad(self):
+        if self.last_batch_handle == "pad" and \
+                self.cursor + self.batch_size > self.num_data:
+            return self.cursor + self.batch_size - self.num_data
+        return 0
+
+
+class ResizeIter(DataIter):
+    """*data_iter* resized to *size* batches an epoch (wrapping it)."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__()
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        self.batch_size = data_iter.batch_size
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class PrefetchingIter(DataIter):
+    """One iterator read ahead on a background thread, *prefetch_depth*
+    batches deep.  An exception in the producer is raised from ``next``
+    once, then the epoch ends; ``reset`` stops the producer (it only
+    blocks in a stop-aware put) and starts a fresh one."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 prefetch_depth=2):
+        super().__init__()
+        if not isinstance(iters, list):
+            iters = [iters]
+        assert len(iters) == 1, "PrefetchingIter wraps one iterator"
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self.batch_size = iters[0].batch_size
+        self._depth = prefetch_depth
+        self._peek = None
+        self.current_batch = None
+        self._start()
+
+    @property
+    def provide_data(self):
+        return self.iters[0].provide_data
+
+    @property
+    def provide_label(self):
+        return self.iters[0].provide_label
+
+    @staticmethod
+    def _put(q, stop, item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _producer(self, q, stop):
+        while not stop.is_set():
+            try:
+                batch = self.iters[0].next()
+            except StopIteration:
+                self._put(q, stop, None)
+                return
+            except Exception as e:      # travels to the consumer
+                self._put(q, stop, e)
+                self._put(q, stop, None)
+                return
+            if not self._put(q, stop, batch):
+                return
+
+    def _start(self):
+        self._queue = _san.queue(maxsize=self._depth)
+        self._stop = _san.event()
+        self._thread = _san.thread(target=self._producer,
+                                   args=(self._queue, self._stop),
+                                   daemon=True)
+        self._thread.start()
+
+    def _stop_producer(self):
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.1)
+
+    def reset(self):
+        self._stop_producer()
+        self.iters[0].reset()
+        self._peek = None
+        self.current_batch = None
+        self._start()
+
+    def close(self):
+        """Stop the producer; ``reset`` starts a fresh one."""
+        self._stop_producer()
+
+    def next(self):
+        if self._peek is not None:
+            batch, self._peek = self._peek, None
+            self.current_batch = batch
+            return batch
+        item = self._queue.get()
+        if item is None:
+            raise StopIteration
+        if isinstance(item, Exception):
+            raise item
+        self.current_batch = item
+        return item
+
+    def iter_next(self):
+        """A True return makes the batch the next ``next()``'s too."""
+        if self._peek is not None:
+            return True
+        try:
+            self._peek = self.next()
+        except StopIteration:
+            return False
+        return True
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+def _open_maybe_gz(path):
+    return gzip.open(path, "rb") if path.endswith(".gz") else \
+        open(path, "rb")
+
+
+def _read_idx_images(path):
+    with _open_maybe_gz(path) as f:
+        magic, n, rows, cols = struct.unpack(">IIII", f.read(16))
+        if magic != 2051:
+            raise MXNetError("bad idx image magic in %s" % path)
+        return _np.frombuffer(f.read(n * rows * cols),
+                              dtype=_np.uint8).reshape(n, rows, cols)
+
+
+def _read_idx_labels(path):
+    with _open_maybe_gz(path) as f:
+        magic, n = struct.unpack(">II", f.read(8))
+        if magic != 2049:
+            raise MXNetError("bad idx label magic in %s" % path)
+        return _np.frombuffer(f.read(n), dtype=_np.uint8)
+
+
+class _Wrapped(DataIter):
+    """An iterator that serves an inner NDArrayIter."""
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+    def iter_next(self):
+        return self._inner.iter_next()
+
+
+class MNISTIter(_Wrapped):
+    """MNIST idx-ubyte files (optionally gzipped), scaled to [0, 1], as
+    (N, 1, rows, cols) or flat; the last partial batch is dropped
+    (reference: src/io/iter_mnist.cc)."""
+
+    def __init__(self, image, label, batch_size=128, shuffle=True,
+                 flat=False, silent=False, seed=0, input_shape=None,
+                 **kwargs):
+        data, labels = _read_idx_images(image), _read_idx_labels(label)
+        if flat:
+            data = data.reshape(data.shape[0], -1)
+        else:
+            data = data.reshape(data.shape[0], 1, data.shape[1],
+                                data.shape[2])
+        if input_shape is not None:
+            data = data.reshape((data.shape[0],) + tuple(input_shape))
+        data = data.astype(_np.float32) / 255.0
+        self._inner = NDArrayIter(data, labels.astype(_np.float32),
+                                  batch_size=batch_size, shuffle=shuffle,
+                                  last_batch_handle="discard")
+        super().__init__(batch_size)
+
+
+class CSVIter(_Wrapped):
+    """Dense CSV files of data (and labels), each row reshaped to
+    *data_shape* (reference: src/io/iter_csv.cc)."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None,
+                 label_shape=(1,), batch_size=1, round_batch=True,
+                 **kwargs):
+        data = _np.loadtxt(data_csv, delimiter=",", dtype=_np.float32,
+                           ndmin=2).reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = _np.loadtxt(label_csv, delimiter=",", dtype=_np.float32,
+                                ndmin=1)
+        else:
+            label = _np.zeros((data.shape[0],), _np.float32)
+        self._inner = NDArrayIter(
+            data, label, batch_size=batch_size,
+            last_batch_handle="pad" if round_batch else "discard")
+        super().__init__(batch_size)
+
+
+class LibSVMIter(DataIter):
+    """LibSVM files as CSR batches: not ported (CSR storage, ROADMAP queue
+    A item 12)."""
+
+    def __init__(self, *args, **kwargs):
+        raise MXNetError("LibSVMIter is not ported to mxnet_tpu_torch (it "
+                         "yields CSR batches; ROADMAP queue A item 12)")

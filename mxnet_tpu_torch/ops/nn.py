@@ -1,6 +1,8 @@
 """Neural-network ops (port of ``mxnet_tpu/ops/nn.py``, subset:
 FullyConnected, Convolution, Pooling, Activation, BatchNorm, LayerNorm,
-InstanceNorm, Dropout, softmax, log_softmax).
+InstanceNorm, Dropout, softmax, log_softmax, and the loss heads
+SoftmaxOutput, LinearRegressionOutput, MAERegressionOutput,
+LogisticRegressionOutput, BlockGrad and make_loss).
 
 Matrix products and convolutions stay with PyTorch (cuBLAS and cuDNN on
 the card), as the JAX package left them to XLA.  A float32 contraction
@@ -418,3 +420,135 @@ def _dropout(rng, data, p=0.5, mode="training", axes=(), cudnn_off=False,
     u = torch.rand(shape, generator=rng, device=data.device)
     mask = (u < keep).to(data.dtype) / keep
     return data * mask, torch.broadcast_to(mask, data.shape)
+
+
+# ---------------------------------------------------------------------------
+# loss heads: each backward ignores the incoming gradient, as the
+# reference's custom_vjp does, and gives the label a zero gradient
+# ---------------------------------------------------------------------------
+
+def _head_label(label, shape):
+    """*label* shaped as *shape* (the head's output less its class axis,
+    or the data's shape for the regression heads)."""
+    return label if tuple(label.shape) == tuple(shape) else \
+        label.reshape(shape)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax over *cls_axis*; the backward is softmax - one_hot(label)
+    (smoothed by *smooth_alpha*, masked at *ignore_label* with
+    *use_ignore*) times grad_scale over the *normalization*'s count."""
+
+    @staticmethod
+    def forward(ctx, data, label, cls_axis, grad_scale, ignore_label,
+                use_ignore, normalization, smooth_alpha):
+        out = torch.softmax(data, dim=cls_axis)
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (cls_axis, grad_scale, ignore_label, use_ignore,
+                   normalization, smooth_alpha)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, _g):
+        out, label = ctx.saved_tensors
+        (cls_axis, grad_scale, ignore_label, use_ignore, normalization,
+         smooth_alpha) = ctx.cfg
+        n_class = out.shape[cls_axis]
+        rows = list(out.shape)
+        del rows[cls_axis]
+        lab = _head_label(label, rows)
+        li = lab.to(torch.int64)
+        # one_hot of an id outside [0, n_class) is a row of zeros
+        inside = (li >= 0) & (li < n_class)
+        onehot = torch.zeros_like(out).scatter_(
+            cls_axis, torch.where(inside, li, 0).unsqueeze(cls_axis),
+            inside.to(out.dtype).unsqueeze(cls_axis))
+        if smooth_alpha:
+            onehot = onehot * (1 - smooth_alpha) + smooth_alpha / n_class
+        grad = out - onehot
+        if use_ignore:
+            keep = lab != ignore_label
+            grad = grad * keep.to(out.dtype).unsqueeze(cls_axis)
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / grad.shape[0]
+        elif normalization == "valid":
+            if use_ignore:
+                valid = torch.clamp((lab != ignore_label).sum(), min=1)
+            else:
+                valid = lab.numel()
+            scale = scale / valid
+        return grad * scale, torch.zeros_like(label), None, None, None, \
+            None, None, None
+
+
+@register_op("SoftmaxOutput", aliases=("Softmax",))
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False,
+                    preserve_shape=False, normalization="null",
+                    out_grad=False, smooth_alpha=0.0):
+    """Softmax forward with the cross-entropy gradient as its backward
+    (reference: ``src/operator/softmax_output-inl.h``).  The class axis
+    is 1 with *multi_output*, the last with *preserve_shape*; otherwise
+    data of more than two axes is flattened to (N, -1) first."""
+    if multi_output or (preserve_shape and data.dim() > 2):
+        cls_axis = 1 if multi_output else data.dim() - 1
+    else:
+        cls_axis = data.dim() - 1
+        if data.dim() > 2:
+            data = data.reshape(data.shape[0], -1)
+            cls_axis = 1
+    return _SoftmaxOutput.apply(data, label, cls_axis, grad_scale,
+                                ignore_label, use_ignore, normalization,
+                                smooth_alpha)
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """Forward *kind*(data); backward grad_scale * d(data, label) with d
+    the head's residual (linear and logistic: out - label; mae: its
+    sign)."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data * 1.0
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (kind, grad_scale)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, _g):
+        out, label = ctx.saved_tensors
+        kind, grad_scale = ctx.cfg
+        res = out - _head_label(label, out.shape)
+        if kind == "mae":
+            res = torch.sign(res)
+        return grad_scale * res, torch.zeros_like(label), None, None
+
+
+@register_op("LinearRegressionOutput")
+def _linear_regression_output(data, label, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label, "linear", grad_scale)
+
+
+@register_op("MAERegressionOutput")
+def _mae_regression_output(data, label, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label, "mae", grad_scale)
+
+
+@register_op("LogisticRegressionOutput")
+def _logistic_regression_output(data, label, grad_scale=1.0):
+    return _RegressionOutput.apply(data, label, "logistic", grad_scale)
+
+
+@register_op("BlockGrad", aliases=("stop_gradient",))
+def _block_grad(x):
+    """The value, with no gradient flowing back through it."""
+    return x.detach()
+
+
+@register_op("make_loss", aliases=("MakeLoss",))
+def _make_loss(x):
+    """The value as a loss head (its head gradient is ones)."""
+    return x * 1.0

@@ -39,7 +39,7 @@ from ..ndarray import NDArray
 __all__ = ["Optimizer", "SGD", "Signum", "SignSGD", "FTML", "LBSGD",
            "DCASGD", "NAG", "SGLD", "Adam", "AdaGrad", "RMSProp",
            "AdaDelta", "Ftrl", "Adamax", "Nadam", "Test", "Updater",
-           "create", "register", "get_updater"]
+           "create", "register", "get_updater", "states_mismatch"]
 
 _REGISTRY = {}
 
@@ -695,3 +695,29 @@ class Updater:
 
 def get_updater(optimizer):
     return Updater(optimizer)
+
+
+def states_mismatch(blob, optimizer):
+    """'' when *blob* (``Updater.get_states`` bytes, or the unpickled
+    dict) was written by an optimizer of *optimizer*'s class and baked
+    hyper-parameters; otherwise the reason it was not.  A blob without
+    the format-2 header validates vacuously."""
+    try:
+        data = _BlobUnpickler(io.BytesIO(blob)).load() \
+            if isinstance(blob, (bytes, bytearray, memoryview)) else blob
+    except Exception as exc:
+        return "unreadable optimizer-state blob (%s: %s)" % (
+            type(exc).__name__, exc)
+    if not (isinstance(data, dict) and data.get("__format__") == 2):
+        return ""
+    want_cls = type(optimizer).__name__
+    if data.get("opt_class") != want_cls:
+        return ("blob was written by optimizer class %r, current "
+                "optimizer is %r" % (data.get("opt_class"), want_cls))
+    cur = [getattr(optimizer, a, None) for a in _HYPER_ATTRS]
+    saved = data.get("hyper_sig")
+    if saved is not None and list(saved) != cur:
+        diffs = [a for a, x, y in zip(_HYPER_ATTRS, saved, cur) if x != y]
+        return ("hyper-param signature changed since the blob was "
+                "written: %s" % ", ".join(diffs or ["<layout>"]))
+    return ""

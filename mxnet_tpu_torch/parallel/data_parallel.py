@@ -189,22 +189,63 @@ class ParallelTrainer:
         self._opt_op = get_op(base_op)
         self._opt_n_states = n_states
 
-    def _gather_state(self):
+    def _gather_state(self, data_shape=None, label_shape=None):
         params = {p.name: p for p in self.net.collect_params().values()}
         self._resolve_opt()
-        frozen = [n for n in self.param_names if n not in params]
-        if frozen:
-            raise _not_ported(
-                "graph arguments with no Parameter behind them (%s; zero "
-                "begin-states need Symbol.infer_shape)" % frozen, "item 8")
+        # graph arguments with no Parameter behind them (auto-created
+        # begin-state variables) are zero-filled inputs, as simple_bind
+        # fills unbound arguments: no optimizer state, never updated
+        self._frozen = frozenset(n for n in self.param_names
+                                 if n not in params)
+        frozen = {}
+        if self._frozen:
+            frozen = self._infer_frozen(data_shape, label_shape)
+            self._frozen_built_for = (tuple(data_shape or ()),
+                                      tuple(label_shape or ()))
         self._params = {}
         self._opt_state = {}
         for n in self.param_names:
+            if n in self._frozen:
+                self._params[n] = frozen[n]
+                self._opt_state[n] = ()
+                continue
             arr, states = self._state_for_array(params[n].data()._data)
             self._params[n] = arr
             self._opt_state[n] = tuple(states)
         self._aux = {n: params[n].data()._data.detach().to(
             self.device, copy=True) for n in self.aux_names}
+
+    def _infer_frozen(self, data_shape, label_shape):
+        """Zeros for the frozen graph arguments at the shapes
+        ``Symbol.infer_shape`` gives for this batch geometry (every
+        Parameter's shape is known)."""
+        shapes = {}
+        if data_shape is not None:
+            shapes["data0"] = tuple(data_shape)
+        if label_shape is not None:
+            shapes["label0"] = tuple(label_shape)
+        for p in self.net.collect_params().values():
+            if p.name in self.param_names and p.shape and \
+                    all(int(s) > 0 for s in p.shape):
+                shapes[p.name] = tuple(int(s) for s in p.shape)
+        arg_shapes, _, _ = self._graph.infer_shape(**shapes)
+        inferred = dict(zip(self._graph.list_arguments(), arg_shapes))
+        dtype = torch.bfloat16 if self.multi_precision else torch.float32
+        return {n: torch.zeros(inferred[n], dtype=dtype, device=self.device)
+                for n in self._frozen}
+
+    def _refresh_frozen(self, x_shape, y_shape=None):
+        """New zeros for the frozen arguments when the batch geometry
+        changes (with no label, its shape follows the stored one at the
+        new batch size)."""
+        if not self._frozen:
+            return
+        if y_shape is None:
+            y_shape = (tuple(x_shape)[0],) + self._frozen_built_for[1][1:]
+        key = (tuple(x_shape), tuple(y_shape))
+        if key != self._frozen_built_for:
+            self._params.update(self._infer_frozen(*key))
+            self._frozen_built_for = key
 
     def _state_for_array(self, arr):
         """(stored tensor, fresh optimizer states) for one parameter on
@@ -239,8 +280,8 @@ class ParallelTrainer:
                 "apply path" % (self._opt_base, self.shard_params))
         small = []
         if coalesce and supported:
-            small = [n for n in self.param_names
-                     if self._params[n].numel() <= _SMALL_MAX]
+            small = [n for n in self.param_names if n not in self._frozen
+                     and self._params[n].numel() <= _SMALL_MAX]
             # one flat buffer holds one dtype
             small = [n for n in small
                      if self._params[n].dtype == self._params[small[0]].dtype]
@@ -286,12 +327,13 @@ class ParallelTrainer:
         gen = self._gen
         gen_state = gen.get_state()
         leaves = {n: t.detach().requires_grad_()
-                  for n, t in self._params.items()}
+                  for n, t in self._params.items() if n not in self._frozen}
 
         def loss_of():
             # a recomputing backward (remat) draws the same randomness
             gen.set_state(gen_state)
-            amap = dict(leaves)
+            amap = dict(self._params)
+            amap.update(leaves)
             amap["data0"] = x
             amap["label0"] = y
             outs, auxu = eval_fn(amap, aux, gen)
@@ -349,7 +391,7 @@ class ParallelTrainer:
         mp = self.multi_precision
         with torch.no_grad():
             for n, w in self._params.items():
-                if n in small:
+                if n in small or n in self._frozen:
                     continue
                 g = grads[n]
                 states = self._opt_state[n]
@@ -401,7 +443,7 @@ class ParallelTrainer:
         if not self._built:
             self.net._ensure_params(NDArray(x))
             self._trace()
-            self._gather_state()
+            self._gather_state(data_shape=x.shape, label_shape=y.shape)
             self._build_step()
 
     @staticmethod
@@ -425,14 +467,15 @@ class ParallelTrainer:
         return self._tensor(y).to(self.device)
 
     def fit(self, *args, **kwargs):
-        raise _not_ported("fit() (needs io DataIters and resilience)",
-                          "items 9, 13 and 15")
+        raise _not_ported("fit() (needs the device prefetcher and "
+                          "resilience's checkpoints)", "items 13 and 15")
 
     def fit_batch(self, x, y):
         """Run one training step; returns the float32 mean loss (a 0-dim
         tensor on the device)."""
         x, y = self._tensor(x), self._tensor(y)
         self._ensure_built(x, y)
+        self._refresh_frozen(x.shape, y.shape)
         xd, yd = self._device_batch(x), self._label_batch(y)
         loss, grads, auxu = self._value_and_grad(xd, yd)
         self._apply_update(grads, self._current_lr(), self._num_update + 1)
@@ -453,6 +496,7 @@ class ParallelTrainer:
         """Mean loss over one batch, inference mode (no aux updates)."""
         x, y = self._tensor(x), self._tensor(y)
         self._ensure_built(x, y)
+        self._refresh_frozen(x.shape, y.shape)
         amap = dict(self._params, data0=self._device_batch(x),
                     label0=self._label_batch(y))
         with torch.no_grad():
@@ -463,6 +507,7 @@ class ParallelTrainer:
         """Network outputs for one batch, inference mode."""
         if not self._built:
             raise RuntimeError("run fit_batch or evaluate_batch first")
+        self._refresh_frozen(self._tensor(x).shape)
         amap = dict(self._params, data0=self._device_batch(x))
         with torch.no_grad():
             outs, _ = self._fwd_eval(amap, self._aux, self._gen)
@@ -552,6 +597,8 @@ class ParallelTrainer:
         (the float32 masters under multi_precision)."""
         params = {p.name: p for p in self.net.collect_params().values()}
         for n, arr in self._params.items():
+            if n in self._frozen:
+                continue
             if self.multi_precision:
                 arr = self._opt_state[n][-1]
             params[n].set_data(NDArray(arr))

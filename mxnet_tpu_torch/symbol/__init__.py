@@ -4,10 +4,13 @@ import types as _types
 
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from .symbol import (Symbol, var, Variable, Group, load,  # noqa: F401
-                     load_json)
+                     load_json, AttrScope)
 from . import register as _register
 
 _register.populate(globals())
+
+zeros = globals()["_zeros"]
+ones = globals()["_ones"]
 
 contrib = _types.ModuleType(__name__ + ".contrib",
                             "contrib ops (sym.contrib.DotProductAttention)")

@@ -22,6 +22,13 @@ Phase 9 (the eager user surface): the op sweep's checks pass every case
 with the CPU standing for both devices, and fail a case whose outputs
 differ; the phase raises without CUDA.
 
+Phase 10 (the symbolic training path): on a 2-layer LM (dim 32, vocab
+50, seq 32, batch 2) on the CPU, the check step's two bindings agree, one
+fused step is bit-equal to one legacy step, ``fit`` lowers the loss and
+its ``score`` equals the perplexity of ``predict``'s outputs, and a
+checkpoint loaded into a fresh Module steps bit-equal to the original;
+every check of the phase is wired; the phase raises without CUDA.
+
 Phase 8 (paged decode): on a 2-layer LM (dim 64, vocab 97) served on the
 CPU with the JAX package's weights, the decode step's teacher-forced
 logits are within 1e-5 of the JAX ``TransformerLM`` forward; paged
@@ -583,7 +590,9 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
         "phase_resnet": lambda t, c, s: None,
         "phase_north_star": lambda t, c, s: {k: 60 for k in kernels},
         "phase_decode": lambda t, c, s: 552,
-        "phase_user_surface": lambda t, c, s: {k: 72 for k in kernels}}
+        "phase_user_surface": lambda t, c, s: {k: 72 for k in kernels},
+        "phase_module": lambda t, c, s: {"launches": {k: 240
+                                                      for k in kernels}}}
     for name, fn in stub.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     assert chip_smoke.main() == 0
@@ -597,9 +606,10 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
     assert fwd["launches_by_path"]["decode prefill"] == 552
     assert fwd["launches_by_path"][
         "user-surface LM train (eager nd, adam)"] == 72
-    assert fwd["launches"] == 72 + 108 + 420 + 60 + 60 + 552 + 72
+    assert fwd["launches_by_path"][chip_smoke.MODULE_PATH] == 240
+    assert fwd["launches"] == 72 + 108 + 420 + 60 + 60 + 552 + 72 + 240
     for k in json.loads(lines[-2])["kernels"][1:]:
-        assert k["launches"] == 60 + 60 + 72
+        assert k["launches"] == 60 + 60 + 72 + 240
     for k in json.loads(lines[-2])["kernels"]:
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -789,3 +799,98 @@ def test_user_surface_phase_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         chip_smoke.phase_user_surface(torch, "no card", 0)
+
+
+MODULE_CFG = (50, 32, 4, 2, 32)
+
+
+def test_module_phase_runs_on_the_cpu():
+    import torch
+    import mxnet_tpu_torch as mx
+    rec = chip_smoke.phase_module(torch, "cpu", 0, cfg=MODULE_CFG,
+                                  ctx=mx.cpu(), batch=2)
+    assert rec["check"]["gap"] <= 1e-5 * max(1.0, rec["check"]["loss"])
+    assert rec["bits"][0] == 0 and rec["bits"][3] == 0.0
+    assert rec["checkpoint"] == (0, 0.0)
+    fit = rec["fit"]
+    assert len(fit["losses"]) == chip_smoke.MODULE_BATCHES
+    assert fit["losses"][-1] < fit["losses"][0]
+    assert abs(fit["score"] - fit["recomputed"]) <= \
+        chip_smoke.TOL_SCORE * fit["recomputed"]
+
+
+@pytest.mark.parametrize("fault", ["bits", "scatter", "loss", "first",
+                                   "score", "checkpoint"])
+def test_module_checks_are_wired(monkeypatch, fault):
+    """Each check of phase 10 fails the phase when its numbers break."""
+    import torch
+    import mxnet_tpu_torch as mx
+    monkeypatch.setattr(chip_smoke, "MODULE_WARM", 1)
+    monkeypatch.setattr(chip_smoke, "MODULE_TIMED", 1)
+    if fault == "bits":
+        real_steps = chip_smoke.module_fused_vs_legacy
+
+        def one_bit(*a):
+            steps = real_steps(*a)
+            name = sorted(n for n in steps[True] if "embedding" not in n)[0]
+            steps[True][name] = steps[True][name].clone()
+            steps[True][name].view(-1)[0] += 1.0
+            return steps
+        monkeypatch.setattr(chip_smoke, "module_fused_vs_legacy", one_bit)
+    elif fault == "scatter":
+        real_steps = chip_smoke.module_fused_vs_legacy
+
+        def table_moved(*a):
+            steps = real_steps(*a)
+            name = "modlm_embedding0_weight"
+            steps[True][name] = steps[True][name] * (1 + 2.0 ** -14)
+            return steps
+        monkeypatch.setattr(chip_smoke, "module_fused_vs_legacy",
+                            table_moved)
+    elif fault == "loss":
+        real = chip_smoke.module_fit
+
+        def rising(*a):
+            out = list(real(*a))
+            out[0] = sorted(out[0])
+            return tuple(out)
+        monkeypatch.setattr(chip_smoke, "module_fit", rising)
+    elif fault == "first":
+        real = chip_smoke.module_fit
+
+        def moved_first(*a):
+            out = list(real(*a))
+            out[0] = [out[0][0] + 1e-3] + out[0][1:]
+            return tuple(out)
+        monkeypatch.setattr(chip_smoke, "module_fit", moved_first)
+    elif fault == "score":
+        real = chip_smoke.module_fit
+
+        def off(*a):
+            out = real(*a)
+            return out[:4] + (out[4] * (1 + 1e-6),)
+        monkeypatch.setattr(chip_smoke, "module_fit", off)
+    else:
+        real = chip_smoke.module_checkpoint
+
+        def moved(*a):
+            want = real(*a)
+            name = sorted(want)[0]
+            want[name] = want[name] + 1.0
+            return want
+        monkeypatch.setattr(chip_smoke, "module_checkpoint", moved)
+    message = {"bits": "not the legacy step",
+               "scatter": "not the legacy step", "loss": "did not fall",
+               "first": "is not the check step's",
+               "score": "is not the perplexity",
+               "checkpoint": "not the original's"}[fault]
+    with pytest.raises(RuntimeError, match=message):
+        chip_smoke.phase_module(torch, "cpu", 0, cfg=MODULE_CFG,
+                                ctx=mx.cpu(), batch=2)
+
+
+def test_module_phase_raises_without_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chip_smoke.phase_module(torch, "no card", 0)

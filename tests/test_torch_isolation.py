@@ -54,7 +54,11 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.gluon.nn.basic_layers, "
             "mxnet_tpu_torch.gluon.utils, mxnet_tpu_torch.initializer, "
             "mxnet_tpu_torch.config, mxnet_tpu_torch.sanitizer, "
-            "mxnet_tpu_torch.observability, mxnet_tpu_torch.resilience; "
+            "mxnet_tpu_torch.observability, mxnet_tpu_torch.resilience, "
+            "mxnet_tpu_torch.module, mxnet_tpu_torch.io, "
+            "mxnet_tpu_torch.metric, mxnet_tpu_torch.callback, "
+            "mxnet_tpu_torch.executor, mxnet_tpu_torch.optimizer.tree_opt, "
+            "mxnet_tpu_torch.name, mxnet_tpu_torch.attribute; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')))")
@@ -108,7 +112,8 @@ def test_gpu_context_without_cuda_raises(no_cuda):
                                    "nd.full", "nd.arange", "nd.empty",
                                    "nd._arange", "nd.random.uniform",
                                    "nd.random.normal", "mx.random.randint",
-                                   "load_parameters"])
+                                   "load_parameters", "simple_bind", "bind",
+                                   "Module", "Module.load"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -163,6 +168,24 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         call = lambda: mx.nd.random.normal(shape=(2,))
     elif entry == "mx.random.randint":
         call = lambda: mx.random.randint(0, 3, shape=(2,))
+    elif entry in ("simple_bind", "bind", "Module", "Module.load"):
+        out = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2,
+                                    name="fc")
+        shapes = [("data", (2, 3))]
+        if entry == "simple_bind":
+            call = lambda: out.simple_bind(data=(2, 3))
+        elif entry == "bind":
+            x = mx.nd.zeros((2, 3), ctx=mx.cpu())
+            call = lambda: out.bind(args={"data": x, "fc_weight": x[:2],
+                                          "fc_bias": x[0, :2]})
+        elif entry == "Module":
+            call = lambda: mx.mod.Module(out, label_names=None).bind(shapes)
+        else:
+            mx.model.save_checkpoint(str(tmp_path / "m"), 1, out, {
+                "fc_weight": mx.nd.zeros((2, 3), ctx=mx.cpu()),
+                "fc_bias": mx.nd.zeros((2,), ctx=mx.cpu())}, {})
+            call = lambda: mx.mod.Module.load(
+                str(tmp_path / "m"), 1, label_names=None).bind(shapes)
     elif entry == "load_parameters":
         net = mx.gluon.nn.Dense(2, in_units=3, prefix="d_")
         net.initialize(ctx=mx.cpu())

@@ -412,11 +412,11 @@ def test_not_ported_paths_raise():
 
 
 class _FrozenArg(tmx.gluon.HybridBlock):
-    """A graph argument with no Parameter behind it."""
+    """A graph argument with no Parameter behind it whose shape inference
+    cannot find (``dot`` has no shape rule): it cannot be zero-filled."""
 
     def hybrid_forward(self, F, x):
-        return F.FullyConnected(x, F.var("begin_state"), num_hidden=2,
-                                no_bias=True)
+        return F.dot(x, F.var("begin_state"))
 
 
 @pytest.mark.parametrize("fault", ["frozen", "mp_adam", "coalesce_adam",
@@ -429,7 +429,7 @@ def test_trainer_refuses_what_it_cannot_run(fault):
                                         multi_precision=True),
           "coalesce_adam": dict(optimizer="adam", coalesce_small=True),
           "unknown": dict(optimizer="lamb"), "remat": dict(remat="some")}
-    err = {"frozen": (tmx.MXNetError, "not ported"),
+    err = {"frozen": (tmx.MXNetError, "cannot infer shapes"),
            "mp_adam": (ValueError, "multi_precision"),
            "coalesce_adam": (ValueError, "coalesce_small"),
            "unknown": (ValueError, "not supported"),
