@@ -130,6 +130,31 @@ Phases, each reported on its own line; any failure exits non-zero:
              (d) ``save_checkpoint`` with optimizer states ->
              ``Module.load``: its next step bit-equal to the original's.
              12 launches of each kernel a step, captured and replayed.
+11. lstm   — recurrent networks; no kernel of the repo lies on this path
+             (the JAX op is ``lax.scan``): the RNN op runs on cuDNN
+             through PyTorch's fused recurrent functions.  (a) The op's
+             route against its plain per-step version on the card: 11
+             cases (the four modes, 1 and 2 layers, bidirectional,
+             state outputs, the LSTM clip with and without clip_nan) at
+             T 256 in f32 and bf16, outputs, states and the gradients of
+             data, parameters and states, each relaunched bit-equal, a
+             TF32 f32 run must break the f32 limit; foreach, while_loop
+             and cond on the card against the CPU; a foreach RNN trained
+             through a Module's fused step (one CUDA graph) bit-equal to
+             the legacy step.  (b) ``tools/benchmark_lm.py --arch lstm``
+             at its defaults: ``get_lstm_lm(32000, 1024, 2)`` (82,329,600
+             parameters) through ``ParallelTrainer`` (sgd lr 0.01,
+             momentum 0.9, bf16 compute weights, f32 masters), int32 ids,
+             batch 8 x 2048: a check step against the plain op bound in
+             (f32) and against f32 (bf16), five steps whose f32 loss must
+             fall, ms a step, tokens/s, peak memory, the RNN op's and the
+             head's shares of device time, the op alone on each route.
+             (c) The loop of ``examples/train_lm.py`` at PTB-medium width
+             (vocab 10000, 650 x 2, batch 32, buckets 8-20, adam) through
+             ``BucketingModule.fit`` for one epoch of a sparse Markov
+             corpus: ms a batch by bucket, tokens/s, idle share; shared
+             arrays, one updater, one bind a bucket, perplexity falls,
+             ``score`` against ``predict``, a checkpoint's next step.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -3498,12 +3523,16 @@ def module_check_step(torch, mx, symbol, weights, ctx, x, y):
 
 
 def module_bits(torch, mod):
-    """Copies of the weights and momenta of *mod*, by name."""
+    """Copies of the weights and optimizer states of *mod*, by name."""
     args, _ = mod.get_params()
     out = {n: a._data.clone() for n, a in args.items()}
     names = mod._exec_group.param_names
     for i, s in mod._updater.states.items():
-        out["mom:" + names[i]] = s._data.clone()
+        if isinstance(s, tuple):        # adam: (mean, variance)
+            for j, t in enumerate(s):
+                out["state%d:%s" % (j, names[i])] = t._data.clone()
+        else:
+            out["mom:" + names[i]] = s._data.clone()
     return out
 
 
@@ -3801,6 +3830,831 @@ def phase_module(torch, card, seed, cfg=None, ctx=None, batch=BATCH):
     return record
 
 
+# Phase 11: recurrent networks.  (a) The RNN op's card route (cuDNN
+# through PyTorch's fused recurrent functions) against its plain
+# per-step version on the card; control flow on the card against the
+# CPU, and a foreach RNN inside a Module's fused step.  (b) The LSTM LM
+# of tools/benchmark_lm.py --arch lstm at its defaults (:38-46, :70-71,
+# :78-94): vocab 32000, dim 1024, max(2, 12 // 6) = 2 LSTM layers, batch
+# 8 x 2048, through ParallelTrainer at dp = 1 with bf16 compute weights
+# and f32 masters.  (c) The loop of examples/train_lm.py (:70-124) at the
+# PTB-medium width of gluon/model_zoo/lm.py:25-27 through BucketingModule.
+RNN_SHAPE = (256, 8, 64, 128)       # T, batch, input, hidden
+RNN_CASES = (                       # mode, layers, bidirectional,
+    ("lstm", 1, False, True, None),         # state_outputs, clip
+    ("lstm", 2, True, True, None),
+    ("lstm", 2, False, False, None),
+    ("lstm", 1, False, True, (-0.5, 0.5, False)),
+    ("lstm", 1, True, True, (-0.2, 0.2, True)),
+    ("gru", 1, True, True, None),
+    ("gru", 2, False, False, None),
+    ("rnn_tanh", 2, True, True, None),
+    ("rnn_tanh", 1, False, False, None),
+    ("rnn_relu", 1, False, True, None),
+    ("rnn_relu", 2, True, False, None))
+# the card's route against the plain loop on the same inputs, each output
+# and each gradient to max |plain| of that tensor: float32 (summation
+# orders of 256 recurrent steps; TF32 products must break it); bfloat16,
+# against the plain loop in float32 on the same bf16 values: the route
+# computes in float32 and rounds each result once, by at most half a
+# bf16 ulp, 2**-8 of its value, so the limit is one ulp of the largest
+TOL_RNN = {"float32": 2.0 ** -14, "bfloat16": 2.0 ** -7}
+LSTM_CFG = (32000, 1024, 2, 2048)   # vocab, dim, layers, seq
+LSTM_PARAMS = 82329600
+LSTM_OPT = {"learning_rate": 0.01, "momentum": 0.9}
+LSTM_STEPS = 5                      # the loss must fall from step 1 to 5
+TOL_LSTM_GRAD = 1e-4                # x each gradient's max |g| (plain op)
+TOL_LSTM_BF16_LOSS = 1.0            # x BF16_U x max(1, |loss|)
+TOL_LSTM_BF16_GRAD = 16.0           # x BF16_U, ||g - g32|| / ||g32||
+RNN_RANGES = ("RNN forward", "RNN backward", "head forward",
+              "head backward")
+BUCKET_CFG = (10000, 650, 650, 2)   # vocab, hidden, embed, layers
+BUCKETS = (8, 12, 16, 20)
+BUCKET_BATCH = 32
+BUCKET_SENTENCES, BUCKET_VAL = 1920, 128
+BUCKET_LR = 1e-3
+BUCKET_WINDOW = 10                  # batches averaged at each end of the
+                                    # epoch for "perplexity falls"
+
+
+def rnn_case_inputs(torch, case, dtype, dev, gen, shape=RNN_SHAPE):
+    """Inputs of one op case: x, the packed parameters (uniform within
+    1 / sqrt(H), PyTorch's RNN initialization), h0, c0, and the op's
+    keyword arguments."""
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+    mode, layers, bidir, state_outputs, clip = case
+    t, b, i, h = shape
+    dirs = 2 if bidir else 1
+    n = rnn_param_size(mode, i, h, layers, bidir)
+    bound = 1.0 / math.sqrt(h)
+    par = (torch.rand(n, generator=gen, device=dev) * 2 - 1) * bound
+    x = torch.randn(t, b, i, generator=gen, device=dev)
+    h0 = torch.randn(layers * dirs, b, h, generator=gen, device=dev) * 0.5
+    c0 = torch.randn(layers * dirs, b, h, generator=gen, device=dev) * 0.5
+    kw = dict(state_size=h, num_layers=layers, bidirectional=bidir,
+              mode=mode, state_outputs=state_outputs, training=True)
+    if clip is not None:
+        kw.update(lstm_state_clip_min=clip[0], lstm_state_clip_max=clip[1],
+                  lstm_state_clip_nan=clip[2])
+    ins = [x, par, h0] + ([c0] if mode == "lstm" else [])
+    return [a.to(dtype) for a in ins], kw
+
+
+def rnn_run(torch, fn, ins, kw, cots):
+    """Outputs and input gradients (data, parameters, states) of one
+    forward and backward of *fn* (the op's signature) with cotangents
+    *cots* (one per output, made on the first call when None)."""
+    leaves = [a.detach().clone().requires_grad_() for a in ins]
+    outs = fn(None, *leaves, **kw)
+    if cots is None:
+        g = torch.Generator(device=outs[0].device)
+        g.manual_seed(7)
+        cots = [torch.randn(o.shape, generator=g, device=o.device).to(
+            o.dtype) for o in outs]
+    grads = torch.autograd.grad(list(outs), leaves, cots)
+    return [o.detach() for o in outs] + list(grads), cots
+
+
+def rnn_worst(torch, got, want):
+    """max over tensors of max |got - want| / max |want| (inf where got is
+    not finite)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.double(), b.double()
+        if not bool(torch.isfinite(a).all()):
+            return math.inf
+        worst = max(worst, float((a - b).abs().max()) /
+                    max(float(b.abs().max()), 1e-30))
+    return worst
+
+
+def rnn_op_checks(torch, dev, on_card, seed, shape=RNN_SHAPE,
+                  dtypes=("float32", "bfloat16")):
+    """(a), the op: each case in float32 and bfloat16 through the op (the
+    card's route) and through ``plain_rnn`` on the same device; relaunched
+    for bit-equality; a TF32 float32 run must break the float32 limit
+    (on the card).  Returns a list of per-case records; raises on a
+    failed check."""
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+    op = rnn_op._rnn
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    records, failures = [], []
+    for case in RNN_CASES:
+        for dtn in dtypes:
+            dtype = getattr(torch, dtn)
+            ins, kw = rnn_case_inputs(torch, case, dtype, dev, gen, shape)
+            got, cots = rnn_run(torch, op, ins, kw, None)
+            again, _ = rnn_run(torch, op, ins, kw, cots)
+            equal = all(torch.equal(a, b) for a, b in zip(got, again))
+            ins32 = [a.float() for a in ins]
+            cots32 = [c.float() for c in cots]
+            want, _ = rnn_run(torch, rnn_op.plain_rnn, ins32, kw, cots32)
+            err = rnn_worst(torch, got, want)
+            rec = {"case": case, "dtype": dtn, "err": err,
+                   "ratio": err / TOL_RNN[dtn], "relaunch_equal": equal}
+            if dtn == "float32" and on_card:
+                real = rnn_op.rnn_precision
+                rnn_op.rnn_precision = lambda d: "tf32"
+                try:
+                    tf32, _ = rnn_run(torch, op, ins, kw, cots)
+                finally:
+                    rnn_op.rnn_precision = real
+                rec["tf32_ratio"] = rnn_worst(torch, tf32, want) / \
+                    TOL_RNN["float32"]
+                if not rec["tf32_ratio"] > 1.0:
+                    failures.append("%s: TF32 stays within the f32 limit "
+                                    "(%.3f)" % (case, rec["tf32_ratio"]))
+            if dtn == "bfloat16":
+                # the reference's semantics, every step rounded to bf16
+                ref16, _ = rnn_run(torch, rnn_op.plain_rnn, ins, kw, cots)
+                rec["plain_bf16_vs_f32"] = rnn_worst(torch, ref16, want)
+                rec["f32_limit_ratio"] = err / TOL_RNN["float32"]
+                if on_card and not rec["f32_limit_ratio"] > 1.0:
+                    failures.append("%s bf16 within the f32 limit" % (case,))
+            if not rec["ratio"] <= 1.0:
+                failures.append("%s %s: error %.3g is %.3f of its limit"
+                                % (case, dtn, err, rec["ratio"]))
+            if not equal:
+                failures.append("%s %s: a relaunch is not bit-equal"
+                                % (case, dtn))
+            records.append(rec)
+            del got, again, want
+    worst = {d: max((r["ratio"] for r in records if r["dtype"] == d),
+                    default=0.0) for d in TOL_RNN}
+    log("lstm (a): the RNN op's route %r on %s against plain_rnn, %d cases "
+        "x f32/bf16 at T %d, batch %d, input %d, hidden %d (forward "
+        "outputs and states, gradients of data, parameters and states): "
+        "worst error / limit f32 %.4f (limit 2**-14 x max |plain|), bf16 "
+        "%.4f (2**-7, against the plain loop in f32 on the bf16 values); "
+        "relaunches bit-equal %s" % (
+            rnn_op.route_of(torch.empty(0, device=dev)), dev, len(RNN_CASES),
+            shape[0], shape[1], shape[2], shape[3], worst["float32"],
+            worst["bfloat16"], all(r["relaunch_equal"] for r in records)))
+    for r in records:
+        extra = ""
+        if "tf32_ratio" in r:
+            extra = ", TF32 %.2f of the limit" % r["tf32_ratio"]
+        if "plain_bf16_vs_f32" in r:
+            extra = ", the plain loop in bf16 (every step rounded) %.4g " \
+                "from f32, the bf16 route %.1f x the f32 limit" % (
+                    r["plain_bf16_vs_f32"], r["f32_limit_ratio"])
+        log("  %-38s %-8s error %.3g (%.4f of the limit)%s" % (
+            r["case"], r["dtype"], r["err"], r["ratio"], extra))
+    if failures:
+        raise RuntimeError("lstm (a): " + "; ".join(failures))
+    return records
+
+
+def control_flow_symbols(mx):
+    """(name, symbol, {argument: numpy value}) of a foreach RNN, a
+    masked while loop with a closure and a cond whose branch not taken
+    has an infinite derivative."""
+    import numpy as np
+    s = mx.sym
+    rs = np.random.RandomState(5)
+    wx, wh = s.var("wx"), s.var("wh")
+
+    def body(x, st):
+        h = s.tanh(s.FullyConnected(x, wx, no_bias=True, num_hidden=16) +
+                   s.FullyConnected(st[0], wh, no_bias=True, num_hidden=16))
+        return h, [h]
+    fo, ff = s.contrib.foreach(body, s.var("data"), [s.var("h0")])
+    w = s.var("w")
+    wo, wf = s.contrib.while_loop(
+        lambda i, v: i < 4, lambda i, v: (v * w, [i + 1, s.tanh(v * w)]),
+        [s.var("i"), s.var("v")], max_iterations=6)
+    x = s.var("x")
+    co = s.contrib.cond(s.sum(x) > 0, lambda: x * 2, lambda: s.log(x))
+    return [
+        ("foreach", s.Group([fo, ff[0]]), {
+            "data": rs.randn(12, 4, 8).astype("float32"),
+            "h0": np.zeros((4, 16), "float32"),
+            "wx": (rs.randn(16, 8) * 0.3).astype("float32"),
+            "wh": (rs.randn(16, 16) * 0.3).astype("float32")}),
+        ("while_loop", s.Group([wo, wf[1]]), {
+            "i": np.zeros(1, "float32"),
+            "v": rs.randn(8).astype("float32"),
+            "w": rs.randn(8).astype("float32")}),
+        ("cond", co, {"x": np.array([0.0, 1.0, 2.0], "float32")})]
+
+
+def control_flow_run(mx, symbol, args, ctx):
+    """Outputs and every argument's gradient (head gradients of ones) of
+    *symbol* on *ctx*, as float64 numpy arrays."""
+    exe = symbol.bind(ctx=ctx, args={k: mx.nd.array(v, ctx=ctx)
+                                     for k, v in args.items()},
+                      args_grad={k: mx.nd.zeros(v.shape, ctx=ctx)
+                                 for k, v in args.items()})
+    outs = exe.forward(is_train=True)
+    exe.backward([mx.nd.ones(o.shape, ctx=ctx) for o in outs])
+    return ([o.asnumpy().astype("float64") for o in outs] +
+            [exe.grad_dict[k].asnumpy().astype("float64") for k in args])
+
+
+def foreach_module(mx, batch):
+    """A foreach RNN (hidden 16) over 12 steps with a SoftmaxOutput head,
+    and one batch for it."""
+    import numpy as np
+    s = mx.sym
+    wx = s.var("rnn_i2h_weight", shape=(16, 8))
+    wh = s.var("rnn_h2h_weight", shape=(16, 16))
+
+    def body(x, st):
+        h = s.tanh(s.FullyConnected(x, wx, no_bias=True, num_hidden=16) +
+                   s.FullyConnected(st[0], wh, no_bias=True, num_hidden=16))
+        return h, [h]
+    data = s.swapaxes(s.var("data"), dim1=0, dim2=1)
+    _, last = s.contrib.foreach(body, data, [s.var("h0",
+                                                   shape=(batch, 16))])
+    net = s.SoftmaxOutput(s.FullyConnected(last[0], num_hidden=5,
+                                           name="fc"),
+                          s.var("softmax_label"), name="sm")
+    rs = np.random.RandomState(6)
+    it = mx.io.NDArrayIter(rs.randn(batch, 12, 8).astype("float32"),
+                           rs.randint(0, 5, batch).astype("float32"),
+                           batch_size=batch)
+    return net, it
+
+
+def control_flow_checks(torch, mx, ctx, card):
+    """(a), control flow: each symbol on *ctx* against the CPU (outputs
+    and gradients within TOL_SWEEP of their scale), the cond gradient
+    finite; then a foreach RNN trained through a Module, 3 fused steps
+    (one CUDA graph on the card: one capture, a replay a step) against 3
+    legacy steps from the same weights, bit for bit."""
+    import numpy as np
+    worst = 0.0
+    for name, symbol, args in control_flow_symbols(mx):
+        got = control_flow_run(mx, symbol, args, ctx)
+        want = control_flow_run(mx, symbol, args, mx.cpu())
+        for a, b in zip(got, want):
+            if not np.isfinite(a).all():
+                raise RuntimeError("lstm (a): %s on %s is not finite"
+                                   % (name, card))
+            worst = max(worst, float(np.abs(a - b).max()) /
+                        (TOL_SWEEP * max(1.0, float(np.abs(b).max()))))
+    net, it = foreach_module(mx, 4)
+    batch = next(iter(it))
+    results, prog, weights = [], None, None
+    for fused in (True, False):
+        mod = mx.mod.Module(net, context=ctx, fixed_param_names=["h0"])
+        mod.bind(it.provide_data, it.provide_label)
+        if weights is None:
+            mod.init_params(mx.init.Xavier())
+            weights = mod.get_params()[0]
+        mod.init_params(arg_params=weights, force_init=True)
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.5, "momentum": 0.9})
+        for _ in range(3):
+            module_step(torch, mod, batch, fused)
+        if fused:
+            prog = mod.fused_step
+        results.append({n: a._data.clone()
+                        for n, a in mod.get_params()[0].items()})
+    differ = sum(int((results[0][n] != results[1][n]).sum())
+                 for n in results[0])
+    on_card = ctx.device_type == "gpu"
+    log("lstm (a): control flow on %s against the CPU: foreach, while_loop "
+        "and cond (outputs, gradients) worst gap %.4f of 2**-18 x max(1, "
+        "|cpu|); a foreach RNN through Module: 3 fused steps (captures %d, "
+        "replays %d) against 3 legacy steps: %d values differ"
+        % (card, worst, prog.captures, prog.replays, differ))
+    if worst > 1.0 or differ or (on_card and (prog.captures != 1 or
+                                              prog.replays != 3)):
+        raise RuntimeError("lstm (a): the control-flow checks failed "
+                           "(above)")
+    return {"worst": worst, "captures": prog.captures,
+            "replays": prog.replays, "differ": differ}
+
+
+class _RangedHead:
+    """A stand-in for FullyConnected whose head product (flatten=False,
+    no bias) runs its forward and backward inside profiler ranges."""
+
+    def __init__(self, torch, fn):
+        self.fn = fn
+
+        class Head(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, data, weight):
+                with torch.profiler.record_function("head forward"):
+                    out = torch.matmul(data, weight.t())
+                ctx.save_for_backward(data, weight)
+                return out
+
+            @staticmethod
+            def backward(ctx, g):
+                data, weight = ctx.saved_tensors
+                with torch.profiler.record_function("head backward"):
+                    gd = torch.matmul(g, weight)
+                    gw = torch.matmul(g.reshape(-1, g.shape[-1]).t(),
+                                      data.reshape(-1, data.shape[-1]))
+                return gd, gw
+        self.head = Head
+
+    def __call__(self, data, weight, *rest, num_hidden=0, no_bias=False,
+                 flatten=True):
+        if flatten or not no_bias:
+            return self.fn(data, weight, *rest, num_hidden=num_hidden,
+                           no_bias=no_bias, flatten=flatten)
+        return self.head.apply(data, weight)
+
+
+def rnn_ranges(torch):
+    """Put the RNN op's card route and the LM's head in profiler ranges
+    (``RNN_RANGES``) until the returned undo is called."""
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+    from mxnet_tpu_torch.ops.registry import get_op
+    cls = rnn_op._FusedRNN
+    fwd, bwd = cls.forward, cls.backward
+
+    def forward(ctx, *args):
+        with torch.profiler.record_function("RNN forward"):
+            return fwd(ctx, *args)
+
+    def backward(ctx, *args):
+        with torch.profiler.record_function("RNN backward"):
+            return bwd(ctx, *args)
+    fc = get_op("FullyConnected")
+    real_fc = fc.fn
+    cls.forward, cls.backward = staticmethod(forward), staticmethod(backward)
+    fc.fn = _RangedHead(torch, real_fc)
+
+    def undo():
+        cls.forward, cls.backward = staticmethod(fwd), staticmethod(bwd)
+        fc.fn = real_fc
+    return undo
+
+
+def lstm_trainer(torch, mx, ctx, gen, cfg, mp=True):
+    """The LSTM LM of *cfg* (random weights from *gen*, shapes resolved)
+    and its ParallelTrainer (sgd, LSTM_OPT) on *ctx*."""
+    from mxnet_tpu_torch.gluon.model_zoo.lm import get_lstm_lm
+    from mxnet_tpu_torch.parallel import ParallelTrainer, make_mesh
+    vocab, dim, layers, _ = cfg
+    net = get_lstm_lm(vocab, dim, layers, prefix="lstmlm_")
+    net.initialize(init=lstm_init(mx, dim), ctx=ctx, generator=gen)
+    net._ensure_params(mx.nd.zeros((1, 8), ctx=ctx, dtype="int32"))
+    trainer = ParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+        optimizer_params=dict(LSTM_OPT),
+        mesh=make_mesh({"dp": 1}, [ctx.torch_device]), multi_precision=mp)
+    return net, trainer
+
+
+def lstm_init(mx, dim):
+    """PyTorch's own initialization of these layers: embeddings N(0, 1),
+    LSTM and head weights U(-1/sqrt(dim), 1/sqrt(dim)), biases zero.
+    (The package default, U(-0.07, 0.07) everywhere, leaves the hidden
+    states near 0.01 and the logits near 0: five steps of lr 0.01 then
+    move the loss by less than float32 resolves at 10.4.)"""
+    return mx.init.Mixed([".*embedding.*_weight", ".*"],
+                         [mx.init.Normal(1.0),
+                          mx.init.Uniform(1.0 / math.sqrt(dim))])
+
+
+def lstm_f32_loss(torch, trainer, x, y):
+    """The mean loss of the trainer's float32 master weights on (x, y),
+    inference evaluation in float32: the loss at a resolution the bf16
+    per-sample losses (spaced 2**-4 near 10) do not have."""
+    from mxnet_tpu_torch.executor import _build_eval
+    params = {n: (trainer._opt_state[n][-1] if n not in trainer._frozen
+                  else t).float() for n, t in trainer._params.items()}
+    ev = _build_eval(trainer._graph, False)
+    with torch.no_grad():
+        outs, _ = ev(dict(params, data0=trainer._device_batch(x),
+                          label0=trainer._label_batch(y)), trainer._aux)
+        return torch.mean(outs[0].float()).item()
+
+
+def lstm_check_step(torch, trainer, x, y):
+    """(b)'s check step on the trainer's bf16 compute weights taken to
+    float32: (loss, gradients) with the op's route, with ``plain_rnn``
+    bound in, and in bfloat16 with the route."""
+    from mxnet_tpu_torch.ops.rnn import plain_rnn
+    params = {n: t.float() for n, t in trainer._params.items()}
+    xd, yd = trainer._device_batch(x), trainer._label_batch(y)
+    out = {}
+    for name, dtype, impls in (("route", torch.float32, None),
+                               ("plain", torch.float32, {"RNN": plain_rnn}),
+                               ("bf16", torch.bfloat16, None)):
+        out[name] = graph_loss_grads(torch, trainer._graph, params,
+                                     trainer._aux, xd, yd, dtype, impls)
+        if torch.cuda.is_available() and xd.is_cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def rnn_route_ms(torch, cfg, dev, gen):
+    """ms of one forward and backward of the LM's RNN op at its full shape
+    (T = seq, batch 8, dim -> dim, 2 layers) on the card's route in bf16
+    and f32 (CUDA events, 3 runs after a warm-up) and on the plain route
+    in bf16 (one run)."""
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+    vocab, dim, layers, seq = cfg
+    out = {}
+    for name, dtn, fn, runs in (("cudnn bf16", "bfloat16", rnn_op._rnn, 3),
+                                ("cudnn f32", "float32", rnn_op._rnn, 3),
+                                ("plain bf16", "bfloat16",
+                                 rnn_op.plain_rnn, 1)):
+        case = ("lstm", layers, False, False, None)
+        ins, kw = rnn_case_inputs(torch, case, getattr(torch, dtn), dev,
+                                  gen, (seq, BATCH, dim, dim))
+        _, cots = rnn_run(torch, fn, ins, kw, None)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(runs):
+            rnn_run(torch, fn, ins, kw, cots)
+        ev[1].record()
+        torch.cuda.synchronize()
+        out[name] = ev[0].elapsed_time(ev[1]) / runs
+        del ins, cots
+        torch.cuda.empty_cache()
+    return out
+
+
+def lstm_lm_phase(torch, mx, ctx, card, gen, rng, cfg):
+    """(b): the north-star LSTM LM (see the phase comment)."""
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+    vocab, dim, layers, seq = cfg
+    on_card = ctx.device_type == "gpu"
+    net, trainer = lstm_trainer(torch, mx, ctx, gen, cfg)
+    n_params = sum(int(p.data().size) for p in
+                   net.collect_params().values())
+    x = mx.nd.array(rng.randint(0, vocab, (BATCH, seq)).astype("int32"),
+                    ctx=ctx, dtype="int32")
+    y = mx.nd.array(rng.randint(0, vocab, (BATCH, seq)).astype("float32"),
+                    ctx=ctx)
+    trainer._ensure_built(x._data, y._data)
+    trainer._refresh_frozen(x.shape, y.shape)
+    t0 = time.perf_counter()
+    chk = lstm_check_step(torch, trainer, x._data, y._data)
+    (lk, gk), (lp, gp), (lb, gb) = chk["route"], chk["plain"], chk["bf16"]
+    gaps = grad_gaps(torch, gk, gp)
+    loss_ratio, loss_ok = within(abs(lk - lp), abs(lp), TOL_TRAIN_LOSS)
+    bf16_loss = abs(lb - lk) / (BF16_U * max(1.0, abs(lk)))
+    bf16_grad = total_l2(torch, {n: g.float() for n, g in gb.items()},
+                         gk) / BF16_U
+    log("lstm (b): check step on %s (%.1f s): loss %.7f on the route, "
+        "%.7f with plain_rnn bound in, gap %.3g (%.4f of 1e-5 x max(1, "
+        "|loss|)); gradients %s (limit %g of max |g|); bf16 step on the "
+        "same weights: loss %.7f, gap %.4f of 2**-8 x max(1, |loss|) "
+        "(limit %g), whole-gradient L2 gap %.4f of 2**-8 (limit %g; the "
+        "f32 limit %g of max |g| must break: %.4g)" % (
+            card, time.perf_counter() - t0, lk, lp, abs(lk - lp),
+            loss_ratio, gap_text(gaps), TOL_LSTM_GRAD, lb, bf16_loss,
+            TOL_LSTM_BF16_LOSS, bf16_grad, TOL_LSTM_BF16_GRAD,
+            TOL_LSTM_GRAD, bf16_grad * BF16_U))
+    if not loss_ok or worst_share(gaps) > TOL_LSTM_GRAD or \
+            bf16_loss > TOL_LSTM_BF16_LOSS or \
+            bf16_grad > TOL_LSTM_BF16_GRAD or \
+            not bf16_grad * BF16_U > TOL_LSTM_GRAD:
+        raise RuntimeError("lstm (b): the check step failed (above)")
+    del chk, gk, gp, gb
+    # the main path: fit_batch steps, the route counted
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    f32_start = lstm_f32_loss(torch, trainer, x._data, y._data)
+    for k in rnn_op.ROUTES:
+        rnn_op.ROUTES[k] = 0
+    step1, _ = ns_steps(torch, trainer, x, y, 1) if on_card else \
+        ([trainer.fit_batch(x, y)], 0.0)
+    if on_card:
+        timed, dt = ns_steps(torch, trainer, x, y, LSTM_STEPS - 1)
+    else:
+        t0 = time.perf_counter()
+        timed = [trainer.fit_batch(x, y) for _ in range(LSTM_STEPS - 1)]
+        float(timed[-1])
+        dt = time.perf_counter() - t0
+    losses = [float(v) for v in step1 + timed]
+    ms = 1e3 * dt / (LSTM_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    routes = dict(rnn_op.ROUTES)
+    f32_end = lstm_f32_loss(torch, trainer, x._data, y._data)
+    shares = None
+    if on_card:
+        undo = rnn_ranges(torch)
+        try:
+            shares = profile(
+                torch, lambda: float(trainer.fit_batch(x, y)),
+                "lstm (b) profile, one step of batch %d x %d" % (BATCH, seq),
+                card, (("GEMM", lambda k: any(g in k for g in GEMM_KEYS)),),
+                ranges=RNN_RANGES)
+        finally:
+            undo()
+    frozen = {n: float(trainer._params[n].abs().sum())
+              for n in trainer._frozen}
+    route = rnn_op.route_of(x._data)
+    log("lstm (b): vocab %d, dim %d, %d LSTM layers, batch %d x %d int32 "
+        "ids, %d parameters, sgd lr %g momentum %g, bf16 compute weights "
+        "and f32 masters on %s: losses %s (the f32 masters' loss %.7f "
+        "before step 1, %.7f after step %d); %.3f ms a step (steps 2-%d, "
+        "host clock, readback at the end), %.0f tokens/s, peak device "
+        "memory %.3f GB; the RNN op's route %r (calls by route %s); frozen "
+        "begin states %s, sum |value| %s" % (
+            vocab, dim, layers, BATCH, seq, n_params,
+            LSTM_OPT["learning_rate"], LSTM_OPT["momentum"], card,
+            ", ".join("%.5f" % v for v in losses), f32_start, f32_end,
+            LSTM_STEPS, ms, LSTM_STEPS,
+            BATCH * seq / ms * 1e3, peak, route, routes,
+            sorted(frozen), list(frozen.values())))
+    if shares is not None:
+        log("lstm (b) shares of device time: RNN forward %.3f, RNN backward "
+            "%.3f, head GEMM forward %.3f, backward %.3f, the rest %.3f" % (
+                shares["RNN forward"], shares["RNN backward"],
+                shares["head forward"], shares["head backward"],
+                1.0 - sum(shares[k] for k in RNN_RANGES)))
+    failures = []
+    if on_card and n_params != LSTM_PARAMS and cfg == LSTM_CFG:
+        failures.append("%d parameters, not %d" % (n_params, LSTM_PARAMS))
+    if not all(math.isfinite(v) for v in losses) or \
+            not f32_end < f32_start:
+        failures.append("the loss did not fall: %s, f32 %.7f -> %.7f"
+                        % (losses, f32_start, f32_end))
+    if any(v != 0.0 for v in frozen.values()) or len(frozen) != 2:
+        failures.append("the frozen begin states are %s" % frozen)
+    want_route = "cudnn" if on_card else "plain"
+    if routes.get(want_route) != LSTM_STEPS or \
+            sum(routes.values()) != LSTM_STEPS:
+        failures.append("the op's calls by route %s (expected %d on %r)"
+                        % (routes, LSTM_STEPS, want_route))
+    if failures:
+        raise RuntimeError("lstm (b): " + "; ".join(failures))
+    del trainer, net, x, y
+    route_ms = None
+    if on_card:
+        torch.cuda.empty_cache()
+        route_ms = rnn_route_ms(torch, cfg, ctx.torch_device, gen)
+        log("lstm (b): the RNN op alone at the LM's shape (T %d, batch %d, "
+            "%d -> %d, %d layers), one forward and backward: cudnn route "
+            "bf16 %.3f ms, f32 %.3f ms; plain route bf16 %.3f ms" % (
+                seq, BATCH, dim, dim, layers, route_ms["cudnn bf16"],
+                route_ms["cudnn f32"], route_ms["plain bf16"]))
+    return {"params": n_params, "losses": losses, "ms": ms,
+            "f32_loss": (f32_start, f32_end),
+            "tokens_per_s": BATCH * seq / ms * 1e3, "peak_gb": peak,
+            "routes": routes, "shares": shares, "route_ms": route_ms,
+            "check": {"loss_ratio": loss_ratio, "grad": worst_share(gaps),
+                      "bf16_loss": bf16_loss, "bf16_grad": bf16_grad}}
+
+
+def markov_corpus(rng, vocab, n, lengths=BUCKETS):
+    """*n* sentences of a sparse first-order Markov chain over ids 1 ..
+    vocab - 1 (0 is padding): each id has 3 likely successors, taken with
+    probability 0.9, else a uniform id — the chain of
+    examples/train_lm.py's ``synthetic_corpus`` without its dense
+    (vocab - 1)**2 table."""
+    real = vocab - 1
+    succ = rng.randint(0, real, (real, 3))
+    sentences = []
+    for _ in range(n):
+        length = int(rng.choice(lengths))
+        s = [int(rng.randint(real))]
+        for _ in range(length - 1):
+            s.append(int(succ[s[-1], rng.randint(3)])
+                     if rng.rand() < 0.9 else int(rng.randint(real)))
+        sentences.append([t + 1 for t in s])
+    return sentences
+
+
+def bucket_sym_gen(mx, cfg):
+    """examples/train_lm.py's ``sym_gen`` over a stack of LSTMCells."""
+    vocab, hidden, embed_dim, layers = cfg
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(layers):
+        stack.add(mx.rnn.LSTMCell(num_hidden=hidden, prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        embed = mx.sym.Embedding(data=mx.sym.var("data"), input_dim=vocab,
+                                 output_dim=embed_dim, name="embed")
+        outputs, _ = stack.unroll(seq_len, inputs=embed,
+                                  merge_outputs=True)
+        pred = mx.sym.reshape(outputs, shape=(-1, hidden))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=vocab,
+                                     name="pred")
+        label = mx.sym.reshape(mx.sym.var("softmax_label"), shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, use_ignore=True,
+                                    ignore_label=0, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def bucket_nll(torch, probs, label):
+    """(summed negative log-likelihood in float64, tokens) of a batch,
+    label 0 ignored, as ``Perplexity(ignore_label=0)`` counts it."""
+    p = probs._data.reshape(-1, probs.shape[-1])
+    ids = label._data.to(p.device).reshape(-1).long()
+    keep = ids != 0
+    picked = p.gather(1, ids[:, None])[:, 0].double()
+    nll = -torch.log(torch.clamp(picked, min=1e-10))
+    return torch.where(keep, nll, torch.zeros_like(nll)).sum(), keep.sum()
+
+
+def bucketing_phase(torch, mx, ctx, card, rng, cfg, n_train, n_val):
+    """(c): one epoch of the example's loop through BucketingModule.fit
+    (see the phase comment), with its checks."""
+    on_card = ctx.device_type == "gpu"
+    vocab = cfg[0]
+    train = mx.rnn.BucketSentenceIter(
+        markov_corpus(rng, vocab, n_train), BUCKET_BATCH,
+        buckets=list(BUCKETS), invalid_label=0, seed=int(rng.randint(1000)))
+    val = mx.rnn.BucketSentenceIter(
+        markov_corpus(rng, vocab, n_val), BUCKET_BATCH,
+        buckets=list(BUCKETS), invalid_label=0, shuffle=False)
+    bm = mx.mod.BucketingModule(bucket_sym_gen(mx, cfg),
+                                default_bucket_key=train.default_bucket_key,
+                                context=ctx)
+    binds = []
+    new_module = bm._new_module
+
+    def counted(key):
+        binds.append(key)
+        return new_module(key)
+    bm._new_module = counted
+    per_batch, stamps = [], []
+
+    def record(param):
+        batch = param.locals["data_batch"]
+        nll, n = bucket_nll(torch, bm.get_outputs()[0], batch.label[0])
+        per_batch.append((batch.bucket_key, nll, n))
+        stamps.append(time.perf_counter())
+    ppl = mx.metric.Perplexity(ignore_label=0)
+    t0 = time.perf_counter()
+    bm.fit(train, eval_metric=ppl, optimizer="adam",
+           optimizer_params={"learning_rate": BUCKET_LR},
+           initializer=mx.init.Xavier(), num_epoch=1,
+           batch_end_callback=record)
+    wall = time.perf_counter() - t0
+    default = bm._buckets[bm._default_bucket_key]
+    names = default._exec_group.param_names
+    shared = all(
+        m._exec_group.execs[0].arg_dict[n] is
+        default._exec_group.execs[0].arg_dict[n] and
+        m._exec_group.execs[0].arg_dict[n]._data.data_ptr() ==
+        default._exec_group.execs[0].arg_dict[n]._data.data_ptr()
+        for m in bm._buckets.values() for n in names)
+    one_updater = all(m._updater is default._updater
+                      for m in bm._buckets.values())
+    ppls = [math.exp(float(nll) / max(int(n), 1))
+            for _, nll, n in per_batch]
+    k = min(BUCKET_WINDOW, len(ppls) // 2)
+    first, last = sum(ppls[:k]) / k, sum(ppls[-k:]) / k
+    by_bucket = {}
+    for i in range(1, len(stamps)):
+        key = per_batch[i][0]
+        by_bucket.setdefault(key, []).append(stamps[i] - stamps[i - 1])
+    tokens = sum(BUCKET_BATCH * key for key, _, _ in per_batch)
+    span = stamps[-1] - stamps[0] if len(stamps) > 1 else wall
+    tok_span = sum(BUCKET_BATCH * key for key, _, _ in per_batch[1:])
+    score = dict(bm.score(val, mx.metric.Perplexity(ignore_label=0)))[
+        "perplexity"]
+    preds = bm.predict(val)
+    val.reset()
+    total, count = 0.0, 0
+    row = 0
+    for b in val:
+        rows = BUCKET_BATCH * b.bucket_key
+        nll, n = bucket_nll(torch, preds[row:row + rows], b.label[0])
+        total, count, row = total + float(nll), count + int(n), row + rows
+    recomputed = math.exp(total / count)
+    del preds
+    log("lstm (c): examples/train_lm.py's loop at vocab %d, hidden %d, "
+        "embed %d, %d layers, batch %d, buckets %s through BucketingModule "
+        "(adam lr %g, Xavier) on %s: one epoch of %d batches (%d tokens) "
+        "in %.2f s; ms a batch by bucket %s; %.0f tokens/s (batches 2-%d); "
+        "training perplexity mean of the first %d batches %.3f, of the "
+        "last %d %.3f; score %.9f, from predict's outputs %.9f; buckets "
+        "bound %s; shared arrays %s; one updater %s" % (
+            vocab, cfg[1], cfg[2], cfg[3], BUCKET_BATCH, list(BUCKETS),
+            BUCKET_LR, card, len(per_batch), tokens, wall,
+            {k: round(1e3 * sum(v) / len(v), 3)
+             for k, v in sorted(by_bucket.items())},
+            tok_span / max(span, 1e-9), len(per_batch), k, first, k, last,
+            score, recomputed, binds, shared, one_updater))
+    failures = []
+    if not shared:
+        failures.append("a bucket's arrays are not the default bucket's")
+    if not one_updater:
+        failures.append("the buckets do not share one updater")
+    if sorted(binds) != sorted(set(binds)) or \
+            set(binds) != set(bm._buckets):
+        failures.append("buckets bound %s" % binds)
+    if not last < first:
+        failures.append("perplexity did not fall: %.3f -> %.3f"
+                        % (first, last))
+    if abs(score - recomputed) > TOL_SCORE * abs(recomputed):
+        failures.append("score %.9f is not the perplexity of predict's "
+                        "outputs %.9f" % (score, recomputed))
+    shares = None
+    val.reset()
+    batch = next(iter(val))
+    if on_card:
+        def one_batch():
+            bm.forward_backward(batch)
+            bm.update()
+            float(bm.get_outputs()[0]._data[0, 0])
+        shares = profile(torch, one_batch, "lstm (c) profile, one batch "
+                         "of bucket %d" % batch.bucket_key, card, ())
+    ckpt = bucket_checkpoint(torch, mx, bm, cfg, ctx, train, batch)
+    log("lstm (c): save_checkpoint (with optimizer states) -> a fresh "
+        "BucketingModule: its next step differs from the original's in %d "
+        "of %d values held bit for bit; the Embedding-read arrays worst gap "
+        "/ limit %.4f" % ckpt)
+    if ckpt[0] or ckpt[2] > 1.0:
+        failures.append("the loaded BucketingModule's step is not the "
+                        "original's")
+    if failures:
+        raise RuntimeError("lstm (c): " + "; ".join(failures))
+    return {"batches": len(per_batch), "first": first, "last": last,
+            "ms_by_bucket": {k: 1e3 * sum(v) / len(v)
+                             for k, v in by_bucket.items()},
+            "tokens_per_s": tok_span / max(span, 1e-9), "score": score,
+            "recomputed": recomputed, "binds": binds,
+            "checkpoint": ckpt, "idle": (shares or {}).get("idle")}
+
+
+def bucket_checkpoint(torch, mx, bm, cfg, ctx, train, batch):
+    """save_checkpoint with optimizer states, loaded into a fresh
+    BucketingModule (parameters, states and the update counts the states
+    blob does not hold); the next step of both on *batch*: (values that
+    differ among those held bit for bit, of how many, worst Embedding-read
+    array gap / its limit)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bucketing_")
+    try:
+        prefix = os.path.join(tmp, "lm")
+        bm.save_checkpoint(prefix, 1, save_optimizer_states=True)
+        _, args, auxs = mx.model.load_checkpoint(prefix, 1, ctx=mx.cpu())
+        fresh = mx.mod.BucketingModule(
+            bucket_sym_gen(mx, cfg),
+            default_bucket_key=train.default_bucket_key, context=ctx)
+        fresh.bind(train.provide_data, train.provide_label)
+        fresh.set_params(args, auxs)
+        fresh.init_optimizer(optimizer="adam", optimizer_params={
+            "learning_rate": BUCKET_LR})
+        key = bm._default_bucket_key
+        fresh._buckets[key].load_optimizer_states(prefix + "-0001.states")
+        src, dst = bm._buckets[key]._optimizer, \
+            fresh._buckets[key]._optimizer
+        dst._index_update_count = dict(src._index_update_count)
+        dst.num_update = src.num_update
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = []
+    for mod in (bm, fresh):
+        mod.forward_backward(batch)
+        mod.update()
+        got.append(module_bits(torch, mod._buckets[key]))
+    scattered = scatter_arrays(bm._buckets[key]._symbol)
+    differ, total, _, worst = module_compare(got[1], got[0], scattered)
+    return differ, total, worst
+
+
+def phase_lstm(torch, card, seed, ctx=None, lstm_cfg=None, bucket_cfg=None,
+               sentences=None, op_shape=RNN_SHAPE,
+               op_dtypes=("float32", "bfloat16")):
+    """Phase 11: recurrent networks (see the phase comment).  *ctx*, the
+    configurations, *sentences* (train, val) and *op_shape* size it down
+    for the CPU test, where the op's route is the plain loop itself."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    if ctx is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("phase 11 needs CUDA")
+        ctx = mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    dev = ctx.torch_device
+    t_phase = time.perf_counter()
+    record = {"card": card}
+    record["op"] = rnn_op_checks(torch, dev, on_card, seed, op_shape,
+                                 op_dtypes)
+    record["control_flow"] = control_flow_checks(torch, mx, ctx, card)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    rng = np.random.RandomState(seed + 11)
+    t0 = time.perf_counter()
+    record["lm"] = lstm_lm_phase(torch, mx, ctx, card, gen, rng,
+                                 lstm_cfg or LSTM_CFG)
+    record["lm"]["seconds"] = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_train, n_val = sentences or (BUCKET_SENTENCES, BUCKET_VAL)
+    record["bucketing"] = bucketing_phase(torch, mx, ctx, card, rng,
+                                          bucket_cfg or BUCKET_CFG, n_train,
+                                          n_val)
+    record["bucketing"]["seconds"] = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.empty_cache()
+    log("lstm: phase 11 took %.1f s ((b) %.1f s, (c) %.1f s); it launches "
+        "none of the three kernels" % (
+            time.perf_counter() - t_phase, record["lm"]["seconds"],
+            record["bucketing"]["seconds"]))
+    return record
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3825,6 +4679,7 @@ def main():
     decode_launches = phase_decode(torch, card, args.seed)
     user_launches = phase_user_surface(torch, card, args.seed)
     module_launches = phase_module(torch, card, args.seed)["launches"]
+    phase_lstm(torch, card, args.seed)
     b, h, sq, sk, d = PATH_SHAPE
     kernels = []
     for name, source, replaces in (

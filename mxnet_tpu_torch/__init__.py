@@ -25,6 +25,7 @@ from . import initializer as init  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import lr_scheduler  # noqa: F401
 from . import gluon  # noqa: F401
+from . import rnn  # noqa: F401
 from . import model  # noqa: F401
 from . import io  # noqa: F401
 from . import metric  # noqa: F401

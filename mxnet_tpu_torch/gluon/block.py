@@ -20,7 +20,9 @@ PyTorch's tape takes the place of the JAX package's per-graph
 ``jax.vjp``.  Outside it, forwards run under ``no_grad``.
 
 Deferred parameter shapes are resolved by symbolic shape inference over
-the traced graph at the first forward, as in the JAX package.
+the traced graph at the first forward, as in the JAX package; where
+inference cannot reach them (an RNN layer's packed weights), one eager
+pass lets each child resolve its own.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..executor import _build_eval
 from ..ndarray import NDArray
 from .. import symbol as sym_mod
 from ..symbol.symbol import _infer_shapes
-from .parameter import Parameter, ParameterDict
+from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
@@ -269,12 +271,36 @@ class _CachedGraph:
         self.aux_names = list(self.symbol.list_auxiliary_states())
         self._eval_train = _build_eval(self.symbol, True)
         self._eval_infer = _build_eval(self.symbol, False)
+        self._free = (None, {})
+
+    def _free_args(self, params, flat_inputs):
+        """Zeros for the graph arguments no Parameter backs (a fused RNN
+        layer called without states creates its begin-state variables),
+        at the shapes inference gives for these inputs, as ``simple_bind``
+        fills an unbound argument."""
+        free = [n for n in self.param_names if n not in params]
+        key = tuple(tuple(x.shape) for x in flat_inputs)
+        if free and self._free[0] != key:
+            shapes = {n: tuple(x.shape)
+                      for n, x in zip(self.input_names, flat_inputs)}
+            shapes.update({n: params[n].shape for n in self.param_names
+                           if n in params})
+            arg_shapes, _, _ = self.symbol.infer_shape(**shapes)
+            inferred = dict(zip(self.symbol.list_arguments(), arg_shapes))
+            ref = next((params[n].data()._data for n in self.param_names
+                        if n in params), flat_inputs[0]._data)
+            self._free = (key, {n: torch.zeros(inferred[n], dtype=ref.dtype,
+                                               device=ref.device)
+                                for n in free})
+        return self._free[1] if free else {}
 
     def run(self, block, flat_inputs):
         params = {p.name: p for p in block.collect_params().values()}
         arg_map = {n: x._data for n, x in zip(self.input_names, flat_inputs)}
+        arg_map.update(self._free_args(params, flat_inputs))
         for n in self.param_names:
-            arg_map[n] = params[n].data()._data
+            if n in params:
+                arg_map[n] = params[n].data()._data
         aux_map = {n: params[n].data()._data for n in self.aux_names}
         ev = self._eval_train if autograd.is_training() else self._eval_infer
         with torch.set_grad_enabled(autograd.is_recording()):
@@ -338,6 +364,18 @@ class HybridBlock(Block):
         params = list(self.collect_params().values())
         if any(p._deferred_init is not None for p in params):
             self._infer_attrs(*args)
+            if any(p._deferred_init is not None for p in params) and args \
+                    and all(isinstance(a, NDArray) for a in args):
+                # shape inference could not resolve everything (an RNN
+                # layer's packed weights): one eager pass lets each child
+                # resolve its own shapes from its real input
+                try:
+                    with torch.no_grad():
+                        self.hybrid_forward(
+                            nd, *args, **{n: p.data() for n, p in
+                                          self._reg_params.items()})
+                except DeferredInitializationError:
+                    pass
         for p in params:
             p._check_initialized()
 
@@ -350,7 +388,9 @@ class HybridBlock(Block):
         self._ensure_params(x, *args)
         flat, _ = _flatten([x] + list(args))
         if self._active:
-            if self._cached_graph is None:
+            if self._cached_graph is None or \
+                    len(self._cached_graph.input_names) != len(flat):
+                # traced anew for another input count (states given or not)
                 self._cached_graph = _CachedGraph(self, flat)
             return self._cached_graph.run(self, flat)
         params = {n: p.data() for n, p in self._reg_params.items()}

@@ -1,0 +1,27 @@
+"""The LSTM language model (port of ``mxnet_tpu/gluon/model_zoo/lm.py``):
+an Embedding, a fused-RNN LSTM stack and a head, shared by
+``tools/benchmark_lm.py --arch lstm`` and the trainer tests."""
+
+from __future__ import annotations
+
+from ..block import HybridBlock
+from .. import nn, rnn
+
+__all__ = ["LSTMLM", "get_lstm_lm"]
+
+
+class LSTMLM(HybridBlock):
+    def __init__(self, vocab, dim, layers, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.embed = nn.Embedding(vocab, dim)
+            self.lstm = rnn.LSTM(dim, num_layers=layers, layout="NTC")
+            self.head = nn.Dense(vocab, use_bias=False, flatten=False)
+
+    def hybrid_forward(self, F, x):
+        return self.head(self.lstm(self.embed(x)))
+
+
+def get_lstm_lm(vocab=10000, dim=650, layers=2, **kwargs):
+    """Defaults: the PTB "medium" configuration (2 x 650)."""
+    return LSTMLM(vocab, dim, layers, **kwargs)

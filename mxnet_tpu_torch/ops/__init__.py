@@ -8,3 +8,5 @@ from . import attention  # noqa: F401
 from . import reduce  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import random_ops  # noqa: F401
+from . import rnn  # noqa: F401
+from . import control_flow  # noqa: F401

@@ -33,10 +33,13 @@ saves the outputs of matrix products and convolutions and recomputes the
 rest, the counterpart of ``dots_with_no_batch_dims_saveable``) or a
 callable taken as the selective-checkpoint policy.
 
+Graph arguments with no Parameter behind them (the begin states a fused
+RNN layer creates when called without states) are zero-filled frozen
+inputs at the shapes ``Symbol.infer_shape`` gives for the batch.
+
 Not ported, each raising ``MXNetError``: ``fit()`` (needs ``io``
-DataIters and ``resilience``), ``param_specs`` (tensor parallelism),
-a mesh of more than one device, and graph arguments with no Parameter
-behind them (needs ``Symbol.infer_shape``).
+DataIters and ``resilience``), ``param_specs`` (tensor parallelism) and
+a mesh of more than one device.
 """
 
 from __future__ import annotations

@@ -1,7 +1,5 @@
 """sym — the symbolic graph API (port of ``mxnet_tpu/symbol/``)."""
 
-import types as _types
-
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from .symbol import (Symbol, var, Variable, Group, load,  # noqa: F401
                      load_json, AttrScope)
@@ -12,6 +10,5 @@ _register.populate(globals())
 zeros = globals()["_zeros"]
 ones = globals()["_ones"]
 
-contrib = _types.ModuleType(__name__ + ".contrib",
-                            "contrib ops (sym.contrib.DotProductAttention)")
+from . import contrib  # noqa: E402  (foreach, while_loop, cond, ...)
 _register.populate_contrib(contrib.__dict__)

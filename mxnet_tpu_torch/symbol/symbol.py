@@ -7,6 +7,9 @@ JAX package's, so a graph saved by either package loads in the other.
 One difference in what is written: a one-element tuple is written as
 ``(1,)``, which parses back as a tuple.  The JAX package writes ``(1)``,
 which parses back as the int 1; this package accepts both spellings.
+A tuple of names is written quoted, and a control-flow op's subgraph as
+its own graph JSON, so both read back (the JAX package writes a
+subgraph as its repr, which no reader can rebuild).
 
 Shape inference (``_infer_shapes``, which resolves deferred parameter
 shapes at a block's first forward) runs per-op rules where parameter
@@ -116,6 +119,8 @@ class Symbol:
     def __getitem__(self, idx):
         if isinstance(idx, str):
             idx = self.list_outputs().index(idx)
+        if isinstance(idx, slice):
+            return Symbol(self._outputs[idx])
         return Symbol([self._outputs[idx]])
 
     def __len__(self):
@@ -472,7 +477,12 @@ class Symbol:
 def _stringify(v):
     if isinstance(v, str):
         return v
+    if isinstance(v, Symbol):
+        # a control-flow op's subgraph: its own graph JSON
+        return v.tojson()
     if isinstance(v, (tuple, list)):
+        if any(isinstance(x, str) for x in v):
+            return repr(tuple(v))       # names: quoted, so they parse back
         if len(v) == 1:
             return "(%s,)" % (v[0],)
         return "(" + ", ".join(str(x) for x in v) + ")"
@@ -483,11 +493,14 @@ def _parse_attr(v):
     if not isinstance(v, str):
         return v
     try:
-        return ast.literal_eval(v)
+        v = ast.literal_eval(v)
     except (ValueError, SyntaxError):
         if v in ("True", "False"):
             return v == "True"
         return v
+    if isinstance(v, dict) and "nodes" in v and "heads" in v:
+        return load_json(json.dumps(v))     # a subgraph's graph JSON
+    return v
 
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
@@ -702,6 +715,31 @@ def _chan_param_shape(params, ins, n_extra):
 @shape_rule("InstanceNorm")
 def _in_shape(params, ins):
     return _chan_param_shape(params, ins, 2)
+
+
+@shape_rule("RNN")
+def _rnn_shape(params, ins):
+    """Fused RNN: the packed parameter vector's length and the state
+    shapes (L * dirs, B, H) from the (T, B, F) data shape."""
+    from ..ops.rnn import rnn_param_size
+    mode = params.get("mode", "lstm")
+    n_out = 1
+    if params.get("state_outputs", False):
+        n_out += 2 if mode == "lstm" else 1
+    data = ins[0]
+    if data is None:
+        return ins, [None] * n_out
+    h = int(params.get("state_size", 0))
+    layers = int(params.get("num_layers", 1))
+    bidir = bool(params.get("bidirectional", False))
+    dirs = 2 if bidir else 1
+    t, b, f = data
+    ins = list(ins)
+    ins[1] = (rnn_param_size(mode, f, h, layers, bidir),)
+    state_shape = (layers * dirs, b, h)
+    for i in range(2, len(ins)):
+        ins[i] = state_shape
+    return ins, [(t, b, h * dirs)] + [state_shape] * (n_out - 1)
 
 
 def _infer_shapes(symbol, known_var_shapes, partial=False):

@@ -29,6 +29,12 @@ its ``score`` equals the perplexity of ``predict``'s outputs, and a
 checkpoint loaded into a fresh Module steps bit-equal to the original;
 every check of the phase is wired; the phase raises without CUDA.
 
+Phase 11 (recurrent networks): on the CPU at a small size (the op's
+route is the plain loop there), the op checks, the control-flow checks,
+the LSTM LM trainer and the bucketing loop run and pass; every check of
+the phase is wired; the limits pass the gaps its first H100 run
+measured; the phase raises without CUDA.
+
 Phase 8 (paged decode): on a 2-layer LM (dim 64, vocab 97) served on the
 CPU with the JAX package's weights, the decode step's teacher-forced
 logits are within 1e-5 of the JAX ``TransformerLM`` forward; paged
@@ -592,7 +598,8 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
         "phase_decode": lambda t, c, s: 552,
         "phase_user_surface": lambda t, c, s: {k: 72 for k in kernels},
         "phase_module": lambda t, c, s: {"launches": {k: 240
-                                                      for k in kernels}}}
+                                                      for k in kernels}},
+        "phase_lstm": lambda t, c, s: {}}
     for name, fn in stub.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     assert chip_smoke.main() == 0
@@ -894,3 +901,98 @@ def test_module_phase_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         chip_smoke.phase_module(torch, "no card", 0)
+
+
+# phase 11 (recurrent networks) at a small size on the CPU
+LSTM_SMALL = dict(lstm_cfg=(50, 16, 2, 12), bucket_cfg=(30, 16, 8, 2),
+                  sentences=(320, 256), op_shape=(6, 2, 3, 4),
+                  op_dtypes=("float32",))
+
+
+def _lstm_phase(monkeypatch):
+    import torch
+    import mxnet_tpu_torch as mx
+    # the bucketing loop's few small batches need a larger step to move
+    monkeypatch.setattr(chip_smoke, "BUCKET_LR", 0.02)
+    return chip_smoke.phase_lstm(torch, "cpu", 0, ctx=mx.cpu(),
+                                 **LSTM_SMALL)
+
+
+def test_lstm_phase_runs_on_the_cpu(monkeypatch):
+    rec = _lstm_phase(monkeypatch)
+    assert len(rec["op"]) == len(chip_smoke.RNN_CASES)
+    assert all(r["relaunch_equal"] and r["ratio"] == 0.0
+               for r in rec["op"])
+    assert rec["control_flow"]["differ"] == 0
+    lm = rec["lm"]
+    assert lm["f32_loss"][1] < lm["f32_loss"][0]
+    assert lm["routes"] == {"cudnn": 0, "plain": chip_smoke.LSTM_STEPS}
+    b = rec["bucketing"]
+    assert b["last"] < b["first"] and sorted(b["binds"]) == [8, 12, 16, 20]
+    assert b["checkpoint"][0] == 0
+    assert abs(b["score"] - b["recomputed"]) <= \
+        chip_smoke.TOL_SCORE * b["recomputed"]
+
+
+@pytest.mark.parametrize("fault", ["op", "fall", "routes", "score",
+                                   "checkpoint"])
+def test_lstm_checks_are_wired(monkeypatch, fault):
+    """Each check of phase 11 fails the phase when its numbers break."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+    if fault == "op":
+        monkeypatch.setattr(chip_smoke, "rnn_worst", lambda *a: 1.0)
+    elif fault == "fall":
+        real = chip_smoke.lstm_f32_loss
+        calls = []
+
+        def loss(*a):
+            calls.append(1)
+            return real(*a) + (1.0 if len(calls) == 2 else 0.0)
+        monkeypatch.setattr(chip_smoke, "lstm_f32_loss", loss)
+    elif fault == "routes":
+        # the op takes the library route on the CPU: not what (b) expects
+        monkeypatch.setattr(rnn_op, "route_of", lambda data: "cudnn")
+    elif fault == "score":
+        real = mx.mod.BucketingModule.score
+
+        def off(self, *a, **kw):
+            return [(n, v * (1 + 1e-6)) for n, v in real(self, *a, **kw)]
+        monkeypatch.setattr(mx.mod.BucketingModule, "score", off)
+    else:
+        monkeypatch.setattr(chip_smoke, "bucket_checkpoint",
+                            lambda *a: (1, 10, 0.0))
+    message = {"op": "lstm \\(a\\)", "fall": "did not fall",
+               "routes": "calls by route", "score": "is not the perplexity",
+               "checkpoint": "not the original's"}[fault]
+    with pytest.raises(RuntimeError, match=message):
+        _lstm_phase(monkeypatch)
+
+
+# phase 11's first passing run on an NVIDIA H100 80GB HBM3 (PERF.md): the
+# op's worst error over its cases as a share of its limit, f32 and bf16;
+# the least TF32 f32 error and the least bf16 error in units of the f32
+# limit
+RNN_F32, RNN_BF16, RNN_TF32_LEAST, RNN_BF16_IN_F32_LEAST = \
+    0.3552, 0.4512, 6.20, 40.3
+
+
+def test_rnn_limits_pass_the_measured_gaps_and_fail_tf32():
+    assert RNN_F32 <= 1.0 and RNN_BF16 <= 1.0
+    assert RNN_TF32_LEAST > 1.0 and RNN_BF16_IN_F32_LEAST > 1.0
+    assert chip_smoke.TOL_RNN["bfloat16"] == 2.0 ** -7
+    # a bf16 rounding moves a value by at most half an ulp, 2**-8 of it:
+    # within the bf16 limit, and far outside the f32 one
+    import torch
+    v = torch.tensor([1.0 + 2.0 ** -8 - 2.0 ** -20, 1.5, 0.7])
+    err = float(((v.to(torch.bfloat16).float() - v).abs() /
+                 v.abs().max()).max())
+    assert err <= chip_smoke.TOL_RNN["bfloat16"]
+    assert err > chip_smoke.TOL_RNN["float32"]
+
+
+def test_lstm_phase_raises_without_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chip_smoke.phase_lstm(torch, "no card", 0)

@@ -58,7 +58,15 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.module, mxnet_tpu_torch.io, "
             "mxnet_tpu_torch.metric, mxnet_tpu_torch.callback, "
             "mxnet_tpu_torch.executor, mxnet_tpu_torch.optimizer.tree_opt, "
-            "mxnet_tpu_torch.name, mxnet_tpu_torch.attribute; "
+            "mxnet_tpu_torch.name, mxnet_tpu_torch.attribute, "
+            "mxnet_tpu_torch.rnn, mxnet_tpu_torch.rnn.io, "
+            "mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.contrib.rnn, "
+            "mxnet_tpu_torch.gluon.model_zoo.lm, mxnet_tpu_torch.ops.rnn, "
+            "mxnet_tpu_torch.ops.control_flow, "
+            "mxnet_tpu_torch.symbol.contrib, "
+            "mxnet_tpu_torch.module.bucketing_module, "
+            "mxnet_tpu_torch.module.sequential_module, "
+            "mxnet_tpu_torch.module.python_module; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')))")
@@ -113,7 +121,10 @@ def test_gpu_context_without_cuda_raises(no_cuda):
                                    "nd._arange", "nd.random.uniform",
                                    "nd.random.normal", "mx.random.randint",
                                    "load_parameters", "simple_bind", "bind",
-                                   "Module", "Module.load"])
+                                   "Module", "Module.load",
+                                   "BucketingModule", "LSTM initialize",
+                                   "get_lstm_lm initialize",
+                                   "SequentialModule"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -186,6 +197,20 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
                 "fc_bias": mx.nd.zeros((2,), ctx=mx.cpu())}, {})
             call = lambda: mx.mod.Module.load(
                 str(tmp_path / "m"), 1, label_names=None).bind(shapes)
+    elif entry in ("BucketingModule", "SequentialModule"):
+        out = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2,
+                                    name="fc")
+        if entry == "BucketingModule":
+            mod = mx.mod.BucketingModule(lambda key: (out, ("data",), ()),
+                                         default_bucket_key=3)
+        else:
+            mod = mx.mod.SequentialModule().add(
+                mx.mod.Module(out, label_names=None))
+        call = lambda: mod.bind([("data", (2, 3))])
+    elif entry == "LSTM initialize":
+        call = mx.gluon.rnn.LSTM(4, input_size=3).initialize
+    elif entry == "get_lstm_lm initialize":
+        call = mx.gluon.model_zoo.lm.get_lstm_lm(10, 4, 2).initialize
     elif entry == "load_parameters":
         net = mx.gluon.nn.Dense(2, in_units=3, prefix="d_")
         net.initialize(ctx=mx.cpu())
