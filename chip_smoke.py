@@ -155,6 +155,34 @@ Phases, each reported on its own line; any failure exits non-zero:
              corpus: ms a batch by bucket, tokens/s, idle share; shared
              arrays, one updater, one bind a bucket, perplexity falls,
              ``score`` against ``predict``, a checkpoint's next step.
+12. data   — the data path; no kernel of the repo lies on it.  (a) The
+             decode route (the card has no libjpeg: nvJPEG onto the card,
+             ``csrc/nvjpeg_decode.cu``, then the libjpeg team's geometry
+             as torch ops), its builds, ``nproc``, cv2 and PIL.  (b)
+             1,280 JPEGs (quality 90, sides 333-500, label i % 1000)
+             through ``MXIndexedRecordIO``.  (c) The route against a
+             full-size decode by the same library with the geometry in
+             plain torch: resize 0 centre and random crop bit-equal,
+             resize 256 mean |d| < 8, two passes bit-equal.  (d)
+             ``ImageRecordIter`` alone, images/s at 4 and ``nproc``
+             threads.  (e) ``examples/train_imagenet.py``'s module flow:
+             ResNet-50 v1 (classes 1000) from ``build_symbol``'s way,
+             ``ImageRecordIter`` (shuffle, random crop and mirror, 4
+             threads) -> ``Module.fit(device_prefetch=2)`` (sgd lr 0.1,
+             momentum 0.9, wd 1e-4, rescale_grad 1/128, Xavier, local
+             kvstore, Speedometer) for one epoch of 10 batches of 128 x
+             224^2: ms a batch, images/s, the input-stall share, steps
+             stalled, ring occupancy, peak memory; again at depth 0 and
+             from an in-memory ``NDArrayIter``; the loss finite, every
+             batch native.  (f) With deterministic cuDNN, 3 batches at
+             depth 2, at 0 and on the legacy step: weights, running
+             statistics and momenta bit-equal, the statistics moved.
+             (g) The gluon flow: ``ImageRecordDataset`` ->
+             ``RandomResizedCrop``, flip, ``ToTensor``, ``Normalize`` ->
+             ``DataLoader`` (8 spawned workers, pin_memory) -> the
+             hybridized ResNet-50, 6 batches: images/s, the share
+             waiting on the loader; deterministic transforms through the
+             workers bit-equal to ``num_workers=0``'s.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -185,6 +213,8 @@ PATH_SHAPE = (8, 16, 2048, 2048, 64)
 VOCAB, DIM, HEADS, LAYERS, SEQ = 32000, 1024, 16, 12, 2048
 BATCH = 8
 SOURCES = ("flash_fwd", "flash_bwd")
+DATA_SOURCES = ("nvjpeg_decode",)       # phase 12's nvJPEG binding (nvcc)
+HOST_SOURCES = ("recordio_reader",)     # phase 12's g++ library (src/io)
 # (kernel, source, part of the mangled name) of the instantiations the
 # paths run, f32 and D = 64 (flash_fwd_kernel<float, 64, ...>,
 # flash_bwd_dkdv_kernel<float, 64, ...>, flash_bwd_dq_kernel<float, 64,
@@ -490,11 +520,20 @@ def path_usage(logs):
 
 def phase_build():
     from mxnet_tpu_torch.ops import _cuda
+    from mxnet_tpu_torch.runtime import native
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(
+            len(SOURCES) + len(DATA_SOURCES) + len(HOST_SOURCES)) as pool:
+        host = [pool.submit(native.build, n) for n in HOST_SOURCES]
+        data = [pool.submit(_cuda.build, n) for n in DATA_SOURCES]
         infos = list(pool.map(_cuda.build, SOURCES))
+        for name, fut in zip(DATA_SOURCES + HOST_SOURCES, data + host):
+            info = fut.result()
+            log("build: %s (phase 12's path) in %.2f s" % (name,
+                                                           info["seconds"]))
     log("build: %d sources in %.2f s wall (nvcc %s, one process each)" % (
-        len(SOURCES), time.perf_counter() - t0, " ".join(_cuda.ARCH_FLAGS)))
+        len(SOURCES) + len(DATA_SOURCES) + len(HOST_SOURCES),
+        time.perf_counter() - t0, " ".join(_cuda.ARCH_FLAGS)))
     for name, info in zip(SOURCES, infos):
         log("build: %s in %.2f s%s" % (
             name, info["seconds"],
@@ -4655,6 +4694,645 @@ def phase_lstm(torch, card, seed, ctx=None, lstm_cfg=None, bucket_cfg=None,
     return record
 
 
+# phase 12: the data path (ROADMAP queue A item 13) as
+# examples/train_imagenet.py --trainer module drives it: JPEG records ->
+# mx.io.ImageRecordIter -> DevicePrefetcher (fit(device_prefetch=2)) ->
+# mx.mod.Module.fit on ResNet-50 v1; and the gluon flow,
+# ImageRecordDataset -> transforms -> DataLoader -> the gluon loop.
+DATA_EXAMPLES = 1280            # train_imagenet.py --num-examples
+DATA_SIDES = (333, 500)         # each side drawn per image (ImageNet-like)
+DATA_QUALITY = 90
+DATA_BATCH = 128
+DATA_IMAGE = 224
+DATA_CLASSES = 1000
+DATA_THREADS = 4                # train_imagenet.py --data-nthreads
+DATA_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+            "rescale_grad": 1.0 / DATA_BATCH}
+DATA_PARITY_BATCHES = 3
+DATA_GLUON_BATCHES = 6
+DATA_CHECK_IMAGES = 16          # the records (c) decodes
+DATA_RESIZE = 256               # (c)'s resize case
+TOL_DECODE_MEAN = 8.0           # mean |d| on 0-255 (tests/test_io.py:572)
+DATA_MEAN = (0.485, 0.456, 0.406)
+DATA_STD = (0.229, 0.224, 0.225)
+DATA_SHARES = (
+    ("convolutions", lambda n: any(k in n for k in CONV_KEYS)),
+    ("decode (nvJPEG)", lambda n: "jpeg" in n or "huffman" in n
+     or "idct" in n),
+)
+
+
+def data_probe():
+    """What can decode a JPEG here (ISSUE's probe list)."""
+    import ctypes.util
+    out = {"nproc": len(os.sched_getaffinity(0))}
+    for mod in ("cv2", "PIL"):
+        try:
+            out[mod] = __import__(mod).__version__
+        except ImportError:
+            out[mod] = None
+    out["jpeglib.h"] = os.path.exists("/usr/include/jpeglib.h")
+    out["libjpeg"] = ctypes.util.find_library("jpeg")
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    out["nvjpeg.h"] = os.path.exists(os.path.join(cuda, "include",
+                                                  "nvjpeg.h"))
+    return out
+
+
+def data_builds(on_card):
+    """(a): the libraries of the route, built at first use (phase 2 built
+    them on the card): [(name, seconds, command)]."""
+    from mxnet_tpu_torch.ops import _cuda
+    from mxnet_tpu_torch.runtime import native
+    out = []
+    info = native.build("recordio_reader")
+    out.append(("recordio_reader", info["seconds"], info["command"]))
+    if on_card:
+        info = _cuda.build("nvjpeg_decode")
+        out.append(("nvjpeg_decode", info["seconds"],
+                    " ".join(_cuda._command("nvjpeg_decode")[1])))
+    else:
+        info = native.build("jpeg_decode_pool")
+        out.append(("jpeg_decode_pool", info["seconds"], info["command"]))
+    return out
+
+
+def data_image(np, seed, i, sides):
+    """Record *i*'s image: a seeded smooth field plus mild texture, each
+    side drawn from *sides* (tests/test_io.py:542-547's field)."""
+    rs = np.random.RandomState(seed * 1000003 + i)
+    h, w = (int(v) for v in rs.randint(sides[0], sides[1] + 1, 2))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([(yy * 0.5 + i * 9) % 256, (xx * 0.4) % 256,
+                    ((yy + xx) * 0.3) % 256], -1)
+    img += rs.randint(0, 20, img.shape).astype(np.float32)
+    return img.clip(0, 255).astype(np.uint8)
+
+
+def data_records(np, recordio, tmp, seed, n, sides, classes):
+    """(b): *n* JPEGs at quality 90 through ``MXIndexedRecordIO``, label
+    i % classes.  Returns (prefix, file bytes, seconds, the first
+    DATA_CHECK_IMAGES encoded buffers)."""
+    t0 = time.perf_counter()
+
+    def encode(i):
+        return recordio.pack_img(recordio.IRHeader(0, float(i % classes), i,
+                                                   0),
+                                 data_image(np, seed, i, sides),
+                                 quality=DATA_QUALITY)
+
+    with concurrent.futures.ThreadPoolExecutor(
+            len(os.sched_getaffinity(0))) as pool:
+        packed = list(pool.map(encode, range(n)))
+    prefix = os.path.join(tmp, "train")
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i, s in enumerate(packed):
+        rec.write_idx(i, s)
+    rec.close()
+    bufs = [recordio.unpack(s)[1] for s in packed[:DATA_CHECK_IMAGES]]
+    if not all(b[:2] == b"\xff\xd8" for b in bufs):
+        raise RuntimeError("data (b): the records are not JPEGs (pack_img "
+                           "writes JPEG only through PIL)")
+    return prefix, os.path.getsize(prefix + ".rec"), \
+        time.perf_counter() - t0, bufs
+
+
+def data_full_decoder(torch, dev):
+    """A full-size decode by the route's library: nvJPEG on the card, the
+    libjpeg team (its whole image as the crop) on the CPU."""
+    from mxnet_tpu_torch.io import native_decode
+    from mxnet_tpu_torch.image.image import _jpeg_dims
+    if dev.type == "cuda":
+        pool = native_decode.NvjpegDecodePool(1, (8, 8), device=dev)
+
+        def full(buf):
+            hw, rcs = pool.info([buf])
+            if rcs[0] != 0:
+                raise RuntimeError("nvjpegGetImageInfo failed (%d)" % rcs[0])
+            return pool.decode_full([buf], hw)[0]
+        return full
+
+    def full(buf):
+        h, w = _jpeg_dims(buf)
+        out, ok = native_decode.NativeDecodePool(1, (h, w)).decode_batch(
+            [buf])
+        if not ok.all():
+            raise RuntimeError("libjpeg could not decode a record")
+        return torch.from_numpy(out[0])
+    return full
+
+
+def xorshift(s):
+    m = (1 << 64) - 1
+    s ^= (s << 13) & m
+    s ^= s >> 7
+    return s ^ ((s << 17) & m)
+
+
+def plain_geometry(torch, img, seed, resize, oh, ow, rand_crop, rand_mirror):
+    """The plain version of the team's geometry on a full-size decode, in
+    plain torch: the 1/denom scale as rounded window means, shorter-side
+    bilinear resize (align_corners, rounded), upscale when too small,
+    xorshift crop and mirror."""
+    import torch.nn.functional as F
+    h, w = img.shape[:2]
+    need = resize if resize > 0 else max(oh, ow)
+    denom = 1
+    while denom < 8 and min(h, w) // (2 * denom) >= need:
+        denom *= 2
+    x = img.permute(2, 0, 1).to(torch.float32)
+    if denom > 1:
+        pad = (0, -w % denom, 0, -h % denom)
+        s = F.avg_pool2d(F.pad(x, pad)[None], denom, divisor_override=1)[0]
+        ones = F.pad(torch.ones_like(x[:1]), pad)
+        cnt = F.avg_pool2d(ones[None], denom, divisor_override=1)[0]
+        x = torch.floor((s + torch.floor(cnt / 2)) / cnt)
+
+    def interp(x, dh, dw):
+        y = F.interpolate(x[None], size=(dh, dw), mode="bilinear",
+                          align_corners=True)[0]
+        return torch.floor(y + 0.5)
+
+    ch, cw = x.shape[1:]
+    if resize > 0:
+        dh, dw = (resize, cw * resize // ch) if ch <= cw else \
+            (ch * resize // cw, resize)
+        x = interp(x, dh, dw)
+        ch, cw = dh, dw
+    if ch < oh or cw < ow:
+        x = interp(x, oh, ow)
+        ch, cw = oh, ow
+    rng = int(seed) or 0x9e3779b97f4a7c15
+    cy, cx = (ch - oh) // 2, (cw - ow) // 2
+    if rand_crop:
+        rng = xorshift(rng)
+        cy = rng % (ch - oh + 1)
+        rng = xorshift(rng)
+        cx = rng % (cw - ow + 1)
+    x = x[:, cy:cy + oh, cx:cx + ow]
+    if rand_mirror:
+        rng = xorshift(rng)
+        if rng & 1:
+            x = x.flip(2)
+    return x.permute(1, 2, 0).to(torch.uint8)
+
+
+def data_decode_checks(torch, np, dev, bufs, image):
+    """(c): the route's pool against the plain version on the same
+    buffers and seeds: (resize 0, centre) bit-equal, (resize 256,
+    centre) mean |d| < 8, (resize 0, random crop and mirror) bit-equal
+    to the plain version and to a second pass.  Returns the errors."""
+    from mxnet_tpu_torch.io import native_decode
+    full = data_full_decoder(torch, dev)
+    decoded = [full(b) for b in bufs]
+    out = {}
+    for name, cfg in (("resize 0, centre crop", dict(resize=0)),
+                      ("resize %d, centre crop" % DATA_RESIZE,
+                       dict(resize=DATA_RESIZE)),
+                      ("resize 0, random crop and mirror",
+                       dict(resize=0, rand_crop=True, rand_mirror=True))):
+        if dev.type == "cuda":
+            pool = native_decode.NvjpegDecodePool(
+                DATA_THREADS, (image, image), device=dev, **cfg)
+        else:
+            pool = native_decode.NativeDecodePool(
+                DATA_THREADS, (image, image), **cfg)
+        passes = []
+        for _ in range(2):
+            np.random.seed(12)
+            got, ok = pool.decode_batch(bufs)
+            if not ok.all():
+                raise RuntimeError("data (c): the route could not decode "
+                                   "the records")
+            passes.append(torch.as_tensor(got).to(dev))
+        np.random.seed(12)
+        seeds = native_decode.draw_seeds(len(bufs))
+        plain = torch.stack([plain_geometry(
+            torch, img, seeds[i], cfg.get("resize", 0), image, image,
+            cfg.get("rand_crop", False), cfg.get("rand_mirror", False))
+            for i, img in enumerate(decoded)])
+        d = (passes[0].to(torch.int32) - plain.to(torch.int32)).abs()
+        out[name] = {"max": int(d.max()), "mean": float(d.double().mean()),
+                     "repeat_equal": bool(torch.equal(passes[0],
+                                                      passes[1]))}
+    return out
+
+
+def data_iter(mx, ctx, prefix, image, batch, threads, seed, **kw):
+    """train_imagenet.py's training ImageRecordIter on *ctx*, its shuffle
+    and crops seeded."""
+    import random
+    import numpy as np
+    random.seed(seed)
+    np.random.seed(seed)
+    args = dict(path_imgrec=prefix + ".rec", data_shape=(3, image, image),
+                batch_size=batch, shuffle=True, rand_crop=True,
+                rand_mirror=True, preprocess_threads=threads)
+    args.update(kw)
+    with ctx:
+        return mx.io.ImageRecordIter(**args)
+
+
+def data_decode_rate(torch, mx, ctx, prefix, image, batch, threads, seed):
+    """(d): ImageRecordIter alone for one epoch: (images/s over batches 2
+    on, over the whole epoch from construction, batches, its routes).
+    The first batch carries the decoder's start-up (nvJPEG's per-worker
+    buffers, the first kernels)."""
+    def sync():
+        if ctx.device_type == "gpu":
+            torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = data_iter(mx, ctx, prefix, image, batch, threads, seed)
+    n = batches = 0
+    for b in it:
+        if batches == 0:
+            sync()
+            t1, n1 = time.perf_counter(), b.data[0].shape[0] - (b.pad or 0)
+        n += b.data[0].shape[0] - (b.pad or 0)
+        batches += 1
+    sync()
+    t2 = time.perf_counter()
+    routes = dict(it.iters[0].routes)
+    it.close()
+    return (n - n1) / (t2 - t1), n / (t2 - t0), batches, routes
+
+
+def data_symbol(mx, vision, ctx, gen, image, net_kw):
+    """train_imagenet.py's build_symbol on the port: the zoo net with
+    Xavier(gaussian, in, 2) from *gen*, traced to a Symbol with a
+    SoftmaxOutput head.  Returns (symbol, arg_params, aux_params)."""
+    net = vision.get_model(**net_kw)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx, generator=gen)
+    net(mx.nd.zeros((2, 3, image, image), ctx=ctx))
+    sym = mx.sym.SoftmaxOutput(data=net(mx.sym.var("data")), name="softmax")
+    params = {p.name: p for p in net.collect_params().values()}
+    args = {n: params[n].data() for n in sym.list_arguments()
+            if n not in ("data", "softmax_label")}
+    auxs = {n: params[n].data() for n in sym.list_auxiliary_states()}
+    return sym, args, auxs
+
+
+def module_bytes(torch, mod):
+    """{name: bytes} of the weights, running statistics and momenta."""
+    args, auxs = mod.get_params()
+    out = {("arg", k): v.asnumpy().tobytes() for k, v in args.items()}
+    out.update({("aux", k): v.asnumpy().tobytes() for k, v in auxs.items()})
+    out[("opt", "states")] = mod._updater.get_states()
+    return out
+
+
+def data_fit(torch, mx, ctx, sym, weights, train, batch, depth, digests=None):
+    """One epoch of train_imagenet.py's ``Module.fit`` on *train* with
+    ``device_prefetch=depth``.  Returns the module and a record: host
+    stamps, losses, per-batch input waits and ring occupancies, steps
+    stalled, peak memory, wall seconds."""
+    import hashlib
+    from mxnet_tpu_torch.observability import metrics as obs
+    wait_h = obs.histogram("input_wait_seconds")
+    stalled_c = obs.counter("steps_input_stalled_total")
+    occ_g = obs.gauge("device_prefetch_ring_occupancy")
+    rec = {"stamps": [], "loss": [], "wait": [], "occupancy": []}
+    wait0, stalled0 = wait_h._snap()["sum"], stalled_c.value
+
+    def record(param):
+        b = param.locals["data_batch"]
+        probs = mod.get_outputs()[0]._data
+        label = b.label[0]._data.to(probs.device).long()
+        picked = probs.gather(1, label[:, None])[:, 0].double()
+        rec["loss"].append(float(-torch.log(
+            torch.clamp(picked, min=1e-30)).mean()))
+        rec["stamps"].append(time.perf_counter())
+        rec["wait"].append(wait_h._snap()["sum"] - wait0)
+        rec["occupancy"].append(occ_g.value)
+        if digests is not None:
+            digests.append(hashlib.sha256(
+                b.data[0].asnumpy().tobytes()).hexdigest())
+
+    speed = mx.callback.Speedometer(batch, 5)
+    mod = mx.mod.Module(sym, context=ctx)
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mod.fit(train, eval_metric=["accuracy"], kvstore="local",
+            optimizer="sgd", optimizer_params=dict(DATA_OPT),
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            arg_params=weights[0], aux_params=weights[1],
+            allow_missing=True, num_epoch=1,
+            batch_end_callback=[record, speed], device_prefetch=depth)
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["wall"] = time.perf_counter() - t0
+    rec["stalled"] = stalled_c.value - stalled0
+    rec["speedometer"] = speed.rate
+    return mod, rec
+
+
+def fit_rate(rec, batch, first=2):
+    """(ms a batch, images/s) over batches first+1 to the last, from the
+    host stamps (each batch ends in a readback of its outputs)."""
+    s = rec["stamps"]
+    ms = 1e3 * (s[-1] - s[first - 1]) / (len(s) - first)
+    return ms, batch / ms * 1e3
+
+
+def data_main_path(torch, mx, ctx, card, sym, weights, prefix, image,
+                   batch, threads, seed, nproc):
+    """(e): the module flow at depth 2, at depth 0 and from memory."""
+    import numpy as np
+    out = {}
+    for depth in (2, 0):
+        it = data_iter(mx, ctx, prefix, image, batch, threads, seed)
+        mod, rec = data_fit(torch, mx, ctx, sym, weights, it, batch, depth)
+        routes = dict(it.iters[0].routes)
+        it.close()
+        del mod
+        ms, ips = fit_rate(rec, batch)
+        n = len(rec["stamps"])
+        window = rec["stamps"][-1] - rec["stamps"][1]
+        rec.update(ms=ms, images_s=ips, routes=routes, batches=n,
+                   wait_share=(rec["wait"][-1] - rec["wait"][1]) / window,
+                   wait_share_fit=rec["wait"][-1] / rec["wall"])
+        # the producer reads ahead past the epoch's end: native >= n
+        if routes["chain"] or routes["native"] < n:
+            raise RuntimeError("data (e): batches took the chain: %s"
+                               % routes)
+        if not all(math.isfinite(v) for v in rec["loss"]):
+            raise RuntimeError("data (e): the loss is not finite: %s"
+                               % rec["loss"])
+        out[depth] = rec
+        r = rec
+        ring = ("input waits %.4f s in those batches, a %.4f share of "
+                "their wall (%.4f of the whole fit's %.2f s, graph capture "
+                "included); steps stalled %d; ring occupancy at each pop %s"
+                % (r["wait"][-1] - r["wait"][1], r["wait_share"],
+                   r["wait_share_fit"], r["wall"], r["stalled"],
+                   r["occupancy"])) if depth else \
+            "no prefetcher: the step takes each batch from the iterator"
+        log("data (e) Module.fit, device_prefetch=%d: %d batches of %d x "
+            "%d^2, %.2f ms a batch and %.1f images/s over batches 3-%d "
+            "(Speedometer %.1f samples/s); %s; peak device memory %s GB; "
+            "loss %s; on %s, nproc %d" % (
+                depth, n, batch, image, ms, ips, n,
+                r["speedometer"] or 0.0, ring,
+                "%.3f" % r["peak_gb"] if "peak_gb" in r else "n/a",
+                ["%.4f" % v for v in r["loss"]], card, nproc))
+    # the same batches from memory: one epoch decoded into host arrays
+    it = data_iter(mx, ctx, prefix, image, batch, threads, seed)
+    xs, ys = [], []
+    for b in it:
+        xs.append(b.data[0].asnumpy())
+        ys.append(b.label[0].asnumpy())
+    it.close()
+    mem = mx.io.NDArrayIter(np.concatenate(xs), np.concatenate(ys),
+                            batch_size=batch)
+    del xs, ys
+    mod, rec = data_fit(torch, mx, ctx, sym, weights, mem, batch, 0)
+    del mod, mem
+    ms, ips = fit_rate(rec, batch)
+    rec.update(ms=ms, images_s=ips)
+    out["memory"] = rec
+    log("data (e) Module.fit from memory (NDArrayIter of the same decoded "
+        "batches, host arrays: no decode, the pageable copy to the card "
+        "left in the step): %.2f ms a batch, %.1f images/s over batches "
+        "3-%d on %s" % (ms, ips, len(rec["stamps"]), card))
+    return out
+
+
+def data_parity(torch, mx, ctx, card, sym, weights, prefix, image, batch,
+                threads, seed):
+    """(f): three batches of fit with device_prefetch=2 and 0 (and 0 on
+    the legacy step) from one set of weights and one record order, with
+    deterministic cuDNN: parameters, running statistics and momenta
+    bit-equal, the batches equal, the running statistics moved."""
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = {}
+    try:
+        for name, depth, fused in (("prefetch 2", 2, "1"),
+                                   ("prefetch 0", 0, "1"),
+                                   ("prefetch 0, legacy step", 0, "0")):
+            os.environ["MXNET_MODULE_FUSED_STEP"] = fused
+            it = data_iter(mx, ctx, prefix, image, batch, threads, seed + 1)
+            digests = []
+            mod, _ = data_fit(torch, mx, ctx, sym, weights,
+                              mx.io.ResizeIter(it, DATA_PARITY_BATCHES),
+                              batch, depth, digests)
+            it.close()
+            runs[name] = (digests, module_bytes(torch, mod))
+            del mod
+    finally:
+        os.environ.pop("MXNET_MODULE_FUSED_STEP", None)
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = prev
+    base_d, base = runs["prefetch 0"]
+    out = {}
+    for name, (digests, got) in runs.items():
+        differ = sorted("%s %s" % k for k in base if got[k] != base[k])
+        out[name] = {"batches_equal": digests == base_d, "differ": differ}
+        log("data (f) %s against prefetch 0: %d batches, batches %s, %d of "
+            "%d arrays differ%s (cudnn deterministic) on %s" % (
+                name, len(digests), "equal" if digests == base_d else
+                "DIFFER", len(differ), len(base),
+                (": " + ", ".join(differ[:6])) if differ else "", card))
+    moved = sum(1 for k, v in base.items() if k[0] == "aux" and
+                v != weights[1][k[1]].asnumpy().tobytes())
+    out["aux_moved"] = moved
+    out["aux"] = sum(1 for k in base if k[0] == "aux")
+    log("data (f): %d of %d running statistics moved from their initial "
+        "values in 3 steps (the fused step's write-back)" % (
+            moved, out["aux"]))
+    return out
+
+
+def data_gluon(torch, mx, vision, ctx, card, gen, prefix, image, batch,
+               workers, net_kw, batches=DATA_GLUON_BATCHES):
+    """(g): ImageRecordDataset -> transforms -> DataLoader (process
+    workers, pin_memory) -> autograd.record -> SoftmaxCrossEntropyLoss ->
+    Trainer.step for *batches* batches; then the deterministic transforms
+    through the workers against num_workers=0."""
+    import numpy as np
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.data import DataLoader, SequentialSampler
+    from mxnet_tpu_torch.gluon.data.vision import ImageRecordDataset
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+    rec = {}
+    ds = ImageRecordDataset(prefix + ".rec")
+    payload = ds._record.read_idx(ds._record.keys[0])
+    rec["payload"] = "JPEG" if mx.recordio.unpack(payload)[1][:2] == \
+        b"\xff\xd8" else "npy"
+    train = ds.transform_first(T.Compose([
+        T.RandomResizedCrop(image), T.RandomFlipLeftRight(), T.ToTensor(),
+        T.Normalize(DATA_MEAN, DATA_STD)]))
+    loader = DataLoader(train, batch_size=batch, shuffle=True,
+                        num_workers=workers, pin_memory=True,
+                        last_batch="discard")
+    net = vision.get_model(**net_kw)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx, generator=gen)
+    net.hybridize()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9})
+    waits, stamps, losses = [], [], []
+    pinned = []
+    batches_it = iter(loader)
+    t_start = time.perf_counter()
+    try:
+        for _ in range(batches):
+            t0 = time.perf_counter()
+            x, y = next(batches_it)
+            waits.append(time.perf_counter() - t0)
+            pinned.append(x._data.is_pinned())
+            x, y = x.as_in_context(ctx), y.as_in_context(ctx)
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(batch)
+            losses.append(float(loss.asnumpy().mean()))
+            stamps.append(time.perf_counter())
+    finally:
+        batches_it.close()
+    window = stamps[-1] - stamps[0]
+    rec.update(images_s=batch * (len(stamps) - 1) / window,
+               wait_share=sum(waits[1:]) / window,
+               first_batch_s=stamps[0] - t_start, losses=losses,
+               pinned=all(pinned) if ctx.device_type == "gpu" else None)
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError("data (g): the loss is not finite: %s" % losses)
+    # the workers' batches of deterministic transforms against the serial
+    # loader's, on the host
+    det = ds.transform_first(T.Compose([
+        T.Resize(image), T.ToTensor(), T.Normalize(DATA_MEAN, DATA_STD)]))
+    n = min(2 * batch, len(ds))
+
+    def load(k):
+        dl = DataLoader(det, batch_size=batch, num_workers=k,
+                        sampler=SequentialSampler(n), last_batch="discard")
+        with mx.cpu():
+            return [(x.asnumpy(), y.asnumpy()) for x, y in dl]
+
+    a, b = load(workers), load(0)
+    rec["workers_equal"] = len(a) == len(b) > 0 and all(
+        np.array_equal(x, u) and np.array_equal(y, v)
+        for (x, y), (u, v) in zip(a, b))
+    log("data (g) gluon flow (%s records, %d process workers, pin_memory, "
+        "RandomResizedCrop + flip + ToTensor + Normalize): %.1f images/s "
+        "over batches 2-%d, a %.4f share of their wall waiting on the "
+        "loader (first batch after %.2f s: worker start-up), batches "
+        "pinned %s, loss %s; Resize(%d) + ToTensor + Normalize through the "
+        "workers %s num_workers=0's (%d batches) on %s" % (
+            rec["payload"], workers, rec["images_s"], batches,
+            rec["wait_share"], rec["first_batch_s"], rec["pinned"],
+            ["%.4f" % v for v in losses], image,
+            "bit-equal to" if rec["workers_equal"] else "DIFFER from",
+            len(b), card))
+    return rec
+
+
+def phase_data(torch, card, seed, ctx=None, n=DATA_EXAMPLES,
+               sides=DATA_SIDES, image=DATA_IMAGE, batch=DATA_BATCH,
+               classes=DATA_CLASSES, net_kw=None, workers=None):
+    """Phase 12: the data path (see the module docstring).  *ctx*, *n*,
+    *sides*, *image*, *batch*, *classes*, *net_kw* and *workers* size it
+    down for the CPU test, where the route is the libjpeg team."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    if ctx is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("phase 12 needs CUDA")
+        ctx = mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    dev = ctx.torch_device
+    net_kw = net_kw or {"name": RESNET, "classes": classes}
+    t_phase = time.perf_counter()
+    probe = data_probe()
+    nproc = probe["nproc"]
+    route = "nvjpeg" if on_card else "libjpeg"
+    log("data (a) probe: %s; route: %s (%s)" % (
+        ", ".join("%s %s" % kv for kv in probe.items()), route,
+        "nvJPEG decodes onto the card, the team's geometry runs there as "
+        "torch ops" if on_card else "the libjpeg worker team on the host"))
+    for name, secs, cmd in data_builds(on_card):
+        log("data (a) build %s: %s (%s)" % (
+            name, cmd, "%.2f s" % secs if secs else "built before"))
+    failures = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        prefix, nbytes, secs, bufs = data_records(
+            np, recordio, tmp, seed, n, sides, classes)
+        log("data (b) records: %d JPEGs (quality %d, sides %d-%d, label i "
+            "%% %d) through MXIndexedRecordIO: %.1f MB in %.2f s" % (
+                n, DATA_QUALITY, sides[0], sides[1], classes, nbytes / 1e6,
+                secs))
+        checks = data_decode_checks(torch, np, dev, bufs, image)
+        for name, c in checks.items():
+            log("data (c) %s, %d records, %s against the plain version "
+                "(full-size decode by the same library, geometry in plain "
+                "torch): max |d| %d, mean |d| %.4f; two passes %s" % (
+                    name, len(bufs), route, c["max"], c["mean"],
+                    "bit-equal" if c["repeat_equal"] else "DIFFER"))
+            limit_ok = c["mean"] < TOL_DECODE_MEAN if "resize %d" % \
+                DATA_RESIZE in name else c["max"] == 0
+            if not (limit_ok and c["repeat_equal"]):
+                failures.append("(c) %s: %s" % (name, c))
+        rates = {}
+        order = [DATA_THREADS, nproc, nproc, DATA_THREADS]   # in turns
+        for threads in order:
+            ips, whole, nb, routes = data_decode_rate(
+                torch, mx, ctx, prefix, image, batch, threads, seed)
+            rates.setdefault(threads, []).append(ips)
+            log("data (d) ImageRecordIter alone, preprocess_threads %d: "
+                "%.1f images/s over batches 2-%d (%.1f over the epoch from "
+                "construction; batches of %d x %d^2, routes %s) on %s, "
+                "nproc %d" % (threads, ips, nb, whole, batch, image, routes,
+                              card, nproc))
+            if routes["chain"] or routes["native"] != nb:
+                failures.append("(d) batches took the chain: %s" % routes)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 12)
+        sym, args, auxs = data_symbol(mx, vision, ctx, gen, image, net_kw)
+        main = data_main_path(torch, mx, ctx, card, sym, (args, auxs),
+                              prefix, image, batch, DATA_THREADS, seed,
+                              nproc)
+        parity = data_parity(torch, mx, ctx, card, sym, (args, auxs), prefix,
+                             image, batch, DATA_THREADS, seed)
+        for name, p in parity.items():
+            if isinstance(p, dict) and (p["differ"] or
+                                        not p["batches_equal"]):
+                failures.append("(f) %s: %s" % (name, p))
+        if parity["aux_moved"] != parity["aux"]:
+            failures.append("(f) running statistics did not move: %d of %d"
+                            % (parity["aux_moved"], parity["aux"]))
+        del sym, args, auxs
+        if on_card:
+            torch.cuda.empty_cache()
+        gluon = data_gluon(torch, mx, vision, ctx, card, gen, prefix, image,
+                           batch, workers or min(8, nproc), net_kw)
+        if not gluon["workers_equal"]:
+            failures.append("(g) the workers' batches differ from "
+                            "num_workers=0's")
+        if on_card and not gluon["pinned"]:
+            failures.append("(g) the loader's batches were not pinned")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if on_card:
+        torch.cuda.empty_cache()
+    log("data: phase 12 took %.1f s; it launches none of the three kernels"
+        % (time.perf_counter() - t_phase))
+    if failures:
+        raise RuntimeError("data: %s" % "; ".join(failures))
+    return {"probe": probe, "route": route, "checks": checks,
+            "rates": rates, "main": main, "parity": parity, "gluon": gluon}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4680,6 +5358,7 @@ def main():
     user_launches = phase_user_surface(torch, card, args.seed)
     module_launches = phase_module(torch, card, args.seed)["launches"]
     phase_lstm(torch, card, args.seed)
+    phase_data(torch, card, args.seed)
     b, h, sq, sk, d = PATH_SHAPE
     kernels = []
     for name, source, replaces in (

@@ -28,6 +28,8 @@ from . import gluon  # noqa: F401
 from . import rnn  # noqa: F401
 from . import model  # noqa: F401
 from . import io  # noqa: F401
+from . import recordio  # noqa: F401
+from . import image  # noqa: F401
 from . import metric  # noqa: F401
 from . import callback  # noqa: F401
 from . import module  # noqa: F401

@@ -163,9 +163,24 @@ register_env("MXNET_GUARD_MAX_BAD_STEPS", int, 0,
              "callable given to Module.set_nonfinite_guard); 0 = count "
              "and skip only")
 register_env("MXNET_DEVICE_PREFETCH", int, 0,
-             "Ring depth of fit()'s device prefetcher; 0 = off.  The "
-             "device prefetcher is not ported: a depth above 0 makes "
-             "fit raise")
+             "Ring depth of fit()'s DevicePrefetcher: how many batches "
+             "a background thread reads ahead and copies onto the "
+             "training device (pinned staging, its own CUDA stream) "
+             "while the step runs; 0 = off.  fit(device_prefetch=...) "
+             "overrides it")
+register_env("MXNET_USE_NATIVE_RECORDIO", bool, True,
+             "Read .rec files through the native C++ reader "
+             "(src/io/recordio_reader.cc, built at first use); off = "
+             "pure Python")
+register_env("MXNET_TPU_NATIVE_DECODE", bool, True,
+             "ImageRecordIter sends plain classification configs "
+             "(resize, crop, mirror, mean/std) to the native libjpeg "
+             "decode team (src/io/jpeg_decode_pool.cc, built at first "
+             "use); off = the cv2 augmenter chain")
+register_env("MXNET_DATALOADER_RESPAWNS", int, 2,
+             "How many crashed DataLoader worker processes are "
+             "respawned (with backoff, lost batches resubmitted) "
+             "before the loader gives up and raises")
 register_env("MXNET_OPTSTATE_MISMATCH", str, "raise",
              "What load_optimizer_states does when the blob was written "
              "by another optimizer class or hyper-parameter signature: "

@@ -537,7 +537,11 @@ class FusedStep:
             before = capture_counts()
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph, stream=stream):
+                # thread_local: an input pipeline's thread may be decoding
+                # onto the card meanwhile (its own streams); only this
+                # thread's unsafe calls would break the capture
+                with torch.cuda.graph(graph, stream=stream,
+                                      capture_error_mode="thread_local"):
                     self.outputs, self.skipped = self._body(gen)
             except Exception as exc:
                 raise MXNetError(

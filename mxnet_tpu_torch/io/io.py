@@ -3,28 +3,40 @@ DataIter, NDArrayIter, ResizeIter, PrefetchingIter, MNISTIter, CSVIter).
 
 Iterators produce host batches: NDArrays on the CPU, which the executor
 copies onto its device (into the fused step's static buffers on the
-card).  ``PrefetchingIter`` decodes on a background thread.
+card).  ``PrefetchingIter`` decodes on a background thread and, given a
+device, places batches there from that thread (pinned staging, a copy
+stream of its own, an event a batch that the consumer's stream waits
+on); ``ImageRecordIter`` and ``DevicePrefetcher`` use it so.
 
 Not ported: ``LibSVMIter`` (CSR storage, ROADMAP queue A item 12); the
-device prefetcher and the record iterators (item 13); the elastic
-partitioning and resumable positions of the reference's iterators (items
-15 and 13).
+elastic partitioning and resumable positions of the reference's
+iterators (item 15).
 """
 
 from __future__ import annotations
 
 import collections
 import gzip
+import logging
 import queue
 import struct
+import time
 
 import numpy as _np
+import torch
 
 from .. import ndarray as nd
 from .. import sanitizer as _san
 from ..base import MXNetError
 from ..context import cpu
 from ..ndarray import NDArray
+from ..ndarray.ndarray import _from_numpy
+from ..observability import metrics as _obs_metrics
+
+# module-level ref — sampled once per consumed batch
+_PREFETCH_DEPTH = _obs_metrics.gauge(
+    "prefetch_queue_depth",
+    "batches buffered in the PrefetchingIter producer queue")
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "MNISTIter", "CSVIter", "LibSVMIter"]
@@ -281,14 +293,80 @@ class ResizeIter(DataIter):
         return self.current_batch.pad
 
 
+class _Stager:
+    """Host tensors onto a CUDA device from a producer thread.  Each host
+    tensor is copied into a pinned staging buffer, then to the device
+    with ``non_blocking=True`` on the stager's own stream, so the copy
+    neither waits for nor delays the kernels on the consumer's stream.
+    A staging buffer is reused only after its last copy's event has
+    completed (two buffers a shape and dtype, in turns)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self._slots = {}    # (shape, dtype) -> deque of [pinned, event]
+
+    def put(self, t):
+        """A device copy of host tensor *t*, issued on the stream."""
+        key = (tuple(t.shape), t.dtype)
+        slots = self._slots.get(key)
+        if slots is None:
+            slots = self._slots[key] = collections.deque(
+                [torch.empty(key[0], dtype=t.dtype, pin_memory=True), None]
+                for _ in range(2))
+        slot = slots[0]
+        slots.rotate(-1)
+        if slot[1] is not None:
+            slot[1].synchronize()       # its previous copy has landed
+        slot[0].copy_(t)
+        with torch.cuda.stream(self.stream):
+            out = torch.empty(key[0], dtype=t.dtype, device=self.device)
+            out.copy_(slot[0], non_blocking=True)
+            slot[1] = torch.cuda.Event()
+            slot[1].record(self.stream)
+        return out
+
+    def ready(self):
+        """An event recorded on the stream after everything issued so
+        far (a batch's copies)."""
+        ev = torch.cuda.Event()
+        ev.record(self.stream)
+        return ev
+
+
+def _batch_tensors(batch):
+    for arr in (batch.data or []) + (batch.label or []):
+        if isinstance(arr, NDArray):
+            yield arr._data
+
+
 class PrefetchingIter(DataIter):
     """One iterator read ahead on a background thread, *prefetch_depth*
-    batches deep.  An exception in the producer is raised from ``next``
-    once, then the epoch ends; ``reset`` stops the producer (it only
-    blocks in a stop-aware put) and starts a fresh one."""
+    batches deep (reference: io.py PrefetchingIter, C++
+    iter_prefetcher.h).
+
+    Failure semantics: an exception in the producer is raised from
+    ``next`` once, then the epoch ends (never a hang on a dead
+    producer); ``reset`` stops the producer (it only blocks in a
+    stop-aware put) and starts a fresh one.  An optional *retry* spec
+    (kwargs for :func:`..resilience.retry.retry_call`) retries transient
+    inner-iterator failures with jittered backoff.
+
+    With a CUDA *device* (``ImageRecordIter`` passes the caller's
+    context, :class:`DevicePrefetcher` its target) the producer also
+    places each batch there: host arrays go through pinned staging
+    buffers and a copy stream of its own (:class:`_Stager`), and the
+    batch carries an event recorded after its copies.  The consumer's
+    ``next`` makes its current stream wait on that event and marks the
+    tensors as used on that stream (``record_stream``), so the caching
+    allocator keeps them until the consumer's work is done.  Without a
+    device, batches pass through as the inner iterator made them.
+
+    Not ported: ``state_dict``/``load_state``/``repartition`` (the
+    resumable position; ROADMAP queue A item 15)."""
 
     def __init__(self, iters, rename_data=None, rename_label=None,
-                 prefetch_depth=2):
+                 prefetch_depth=2, retry=None, device=None):
         super().__init__()
         if not isinstance(iters, list):
             iters = [iters]
@@ -298,6 +376,15 @@ class PrefetchingIter(DataIter):
         self.rename_label = rename_label
         self.batch_size = iters[0].batch_size
         self._depth = prefetch_depth
+        self._retry = dict(retry) if retry else None
+        # the target is resolved on the caller's thread (contexts are
+        # thread-local) before the producer starts
+        self._device = device
+        self._stager = _Stager(device) if device is not None and \
+            device.type == "cuda" else None
+        self._queue = None
+        self._stop = None
+        self._thread = None
         self._peek = None
         self.current_batch = None
         self._start()
@@ -312,6 +399,7 @@ class PrefetchingIter(DataIter):
 
     @staticmethod
     def _put(q, stop, item):
+        """Stop-aware put: never blocks past a reset() request."""
         while not stop.is_set():
             try:
                 q.put(item, timeout=0.05)
@@ -320,10 +408,63 @@ class PrefetchingIter(DataIter):
                 continue
         return False
 
+    def _next_inner(self):
+        if self._retry:
+            from ..resilience.retry import retry_call
+            cfg = dict(self._retry)
+            cfg.setdefault("retry_on", (Exception,))
+            give_up = tuple(cfg.pop("give_up_on", ()))
+            return retry_call(self.iters[0].next,
+                              give_up_on=give_up + (StopIteration,),
+                              **cfg)
+        return self.iters[0].next()
+
+    def _put_array(self, arr):
+        """One array of a batch on the target device (producer thread)."""
+        if isinstance(arr, NDArray):
+            t = arr._data
+        elif isinstance(arr, torch.Tensor):
+            t = arr
+        else:
+            t = _from_numpy(_np.asarray(arr))
+        if t.device == self._device:
+            self._note_elided()
+            return arr if isinstance(arr, NDArray) else NDArray(t)
+        if self._stager is None:
+            return NDArray(t.to(self._device))
+        return NDArray(self._stager.put(t.detach()))
+
+    def _transform(self, batch):
+        """Producer-side per-batch hook, run before the batch enters the
+        ring: places it on the target device when there is one."""
+        if self._device is None:
+            return batch
+        out = DataBatch(
+            data=[self._put_array(a) for a in batch.data or []],
+            label=[self._put_array(a) for a in batch.label or []],
+            pad=batch.pad, index=batch.index, bucket_key=batch.bucket_key,
+            provide_data=batch.provide_data,
+            provide_label=batch.provide_label)
+        if self._stager is not None:
+            out._ready = self._stager.ready()
+        return out
+
     def _producer(self, q, stop):
+        # q/stop are bound per thread: a producer abandoned by reset()
+        # keeps talking to ITS queue and stop event.  On the card the
+        # thread's current stream is the stager's, so an inner
+        # iterator's device batches are waited for there, not on the
+        # consumer's stream.
+        if self._stager is not None:
+            with torch.cuda.stream(self._stager.stream):
+                self._produce(q, stop)
+        else:
+            self._produce(q, stop)
+
+    def _produce(self, q, stop):
         while not stop.is_set():
             try:
-                batch = self.iters[0].next()
+                batch = self._transform(self._next_inner())
             except StopIteration:
                 self._put(q, stop, None)
                 return
@@ -335,6 +476,7 @@ class PrefetchingIter(DataIter):
                 return
 
     def _start(self):
+        self._closed = False
         self._queue = _san.queue(maxsize=self._depth)
         self._stop = _san.event()
         self._thread = _san.thread(target=self._producer,
@@ -344,13 +486,22 @@ class PrefetchingIter(DataIter):
 
     def _stop_producer(self):
         self._stop.set()
-        while self._thread.is_alive():
+        # drain-then-join: the producer can only block in the stop-aware
+        # _put, so freeing slots always unwedges it.  Bounded: a
+        # producer wedged inside the inner iterator is detached
+        deadline = time.monotonic() + 10.0
+        while self._thread is not None and self._thread.is_alive():
             try:
                 while True:
                     self._queue.get_nowait()
             except queue.Empty:
                 pass
             self._thread.join(timeout=0.1)
+            if time.monotonic() > deadline:
+                logging.getLogger(__name__).warning(
+                    "PrefetchingIter: producer thread did not exit "
+                    "within 10s (inner iterator wedged?); detaching it")
+                break
 
     def reset(self):
         self._stop_producer()
@@ -360,19 +511,58 @@ class PrefetchingIter(DataIter):
         self._start()
 
     def close(self):
-        """Stop the producer; ``reset`` starts a fresh one."""
+        """Stop the producer and drop buffered batches (a ring on the
+        card holds depth x batch bytes of device memory); ``reset``
+        starts a fresh producer."""
         self._stop_producer()
+        self._closed = True
+        self._peek = None
+        self.current_batch = None
+
+    def _note_elided(self):
+        """Producer-side hook: an array already on the target was passed
+        through without a copy."""
+
+    def _note_occupancy(self, occupancy):
+        """Consumer-side hook with the ring occupancy before the pop
+        (0 = the consumer is about to block on input)."""
+        _PREFETCH_DEPTH.set(occupancy)
+
+    def _note_delivery(self, occupancy, wait_s):
+        """Consumer-side hook after a real batch was popped: *wait_s* is
+        how long the consumer blocked on the ring."""
+
+    def _receive(self, batch):
+        """Order the consumer's stream after the batch's copies."""
+        ready = getattr(batch, "_ready", None)
+        if ready is None:
+            return
+        stream = torch.cuda.current_stream(self._stager.device)
+        stream.wait_event(ready)
+        for t in _batch_tensors(batch):
+            if t.device.type == "cuda":
+                t.record_stream(stream)
 
     def next(self):
         if self._peek is not None:
             batch, self._peek = self._peek, None
             self.current_batch = batch
             return batch
+        if self._closed:
+            raise RuntimeError(
+                "%s.next() after close(): the producer is stopped and the "
+                "ring drained; reset() starts a fresh producer"
+                % type(self).__name__)
+        occupancy = self._queue.qsize()
+        self._note_occupancy(occupancy)
+        t0 = time.perf_counter()
         item = self._queue.get()
         if item is None:
             raise StopIteration
         if isinstance(item, Exception):
             raise item
+        self._note_delivery(occupancy, time.perf_counter() - t0)
+        self._receive(item)
         self.current_batch = item
         return item
 

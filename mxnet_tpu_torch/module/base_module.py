@@ -2,9 +2,9 @@
 ``mxnet_tpu/module/base_module.py``).
 
 Not ported: checkpoint managers, mid-epoch resume and job state, the
-supervisor heartbeat and elastic membership (ROADMAP queue A item 15),
-and the device prefetcher (item 13).  ``fit`` runs without them when
-their knobs are off and raises when one is set.
+supervisor heartbeat and elastic membership (ROADMAP queue A item 15).
+``fit`` runs without them when their knobs are off and raises when one is
+set.
 """
 
 from __future__ import annotations
@@ -15,7 +15,6 @@ import time
 from .. import metric as metric_mod
 from .. import ndarray as nd
 from ..base import MXNetError
-from ..config import get_env
 from ..model import BatchEndParam
 
 __all__ = ["BaseModule"]
@@ -175,18 +174,41 @@ class BaseModule:
         init params and optimizer, then per epoch one
         ``forward_backward_update`` and metric update per batch with the
         batch-end callbacks, the epoch-end callbacks, and a score of
-        *eval_data*."""
+        *eval_data*.  ``device_prefetch`` (or ``MXNET_DEVICE_PREFETCH``)
+        wraps *train_data* in a :class:`~..io.DevicePrefetcher` of that
+        depth onto the module's first context for the loop."""
         assert num_epoch is not None, "please specify number of epochs"
         if checkpoint_manager is not None or resume_from is not None or \
                 checkpoint_every_n_batches:
             raise MXNetError("fit's checkpoint manager, resume and job "
                              "state are not ported to mxnet_tpu_torch "
                              "(ROADMAP queue A item 15)")
-        depth = get_env("MXNET_DEVICE_PREFETCH") if device_prefetch is None \
-            else device_prefetch
-        if depth:
-            raise MXNetError("fit's device prefetcher is not ported to "
-                             "mxnet_tpu_torch (ROADMAP queue A item 13)")
+        from ..io.device_prefetch import maybe_wrap
+        ctx = getattr(self, "_context", None)     # a list, or one Context
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0] if ctx else None
+        train_data, created_prefetcher = maybe_wrap(
+            train_data, device_prefetch, device=ctx)
+        try:
+            self._fit_loop(
+                train_data, eval_data, eval_metric, epoch_end_callback,
+                batch_end_callback, kvstore, optimizer, optimizer_params,
+                eval_end_callback, eval_batch_end_callback, initializer,
+                arg_params, aux_params, allow_missing, force_rebind,
+                force_init, begin_epoch, num_epoch, validation_metric,
+                monitor)
+        finally:
+            if created_prefetcher:
+                # the ring (depth x batch bytes on the device) and its
+                # producer thread end with the loop
+                train_data.close()
+
+    def _fit_loop(self, train_data, eval_data, eval_metric,
+                  epoch_end_callback, batch_end_callback, kvstore,
+                  optimizer, optimizer_params, eval_end_callback,
+                  eval_batch_end_callback, initializer, arg_params,
+                  aux_params, allow_missing, force_rebind, force_init,
+                  begin_epoch, num_epoch, validation_metric, monitor):
         from .. import initializer as init_mod
         if initializer is None:
             initializer = init_mod.Uniform(0.01)

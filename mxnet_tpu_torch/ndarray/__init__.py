@@ -13,3 +13,4 @@ _register.populate(globals())
 
 from . import contrib  # noqa: F401,E402  (foreach, while_loop, cond, ...)
 _register.populate_contrib(contrib.__dict__)
+from . import image  # noqa: F401,E402

@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel source ``mxnet_tpu_torch/csrc/<name>.cu`` exports a plain C
-function.  ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared
+function (``nvjpeg_decode.cu`` binds the toolkit's nvJPEG and links it).  ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared
 library under ``build/torch_kernels/`` at the root of the checkout, at
 first use; ``ctypes`` loads it.  Sources include no PyTorch header, so a
 build takes seconds.  The library's file name carries a hash of its
@@ -30,6 +30,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+#: libraries a source links beyond the CUDA runtime
+LINK = {"nvjpeg_decode": ["-lnvjpeg"]}
 
 _lock = threading.Lock()
 _libs = {}
@@ -55,7 +57,7 @@ def _command(name):
     src, lib = _paths(name)
     return lib, [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                  "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-                 "-o", lib + ".tmp", src]
+                 "-o", lib + ".tmp", src, *LINK.get(name, [])]
 
 
 def build(name):

@@ -470,8 +470,8 @@ class ParallelTrainer:
         return self._tensor(y).to(self.device)
 
     def fit(self, *args, **kwargs):
-        raise _not_ported("fit() (needs the device prefetcher and "
-                          "resilience's checkpoints)", "items 13 and 15")
+        raise _not_ported("fit() (needs resilience's checkpoints)",
+                          "item 15")
 
     def fit_batch(self, x, y):
         """Run one training step; returns the float32 mean loss (a 0-dim

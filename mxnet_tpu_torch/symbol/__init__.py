@@ -12,3 +12,4 @@ ones = globals()["_ones"]
 
 from . import contrib  # noqa: E402  (foreach, while_loop, cond, ...)
 _register.populate_contrib(contrib.__dict__)
+from . import image  # noqa: F401,E402

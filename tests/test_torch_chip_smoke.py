@@ -35,6 +35,14 @@ the LSTM LM trainer and the bucketing loop run and pass; every check of
 the phase is wired; the limits pass the gaps its first H100 run
 measured; the phase raises without CUDA.
 
+Phase 12 (the data path): at a small size on the CPU (32 x 32 crops
+of 36-60 pixel JPEGs, batch 8, a thumbnail ResNet-18, the libjpeg route)
+the records, the decode checks against the plain version, the decode
+rate, ``Module.fit`` at depth 2, 0 and from memory, the prefetch parity
+and the gluon flow through two worker processes run and pass; the plain
+geometry agrees with the route's; every check of the phase is wired;
+the phase raises without CUDA.
+
 Phase 8 (paged decode): on a 2-layer LM (dim 64, vocab 97) served on the
 CPU with the JAX package's weights, the decode step's teacher-forced
 logits are within 1e-5 of the JAX ``TransformerLM`` forward; paged
@@ -599,7 +607,8 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
         "phase_user_surface": lambda t, c, s: {k: 72 for k in kernels},
         "phase_module": lambda t, c, s: {"launches": {k: 240
                                                       for k in kernels}},
-        "phase_lstm": lambda t, c, s: {}}
+        "phase_lstm": lambda t, c, s: {},
+        "phase_data": lambda t, c, s: {}}
     for name, fn in stub.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     assert chip_smoke.main() == 0
@@ -996,3 +1005,105 @@ def test_lstm_phase_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         chip_smoke.phase_lstm(torch, "no card", 0)
+
+
+# phase 12 (the data path) at a small size on the CPU
+DATA_SMALL = dict(n=48, sides=(36, 60), image=32, batch=8, classes=10,
+                  net_kw={"name": "resnet18_v1", "classes": 10,
+                          "thumbnail": True}, workers=2)
+
+
+def test_data_phase_runs_on_the_cpu():
+    import torch
+    import mxnet_tpu_torch as mx
+    rec = chip_smoke.phase_data(torch, "cpu", 0, ctx=mx.cpu(), **DATA_SMALL)
+    assert rec["route"] == "libjpeg"
+    assert all(c["repeat_equal"] for c in rec["checks"].values())
+    assert rec["checks"]["resize 0, centre crop"]["max"] == 0
+    assert rec["checks"]["resize 0, random crop and mirror"]["max"] == 0
+    main = rec["main"]
+    for depth in (2, 0):
+        assert main[depth]["batches"] == 6 and main[depth]["routes"][
+            "chain"] == 0
+    # the same weights, the same records and crops: the same losses
+    assert main[2]["loss"] == main[0]["loss"]
+    assert main[2]["stalled"] <= len(main[2]["stamps"])
+    p = rec["parity"]
+    assert all(v["batches_equal"] and not v["differ"]
+               for k, v in p.items() if isinstance(v, dict))
+    assert p["aux_moved"] == p["aux"] > 0
+    assert rec["gluon"]["workers_equal"] and rec["gluon"]["payload"] == \
+        "JPEG"
+
+
+def test_plain_geometry_is_the_routes_geometry():
+    """chip_smoke's plain version of the team's geometry (phase 12 (c))
+    against the route's (io/native_decode.augment_decoded) on random
+    images: equal but for the bilinear's rounding, where the plain
+    version interpolates in float32."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.io import native_decode
+    rs = np.random.RandomState(0)
+    for i in range(12):
+        h, w = (int(v) for v in rs.randint(30, 140, 2))
+        img = torch.from_numpy(rs.randint(0, 256, (h, w, 3)).astype(
+            np.uint8))
+        seed = int(rs.randint(1, 2 ** 62))
+        for resize in (0, 20, 40):
+            args = (seed, resize, 24, 20, bool(i % 2), bool(i % 3))
+            got = native_decode.augment_decoded(img, *args)
+            want = chip_smoke.plain_geometry(torch, img, *args)
+            d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+            assert tuple(got.shape) == tuple(want.shape) == (24, 20, 3)
+            assert int(d.max()) <= (0 if resize == 0 and min(h, w) < 48
+                                    else 1)
+
+
+@pytest.mark.parametrize("fault", ["decode", "chain", "parity", "aux",
+                                   "workers"])
+def test_data_checks_are_wired(monkeypatch, fault):
+    """Each check of phase 12 fails the phase when its numbers break (the
+    training steps stubbed where the fault is elsewhere)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    good_parity = {"prefetch 2": {"batches_equal": True, "differ": []},
+                   "aux_moved": 4, "aux": 4}
+    monkeypatch.setattr(chip_smoke, "data_main_path", lambda *a: {})
+    monkeypatch.setattr(chip_smoke, "data_parity", lambda *a: dict(
+        good_parity))
+    monkeypatch.setattr(chip_smoke, "data_gluon", lambda *a, **k: {
+        "workers_equal": True, "pinned": None})
+    if fault == "decode":
+        real = chip_smoke.data_decode_checks
+
+        def moved(*a):
+            out = real(*a)
+            out["resize 0, centre crop"]["max"] = 1
+            return out
+        monkeypatch.setattr(chip_smoke, "data_decode_checks", moved)
+    elif fault == "chain":
+        monkeypatch.setattr(chip_smoke, "data_decode_rate", lambda *a: (
+            1.0, 1.0, 6, {"native": 5, "chain": 1}))
+    elif fault == "parity":
+        monkeypatch.setattr(chip_smoke, "data_parity", lambda *a: dict(
+            good_parity, **{"prefetch 2": {"batches_equal": True,
+                                           "differ": ["arg fc_weight"]}}))
+    elif fault == "aux":
+        monkeypatch.setattr(chip_smoke, "data_parity", lambda *a: dict(
+            good_parity, aux_moved=3))
+    else:
+        monkeypatch.setattr(chip_smoke, "data_gluon", lambda *a, **k: {
+            "workers_equal": False, "pinned": None})
+    message = {"decode": "\\(c\\) resize 0", "chain": "took the chain",
+               "parity": "\\(f\\) prefetch 2", "aux": "did not move",
+               "workers": "differ from num_workers"}[fault]
+    with pytest.raises(RuntimeError, match=message):
+        chip_smoke.phase_data(torch, "cpu", 0, ctx=mx.cpu(), **DATA_SMALL)
+
+
+def test_data_phase_raises_without_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chip_smoke.phase_data(torch, "no card", 0)

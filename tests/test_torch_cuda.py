@@ -7,7 +7,10 @@ CUDA graph per rung (replay against eager, outputs that never alias,
 the reference's index rules on the card (an id past the embedding table
 reads NaN, eagerly and under a graph, and serving goes on); and decode:
 the paged engine's CUDA graphs per rung over a pool updated in place, a
-pool rebuild under captured graphs, and the dense decoder's graph.
+pool rebuild under captured graphs, and the dense decoder's graph; the
+data path: nvJPEG's decode and the route's geometry on the card, the
+ImageRecordIter's batches on the card, and the prefetchers' copy stream
+ordered before the consumer's reads.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one.
 This file imports neither jax nor the JAX package, so it runs on a
@@ -908,3 +911,112 @@ def test_mp_lars_step_on_the_card_matches_the_cpu(cuda):
                                tr._opt_state[n][-1].to(torch.bfloat16))
     for n in gpu.aux_names:
         close(gpu._aux[n], cpu._aux[n])
+
+
+# ---------------------------------------------------------------------------
+# the data path on the card
+# ---------------------------------------------------------------------------
+
+def _jpegs(n, seed=0):
+    import io
+    Image = pytest.importorskip("PIL.Image")
+    rs = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        h, w = (int(v) for v in rs.randint(60, 300, 2))
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = np.stack([(yy * 0.5 + i * 9) % 256, (xx * 0.4) % 256,
+                        ((yy + xx) * 0.3) % 256], -1)
+        img = (img + rs.randint(0, 20, img.shape)).clip(0, 255)
+        buf = io.BytesIO()
+        Image.fromarray(img.astype(np.uint8)).save(buf, format="JPEG",
+                                                   quality=90)
+        out.append((buf.getvalue(), img.astype(np.uint8)))
+    return out
+
+
+def test_nvjpeg_decode_and_geometry_on_the_card(cuda):
+    from mxnet_tpu_torch.io import native_decode as nd_
+    data = _jpegs(12)
+    bufs = [b for b, _ in data]
+    dev = torch.device("cuda", 0)
+    pool = nd_.NvjpegDecodePool(2, (48, 40), resize=64, rand_crop=True,
+                                rand_mirror=True, device=dev)
+    hw, rcs = pool.info(bufs)
+    assert (rcs == 0).all()
+    assert [tuple(v) for v in hw] == [img.shape[:2] for _, img in data]
+    full = pool.decode_full(bufs, hw)
+    Image = pytest.importorskip("PIL.Image")
+    import io
+    for f, b in zip(full, bufs):
+        # another decoder of the same bytes (PIL's libjpeg: its own IDCT
+        # and chroma upsampling)
+        ref = np.asarray(Image.open(io.BytesIO(b)).convert("RGB"))
+        d = np.abs(f.cpu().numpy().astype(int) - ref.astype(int))
+        assert d.mean() < 2.0
+    np.random.seed(4)
+    out, ok = pool.decode_batch(bufs)
+    assert ok.all() and out.device == dev and out.shape == (12, 48, 40, 3)
+    np.random.seed(4)
+    seeds = nd_.draw_seeds(len(bufs))
+    for i, f in enumerate(full):
+        want = nd_.augment_decoded(f.cpu(), seeds[i], 64, 48, 40, True,
+                                   True)
+        assert torch.equal(out[i].cpu(), want)
+    assert pool.launches == 2
+
+
+def test_image_record_iter_on_the_card_decodes_with_nvjpeg(cuda, tmp_path):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import recordio
+    prefix = str(tmp_path / "d")
+    w = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i, (b, _) in enumerate(_jpegs(16, 1)):
+        w.write_idx(i, recordio.pack(recordio.IRHeader(0, float(i), i, 0),
+                                     b))
+    w.close()
+    epochs = []
+    for _ in range(2):
+        import random
+        random.seed(3)
+        np.random.seed(3)
+        it = mx.io.ImageRecordIter(
+            path_imgrec=prefix + ".rec", data_shape=(3, 32, 32),
+            batch_size=8, shuffle=True, rand_crop=True, rand_mirror=True,
+            mean_r=123.68, mean_g=116.28, mean_b=103.53)
+        batches = [(b.data[0], b.label[0]) for b in it]
+        assert it.iters[0].native_route == "nvjpeg"
+        assert it.iters[0].routes == {"native": 2, "chain": 0}
+        it.close()
+        for x, y in batches:
+            assert x._data.is_cuda and y._data.is_cuda
+        epochs.append([(x.asnumpy(), y.asnumpy()) for x, y in batches])
+    for (a, la), (b, lb) in zip(*epochs):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(la, lb)
+
+
+def test_prefetcher_copy_stream_is_ordered_before_the_consumer(cuda):
+    """Host batches of known fills through the pinned staging and the
+    copy stream while the consumer's stream is kept busy: every batch
+    the consumer reads holds its own fill (a missing event wait reads a
+    half-copied or a reused buffer)."""
+    import mxnet_tpu_torch as mx
+    n, rows = 24, 256
+    x = np.repeat(np.arange(n, dtype=np.float32), rows)[:, None] * \
+        np.ones((1, 4096), np.float32)
+    y = np.arange(n * rows, dtype=np.float32)
+    pf = mx.io.DevicePrefetcher(mx.io.NDArrayIter(x, y, batch_size=rows),
+                                depth=2, device=mx.gpu(0))
+    busy = torch.randn(2048, 2048, device="cuda")
+    try:
+        for i, b in enumerate(pf):
+            for _ in range(4):
+                busy = torch.tanh(busy @ busy) * 0.5
+            t = b.data[0]._data
+            assert t.is_cuda
+            got = float(t.double().sum())
+            assert got == float(i) * rows * 4096, (i, got)
+    finally:
+        pf.close()
+    assert i == n - 1

@@ -66,7 +66,16 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.symbol.contrib, "
             "mxnet_tpu_torch.module.bucketing_module, "
             "mxnet_tpu_torch.module.sequential_module, "
-            "mxnet_tpu_torch.module.python_module; "
+            "mxnet_tpu_torch.module.python_module, "
+            "mxnet_tpu_torch.recordio, mxnet_tpu_torch.recordio_native, "
+            "mxnet_tpu_torch.runtime.native, mxnet_tpu_torch.image, "
+            "mxnet_tpu_torch.io.native_decode, "
+            "mxnet_tpu_torch.io.image_record, "
+            "mxnet_tpu_torch.io.device_prefetch, mxnet_tpu_torch.ops.image, "
+            "mxnet_tpu_torch.ndarray.image, mxnet_tpu_torch.symbol.image, "
+            "mxnet_tpu_torch.gluon.data, "
+            "mxnet_tpu_torch.gluon.data.dataloader, "
+            "mxnet_tpu_torch.gluon.data.vision.transforms; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')))")
@@ -124,7 +133,9 @@ def test_gpu_context_without_cuda_raises(no_cuda):
                                    "Module", "Module.load",
                                    "BucketingModule", "LSTM initialize",
                                    "get_lstm_lm initialize",
-                                   "SequentialModule"])
+                                   "SequentialModule", "DevicePrefetcher",
+                                   "ImageRecordIter", "fit device_prefetch",
+                                   "ImageRecordDataset"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -220,6 +231,31 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
     elif entry == "tiny_attention_lm":
         from mxnet_tpu_torch.test_utils import tiny_attention_lm
         call = tiny_attention_lm
+    elif entry in ("DevicePrefetcher", "fit device_prefetch"):
+        it = mx.io.NDArrayIter(np.zeros((4, 3), np.float32),
+                               np.zeros((4,), np.float32), batch_size=2)
+        if entry == "DevicePrefetcher":
+            call = lambda: mx.io.DevicePrefetcher(it)
+        else:
+            out = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+                mx.sym.var("data"), num_hidden=2, name="fc"), name="softmax")
+            call = lambda: mx.mod.Module(out).fit(it, num_epoch=1,
+                                                  device_prefetch=2)
+    elif entry in ("ImageRecordIter", "ImageRecordDataset"):
+        rec = mx.recordio.MXIndexedRecordIO(
+            str(tmp_path / "i.idx"), str(tmp_path / "i.rec"), "w")
+        rec.write_idx(0, mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, 1.0, 0, 0),
+            np.zeros((8, 8, 3), np.uint8), img_fmt=".png"))
+        rec.close()
+        if entry == "ImageRecordIter":
+            call = lambda: mx.io.ImageRecordIter(
+                path_imgrec=str(tmp_path / "i.rec"), data_shape=(3, 4, 4),
+                batch_size=1)
+        else:
+            ds = mx.gluon.data.vision.ImageRecordDataset(
+                str(tmp_path / "i.rec"))
+            call = lambda: ds[0]
     else:
         mx.nd.save(str(tmp_path / "m-0000.params"),
                    {"arg:w": mx.nd.array(np.ones(2), ctx=mx.cpu())})
