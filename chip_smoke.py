@@ -184,6 +184,37 @@ Phases, each reported on its own line; any failure exits non-zero:
              waiting on the loader; deterministic transforms through the
              workers bit-equal to ``num_workers=0``'s.
 
+13. quant  — post-training int8 serving and serving autotuning.  (a)
+             ResNet-50 v1 at phase 6's width (seeded weights): registry.load
+             with quantize="int8" and calib_batches (8 batches of 32
+             seeded images: calibrate, lower, warm rungs 1, 8, 32, one
+             CUDA graph each, the load gate at every rung), 54 of 54
+             layers int8; per rung the int8 products and tensors each
+             graph's capture counted (no float product left), the compute
+             bytes of int8 and fp32 and their ratio, the replay ms of
+             int8 and fp32 (CUDA events), the gate's error; requests of 1
+             and 8 images against the port's CPU run of the same
+             quantized graph (every int8 product bit-equal on the CPU
+             run's inputs; the answers within the policy's max_rel_err,
+             their distance in units of 2/127 reported); closed-loop
+             traffic of 1-32 images a request through the
+             DynamicBatcher; then the same with "int8-weight-only".  (c)
+             Tuning: a seeded trace of 1-4-image requests ->
+             autotune.tune over three ladders topping at 32 (trials 4,
+             neighbours 2) -> a TuningStore keyed on the card's name; a
+             fresh registry.load under MXNET_TUNING_STORE takes the tuned
+             ladder and batcher window and shows health()["tuning"].  (b)
+             The LM at phase 4's width (rungs 1, 2, 4, 8, the sequence
+             bucketed to 512) the same way, int8 then int8-weight-only,
+             every rung's graph capturing flash_fwd once a layer (the main
+             path's launches counted), a 512-token request against the
+             CPU run and the same graph on the card with the plain
+             attention in flash_fwd's place (how far another f32
+             summation order moves the int8 answers); the gate's verdict
+             under the default policy (a
+             rejection is recorded and the model served with
+             first_last_fp32).  Peak memory and the phase's seconds.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
 
@@ -1856,7 +1887,8 @@ def resnet_serve(torch, card, mx, ctx, net, rng, tmp):
                           dtype=torch.float32, device=ctx.torch_device)
         pad[:rows] = torch.from_numpy(x)
         with torch.no_grad():
-            want = ev(dict(p64, data0=pad.double()), a64)[0][0][:rows]
+            with mx.enable_x64():       # the f64 oracle keeps 64 bits
+                want = ev(dict(p64, data0=pad.double()), a64)[0][0][:rows]
             with tf32_convolutions(torch):
                 low = ev(dict(pred._params, data0=pad), pred._aux)[0][0]
         scale = want.abs().max().item()
@@ -1903,10 +1935,14 @@ def resnet_check_step(torch, card, mx, ctx, vision, net, loss_fn, trainer,
                     ctx=ctx)
     graph = net._cached_graph
     params = net.collect_params()
-    net64 = resnet_net(mx, vision, None, ctx, "float64", prefix=net.prefix)
-    params64 = net64.collect_params()
-    for n, p in params64.items():
-        p.set_data(params[n].data())
+    # the f64 oracle keeps 64 bits only inside enable_x64(): outside it
+    # cast("float64") narrows, as the reference does without x64
+    with mx.enable_x64():
+        net64 = resnet_net(mx, vision, None, ctx, "float64",
+                           prefix=net.prefix)
+        params64 = net64.collect_params()
+        for n, p in params64.items():
+            p.set_data(params[n].data())
 
     def run(ps, data, relu, low=False):
         """One forward and backward of the net's train graph on the
@@ -1928,7 +1964,8 @@ def resnet_check_step(torch, card, mx, ctx, vision, net, loss_fn, trainer,
 
     t0 = time.perf_counter()
     relu64, masks = relu_op(torch)
-    loss64, g64, stats64 = run(params64, x._data.double(), relu64)
+    with mx.enable_x64():
+        loss64, g64, stats64 = run(params64, x._data.double(), relu64)
     torch.cuda.synchronize()
     t64 = time.perf_counter() - t0
     del net64, params64
@@ -2456,7 +2493,8 @@ def ns_checks(torch, card, mx, vision, gen, rng, ctx, failures):
                             ctx.torch_device, coalesce_small=False)
     for tr in (coalesced, per_tensor):
         tr.fit_batch(x, y)       # builds; the momenta are not zero after
-    res = check_update(torch, coalesced, per_tensor, x, y)
+    with mx.enable_x64():       # the f64 update oracle keeps 64 bits
+        res = check_update(torch, coalesced, per_tensor, x, y)
     ok = res["f64"] <= 1.0 and res["paths"] <= 1.0 and res["bf16_equal"] \
         and res["no eta"] > 1.0 and res["bf16 weight"] > 1.0
     log("north-star update check, batch %d on %s (%d arrays, %d coalesced): "
@@ -2472,7 +2510,8 @@ def ns_checks(torch, card, mx, vision, gen, rng, ctx, failures):
         failures.append("the update check failed")
     del per_tensor
     x_other = mx.nd.array(rng.randn(*x.shape).astype("float32"), ctx=ctx)
-    gaps = check_bf16_vs_f64(torch, card, coalesced, x, y, x_other)
+    with mx.enable_x64():       # the f64 oracle keeps 64 bits
+        gaps = check_bf16_vs_f64(torch, card, coalesced, x, y, x_other)
     ok = gaps["loss"][0] <= TOL_NS_LOSS and gaps["grad"][0] <= TOL_NS_GRAD \
         and gaps["loss"][1] <= TOL_NS_LOSS / 16 and \
         gaps["grad"][1] <= TOL_NS_GRAD / 16 and gaps["grad"][2] > TOL_NS_GRAD
@@ -5333,6 +5372,581 @@ def phase_data(torch, card, seed, ctx=None, n=DATA_EXAMPLES,
             "rates": rates, "main": main, "parity": parity, "gluon": gluon}
 
 
+# phase 13: post-training int8 serving and serving autotuning, as the
+# tentpole path drives them: quantize.calibrate -> quantize.quantize_model
+# -> ModelRegistry.load(quantize=..., calib_batches=...) with the load
+# gate at every rung -> registry.batcher; then autotune.tune over a
+# recorded trace -> a TuningStore entry keyed on the card -> a fresh load
+# picking it up through MXNET_TUNING_STORE.  Answers are held against the
+# port's CPU run of the same quantized symbol and weights in two ways.
+# (1) Every int8 product of the graph (each quantized conv and fc), run on
+# the card on the CPU run's own int8 inputs, gives the CPU's int32
+# accumulators bit for bit.  (2) End to end the answers lie within the
+# policy's max_rel_err of max |CPU output|, the bound the gate holds int8
+# to fp32 with; their distance in units of Q_TOL (2/127 of max |out|) and
+# their argmax agreement are reported.  End to end the two runs part where
+# a float32 op's rounding moves a value across a .5 code boundary and the
+# flipped codes grow through the layers: on one card, the int8 LM with
+# the plain attention in flash_fwd's place moves by as much (PERF.md, the
+# int8 findings), so the 2/127 rule cannot hold between two summation
+# orders.  The
+# compute bytes (each conv/fc's operands read once and result written
+# once, from the shapes the ops saw at capture) are reported per rung
+# against Q_BYTE_RATIO: int8 must move fewer bytes than fp32 at every rung.
+Q_TOL = 2.0 / 127
+Q_ARGMAX = 0.99
+Q_PRODUCTS = ("_contrib_quantized_conv",
+              "_contrib_quantized_fully_connected")
+Q_BYTE_RATIO = 2.0
+Q_REPLAYS = 10
+Q_RESNET = dict(model=RESNET, classes=RESNET_CLASSES, image=RESNET_IMAGE,
+                rungs=RESNET_RUNGS, calib=(8, 32), check_rows=(1, 8),
+                traffic=(4, 20, 32, 5.0), layers=54)
+Q_LM = dict(cfg=(VOCAB, DIM, HEADS, LAYERS, SEQ), rungs=RUNGS,
+            seq_axes=SERVE_SEQ_AXES, calib=(4, 2), check_seq=512,
+            traffic=(2, 6, 2, 5.0))
+# traffic: (client threads, requests, most rows a request, the batcher's
+# coalescing window in ms).  The tuning trace: 1-4-image requests at 60 a
+# second for 1 s; three
+# ladders topping at 32
+Q_TUNE = dict(rate=60.0, seconds=1.0, rows=(1, 4), max_rows=32,
+              ladders=((1, 2, 4, 8, 16, 32), (1, 4, 16, 32), (1, 8, 32)),
+              trials=4, neighbor_trials=2)
+
+
+def cpu_outputs(torch, pred, x):
+    """*pred*'s symbol and weights run eagerly on the CPU for *x* (float32
+    numpy): (the outputs as numpy, [(op fn, its inputs, params, its int32
+    output)] of every int8 product on the way)."""
+    from mxnet_tpu_torch.executor import _build_eval
+    from mxnet_tpu_torch.ops.registry import get_op
+    products = []
+
+    def recorded(fn):
+        def run(*ins, **params):
+            out = fn(*ins, **params)
+            products.append((fn, ins, params, out[0]))
+            return out
+        return run
+    ev = _build_eval(pred._symbol, False, op_impls={
+        n: recorded(get_op(n).fn) for n in Q_PRODUCTS})
+    amap = {n: t.cpu() for n, t in pred._params.items()}
+    amap[next(iter(pred._data_shapes))] = torch.from_numpy(x)
+    with torch.no_grad():
+        outs, _ = ev(amap, {n: t.cpu() for n, t in pred._aux.items()})
+    return [o.numpy() for o in outs], products
+
+
+def products_on_device(torch, products, dev):
+    """(bit-equal, total): each recorded int8 product run on *dev* on the
+    same int8 inputs against its CPU int32 output."""
+    equal = 0
+    for fn, ins, params, want in products:
+        got = fn(*[t.to(dev) for t in ins], **params)[0]
+        equal += bool(torch.equal(got.cpu(), want))
+    return equal, len(products)
+
+
+def summation_order_spread(torch, np, pred, x):
+    """The quantized graph on its own device, eagerly, with flash_fwd and
+    with the plain attention in its place (another float32 summation
+    order, nothing else): (max rel err, its share of Q_TOL, argmax
+    agreement) between the two."""
+    from mxnet_tpu_torch.executor import _build_eval
+    from mxnet_tpu_torch.ops import attention as att
+    name = next(iter(pred._data_shapes))
+    outs = []
+    for impls in (None, {"_contrib_DotProductAttention":
+                         attention_op(torch, att, chunk=512)}):
+        ev = _build_eval(pred._symbol, False, op_impls=impls)
+        amap = dict(pred._params)
+        amap[name] = torch.from_numpy(x).to(pred._dev)
+        with torch.no_grad():
+            outs.append(ev(amap, pred._aux)[0][0].cpu().numpy())
+    return quant_hold(np, outs[0], outs[1])
+
+
+def quant_hold(np, got, want):
+    """(max |got - want| / max |want|, its share of Q_TOL, argmax agreement
+    over the last axis)."""
+    scale = float(np.abs(want).max()) or 1.0
+    rel = float(np.abs(got - want).max()) / scale
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    return rel, rel / Q_TOL, agree
+
+
+def replay_ms(torch, pred, rung, on_card, iters=Q_REPLAYS):
+    """ms of one run of *pred*'s program at *rung*: on the card a graph
+    replay on the predictor's stream, timed with CUDA events; on the CPU
+    the eager program, by the host clock."""
+    shapes = pred.rung_shapes(rung)
+    prog = pred.ensure_program(shapes)
+    if not on_card:
+        zeros = {n: torch.zeros(s) for n, s in shapes.items()}
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            prog(zeros)
+        return (time.perf_counter() - t0) * 1e3 / iters
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(pred._stream):
+        prog._graph.replay()
+        start.record()
+        for _ in range(iters):
+            prog._graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def quant_rungs(torch, pred, fp32, on_card, what, failures, launches=None):
+    """Per rung of a quantized predictor beside its fp32 twin: the int8
+    work its program counted, compute bytes and their ratio, replay ms
+    of both, the gate's error.  Returns {rung: row}."""
+    from mxnet_tpu_torch.quantize import int8_work
+    mode = pred.quantization["mode"]
+    rows = {}
+    for b in pred.ladder.batches:
+        w, f = int8_work(pred, b), int8_work(fp32, b)
+        ratio = f["compute_bytes"] / max(1, w["compute_bytes"])
+        gate = pred.quantization["gate"]["rungs"][b]
+        row = {"work": w, "fp32_bytes": f["compute_bytes"],
+               "byte_ratio": ratio, "rel_err": gate["rel_err"],
+               "int8_ms": replay_ms(torch, pred, b, on_card),
+               "fp32_ms": replay_ms(torch, fp32, b, on_card)}
+        if launches is not None:
+            row["flash_fwd_captured"] = launches(b)
+        rows[b] = row
+        proof = w["int8_products"] if mode == "int8" else \
+            w["int8_dequantized"]
+        if not proof:
+            failures.append("%s rung %d: no int8 %s counted" % (
+                what, b, "products" if mode == "int8" else "tensors"))
+        if mode == "int8" and w["float_products"]:
+            failures.append("%s rung %d: %d float products where int8 was "
+                            "lowered" % (what, b, w["float_products"]))
+        if mode == "int8" and not w["compute_bytes"] < f["compute_bytes"]:
+            failures.append("%s rung %d: int8 moves %d compute bytes, not "
+                            "fewer than fp32's %d" % (
+                                what, b, w["compute_bytes"],
+                                f["compute_bytes"]))
+        log("quant %s rung %d: int8 products %d, int8 tensors %d, int8 "
+            "dequantized %d, float products %d; compute bytes %d (fp32 "
+            "%d), %.3fx fewer (%s the %gx bar); %s %.3f ms, fp32 %.3f ms "
+            "(%s); gate rel err %.6f%s" % (
+                what, b, w["int8_products"], w["int8_tensors"],
+                w["int8_dequantized"], w["float_products"],
+                w["compute_bytes"], f["compute_bytes"], ratio,
+                "meets" if ratio >= Q_BYTE_RATIO else "below", Q_BYTE_RATIO,
+                "replay" if on_card else "eager run", row["int8_ms"],
+                row["fp32_ms"], "CUDA events" if on_card else "host clock",
+                gate["rel_err"],
+                "" if launches is None else
+                "; flash_fwd captured %s" % row["flash_fwd_captured"]))
+    return rows
+
+
+def quant_traffic(reg, name, xs, threads, wait_ms, failures, what):
+    """Closed-loop traffic through ``reg.submit`` (the registry's
+    DynamicBatcher, its window *wait_ms*): every request answered with
+    its rows, coalesced, and no program built.  Returns the stats."""
+    pred = reg.get(name)
+    reg.batcher(name, max_wait_ms=wait_ms)
+    builds = pred.compile_count
+    batches, restore = record_batches(pred)
+    answers = Answers(len(xs))
+    try:
+        wall = closed_loop(reg, name, xs, threads, answers)
+        recs = answers.wait()
+    finally:
+        restore()
+    missing = [i for i, r in enumerate(recs) if r is None or
+               r["rows"] != xs[i].shape[0]]
+    lat = sorted(r["latency"] for r in recs if r is not None)
+    stats = {"requests": len(xs), "batches": len(batches),
+             "rows": int(sum(x.shape[0] for x in xs)), "wall_s": wall,
+             "p50_ms": percentile(lat, 50) * 1e3 if lat else None,
+             "builds": pred.compile_count - builds}
+    if missing or stats["builds"] or len(batches) >= len(xs):
+        failures.append("%s traffic: unanswered %s, %d builds, %d batches "
+                        "for %d requests" % (what, missing, stats["builds"],
+                                             len(batches), len(xs)))
+    log("quant %s traffic: %d requests (%d rows) from %d clients in %d "
+        "batches, %.3f s, p50 %.3f ms, builds under traffic %d" % (
+            what, len(xs), stats["rows"], threads, len(batches), wall,
+            stats["p50_ms"] or 0.0, stats["builds"]))
+    return stats
+
+
+def quant_cpu_checks(torch, np, pred, inputs, failures, what):
+    """Each input's answer from *pred* against the port's CPU run of the
+    same quantized symbol and weights: every int8 product bit-equal on
+    the CPU run's inputs, the answers within the policy's max_rel_err."""
+    limit = pred.quantization["policy"]["max_rel_err"]
+    out = []
+    for x in inputs:
+        got = pred.predict(x)[0].asnumpy()
+        outs, products = cpu_outputs(torch, pred, x)
+        rel, share, agree = quant_hold(np, got, outs[0])
+        equal, total = products_on_device(torch, products, pred._dev)
+        del products
+        ok = rel <= limit and equal == total
+        out.append({"shape": list(x.shape), "rel": rel, "share": share,
+                    "argmax": agree, "products_equal": equal,
+                    "products": total})
+        if not ok:
+            failures.append(
+                "%s: %s against the CPU run: rel err %.4f (limit %g), int8 "
+                "products bit-equal %d of %d" % (what, x.shape, rel, limit,
+                                                 equal, total))
+        log("quant %s: request %s against the port's CPU run of the same "
+            "quantized graph: int8 products on its inputs bit-equal %d of "
+            "%d; answers max err %.6f of max|out| (limit %g; %.4f of "
+            "2/127), argmax agreement %.4f -> %s" % (
+                what, x.shape, equal, total, rel, limit, share, agree,
+                "ok" if ok else "FAIL"))
+    return out
+
+
+def quant_resnet(torch, np, mx, ctx, gen, rng, spec, tmp, failures):
+    """Phase 13 (a): ResNet-50 v1 quantized int8 and int8-weight-only."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    on_card = ctx.device_type == "gpu"
+    image, rungs = spec["image"], spec["rungs"]
+    net = vision.get_model(spec["model"], classes=spec["classes"],
+                           prefix="qnet_")
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx, generator=gen)
+    net.hybridize()
+    net(mx.nd.array(rng.randn(1, 3, image, image).astype("float32"),
+                    ctx=ctx))
+    prefix = os.path.join(tmp, "qresnet")
+    net.export(prefix, 0)
+    del net
+    sym, args, aux = mx.model.load_checkpoint(prefix, 0, ctx=ctx)
+    n, rows = spec["calib"]
+    calib = [rng.randn(rows, 3, image, image).astype("float32")
+             for _ in range(n)]
+    shape = {"data0": (1, 3, image, image)}
+    ladder = mx.serve.BucketLadder(batches=rungs)
+    reg = mx.serve.ModelRegistry()
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        fp32 = reg.load("resnet-fp32", sym, args, aux_params=aux,
+                        data_shapes=shape, ladder=ladder, ctx=ctx)
+        rec["fp32_load_s"] = time.perf_counter() - t0
+        for mode in spec.get("modes", ("int8", "int8-weight-only")):
+            t0 = time.perf_counter()
+            name = "resnet-" + mode
+            pred = reg.load(name, sym, args, aux_params=aux,
+                            data_shapes=shape, ladder=ladder, ctx=ctx,
+                            quantize=mode,
+                            calib_batches=calib if mode == "int8" else None)
+            load_s = time.perf_counter() - t0
+            q = reg.health(name)["quantization"]
+            log("quant resnet %s: registry.load (calibrate on %d batches "
+                "of %d images, lower, warm rungs %s, gate) in %.2f s: %d of "
+                "%d layers covered, gate max rel err %.6f (policy limit "
+                "%g), calib sha %s" % (
+                    mode, n, rows, rungs, load_s, q["covered"], q["total"],
+                    q["gate"]["max_rel_err"],
+                    pred.quantization["policy"]["max_rel_err"],
+                    (q["calib_sha"] or "none")[:12]))
+            if q["covered"] != spec["layers"] or \
+                    q["total"] != spec["layers"]:
+                failures.append("resnet %s: %d of %d layers covered, not "
+                                "%d" % (mode, q["covered"], q["total"],
+                                        spec["layers"]))
+            per_rung = quant_rungs(torch, pred, fp32, on_card,
+                                   "resnet " + mode, failures)
+            checks = quant_cpu_checks(
+                torch, np, pred, [rng.randn(r, 3, image, image)
+                               .astype("float32")
+                               for r in spec["check_rows"]], failures,
+                "resnet " + mode)
+            threads, count, most, wait = spec["traffic"]
+            xs = [rng.randn(int(rng.randint(1, most + 1)), 3, image, image)
+                  .astype("float32") for _ in range(count)]
+            traffic = quant_traffic(reg, name, xs, threads, wait, failures,
+                                    "resnet " + mode)
+            rec[mode] = {"load_s": load_s, "covered": q["covered"],
+                         "gate_max_rel_err": q["gate"]["max_rel_err"],
+                         "rungs": per_rung, "cpu": checks,
+                         "traffic": traffic}
+            reg.unload(name, drain=False)
+            del pred
+    finally:
+        reg.close()
+    return rec, sym, args, aux
+
+
+def quant_lm(torch, np, mx, ctx, gen, rng, spec, tmp, failures):
+    """Phase 13 (b): the transformer LM quantized int8 (then
+    int8-weight-only) with its attention on flash_fwd; the main path's
+    flash_fwd launches counted."""
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        get_transformer_lm
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.quantize import QuantizationError
+    on_card = ctx.device_type == "gpu"
+    vocab, dim, heads, layers, seq = spec["cfg"]
+    net = get_transformer_lm(vocab=vocab, dim=dim, heads=heads,
+                             layers=layers, max_seq=seq, prefix="qlm_")
+    net.initialize(ctx=ctx, generator=gen)
+    net.hybridize()
+    net(mx.nd.array(rng.randint(0, vocab, (1, seq)).astype("float32"),
+                    ctx=ctx))
+    prefix = os.path.join(tmp, "qlm")
+    net.export(prefix, 0)
+    del net
+    n, rows = spec["calib"]
+    calib = [{"data0": rng.randint(0, vocab, (rows, seq)).astype("float32")}
+             for _ in range(n)]
+    ladder = mx.serve.BucketLadder(batches=spec["rungs"],
+                                   seq_axes=spec["seq_axes"],
+                                   seq_max={1: seq})
+    shape = {"data0": (1, seq)}
+    reg = mx.serve.ModelRegistry()
+    rec = {"verdicts": {}}
+    try:
+        fp32 = reg.load_checkpoint("lm-fp32", prefix, 0, data_shapes=shape,
+                                   ladder=ladder, ctx=ctx)
+        for mode in ("int8", "int8-weight-only"):
+            name = "lm-" + mode
+            # the main path: counts set to 0 just before, read just after
+            att.flash_fwd.launches = att.flash_fwd.captured = 0
+            t0 = time.perf_counter()
+            policy = mode
+            try:
+                pred = reg.load_checkpoint(
+                    name, prefix, 0, data_shapes=shape, ladder=ladder,
+                    ctx=ctx, quantize=policy,
+                    calib_batches=calib if mode == "int8" else None)
+                rec["verdicts"][mode] = "pass"
+            except QuantizationError as exc:
+                if mode != "int8":
+                    raise
+                # the default policy rejected the model: record the
+                # verdict, serve with the first and last layers in fp32
+                rec["verdicts"][mode] = "fail: %s" % exc
+                log("quant lm %s: the default policy's gate rejects the "
+                    "model (%s); serving with first_last_fp32=True"
+                    % (mode, exc))
+                policy = {"mode": mode, "first_last_fp32": True}
+                pred = reg.load_checkpoint(
+                    name, prefix, 0, data_shapes=shape, ladder=ladder,
+                    ctx=ctx, quantize=policy, calib_batches=calib)
+                rec["verdicts"][mode + " first_last_fp32"] = "pass"
+            load_s = time.perf_counter() - t0
+            q = reg.health(name)["quantization"]
+            log("quant lm %s: registry.load_checkpoint (calibrate on %d "
+                "batches of %d x %d tokens, lower, warm rungs %s, gate) in "
+                "%.2f s: %d of %d layers covered, gate max rel err %.6f "
+                "(policy limit %g)" % (
+                    mode, n, rows, seq, spec["rungs"], load_s, q["covered"],
+                    q["total"], q["gate"]["max_rel_err"],
+                    pred.quantization["policy"]["max_rel_err"]))
+            per_rung = quant_rungs(
+                torch, pred, fp32, on_card, "lm " + mode, failures,
+                launches=lambda b, p=pred: p.captured_launches(
+                    p.rung_shapes(b)).get("flash_fwd", 0))
+            if on_card:
+                for b, row in per_rung.items():
+                    if row["flash_fwd_captured"] != layers:
+                        failures.append(
+                            "lm %s rung %d: flash_fwd captured %d times, "
+                            "not once a layer (%d)" % (
+                                mode, b, row["flash_fwd_captured"], layers))
+            threads, count, most, wait = spec["traffic"]
+            xs = [rng.randint(0, vocab, (int(rng.randint(1, most + 1)),
+                                         seq)).astype("float32")
+                  for _ in range(count)]
+            traffic = quant_traffic(reg, name, xs, threads, wait, failures,
+                                    "lm " + mode)
+            launches = {"eager": att.flash_fwd.launches,
+                        "graph": pred.graph_launches().get("flash_fwd", 0)}
+            checks = quant_cpu_checks(
+                torch, np, pred, [rng.randint(0, vocab,
+                                              (1, spec["check_seq"]))
+                               .astype("float32")], failures, "lm " + mode)
+            if mode == "int8":
+                x = rng.randint(0, vocab, (1, spec["check_seq"])) \
+                    .astype("float32")
+                rel, share, agree = summation_order_spread(torch, np, pred,
+                                                           x)
+                rec["spread"] = {"rel": rel, "share": share,
+                                 "argmax": agree}
+                log("quant lm int8: the same graph on %s with flash_fwd "
+                    "and with the plain attention (another f32 summation "
+                    "order): max err %.6f of max|out| (%.4f of 2/127), "
+                    "argmax agreement %.4f" % (pred._dev, rel, share,
+                                               agree))
+            log("quant lm %s: flash_fwd on the path: wrapper launches %d "
+                "(calibration and warm-up forwards), graph launches %d "
+                "(replays x captured)" % (mode, launches["eager"],
+                                          launches["graph"]))
+            if on_card and not launches["eager"] + launches["graph"]:
+                failures.append("lm %s: flash_fwd never launched" % mode)
+            rec[mode] = {"load_s": load_s, "covered": q["covered"],
+                         "total": q["total"],
+                         "gate_max_rel_err": q["gate"]["max_rel_err"],
+                         "rungs": per_rung, "cpu": checks,
+                         "traffic": traffic, "launches": launches}
+            reg.unload(name, drain=False)
+            del pred
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        reg.close()
+    return rec
+
+
+def quant_tune(torch, np, mx, ctx, card, spec, model, failures):
+    """Phase 13 (c): tune the ResNet's serving over a recorded trace, then
+    pick the entry up in a fresh load."""
+    from mxnet_tpu_torch.autotune import (TuningStore, Trace, serve_space,
+                                          synth_serve_trace, tune)
+    from mxnet_tpu_torch.autotune.measure import ServeMeasurer
+    from mxnet_tpu_torch.autotune.search import serve_objective
+    from mxnet_tpu_torch.autotune.store import device_kind
+    sym, args, aux, shape = model
+    dim = int(np.prod(shape[1:]))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    saved = os.environ.pop("MXNET_TUNING_STORE", None)
+    env_wait = os.environ.pop("MXNET_SERVE_MAX_WAIT_MS", None)
+    rec = {}
+    try:
+        lo, hi = spec["rows"]
+        trace = synth_serve_trace(rate=spec["rate"],
+                                  seconds=spec["seconds"], dim=dim,
+                                  rows_lo=lo, rows_hi=hi, seed=13)
+        tpath = trace.save(os.path.join(tmp, "trace.json"))
+        trace = Trace.load(tpath)
+        store = TuningStore.load(os.path.join(tmp, "store.json"),
+                                 missing_ok=True)
+        measurer = ServeMeasurer(trace, symbol=sym, arg_params=args,
+                                 aux_params=aux,
+                                 data_shapes={"data0": shape},
+                                 name="resnet-tuned", ctx=ctx)
+        t0 = time.perf_counter()
+        try:
+            res = tune(serve_space(max_rows=spec["max_rows"],
+                                   ladders=list(spec["ladders"])),
+                       measurer, serve_objective(), model="resnet-tuned",
+                       workload="serve", trials=spec["trials"],
+                       neighbor_trials=spec["neighbor_trials"], seed=0,
+                       store=store, device=device_kind(ctx.torch_device))
+        finally:
+            measurer.close()
+        tune_s = time.perf_counter() - t0
+        entry = TuningStore.load(store.path).get(
+            "resnet-tuned", "serve", device=device_kind(ctx.torch_device))
+        want_kind = torch.cuda.get_device_name(0) if \
+            ctx.device_type == "gpu" else "cpu"
+        log("quant tune: trace of %d requests (%d-%d images, %.0f/s, sha "
+            "%s), %d trials (%d pruned) in %.2f s; winner %s score %s ms "
+            "p99 (baseline %s ms, gain %s%%), stored for %r" % (
+                len(trace.events), lo, hi, spec["rate"],
+                trace.sha256()[:12], res["trials"], res["pruned"], tune_s,
+                json.dumps(res["config"], sort_keys=True, default=list),
+                res["score"], res["baseline_score"], res["gain_pct"],
+                entry and entry["device_kind"]))
+        if entry is None or entry["device_kind"] != want_kind:
+            failures.append("tune: the store entry is keyed %r, not the "
+                            "card's %r" % (entry and entry["device_kind"],
+                                           want_kind))
+        os.environ["MXNET_TUNING_STORE"] = store.path
+        reg = mx.serve.ModelRegistry()
+        try:
+            pred = reg.load("resnet-tuned", sym, args, aux_params=aux,
+                            data_shapes={"data0": shape}, ctx=ctx)
+            bat = reg.batcher("resnet-tuned")
+            h = reg.health("resnet-tuned")
+            cfg = entry["config"] if entry else {}
+            applied = h.get("tuning", {}).get("applied", {})
+            want_wait = float(cfg.get("MXNET_SERVE_MAX_WAIT_MS", -1))
+            ok = (list(pred.ladder.batches) == list(cfg.get("ladder", ()))
+                  and "tuning" in h
+                  and abs(bat._max_wait * 1e3 - want_wait) < 1e-9)
+            log("quant tune: a fresh registry.load took ladder %s, the "
+                "batcher window %.4f ms and row cap %d; health()['tuning'] "
+                "%s -> %s" % (list(pred.ladder.batches),
+                              bat._max_wait * 1e3, bat._max_batch,
+                              json.dumps(applied, sort_keys=True),
+                              "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("tune: the fresh load did not take the "
+                                "stored entry %s" % cfg)
+        finally:
+            reg.close()
+        rec = {"winner": res["config"], "score": res["score"],
+               "baseline_score": res["baseline_score"],
+               "gain_pct": res["gain_pct"], "trials": res["trials"],
+               "pruned": res["pruned"], "tune_s": tune_s,
+               "device_kind": entry and entry["device_kind"]}
+    finally:
+        os.environ.pop("MXNET_TUNING_STORE", None)
+        if saved is not None:
+            os.environ["MXNET_TUNING_STORE"] = saved
+        if env_wait is not None:
+            os.environ["MXNET_SERVE_MAX_WAIT_MS"] = env_wait
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def phase_quant(torch, card, seed, ctx=None, resnet=None, lm=None,
+                tune_spec=None):
+    """Phase 13: int8 serving of ResNet-50 v1 and the LM, and serving
+    autotuning (see the module docstring).  *ctx*, *resnet*, *lm* and
+    *tune_spec* size it down for the CPU test.  Raises at its end if any
+    check failed.  Returns the record; ``rec["lm"][mode]["launches"]``
+    holds the int8 LM path's flash_fwd launches."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    if ctx is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("phase 13 needs CUDA")
+        ctx = mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    resnet, lm = resnet or Q_RESNET, lm or Q_LM
+    tune_spec = tune_spec or Q_TUNE
+    gen = torch.Generator(device=ctx.torch_device)
+    gen.manual_seed(seed + 13)
+    rng = np.random.RandomState(seed + 13)
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    failures = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_quant_")
+    try:
+        rec = {"card": card}
+        rec["resnet"], sym, args, aux = quant_resnet(
+            torch, np, mx, ctx, gen, rng, resnet, tmp, failures)
+        image = resnet["image"]
+        rec["tune"] = quant_tune(torch, np, mx, ctx, card, tune_spec,
+                                 (sym, args, aux, (1, 3, image, image)),
+                                 failures)
+        del sym, args, aux
+        if on_card:
+            torch.cuda.empty_cache()
+        rec["lm"] = quant_lm(torch, np, mx, ctx, gen, rng, lm, tmp,
+                             failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+        if on_card else None
+    log("quant: phase 13 in %.1f s, peak device memory %s on %s; %d "
+        "failed checks" % (rec["seconds"], "%.3f GB" % rec["peak_gb"]
+                           if on_card else "not measured", card,
+                           len(failures)))
+    log("quant record: " + json.dumps(rec, default=str))
+    if failures:
+        raise RuntimeError("phase 13 failed: " + "; ".join(failures))
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5359,6 +5973,11 @@ def main():
     module_launches = phase_module(torch, card, args.seed)["launches"]
     phase_lstm(torch, card, args.seed)
     phase_data(torch, card, args.seed)
+    quant = phase_quant(torch, card, args.seed)["lm"]
+    quant_launches = {
+        kind: sum(quant[m]["launches"][kind]
+                  for m in ("int8", "int8-weight-only"))
+        for kind in ("eager", "graph")}
     b, h, sq, sk, d = PATH_SHAPE
     kernels = []
     for name, source, replaces in (
@@ -5380,7 +5999,11 @@ def main():
                 serve_launches["direct"],
                 "batched serve (graph replays: traffic dispatches)":
                 serve_launches["traffic"], **by_path,
-                "decode prefill": decode_launches}
+                "decode prefill": decode_launches,
+                "quantized LM serve (eager: calibration, warm-ups)":
+                quant_launches["eager"],
+                "quantized LM serve (graph replays: gate, traffic, "
+                "checks)": quant_launches["graph"]}
         kernels.append(dict({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/" + source,

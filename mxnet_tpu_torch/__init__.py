@@ -11,7 +11,7 @@ This package imports neither ``jax`` nor ``mxnet_tpu``.
 
 __version__ = "0.1.0"
 
-from .base import MXNetError  # noqa: F401
+from .base import MXNetError, enable_x64  # noqa: F401
 from .context import Context, cpu, gpu, tpu, current_context  # noqa: F401
 from . import autograd  # noqa: F401
 from . import ndarray  # noqa: F401
@@ -40,3 +40,6 @@ from . import attribute  # noqa: F401
 from .symbol import AttrScope  # noqa: F401
 from . import serve  # noqa: F401
 from . import parallel  # noqa: F401
+from . import contrib  # noqa: F401
+from . import quantize  # noqa: F401
+from . import autotune  # noqa: F401

@@ -1,0 +1,143 @@
+"""Offline serving autotuner — search the knob space against a recorded
+trace, persist the winner to a TuningStore (port of ``tools/autotune.py``,
+the same flags, plus ``--ctx``).
+
+Drives :func:`mxnet_tpu_torch.autotune.search.tune`: successive-halving
+over the serve (bucket ladder + batcher window + row cap + quantization)
+or decode (KV block size + session rungs + tick window) config space,
+every ranking decision a real replay of an arrival trace through the
+real serving machinery, with the analytic roofline prior pruning
+dominated candidates before they cost a measurement.
+
+    python -m mxnet_tpu_torch.autotune --workload serve --model m \\
+        --trace peak.trace.json --store tuning.json
+
+    # serving processes pick the winner up at load time
+    MXNET_TUNING_STORE=tuning.json python serve.py
+
+No trace file = a synthetic open-loop trace (--rate/--seconds), good for
+smoke runs.  The winner is guarded: the default config is always
+measured at full budget on the same trace, and if nothing beats it the
+default wins with gain 0.  ``--ctx cpu`` runs on the CPU; the default is
+the card (``gpu``), which raises without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="python -m mxnet_tpu_torch.autotune",
+        description="search serving configs against a replayed trace")
+    p.add_argument("--workload", choices=("serve", "decode"),
+                   default="serve")
+    p.add_argument("--model", default="autotune",
+                   help="store key: the registry/engine name that "
+                        "should pick the tuning up at load time")
+    p.add_argument("--trace", default=None,
+                   help="recorded trace JSON (Trace.save); default: "
+                        "synthesize one")
+    p.add_argument("--store", default=None,
+                   help="TuningStore JSON to create/update with the "
+                        "winning entry (default: print only)")
+    p.add_argument("--trials", type=int, default=12,
+                   help="random proposals incl. the default config")
+    p.add_argument("--neighbor-trials", type=int, default=4,
+                   help="local perturbations of the short-round "
+                        "leader")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--short-frac", type=float, default=0.25,
+                   help="trace fraction of the screening replays")
+    # synthetic-trace shape (ignored with --trace)
+    p.add_argument("--rate", type=float, default=None,
+                   help="synthetic arrivals/sec (default 150 serve, "
+                        "12 decode)")
+    p.add_argument("--seconds", type=float, default=None,
+                   help="synthetic trace length (default 2 serve, "
+                        "3 decode)")
+    p.add_argument("--dim", type=int, default=64,
+                   help="serve payload width of the synthetic trace")
+    p.add_argument("--json", action="store_true",
+                   help="dump the full result dict as JSON")
+    p.add_argument("--quiet", action="store_true",
+                   help="suppress per-trial progress lines")
+    p.add_argument("--ctx", choices=("gpu", "cpu"), default="gpu",
+                   help="device the candidates are served on")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    from .. import context
+    from . import (Trace, TuningStore, decode_space, serve_space,
+                   synth_decode_trace, synth_serve_trace, tune)
+    from .measure import DecodeMeasurer, ServeMeasurer
+    from .search import decode_objective, serve_objective
+    ctx = context.cpu() if args.ctx == "cpu" else context.gpu(0)
+
+    if args.trace:
+        trace = Trace.load(args.trace)
+        if trace.kind != args.workload:
+            print("error: %s is a %r trace but --workload is %r"
+                  % (args.trace, trace.kind, args.workload),
+                  file=sys.stderr)
+            return 2
+    elif args.workload == "serve":
+        trace = synth_serve_trace(rate=args.rate or 150.0,
+                                  seconds=args.seconds or 2.0,
+                                  dim=args.dim)
+    else:
+        trace = synth_decode_trace(rate=args.rate or 12.0,
+                                   seconds=args.seconds or 3.0)
+    s = trace.summary()
+    print("trace: kind=%(kind)s events=%(events)d "
+          "duration=%(duration_s).2fs sha256=%(sha256).12s" % s)
+
+    if args.workload == "serve":
+        space = serve_space()
+        measurer = ServeMeasurer(trace, name=args.model, ctx=ctx)
+        objective = serve_objective()
+    else:
+        space = decode_space()
+        measurer = DecodeMeasurer(trace, name=args.model, ctx=ctx)
+        objective = decode_objective()
+
+    store = TuningStore.load(args.store, missing_ok=True) \
+        if args.store else None
+    log = (lambda *_a: None) if args.quiet else \
+        (lambda msg: print("  " + msg))
+    try:
+        result = tune(space, measurer, objective,
+                      model=args.model, workload=args.workload,
+                      trials=args.trials,
+                      neighbor_trials=args.neighbor_trials,
+                      seed=args.seed, short_frac=args.short_frac,
+                      store=store, log=log)
+    finally:
+        measurer.close()
+
+    if args.json:
+        print(json.dumps(result, indent=1, sort_keys=True))
+    else:
+        print("winner: %s" % json.dumps(result["config"],
+                                        sort_keys=True, default=list))
+        print("score: %s (baseline %s, objective %s)"
+              % (result["score"], result["baseline_score"],
+                 result["objective"]["name"]))
+        if args.store:
+            print("stored: %s -> %s|%s|%s"
+                  % (args.store, result["model"],
+                     result["device_kind"], result["workload"]))
+    # the scrapeable summary line
+    print("autotune: trials=%d pruned=%d winner_gain=%s%% ok"
+          % (result["trials"], result["pruned"], result["gain_pct"]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,485 @@
+"""Measurement harness — one candidate config, one replayed trace, one
+number (port of ``mxnet_tpu/autotune/measure.py``).
+
+A candidate is scored by replaying a recorded arrival trace through the
+real serving machinery (CompiledPredictor + DynamicBatcher for serve,
+DecodeEngine + DecodeBatcher for decode), never through a model of it.
+The trace supplies identical load to every candidate (trace.py); the
+measurer supplies identical everything else:
+
+* predictors are cached per (ladder, quantization) — two candidates
+  differing only in scalar knobs share warm programs (one CUDA graph a
+  rung on the card), so a measurement prices the config, not a build;
+* ``request_path_compiles`` rides along in every measurement — a
+  candidate that builds a program in the request path is broken, not
+  slow, and the search treats it as infeasible.
+
+The analytic prior lives here too (:meth:`ServeMeasurer.prior`): each
+ladder rung is priced by its flops (``torch.utils.flop_counter``) and
+the bytes of its parameters and activations, from one evaluation of the
+rung's graph on meta tensors, against a roofline (nominal peaks on the
+CPU, the H100 SXM data sheet's on the card); a deterministic replay of
+the batcher's coalescing discipline over the trace turns those rung
+costs into an estimated p99, and dominated candidates are pruned before
+paying a real measurement (search.py).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as _np
+import torch
+
+from . import trace as _trace
+from ..context import Context, current_context
+from ..serve.batcher import DynamicBatcher
+from ..serve.buckets import BucketLadder, ServeError
+from ..serve.predictor import CompiledPredictor
+
+__all__ = ["ServeMeasurer", "DecodeMeasurer", "percentile", "fc_model"]
+
+#: nominal roofline peaks of the prior on the CPU.  Only ratios matter
+#: (the prior ranks candidates, it never claims wall-clock).
+PRIOR_PEAK_FLOPS = 5e10
+PRIOR_PEAK_BYTES_S = 2e10
+#: the prior's peaks on the card: the H100 SXM data sheet (dense f32
+#: FLOP/s, HBM bytes/s)
+CARD_PEAK_FLOPS = 67e12
+CARD_PEAK_BYTES_S = 3.35e12
+#: fixed per-dispatch host overhead (seconds) in the prior's queue replay
+#: — on tiny models the dispatch floor, not the flops, is the service time
+PRIOR_DISPATCH_OVERHEAD_S = 25e-5
+
+
+def percentile(sorted_vals, q):
+    """Nearest-rank percentile of an ascending list."""
+    if not sorted_vals:
+        return None
+    idx = min(len(sorted_vals) - 1,
+              max(0, math.ceil(q / 100.0 * len(sorted_vals)) - 1))
+    return sorted_vals[idx]
+
+
+def fc_model(dim, hidden=64, classes=16, seed=0):
+    """The bench-family 2-layer FC inference model: returns ``(symbol,
+    arg_params, data_shapes)`` with host (CPU) parameters drawn from
+    ``np.random.RandomState(seed)`` as the JAX package's are."""
+    from .. import nd, sym
+    from ..context import cpu
+    data = sym.var("data")
+    net = sym.FullyConnected(data, num_hidden=hidden, name="atfc1")
+    net = sym.Activation(net, act_type="relu")
+    net = sym.FullyConnected(net, num_hidden=classes, name="atfc2")
+    net = sym.softmax(net)
+    rs = _np.random.RandomState(seed)
+    arg_shapes, _, _ = net.infer_shape(data=(1, dim))
+    params = {n: nd.array(rs.randn(*s).astype(_np.float32) * 0.05,
+                          ctx=cpu())
+              for n, s in zip(net.list_arguments(), arg_shapes)
+              if n != "data"}
+    return net, params, {"data": (1, dim)}
+
+
+def rung_flops_bytes(symbol, arg_params, aux_params, shapes):
+    """(flops, bytes) of one evaluation of *symbol* at the data *shapes*
+    ({name: shape}, float32): flops by ``FlopCounterMode``, bytes of the
+    parameters, inputs and every op's outputs, from one evaluation on
+    meta tensors (no device work, no program built)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from ..executor import _build_eval
+    from ..serve.predictor import _as_tensor
+
+    def meta(v):
+        t = _as_tensor(v)
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    amap = {k: meta(v) for k, v in (arg_params or {}).items()
+            if k not in shapes}
+    amap.update({n: torch.empty(s, device="meta")
+                 for n, s in shapes.items()})
+    aux = {k: meta(v) for k, v in (aux_params or {}).items()}
+    taps = {}
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        _build_eval(symbol, False)(amap, aux, taps=taps)
+    total = sum(nbytes(t) for t in list(amap.values()) + list(aux.values()))
+    total += sum(nbytes(t) for t in taps.values()
+                 if isinstance(t, torch.Tensor))
+    return float(fc.get_total_flops()), float(total)
+
+
+class ServeMeasurer(object):
+    """Replays a serve trace against candidate (ladder, batcher-knob,
+    quantization) configs.
+
+    trace : Trace (kind="serve")
+    symbol, arg_params, data_shapes : optional
+        The model under tuning; defaults to :func:`fc_model` at the
+        trace's payload width.  A model of one input whose example has
+        more than one axis (an image) takes each ``(rows, dim)`` payload
+        reshaped to its example shape, so ``dim`` must be that shape's
+        size.
+    aux_params : optional auxiliary states of the model.
+    name : model name used in batcher/predictor labels and events.
+    result_timeout : per-request result bound (seconds) — a wedged
+        candidate fails its trial instead of hanging the search.
+    ctx : the device the predictors run on (default: the current
+        context, ``gpu(0)``, which raises without CUDA).
+    calib_rows : rows of each of the 4 seeded calibration batches a
+        quantized candidate calibrates on.
+    """
+
+    def __init__(self, trace, symbol=None, arg_params=None,
+                 data_shapes=None, name="autotune", hidden=64,
+                 classes=16, result_timeout=60.0, aux_params=None,
+                 ctx=None, calib_rows=8):
+        if trace.kind != "serve":
+            raise ServeError("ServeMeasurer needs a serve trace, got "
+                             "kind=%r" % trace.kind)
+        self.trace = trace
+        self.name = name
+        self._timeout = float(result_timeout)
+        if symbol is None:
+            symbol, arg_params, data_shapes = fc_model(
+                int(trace.meta["dim"]), hidden=hidden, classes=classes)
+        self._symbol = symbol
+        self._params = arg_params
+        self._aux = aux_params
+        self._data_shapes = data_shapes
+        # resolved now: without CUDA a measurer given no CPU context
+        # raises here, before the search could score its failures
+        self._ctx = Context(ctx) if ctx is not None else current_context()
+        self._ctx.torch_device
+        self._calib_rows = int(calib_rows)
+        self._predictors = {}     # (rungs, quantize) -> predictor
+        self._rung_cost = {}      # rung -> analytic seconds (prior)
+        self._quant_models = {}   # mode -> (qsym, qargs, qaux, report)
+        self._quant_err = {}      # (rungs, mode) -> max rel err
+
+    # -- shared warm predictors -------------------------------------------
+    def _quantized_model(self, mode):
+        """The model under tuning lowered at *mode* (cached — every
+        candidate sharing a mode shares one calibration + lowering).
+        Calibration runs on seeded batches of the trace's payload
+        family."""
+        cached = self._quant_models.get(mode)
+        if cached is None:
+            from ..quantize import calibrate, quantize_model
+            table = None
+            if mode == "int8":
+                rs = _np.random.RandomState(0)
+                shape = next(iter(self._data_shapes.values()))
+                table = calibrate(
+                    self._symbol, self._params,
+                    [rs.standard_normal((self._calib_rows,) +
+                                        tuple(shape[1:]))
+                     .astype(_np.float32) for _ in range(4)],
+                    aux_params=self._aux, name=self.name, ctx=self._ctx)
+            cached = quantize_model(self._symbol, self._params,
+                                    calib=table, policy=mode,
+                                    aux_params=self._aux, name=self.name,
+                                    ctx=self._ctx)
+            self._quant_models[mode] = cached
+        return cached
+
+    def predictor(self, rungs, quantize="off"):
+        rungs = tuple(int(r) for r in rungs)
+        mode = quantize or "off"
+        pred = self._predictors.get((rungs, mode))
+        if pred is None:
+            if mode == "off":
+                symbol, params, aux = self._symbol, self._params, self._aux
+            else:
+                symbol, params, aux, _report = self._quantized_model(mode)
+            pred = CompiledPredictor(
+                symbol, params, aux_params=aux,
+                data_shapes=self._data_shapes,
+                ladder=BucketLadder(batches=rungs), name=self.name,
+                ctx=self._ctx)
+            pred.warm()
+            self._predictors[(rungs, mode)] = pred
+        return pred
+
+    def _quant_accuracy(self, rungs, mode):
+        """Max rel err of the quantized predictor vs fp32 at the top rung
+        (cached) — the measurement's accuracy guard."""
+        key = (tuple(rungs), mode)
+        err = self._quant_err.get(key)
+        if err is None:
+            rs = _np.random.RandomState(1)
+            data = {n: rs.standard_normal((rungs[-1],) + tuple(s[1:]))
+                    .astype(_np.float32)
+                    for n, s in self._data_shapes.items()}
+            q = self.predictor(rungs, mode).predict(data)
+            f = self.predictor(rungs).predict(data)
+            err = 0.0
+            for qo, fo in zip(q, f):
+                qa, fa = qo.asnumpy(), fo.asnumpy()
+                denom = float(_np.abs(fa).max()) or 1.0
+                err = max(err, float(_np.abs(qa - fa).max()) / denom)
+            self._quant_err[key] = err
+        return err
+
+    # -- real measurement --------------------------------------------------
+    def measure(self, config, budget_frac=1.0):
+        """Replay the trace (prefix) through a DynamicBatcher built from
+        *config*.  Returns the measurement artifact dict; a shed or
+        failed request marks it ``ok=False`` (the objective scores that
+        infeasible)."""
+        rungs = tuple(config.get("ladder") or BucketLadder().batches)
+        qmode = config.get("quantize") or "off"
+        pred = self.predictor(rungs, qmode)
+        quant_err = None if qmode == "off" \
+            else self._quant_accuracy(rungs, qmode)
+        compiles_warm = pred.compile_count
+        batcher = DynamicBatcher(
+            pred, max_wait_ms=config.get("MXNET_SERVE_MAX_WAIT_MS"),
+            max_batch=config.get("MXNET_SERVE_MAX_BATCH"),
+            name="%s-trial" % self.name)
+        errors = 0
+        example = tuple(next(iter(self._data_shapes.values()))[1:])
+        try:
+            def submit(payload, _i):
+                if len(example) > 1:
+                    # a (rows, dim) payload of an image model's width
+                    payload = payload.reshape((-1,) + example)
+                try:
+                    return batcher.submit(payload)
+                except ServeError:
+                    return None
+
+            records, wall = _trace.replay(self.trace, submit, budget_frac)
+            lats = []
+            for _slot, t_sub, fut in records:
+                if fut is None:
+                    errors += 1
+                    continue
+                try:
+                    fut.result(self._timeout)
+                    lats.append(fut._t_resolved - t_sub)
+                except Exception:
+                    errors += 1
+            batches = batcher.batch_count
+        finally:
+            batcher.close()
+        lats.sort()
+        n = len(records)
+        sched = self.trace.schedule(budget_frac)
+        duration = max(sched[-1][0], 1e-9)
+        # the accuracy guard: a drifting quantized candidate is
+        # infeasible, not merely slow
+        acc_ok = quant_err is None or quant_err <= 0.1
+        quant_fields = {}
+        if qmode != "off":
+            report = self._quant_models[qmode][3]
+            quant_fields = {
+                "quantize": qmode,
+                "calib_sha": report.get("calib_sha"),
+                "quant_max_rel_err": round(quant_err, 6),
+            }
+        return {
+            "workload": "serve",
+            "ok": errors == 0 and bool(lats) and acc_ok,
+            "requests": n,
+            **quant_fields,
+            "errors": errors,
+            "budget_frac": float(budget_frac),
+            "offered_rps": round((n - 1) / duration, 2) if n > 1 else None,
+            "achieved_rps": round(len(lats) / wall, 2) if wall > 0
+            else 0.0,
+            "p50_ms": round(percentile(lats, 50) * 1e3, 3)
+            if lats else None,
+            "p99_ms": round(percentile(lats, 99) * 1e3, 3)
+            if lats else None,
+            "batches": batches,
+            "request_path_compiles": pred.compile_count - compiles_warm,
+            "wall_s": round(wall, 3),
+        }
+
+    # -- analytic prior ----------------------------------------------------
+    def rung_cost_s(self, rung):
+        """Analytic service seconds of one dispatch at *rung* rows: the
+        fp32 model's flops and bytes at that batch
+        (:func:`rung_flops_bytes`) against the roofline of the measurer's
+        device, plus the fixed dispatch overhead."""
+        rung = int(rung)
+        cost = self._rung_cost.get(rung)
+        if cost is None:
+            shapes = {n: (rung,) + tuple(s[1:])
+                      for n, s in self._data_shapes.items()}
+            flops, nbytes = rung_flops_bytes(self._symbol, self._params,
+                                             self._aux, shapes)
+            if self._ctx.torch_device.type == "cuda":
+                peak_f, peak_b = CARD_PEAK_FLOPS, CARD_PEAK_BYTES_S
+            else:
+                peak_f, peak_b = PRIOR_PEAK_FLOPS, PRIOR_PEAK_BYTES_S
+            cost = max(flops / peak_f, nbytes / peak_b) + \
+                PRIOR_DISPATCH_OVERHEAD_S
+            self._rung_cost[rung] = cost
+        return cost
+
+    def prior(self, config, budget_frac=1.0):
+        """Estimated p99 latency (ms) of *config* on this trace: a
+        deterministic replay of the batcher's coalescing discipline —
+        FIFO queue, coalescing window from the oldest queued request,
+        row cap, pad-to-rung — with rung service times from
+        :meth:`rung_cost_s`.  No measurement, no threads; used to prune
+        dominated candidates before paying a real replay."""
+        ladder = BucketLadder(batches=tuple(
+            config.get("ladder") or BucketLadder().batches))
+        wait = max(0.0, float(
+            config.get("MXNET_SERVE_MAX_WAIT_MS") or 0.0)) / 1e3
+        cap = int(config.get("MXNET_SERVE_MAX_BATCH") or 0) \
+            or ladder.max_batch
+        cap = min(cap, ladder.max_batch)
+        sched = self.trace.schedule(budget_frac)
+        lats = []
+        t_free = 0.0
+        i = 0
+        n = len(sched)
+        while i < n:
+            head_t = sched[i][0]
+            # the window closes wait seconds after the oldest queued
+            # request; a busy dispatcher extends it for free
+            close = max(head_t + wait, t_free)
+            batch = [i]
+            rows = sched[i][1]
+            j = i + 1
+            while j < n and rows < cap:
+                t_j, r_j = sched[j]
+                if t_j > close or rows + r_j > cap:
+                    break
+                batch.append(j)
+                rows += r_j
+                j += 1
+            last_arrival = sched[batch[-1]][0]
+            dispatch_at = max(t_free, last_arrival,
+                              close if rows < cap else last_arrival)
+            done = dispatch_at + self.rung_cost_s(ladder.batch_for(rows))
+            for k in batch:
+                lats.append(done - sched[k][0])
+            t_free = done
+            i = j
+        lats.sort()
+        return percentile(lats, 99) * 1e3
+
+    def close(self):
+        self._predictors.clear()
+
+
+class DecodeMeasurer(object):
+    """Replays a decode-session trace against candidate (KV block size,
+    session rungs, tick window) configs.  The model defaults to
+    ``test_utils.tiny_attention_lm`` at the trace's vocab, on *ctx*
+    (default: the current context, ``gpu(0)``)."""
+
+    def __init__(self, trace, model=None, dim=24, name="autotune",
+                 result_timeout=120.0, ctx=None):
+        if trace.kind != "decode":
+            raise ServeError("DecodeMeasurer needs a decode trace, got "
+                             "kind=%r" % trace.kind)
+        self.trace = trace
+        self.name = name
+        self._timeout = float(result_timeout)
+        self._ctx = ctx
+        if model is None:
+            from ..test_utils import tiny_attention_lm
+            model = tiny_attention_lm(vocab=int(trace.meta["vocab"]),
+                                      dim=dim, seed=0, ctx=ctx)
+        (self._params, self._step_fn, self._prefill_fn,
+         self._token_spec, self._input_spec) = model
+        self._engines = {}    # (block_size, rungs) -> DecodeEngine
+
+    def engine(self, block_size, rungs):
+        from ..serve.decode import DecodeEngine
+        key = (int(block_size), tuple(int(r) for r in rungs))
+        eng = self._engines.get(key)
+        if eng is None:
+            plens = [p for _, p in self.trace.schedule()]
+            max_len = max(plens) + int(
+                self.trace.meta.get("new_tokens", 24)) + 1
+            blocks_each = -(-max_len // int(block_size))
+            eng = DecodeEngine(
+                self._step_fn, self._prefill_fn, self._token_spec,
+                self._input_spec, params=self._params, max_len=max_len,
+                block_size=int(block_size),
+                num_blocks=len(plens) * blocks_each + 2,
+                session_rungs=key[1], donate=True, device=self._ctx,
+                label="%s-b%d" % (self.name, key[0]))
+            self._engines[key] = eng
+        return eng
+
+    def measure(self, config, budget_frac=1.0):
+        from ..serve.decode import DecodeBatcher
+        eng = self.engine(
+            config.get("MXNET_SERVE_KV_BLOCK_SIZE") or 16,
+            tuple(config.get("ladder") or (1, 2, 4, 8, 16)))
+        warm = eng.compile_count
+        new_tokens = int(self.trace.meta.get("new_tokens", 24))
+        batcher = DecodeBatcher(
+            eng, max_wait_ms=config.get("MXNET_SERVE_DECODE_MAX_WAIT_MS"),
+            name="%s-trial" % self.name)
+        errors = 0
+        try:
+            def submit(prompt, _i):
+                try:
+                    return batcher.start({"tok": prompt},
+                                         max_new_tokens=new_tokens)
+                except Exception:
+                    return None
+
+            records, wall = _trace.replay(self.trace, submit, budget_frac)
+            total_tokens = 0
+            ttft, token_lat = [], []
+            for _slot, t_sub, sess in records:
+                if sess is None:
+                    errors += 1
+                    continue
+                try:
+                    sess.result(self._timeout)
+                except Exception:
+                    errors += 1
+                    continue
+                stamps = sess.stamps()
+                total_tokens += len(stamps)
+                if stamps:
+                    ttft.append(stamps[0] - t_sub)
+                    token_lat.append(stamps[0] - t_sub)
+                    token_lat.extend(b - a for a, b in
+                                     zip(stamps, stamps[1:]))
+            ticks = batcher.tick_count
+        finally:
+            batcher.close()
+        token_lat.sort()
+        ttft.sort()
+        return {
+            "workload": "decode",
+            "ok": errors == 0 and total_tokens > 0,
+            "sessions": len(records),
+            "errors": errors,
+            "budget_frac": float(budget_frac),
+            "total_tokens": total_tokens,
+            "tokens_per_sec": round(total_tokens / wall, 2)
+            if wall > 0 else 0.0,
+            "ticks": ticks,
+            "token_p99_ms": round(percentile(token_lat, 99) * 1e3, 3)
+            if token_lat else None,
+            "ttft_p99_ms": round(percentile(ttft, 99) * 1e3, 3)
+            if ttft else None,
+            "request_path_compiles": eng.compile_count - warm,
+            "wall_s": round(wall, 3),
+        }
+
+    def prior(self, config, budget_frac=1.0):
+        """No analytic prior for decode (the tick loop's cost is dominated
+        by cross-tick cache state a per-rung roofline does not see); every
+        decode candidate is measured."""
+        return None
+
+    def close(self):
+        for eng in self._engines.values():
+            eng.close()
+        self._engines.clear()

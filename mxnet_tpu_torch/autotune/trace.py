@@ -1,0 +1,241 @@
+"""Recorded, replayable open-loop arrival traces (port of
+``mxnet_tpu/autotune/trace.py``: the same file format and sha, payloads
+from the same seeded numpy walk, bit-equal across the packages).
+
+A trace is the LOAD, separated from the measurement: the complete
+arrival schedule of an open-loop run — for the serve workload every
+request's ``(arrival offset, rows)``, for decode every session's
+``(arrival offset, prompt length)`` — plus the payload seed.  Two
+replays of the same trace submit byte-identical payloads at identical
+offsets in identical order, so two candidate configs (or two builds a
+perf bisect apart) see IDENTICAL offered load; the only thing that
+differs is how the system under test responds.  That determinism is
+what makes an autotune comparison (and a recorded perf regression)
+trustworthy.
+
+Payloads are NOT stored: they are re-materialized from ``seed`` with
+a fresh ``numpy.random.RandomState`` walked over the event list in
+order — same schedule prefix, same payload bytes, while the trace
+file stays a few KB of JSON.
+
+The arrival grid is open-loop by construction: replay sleeps until
+each event's offset and never waits for the system under test, so a
+backed-up batcher accumulates queueing latency instead of silently
+slowing the offered rate (no coordinated omission).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import math
+import time
+
+import numpy as _np
+
+from ..resilience.checkpoint import atomic_write
+
+__all__ = ["Trace", "TraceError", "synth_serve_trace",
+           "synth_decode_trace", "replay"]
+
+_FORMAT = 1
+
+
+class TraceError(ValueError):
+    """A trace file that does not parse or does not validate."""
+
+
+class Trace(object):
+    """One recorded arrival schedule.
+
+    Parameters
+    ----------
+    kind : str
+        ``"serve"`` (events carry ``rows``) or ``"decode"`` (events
+        carry ``prompt_len``).
+    events : list of dict
+        ``{"t": offset seconds from replay start, "rows"|"prompt_len":
+        int}``, offsets non-decreasing.
+    meta : dict
+        Workload geometry the payloads depend on (``dim`` for serve;
+        ``vocab`` for decode) plus whatever the recorder wants to keep
+        (offered rate, recorder name).
+    seed : int
+        Seed of the payload re-materialization walk.
+    """
+
+    def __init__(self, kind, events, meta=None, seed=0):
+        if kind not in ("serve", "decode"):
+            raise TraceError("trace kind must be 'serve' or 'decode', "
+                             "got %r" % (kind,))
+        field = "rows" if kind == "serve" else "prompt_len"
+        evs = []
+        last_t = 0.0
+        for i, e in enumerate(events):
+            t = float(e["t"])
+            n = int(e[field])
+            if t < last_t:
+                raise TraceError(
+                    "event %d arrives at %.6f, before its predecessor "
+                    "at %.6f — offsets must be non-decreasing"
+                    % (i, t, last_t))
+            if n < 1:
+                raise TraceError("event %d has %s=%d (must be >= 1)"
+                                 % (i, field, n))
+            evs.append({"t": t, field: n})
+            last_t = t
+        if not evs:
+            raise TraceError("a trace needs at least one event")
+        self.kind = kind
+        self.events = evs
+        self.meta = dict(meta or {})
+        self.seed = int(seed)
+
+    # -- identity ----------------------------------------------------------
+    def schedule(self, budget_frac=1.0):
+        """The (offset, size) pairs a replay at *budget_frac* submits:
+        the first ``ceil(frac * len)`` events.  This IS the replayed
+        schedule — the determinism test asserts two calls are equal."""
+        field = "rows" if self.kind == "serve" else "prompt_len"
+        n = len(self.events)
+        take = max(1, min(n, int(math.ceil(n * float(budget_frac)))))
+        return [(e["t"], e[field]) for e in self.events[:take]]
+
+    def payloads(self, budget_frac=1.0):
+        """Deterministically re-materialized payload arrays for the
+        replayed prefix: serve = float32 ``(rows, dim)`` request
+        arrays, decode = int32 prompt-token arrays in ``[0, vocab)``.
+        One RandomState walked over the events IN ORDER — a shorter
+        budget gets the exact prefix of the full run's payloads."""
+        rs = _np.random.RandomState(self.seed)
+        out = []
+        if self.kind == "serve":
+            dim = int(self.meta.get("dim", 0))
+            if dim < 1:
+                raise TraceError("serve trace lacks meta.dim (payload "
+                                 "width)")
+            for _, rows in self.schedule(budget_frac):
+                out.append(rs.randn(rows, dim).astype(_np.float32))
+        else:
+            vocab = int(self.meta.get("vocab", 0))
+            if vocab < 1:
+                raise TraceError("decode trace lacks meta.vocab")
+            for _, plen in self.schedule(budget_frac):
+                out.append(rs.randint(0, vocab, size=plen)
+                           .astype(_np.int32))
+        return out
+
+    def duration(self, budget_frac=1.0):
+        return self.schedule(budget_frac)[-1][0]
+
+    def sha256(self):
+        """Content hash of the canonical serialization — the store
+        records it so a winning artifact names exactly which load it
+        was measured under."""
+        return hashlib.sha256(
+            self._canonical().encode("utf-8")).hexdigest()
+
+    def _canonical(self):
+        return json.dumps(self._to_doc(), sort_keys=True,
+                          separators=(",", ":"))
+
+    # -- (de)serialization -------------------------------------------------
+    def _to_doc(self):
+        return {"format": _FORMAT, "kind": self.kind,
+                "seed": self.seed, "meta": self.meta,
+                "events": self.events}
+
+    def save(self, path):
+        """Write the trace as JSON (atomic replace — a torn trace
+        file must not exist)."""
+        atomic_write(path, (json.dumps(self._to_doc(), indent=1,
+                                       sort_keys=True) + "\n")
+                     .encode("utf-8"))
+        return path
+
+    @classmethod
+    def load(cls, path):
+        try:
+            with open(path, encoding="utf-8") as f:
+                doc = json.load(f)
+        except (OSError, ValueError) as exc:
+            raise TraceError("cannot read trace %r: %s" % (path, exc))
+        if not isinstance(doc, dict) or doc.get("format") != _FORMAT:
+            raise TraceError(
+                "%r is not a format-%d trace file (got format=%r)"
+                % (path, _FORMAT, doc.get("format")
+                   if isinstance(doc, dict) else None))
+        return cls(doc.get("kind"), doc.get("events") or [],
+                   meta=doc.get("meta"), seed=doc.get("seed", 0))
+
+    def summary(self):
+        sched = self.schedule()
+        sizes = [n for _, n in sched]
+        return {"kind": self.kind, "events": len(sched),
+                "duration_s": round(self.duration(), 4),
+                "sha256": self.sha256(),
+                "size_min": min(sizes), "size_max": max(sizes),
+                "seed": self.seed}
+
+    def __repr__(self):
+        return "Trace(kind=%r, events=%d, duration=%.3fs)" % (
+            self.kind, len(self.events), self.duration())
+
+
+def synth_serve_trace(rate=150.0, seconds=2.0, dim=64, rows_lo=1,
+                      rows_hi=4, seed=0):
+    """A synthetic serve schedule matching bench.py's open loop: a
+    fixed arrival grid at *rate* with mixed request sizes drawn
+    uniformly in ``[rows_lo, rows_hi]``."""
+    rs = _np.random.RandomState(seed)
+    n = max(1, int(rate * seconds))
+    period = 1.0 / float(rate)
+    events = [{"t": round(i * period, 6),
+               "rows": int(rs.randint(rows_lo, rows_hi + 1))}
+              for i in range(n)]
+    return Trace("serve", events,
+                 meta={"dim": int(dim), "offered_rps": float(rate)},
+                 seed=seed)
+
+
+def synth_decode_trace(rate=12.0, seconds=3.0, vocab=48, prompt_lo=4,
+                       prompt_hi=24, new_tokens=24, seed=5):
+    """A synthetic decode-session schedule matching bench.py's
+    ``--serve-decode`` open loop: sessions arrive on a fixed grid,
+    each with a uniformly drawn prompt length."""
+    rs = _np.random.RandomState(seed)
+    n = max(1, int(rate * seconds))
+    period = 1.0 / float(rate)
+    events = [{"t": round(i * period, 6),
+               "prompt_len": int(rs.randint(prompt_lo, prompt_hi + 1))}
+              for i in range(n)]
+    return Trace("decode", events,
+                 meta={"vocab": int(vocab),
+                       "new_tokens": int(new_tokens),
+                       "offered_sessions_per_sec": float(rate)},
+                 seed=seed)
+
+
+def replay(trace, submit, budget_frac=1.0):
+    """Drive *submit* through the trace's open-loop arrival grid from
+    the calling thread.
+
+    ``submit(payload, index)`` is called once per event, at (never
+    before) its scheduled offset; the grid NEVER waits on the system
+    under test.  Returns ``(records, wall_s)`` where each record is
+    ``(slot_offset, t_submit, handle)`` — *handle* is whatever submit
+    returned (a ServeFuture, a decode session, None for a shed
+    admission), stamped with the monotonic submit time the latency
+    accounting runs against."""
+    payloads = trace.payloads(budget_frac)
+    sched = trace.schedule(budget_frac)
+    records = []
+    t_start = time.monotonic()
+    for i, ((offset, _size), payload) in enumerate(zip(sched,
+                                                       payloads)):
+        delay = (t_start + offset) - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+        t_sub = time.monotonic()
+        records.append((offset, t_sub, submit(payload, i)))
+    return records, time.monotonic() - t_start

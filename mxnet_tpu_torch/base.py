@@ -4,14 +4,23 @@ The dtype tables map the framework's dtype names onto numpy dtypes (the
 file formats speak numpy) and onto ``torch.dtype`` (the tensors).
 ``bfloat16`` has no numpy dtype of its own; ``np_dtype`` reaches for
 ``ml_dtypes`` only when a caller asks for it by name.
+
+The reference runs JAX without x64, so a 64-bit dtype that a user names
+narrows where it enters (int64 -> int32, uint64 -> uint32, float64 ->
+float32: :func:`narrow_dtype`), unless the caller opts in with
+:func:`enable_x64`, the counterpart of ``jax.experimental.enable_x64``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as _np
 import torch
 
-__all__ = ["MXNetError", "np_dtype", "dtype_name", "torch_dtype"]
+__all__ = ["MXNetError", "np_dtype", "dtype_name", "torch_dtype",
+           "narrow_dtype", "enable_x64"]
 
 
 class MXNetError(RuntimeError):
@@ -30,6 +39,7 @@ _TORCH = {
     # (torch.uint16 and torch.uint32 exist from PyTorch 2.3)
     "uint16": getattr(torch, "uint16", None),
     "uint32": getattr(torch, "uint32", None),
+    "uint64": getattr(torch, "uint64", None),
     "int8": torch.int8,
     "int16": torch.int16,
     "int32": torch.int32,
@@ -68,3 +78,33 @@ def torch_dtype(dtype):
     if isinstance(dtype, torch.dtype):
         return dtype
     return _TORCH[dtype_name(dtype)]
+
+
+# the 64-bit dtype names and what they narrow to outside enable_x64()
+_WIDE = {"float64": "float32", "int64": "int32", "uint64": "uint32"}
+_x64_lock = threading.Lock()
+_x64_depth = 0
+
+
+@contextlib.contextmanager
+def enable_x64():
+    """A scope in which user dtypes keep 64 bits (process-wide, nestable):
+    the port's counterpart of ``jax.experimental.enable_x64``.  Outside it,
+    :func:`narrow_dtype` narrows them as the reference does."""
+    global _x64_depth
+    with _x64_lock:
+        _x64_depth += 1
+    try:
+        yield
+    finally:
+        with _x64_lock:
+            _x64_depth -= 1
+
+
+def narrow_dtype(dtype):
+    """The canonical name of a user-given dtype as the port stores it: a
+    64-bit name narrows to 32 bits unless :func:`enable_x64` is open."""
+    name = dtype_name(dtype)
+    if _x64_depth > 0:
+        return name
+    return _WIDE.get(name, name)

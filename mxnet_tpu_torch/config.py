@@ -4,19 +4,31 @@ read).
 
 Every knob is declared here with type, default and doc, and read at call
 time (not import time) so tests can monkeypatch the environment.  A read
-resolves, in precedence order: an explicit argument (the caller's), the
-exported environment variable, the registered default.  The JAX
-package's tuned layers (the per-call tuned value, the process-wide
-override and the tuning store behind them) are not ported.
+resolves, in precedence order:
+
+1. **explicit env** — the variable is exported in ``os.environ``; an
+   operator's export always wins,
+2. **per-call tuned value** — ``resolve_env(name, tuned)``, how one
+   model's ``TuningStore`` entry participates,
+3. **tuned override** — a value installed by :func:`tuned_override`
+   (the process-wide tuned layer),
+4. **registered default** — the ``register_env`` declaration.
+
+An explicit argument of the caller's sits above all of them.
 """
 
 from __future__ import annotations
 
 import os
 
-__all__ = ["register_env", "get_env", "resolve_env"]
+__all__ = ["register_env", "get_env", "resolve_env", "env_is_set",
+           "tuned_override", "tuned_overrides", "clear_tuned"]
 
 _REGISTRY = {}
+
+# the tuned-override layer: knob name -> typed value, between the
+# environment and the registered default
+_TUNED = {}
 
 
 class _Knob:
@@ -46,19 +58,54 @@ def _coerce(knob, value):
 
 
 def get_env(name):
-    """Read a registered knob: exported env > registered default."""
+    """Read a registered knob: explicit env > tuned override > registered
+    default (typed at every layer)."""
     return resolve_env(name)
 
 
-def resolve_env(name):
-    """Read a registered knob: exported env var > registered default,
-    typed.  (The JAX signature's per-call ``tuned`` value is not ported:
-    nothing in the port tunes.)"""
+def resolve_env(name, tuned=None):
+    """Read a registered knob with an explicit per-call tuned value.
+
+    Precedence: exported env var > *tuned* argument > the process-wide
+    :func:`tuned_override` layer > registered default.  ``None`` means
+    "no per-call tuning"."""
     knob = _REGISTRY[name]
     raw = os.environ.get(name)
     if raw is not None:
         return _coerce(knob, raw)
+    if tuned is not None:
+        return _coerce(knob, tuned)
+    if name in _TUNED:
+        return _TUNED[name]
     return knob.default
+
+
+def env_is_set(name):
+    """Is the knob's variable explicitly exported?"""
+    return os.environ.get(name) is not None
+
+
+def tuned_override(name, value):
+    """Install a tuned value for a registered knob.  It applies to every
+    later read unless the env var is exported (explicit env always wins).
+    Returns the typed value installed."""
+    knob = _REGISTRY[name]
+    _TUNED[name] = _coerce(knob, value)
+    return _TUNED[name]
+
+
+def tuned_overrides():
+    """The currently installed tuned layer (a copy)."""
+    return dict(_TUNED)
+
+
+def clear_tuned(name=None):
+    """Drop one tuned override (or all of them with no argument)."""
+    if name is None:
+        _TUNED.clear()
+    else:
+        _TUNED.pop(name, None)
+
 
 
 # ---------------------------------------------------------------------------
@@ -185,3 +232,10 @@ register_env("MXNET_OPTSTATE_MISMATCH", str, "raise",
              "What load_optimizer_states does when the blob was written "
              "by another optimizer class or hyper-parameter signature: "
              "'raise' or 'reinit' (warn and start from fresh state)")
+register_env("MXNET_TUNING_STORE", str, "",
+             "Path of the autotuner's JSON TuningStore (python -m "
+             "mxnet_tpu_torch.autotune writes it).  When set, "
+             "ModelRegistry.load / DynamicBatcher / DecodeEngine consult "
+             "it for the winning config keyed (model_name, device_kind, "
+             "workload); an exported env var still beats a stored "
+             "tuning; empty = no store")

@@ -399,9 +399,9 @@ def default_batchify_fn(data):
     if isinstance(data[0], tuple):
         data = zip(*data)
         return [default_batchify_fn(i) for i in data]
-    data = _np.asarray(data)
-    return nd.array(data, dtype=str(data.dtype)
-                    if data.dtype != _np.float64 else "float32")
+    # nd.array stores 64-bit host data as the reference does (float64 as
+    # float32, int64 as int32)
+    return nd.array(_np.asarray(data))
 
 
 class DataLoader:

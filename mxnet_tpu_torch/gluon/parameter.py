@@ -7,7 +7,7 @@ the same shape made with it: the data is then a marked variable of
 deferred: a ``0`` in a shape is filled by shape inference at the first
 forward, when the parameter is created and initialized.  Random
 initializers draw from the ``torch.Generator`` the caller passed to
-``initialize``.
+``initialize``, else from the global stream that ``mx.random.seed`` sets.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from collections import OrderedDict
 import torch
 
 from .. import autograd
-from ..base import MXNetError, dtype_name, torch_dtype
+from ..base import MXNetError, narrow_dtype, torch_dtype
 from ..context import Context, cpu, current_context
 from .. import ndarray as nd
 from ..ndarray import NDArray
@@ -41,7 +41,7 @@ class Parameter:
         self._differentiable = differentiable
         self._grad_req = grad_req if differentiable else "null"
         self._shape = tuple(shape) if shape is not None else None
-        self.dtype = dtype_name(dtype)
+        self.dtype = narrow_dtype(dtype)
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.init = init
@@ -116,9 +116,6 @@ class Parameter:
         initializer = init or self.init or default_init
         if isinstance(initializer, str):
             initializer = init_mod.create(initializer)
-        if generator is None:
-            generator = torch.Generator(device=data._data.device)
-            generator.manual_seed(0)
         initializer(self.name, data, generator)
         self._data = data
         self._deferred_init = None
@@ -210,11 +207,11 @@ class Parameter:
     def cast(self, dtype):
         """Cast the data (and the gradient buffer) to *dtype*; the cast
         data is the marked variable from now on."""
-        self.dtype = dtype_name(dtype)
+        self.dtype = narrow_dtype(dtype)
         if self._data is None:
             return
         with torch.no_grad():
-            self._data = NDArray(self._data._data.to(torch_dtype(dtype)))
+            self._data = NDArray(self._data._data.to(torch_dtype(self.dtype)))
         self._init_grad()
 
     def var(self):
@@ -288,15 +285,9 @@ class ParameterDict:
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False, generator=None):
         """Initialize every parameter on *ctx*.  One *generator* feeds
-        all of them in order; without one, a generator seeded 0 on the
-        target device is made, so initialization is reproducible."""
+        all of them in order; without one they draw, in order, from the
+        global stream that ``mx.random.seed`` sets."""
         init = init or init_mod.Uniform()
-        if generator is None:
-            ctx0 = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
-            dev = (Context(ctx0) if ctx0 is not None
-                   else current_context()).torch_device
-            generator = torch.Generator(device=dev)
-            generator.manual_seed(0)
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit,
                          generator=generator)

@@ -1,8 +1,10 @@
 """Weight initializers (port of ``mxnet_tpu/initializer.py``).
 
-Initializers fill an NDArray in place.  Random ones draw from an explicit
-``torch.Generator`` on the array's device; the caller owns its seed.  The
-name-pattern dispatch (``*_bias`` -> zeros, ``*_gamma`` -> ones, ...) is
+Initializers fill an NDArray in place.  Random ones draw from the
+``torch.Generator`` the caller passes, else from the global stream on the
+array's device that ``mx.random.seed`` sets (``runtime.rng``), as the
+reference's initializers draw from its global stream.  The name-pattern
+dispatch (``*_bias`` -> zeros, ``*_gamma`` -> ones, ...) is
 the reference's ``Initializer.__call__`` routing.
 """
 
@@ -47,6 +49,14 @@ def create(name, **kwargs):
                        % (name, sorted(_REGISTRY)))
 
 
+def _stream(arr, generator):
+    """*generator*, or the global stream on *arr*'s device."""
+    if generator is not None:
+        return generator
+    from .runtime import rng
+    return rng.generator(arr._data.device)
+
+
 class InitDesc(str):
     """A parameter's name with its attributes: ``attrs["__init__"]`` names
     the initializer (a ``dumps()`` string) that fills it, whatever the
@@ -71,6 +81,7 @@ class Initializer:
 
     def __call__(self, name, arr, generator=None):
         """Fill NDArray *arr*, the parameter called *name*."""
+        generator = _stream(arr, generator)
         init = getattr(name, "attrs", {}).get("__init__", "")
         if init:
             create(init)._init_weight(name, arr, generator)
@@ -234,7 +245,7 @@ class LSTMBias(Initializer):
 
     def __call__(self, name, arr, generator=None):
         if str(name).lower().endswith("bias"):
-            self._init_weight(name, arr, generator)
+            self._init_weight(name, arr, _stream(arr, generator))
         else:
             super().__call__(name, arr, generator)
 

@@ -141,9 +141,6 @@ def _init_data(data, allow_empty, default_name):
             for k, v in data.items()]
 
 
-_NARROW = {"float64": "float32", "int64": "int32", "uint64": "uint32"}
-
-
 class NDArrayIter(DataIter):
     """Batches over in-memory arrays, optionally shuffled each epoch.  A
     last partial batch is padded by wrapping to the epoch's start
@@ -232,10 +229,9 @@ class NDArrayIter(DataIter):
                                      % self.num_data]])
 
     def _getdata(self, source):
-        # 64-bit host data as the reference stores it (float32, int32)
+        # nd.array stores 64-bit host data as the reference does
         sel = self._sel()
-        return [nd.array(v[sel], ctx=cpu(), dtype=_NARROW.get(
-            v.dtype.name, v.dtype.name)) for _, v in source]
+        return [nd.array(v[sel], ctx=cpu()) for _, v in source]
 
     def getdata(self):
         return self._getdata(self.data)

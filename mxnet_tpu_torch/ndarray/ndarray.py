@@ -28,7 +28,7 @@ import numpy as _np
 import torch
 
 from .. import autograd as _ag
-from ..base import np_dtype, dtype_name, torch_dtype
+from ..base import np_dtype, narrow_dtype, torch_dtype
 from ..context import Context, current_context, context_of
 from ..ops import registry as _reg
 from ..runtime import rng as _rng
@@ -139,9 +139,10 @@ class NDArray:
         return self
 
     def astype(self, dtype, copy=True):
+        dtype = narrow_dtype(dtype)
         if not copy and self.dtype == np_dtype(dtype):
             return self
-        return _invoke("Cast", [self], {"dtype": dtype_name(dtype)})
+        return _invoke("Cast", [self], {"dtype": narrow_dtype(dtype)})
 
     def copy(self):
         return _invoke("_copy", [self], {})
@@ -673,9 +674,6 @@ def imperative_invoke(op_name, *nd_inputs, out=None, ctx=None, **params):
 # creation functions
 # ---------------------------------------------------------------------------
 
-# host data's 64-bit dtypes as the reference stores them (JAX without
-# x64): float64 -> float32, int64 -> int32, uint64 -> uint32
-_NARROW = {"float64": "float32", "int64": "int32", "uint64": "uint32"}
 
 
 def _device(ctx):
@@ -686,16 +684,18 @@ def _device(ctx):
 def array(source_array, ctx=None, dtype=None):
     """An NDArray on *ctx* (default: the current context) from array-like
     data.  As in the reference, float64 data defaults to float32 and
-    integer data (int64 numpy arrays, Python ints) to int32; a 0-d source
-    stays 0-d."""
+    integer data (int64 numpy arrays, Python ints) to int32, and a 64-bit
+    *dtype* narrows (outside ``enable_x64()``); a 0-d source stays 0-d."""
+    if dtype is not None:
+        dtype = narrow_dtype(dtype)
     if isinstance(source_array, NDArray):
         t = source_array._data.detach()
     elif isinstance(source_array, torch.Tensor):
         t = source_array
     else:
         arr = _np.asarray(source_array)
-        if dtype is None and arr.dtype.name in _NARROW:
-            arr = arr.astype(_NARROW[arr.dtype.name])
+        if dtype is None and arr.dtype.name != narrow_dtype(arr.dtype):
+            arr = arr.astype(narrow_dtype(arr.dtype))
         t = _from_numpy(arr)
     if dtype is None and t.dtype == torch.float64:
         dtype = "float32"
@@ -708,7 +708,8 @@ def _shape_of(shape):
 
 
 def zeros(shape, ctx=None, dtype=None, **kwargs):
-    return NDArray(torch.zeros(_shape_of(shape), dtype=torch_dtype(dtype),
+    return NDArray(torch.zeros(_shape_of(shape),
+                               dtype=torch_dtype(narrow_dtype(dtype)),
                                device=_device(ctx)))
 
 
@@ -717,13 +718,15 @@ def empty(shape, ctx=None, dtype=None):
 
 
 def ones(shape, ctx=None, dtype=None, **kwargs):
-    return NDArray(torch.ones(_shape_of(shape), dtype=torch_dtype(dtype),
+    return NDArray(torch.ones(_shape_of(shape),
+                              dtype=torch_dtype(narrow_dtype(dtype)),
                               device=_device(ctx)))
 
 
 def full(shape, val, ctx=None, dtype=None):
     return NDArray(torch.full(_shape_of(shape), val,
-                              dtype=torch_dtype(dtype), device=_device(ctx)))
+                              dtype=torch_dtype(narrow_dtype(dtype)),
+                              device=_device(ctx)))
 
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
@@ -731,7 +734,7 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
     reference's), each repeated *repeat* times; float32 by default."""
     return _invoke("_arange", [], {"start": start, "stop": stop,
                                    "step": step, "repeat": repeat,
-                                   "dtype": dtype_name(dtype)}, ctx=ctx)
+                                   "dtype": narrow_dtype(dtype)}, ctx=ctx)
 
 
 def zeros_like(other):

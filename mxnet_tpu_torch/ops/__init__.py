@@ -11,3 +11,4 @@ from . import random_ops  # noqa: F401
 from . import rnn  # noqa: F401
 from . import control_flow  # noqa: F401
 from . import image  # noqa: F401
+from . import quantization  # noqa: F401

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from ..base import torch_dtype
+from ..base import narrow_dtype, torch_dtype
 from .registry import register_op, alias, get_op
 
 # the JAX registry's contracts of ops registered over numpy ufuncs
@@ -160,7 +160,9 @@ def _clip(x, a_min=None, a_max=None):
 
 @register_op("Cast", aliases=("cast",))
 def _cast(x, dtype="float32"):
-    return x.to(torch_dtype(dtype))
+    """A 64-bit *dtype* narrows as in the reference (JAX without x64),
+    unless ``enable_x64()`` is open."""
+    return x.to(torch_dtype(narrow_dtype(dtype)))
 
 
 _SELU_ALPHA = 1.6732632423543772

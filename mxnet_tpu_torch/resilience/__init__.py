@@ -8,10 +8,12 @@ uses):
   raise / hang / slow, program-build reject);
 * the errors the Module training loop raises: ``DivergenceError`` (the
   non-finite guard's divergence action) and ``StateMismatchError`` (an
-  optimizer-state file of another optimizer).
+  optimizer-state file of another optimizer);
+* :mod:`.checkpoint` — ``atomic_write`` only (calibration tables, tuning
+  stores and traces persist through it).
 
-Checkpoints, the supervisor, elastic resize, netchaos and job state are
-not ported.
+The checkpoint manager, the supervisor, elastic resize, netchaos and job
+state are not ported.
 """
 
 from __future__ import annotations

@@ -22,8 +22,11 @@ subset):
   :class:`DecodeJournal`, :class:`PagedSession` and
   :class:`SpeculativeDecoder` (decode.py).
 
-Quantized loads, the fleet and the C predict ABI's registry are not
-ported.
+``ModelRegistry.load(quantize=...)`` serves a model lowered to int8
+(``mxnet_tpu_torch.quantize``) behind its load gate, and the registry,
+the batcher and the decode engine read tuned knobs from
+``MXNET_TUNING_STORE`` (``mxnet_tpu_torch.autotune``).  The fleet and the
+C predict ABI's registry are not ported.
 """
 
 from .buckets import (BucketLadder, DeadlineExceededError,  # noqa: F401

@@ -207,9 +207,13 @@ class DynamicBatcher:
         board; called with ``"unhealthy"`` when the restart budget is
         exhausted.
     tuning : dict, optional
-        Per-model tuned knob values.  Kept for the JAX signature: the
-        tuning store is not ported, so a non-empty dict raises
-        :class:`ServeError`.
+        Per-model tuned knob values (env-var name -> value) from the
+        autotune ``TuningStore`` entry the registry attached to the
+        predictor at load time (``predictor.tuning``) — consulted for
+        every knob the constructor was not given explicitly, below an
+        exported env var: explicit argument > exported env > tuned
+        store > registered default.  Default: the attached predictor's
+        record.
     """
 
     def __init__(self, predictor, max_wait_ms=None, max_batch=None,
@@ -217,34 +221,43 @@ class DynamicBatcher:
                  default_deadline_ms=None, max_restarts=None,
                  on_state=None, tuning=None):
         from ..config import resolve_env
-        if tuning:
-            raise ServeError("tuning= is not ported (the tuning store); "
-                             "pass the knobs as arguments or set their "
-                             "MXNET_SERVE_* variables")
         self._predictor = predictor
         self.name = name or predictor.name
+        if tuning is None:
+            rec = getattr(predictor, "tuning", None) or {}
+            tuning = rec.get("config") or {}
+        self._tuning = dict(tuning)
+        _tuned = self._tuning.get
         if max_wait_ms is None:
-            max_wait_ms = resolve_env("MXNET_SERVE_MAX_WAIT_MS")
+            max_wait_ms = resolve_env("MXNET_SERVE_MAX_WAIT_MS",
+                                      _tuned("MXNET_SERVE_MAX_WAIT_MS"))
         self._max_wait = max(0.0, float(max_wait_ms)) / 1e3
         if max_batch is None:
-            max_batch = resolve_env("MXNET_SERVE_MAX_BATCH")
+            max_batch = resolve_env("MXNET_SERVE_MAX_BATCH",
+                                    _tuned("MXNET_SERVE_MAX_BATCH"))
         self._max_batch = int(max_batch) or predictor.ladder.max_batch
         if self._max_batch > predictor.ladder.max_batch:
             raise ServeError(
                 "max_batch %d exceeds the ladder's top rung %d"
                 % (self._max_batch, predictor.ladder.max_batch))
         if max_queue is None:
-            max_queue = resolve_env("MXNET_SERVE_MAX_QUEUE")
+            max_queue = resolve_env("MXNET_SERVE_MAX_QUEUE",
+                                    _tuned("MXNET_SERVE_MAX_QUEUE"))
         self._max_queue = max(0, int(max_queue))
         if max_queue_bytes is None:
-            max_queue_bytes = resolve_env("MXNET_SERVE_MAX_QUEUE_BYTES")
+            max_queue_bytes = resolve_env(
+                "MXNET_SERVE_MAX_QUEUE_BYTES",
+                _tuned("MXNET_SERVE_MAX_QUEUE_BYTES"))
         self._max_queue_bytes = max(0, int(max_queue_bytes))
         if default_deadline_ms is None:
             default_deadline_ms = resolve_env(
-                "MXNET_SERVE_DEFAULT_DEADLINE_MS")
+                "MXNET_SERVE_DEFAULT_DEADLINE_MS",
+                _tuned("MXNET_SERVE_DEFAULT_DEADLINE_MS"))
         self._default_deadline = max(0.0, float(default_deadline_ms)) / 1e3
         if max_restarts is None:
-            max_restarts = resolve_env("MXNET_SERVE_DISPATCHER_RESTARTS")
+            max_restarts = resolve_env(
+                "MXNET_SERVE_DISPATCHER_RESTARTS",
+                _tuned("MXNET_SERVE_DISPATCHER_RESTARTS"))
         self._max_restarts = max(0, int(max_restarts))
         self._on_state = on_state
         fixed = set(predictor._data_shapes) - predictor._bucket_inputs

@@ -69,10 +69,11 @@ asserted), and journaled sessions are re-admitted — bounded by
 ``MXNET_SERVE_DECODE_REBUILDS``, past which the batcher degrades to
 unhealthy typed-fail.
 
+Knobs left unset resolve explicit env > the ``MXNET_TUNING_STORE``
+entry keyed (label, device kind, "decode") > registered default.
+
 Not ported: the IR-audit hooks and the lowered-text accessors (the port
-lowers to no StableHLO; they raise :class:`~.buckets.ServeError`), and
-the tuning store (knobs resolve from the environment and their
-defaults).
+lowers to no StableHLO; they raise :class:`~.buckets.ServeError`).
 """
 
 from __future__ import annotations
@@ -582,15 +583,21 @@ class DecodeEngine:
             raise ServeError("DecodeEngine needs max_len (the longest "
                              "sequence a session may reach)")
         self.label = label
-        # the reference's tuning-store entry; the store is not ported, so
-        # knobs resolve from the environment and their defaults
-        self.tuning = None
+        # tuned-store consultation: an explicit constructor argument
+        # always wins; a knob left None falls to exported env > tuned
+        # entry keyed (label, device kind, "decode") > registered default
+        self.tuning = self._tuning_entry(
+            label, as_device(device) if device is not None else
+            (predictor._dev if predictor is not None else None))
+        tcfg = (self.tuning or {}).get("config") or {}
         if block_size is None:
-            block_size = resolve_env("MXNET_SERVE_KV_BLOCK_SIZE")
+            block_size = resolve_env("MXNET_SERVE_KV_BLOCK_SIZE",
+                                     tcfg.get("MXNET_SERVE_KV_BLOCK_SIZE"))
         if num_blocks is None:
-            num_blocks = resolve_env("MXNET_SERVE_KV_BLOCKS")
+            num_blocks = resolve_env("MXNET_SERVE_KV_BLOCKS",
+                                     tcfg.get("MXNET_SERVE_KV_BLOCKS"))
         if session_rungs is None:
-            session_rungs = (1, 2, 4, 8, 16)
+            session_rungs = tuple(tcfg.get("ladder") or (1, 2, 4, 8, 16))
         self._step_fn = step_fn
         self._prefill_fn = prefill_fn
         self._predictor = predictor
@@ -673,6 +680,13 @@ class DecodeEngine:
         if not isinstance(a, torch.Tensor):
             a = _from_numpy(_np.asarray(a))
         return a.to(self._dev)
+
+    @staticmethod
+    def _tuning_entry(label, device, workload="decode"):
+        """The active TuningStore's entry for (label, *device*'s kind,
+        *workload*), or None (no store, or no entry)."""
+        from ..autotune.store import lookup
+        return lookup(label, workload, device=device)
 
     # -- introspection -------------------------------------------------------
     @property
@@ -1421,7 +1435,11 @@ class DecodeBatcher:
         self._engine = engine
         self.name = name or engine.label
         if max_wait_ms is None:
-            max_wait_ms = resolve_env("MXNET_SERVE_DECODE_MAX_WAIT_MS")
+            tcfg = (getattr(engine, "tuning", None) or {}) \
+                .get("config") or {}
+            max_wait_ms = resolve_env(
+                "MXNET_SERVE_DECODE_MAX_WAIT_MS",
+                tcfg.get("MXNET_SERVE_DECODE_MAX_WAIT_MS"))
         self._max_wait = max(0.0, float(max_wait_ms)) / 1e3
         self._on_state = on_state
         if rebuilds is None:

@@ -64,6 +64,7 @@ from ..ndarray import NDArray
 from ..ndarray.ndarray import _from_numpy
 from ..observability import events as _obs_events
 from ..observability import metrics as _obs_metrics
+from ..ops import quantization as _quant
 from ..resilience import servechaos as _servechaos
 
 __all__ = ["CompiledPredictor", "DecodeSession"]
@@ -112,17 +113,22 @@ def _as_host(x):
 
 class _EagerProgram:
     """A rung's program on the CPU: the eager graph, run under the
-    predictor's lock like a replay (``set_params`` writes in place)."""
+    predictor's lock like a replay (``set_params`` writes in place).
+    ``work`` holds what its last run counted (``ops.quantization``)."""
 
     def __init__(self, pred):
         self._pred = pred
         self.captured = {}
         self.replays = 0
+        self.work = None
 
     def __call__(self, padded):
         pred = self._pred
         with pred._lock:
-            outs = pred._run({n: t.to(pred._dev) for n, t in padded.items()})
+            with _quant.counting() as work:
+                outs = pred._run({n: t.to(pred._dev)
+                                  for n, t in padded.items()})
+            self.work = dict(work)
             self.replays += 1
         return outs
 
@@ -130,14 +136,16 @@ class _EagerProgram:
 class _GraphProgram:
     """A rung's program on the card: one captured CUDA graph over static
     input buffers; ``captured`` holds the kernel launches its capture
-    recorded, ``replays`` counts its replays."""
+    recorded, ``work`` the int8 work and compute bytes it recorded (per
+    replay), ``replays`` counts its replays."""
 
-    def __init__(self, pred, graph, inputs, outputs, captured):
+    def __init__(self, pred, graph, inputs, outputs, captured, work):
         self._pred = pred
         self._graph = graph
         self._inputs = inputs
         self._outputs = outputs
         self.captured = captured
+        self.work = work
         self.replays = 0
 
     def __call__(self, padded):
@@ -216,7 +224,10 @@ class CompiledPredictor:
             raise ServeError("model %r: missing auxiliary states %s"
                              % (name, missing_aux))
         self._aux = {n: own(aux_params[n]) for n in aux_names}
-        self._eval = _build_eval(symbol, False)
+        # Convolution and FullyConnected count their compute bytes and
+        # float products while a program is built, beside the int8 ops
+        self._eval = _build_eval(symbol, False,
+                                 op_impls=_quant.counted_impls())
         self._programs = {}        # bucket key -> program
         self._lock = _san.lock(label="serve.predictor.%s" % name)
         self._compiles = 0
@@ -224,6 +235,8 @@ class CompiledPredictor:
         self._pool = None          # the rungs' shared CUDA graph pool
         self._stream = None        # warm-up, capture and replay stream
         self._decode_engines = []  # paged engines bound to this model
+        self.quantization = None   # the quantized load's report and gate
+        self.tuning = None         # the TuningStore entry of the load
 
     # -- introspection -----------------------------------------------------
     @property
@@ -334,10 +347,19 @@ class CompiledPredictor:
         inputs = {n: torch.zeros(s, dtype=self._data_dtypes[n],
                                  device=self._dev)
                   for n, s in shapes.items()}
+        work = {}
+
+        def run():
+            # the last call is the capture's: what one replay does
+            with _quant.counting() as counts:
+                outs = self._run(inputs)
+            work.clear()
+            work.update(counts)
+            return outs
         graph, outputs, captured = capture(
-            self._dev, *self._graph_stream(), lambda: self._run(inputs),
+            self._dev, *self._graph_stream(), run,
             "model %r, bucket %s" % (self.name, shapes))
-        return _GraphProgram(self, graph, inputs, outputs, captured)
+        return _GraphProgram(self, graph, inputs, outputs, captured, work)
 
     def ensure_program(self, shapes):
         """Get-or-build the program for a {name: padded full shape}
@@ -394,9 +416,23 @@ class CompiledPredictor:
             torch.cuda.synchronize(self._dev)
         return self._compiles - before
 
+    def program_work(self, shapes):
+        """What one run of *shapes*' program does, as its build counted
+        it (``ops.quantization.counting``): ``int8_products``,
+        ``int8_tensors``, ``int8_dequantized``, ``float_products`` and
+        ``compute_bytes`` (per replay on the card).  Builds the program
+        if needed; an eager program not yet run runs once on zeros."""
+        prog = self.ensure_program(shapes)
+        if prog.work is None:
+            prog({n: torch.zeros(s, dtype=self._data_dtypes[n])
+                  for n, s in shapes.items()})
+        return dict(prog.work)
+
     def lowered_text(self, shapes):
         raise ServeError("lowered_text is not ported: the port lowers to no "
-                         "StableHLO (quantization, queue A item 6b)")
+                         "StableHLO; program_work(shapes) (or "
+                         "quantize.int8_work(pred, rung)) counts the int8 "
+                         "products each rung's program runs")
 
     # -- autoregressive decode ---------------------------------------------
     def make_decoder(self, step_fn, cache, input_shapes, input_dtypes=None,

@@ -1,6 +1,6 @@
 """ModelRegistry — multi-model serving with warm per-rung programs (port
-of ``mxnet_tpu/serve/registry.py``, without quantization, tuning and the
-C predict ABI's process-wide instance).
+of ``mxnet_tpu/serve/registry.py``, without the C predict ABI's
+process-wide instance and the IR audit).
 
 The registry is the process's serving control plane:
 
@@ -16,6 +16,10 @@ The registry is the process's serving control plane:
 * ``batcher``/``submit`` attach the dynamic batcher to a model by name;
 * ``health``/``ready``/``live`` expose the per-model state machine (see
   health.py) plus queue depth and dispatcher liveness;
+* ``load(..., quantize=...)`` lowers the model to int8 first
+  (``quantize``) and gates every rung against the fp32 model before it
+  serves; ``MXNET_TUNING_STORE`` supplies a tuned ladder and batcher
+  knobs (``autotune``);
 * the paged decode engines a model carries
   (:meth:`CompiledPredictor.make_paged_decoder`) drain with it: unload
   and replacement drain and close their batchers, an alias cutover
@@ -28,10 +32,11 @@ every program build is counted and blamed (see predictor.py).
 from __future__ import annotations
 
 from .batcher import DynamicBatcher
-from .buckets import ServeError
+from .buckets import BucketLadder, ServeError
 from .health import HealthBoard
 from .predictor import CompiledPredictor
 from .. import sanitizer as _san
+from ..context import Context, current_context
 from ..observability import events as _obs_events
 from ..observability import metrics as _obs_metrics
 
@@ -43,6 +48,13 @@ _MODELS_GAUGE = _obs_metrics.gauge(
 _DRAINS_TOTAL = _obs_metrics.counter(
     "serve_drains_total",
     "graceful drains started (Registry.drain + unload(drain=True))")
+_QUANT_MODELS_GAUGE = _obs_metrics.gauge(
+    "serve_quantized_models",
+    "quantized models resident across all serve registries "
+    "(delta-maintained)")
+_QUANT_GATE_FAILURES = _obs_metrics.counter(
+    "quant_accuracy_gate_failures_total",
+    "quantized loads rejected by the load-time accuracy gate")
 
 
 class ModelRegistry:
@@ -70,11 +82,35 @@ class ModelRegistry:
         failure — a failed graph capture among them — never
         half-registers: the name is dropped from the health board, a
         ``load_failed`` event records it and the error propagates.
-        *quantize*, *calib* and *calib_batches* are not ported."""
-        if quantize is not None or calib is not None or \
-                calib_batches is not None:
-            raise ServeError("load(%r): quantized serving is not ported "
-                             "(queue A item 6b)" % name)
+
+        When ``MXNET_TUNING_STORE`` names an autotune store with an entry
+        for ``(name, device_kind, "serve")``, the tuned ladder applies
+        when no *ladder* argument was passed, the entry rides on the
+        predictor (``pred.tuning``) for the batcher's scalar knobs, and
+        ``health(name)`` shows a ``tuning`` section.  Precedence
+        everywhere: explicit argument > exported env var > tuned store >
+        registered default.
+
+        *quantize* (``"int8"`` / ``"int8-weight-only"`` / a
+        :class:`~mxnet_tpu_torch.quantize.QuantizePolicy` / ``None``)
+        lowers the model through ``quantize`` before building the rungs.
+        Weight+activation mode needs ranges: pass *calib* (a
+        ``CalibTable`` or a saved table's path) or *calib_batches*
+        (representative batches to calibrate on at load).  Every rung is
+        then gated against an fp32 predictor of the same model: its
+        program must run int8 products (``int8-weight-only``: dequantize
+        int8 weights), as its build counted them, and its answers must
+        be within the policy's thresholds; otherwise the load fails with
+        a typed :class:`~mxnet_tpu_torch.quantize.QuantizationError` and
+        nothing is installed.  ``health(name)`` grows a ``quantization``
+        section."""
+        from ..quantize import QuantizePolicy
+        policy = QuantizePolicy.coerce(quantize)
+        tuning = self._tuning_entry(name, ctx)
+        if ladder is None and tuning:
+            rungs = (tuning.get("config") or {}).get("ladder")
+            if rungs:
+                ladder = BucketLadder(batches=rungs)
 
         def _check_not_alias():
             if name in self._aliases:
@@ -89,8 +125,16 @@ class ModelRegistry:
         if not replacing:
             self._board.transition(name, "loading")
         try:
+            qreport = None
+            serve_symbol, serve_args, serve_aux = \
+                symbol, arg_params, aux_params
+            if policy is not None:
+                serve_symbol, serve_args, serve_aux, qreport = \
+                    self._quantize_build(name, symbol, arg_params,
+                                         aux_params, policy, calib,
+                                         calib_batches, ctx)
             pred = CompiledPredictor(
-                symbol, arg_params, aux_params=aux_params,
+                serve_symbol, serve_args, aux_params=serve_aux,
                 data_shapes=data_shapes, ladder=ladder,
                 data_dtypes=data_dtypes, ctx=ctx, name=name,
                 bucket_inputs=bucket_inputs)
@@ -100,6 +144,12 @@ class ModelRegistry:
                 built = pred.warm()
             else:
                 built = 0
+            if policy is not None:
+                self._gate_quantized(
+                    name, pred, symbol, arg_params, aux_params,
+                    data_shapes=data_shapes, data_dtypes=data_dtypes,
+                    ctx=ctx, bucket_inputs=bucket_inputs, policy=policy,
+                    report=qreport)
         except Exception as exc:
             if not replacing:
                 self._board.drop(name)
@@ -107,12 +157,19 @@ class ModelRegistry:
                              error="%s: %s" % (type(exc).__name__,
                                                str(exc)[:200]))
             raise
+        pred.tuning = tuning
         with self._lock:
             _check_not_alias()      # racing alias() may have won
             displaced = self._models.get(name)
             old_batcher = self._batchers.pop(name, None)
             if name not in self._models:
                 _MODELS_GAUGE.inc()  # delta: aggregates across registries
+            was_q = displaced is not None and \
+                getattr(displaced, "quantization", None) is not None
+            if policy is not None and not was_q:
+                _QUANT_MODELS_GAUGE.inc()
+            elif was_q and policy is None:
+                _QUANT_MODELS_GAUGE.dec()
             self._models[name] = pred
             # ready-mark inside the install lock: marking after release
             # let a concurrent unload drop the board first, then this
@@ -132,8 +189,154 @@ class ModelRegistry:
             for eng in list(displaced._decode_engines):
                 eng.close()
         _obs_events.emit("serve", kind="load", model=name, programs=built,
-                         warm=bool(warm), buckets=list(pred.ladder.batches))
+                         warm=bool(warm), buckets=list(pred.ladder.batches),
+                         **dict(({"tuned": True} if tuning else {}),
+                                **({"quantized": policy.mode}
+                                   if policy else {})))
         return pred
+
+    @staticmethod
+    def _tuning_entry(name, ctx, workload="serve"):
+        """The active TuningStore's entry for *name* on *ctx*'s device kind
+        (default: the current context's), or None when no store is
+        configured or no entry matches.  A configured but unreadable store
+        propagates loudly."""
+        from ..autotune.store import lookup
+        return lookup(name, workload, device=Context(ctx) if ctx is not None
+                      else current_context())
+
+    # -- quantized loading -------------------------------------------------
+    @staticmethod
+    def _quantize_build(name, symbol, arg_params, aux_params, policy,
+                        calib, calib_batches, ctx):
+        """Lower the fp32 model per *policy*.  Resolves the calibration
+        source (table object > saved table path > calibrate on
+        *calib_batches* now, on *ctx*) and returns the quantized
+        (symbol, args, aux, report)."""
+        from ..quantize import (CalibTable, QuantizationError, calibrate,
+                                quantize_model)
+        table = None
+        if policy.needs_calib:
+            if isinstance(calib, CalibTable):
+                table = calib
+            elif isinstance(calib, str):
+                table = CalibTable.load(calib)
+            elif calib is not None:
+                raise QuantizationError(
+                    "calib must be a CalibTable or a saved table path, "
+                    "got %s" % type(calib).__name__)
+            elif calib_batches is not None:
+                table = calibrate(symbol, arg_params, calib_batches,
+                                  aux_params=aux_params, name=name, ctx=ctx)
+            else:
+                raise QuantizationError(
+                    "load(%r, quantize='int8') needs calibration ranges: "
+                    "pass calib= (CalibTable or path) or calib_batches="
+                    % name)
+        return quantize_model(symbol, arg_params, calib=table,
+                              policy=policy, aux_params=aux_params,
+                              name=name, ctx=ctx)
+
+    @staticmethod
+    def _gate_quantized(name, pred, symbol, arg_params, aux_params,
+                        data_shapes, data_dtypes, ctx, bucket_inputs,
+                        policy, report):
+        """Load-time gate: at every rung the quantized predictor must (a)
+        provably run int8 compute — its program's build counted int8
+        products (``int8``) or dequantized int8 weights
+        (``int8-weight-only``) — and (b) agree with an fp32 reference
+        predictor within the policy's thresholds.  A failure increments
+        ``quant_accuracy_gate_failures_total`` and raises typed.  On
+        success the report, with per-rung gate numbers and int8 work,
+        rides on ``pred.quantization`` for ``health()``."""
+        import numpy as _np
+        from ..base import dtype_name
+        from ..quantize import (QuantizationError, hlo_has_int8_compute,
+                                hlo_has_int8_tensors, int8_work)
+        ref = CompiledPredictor(
+            symbol, arg_params, aux_params=aux_params,
+            data_shapes=data_shapes, ladder=pred.ladder,
+            data_dtypes=data_dtypes, ctx=ctx, name="%s-fp32ref" % name,
+            bucket_inputs=bucket_inputs)
+        proof = hlo_has_int8_compute if policy.mode == "int8" \
+            else hlo_has_int8_tensors
+        # not seed 0: parameters drawn from RandomState(0) share their
+        # leading draws with a seed-0 gate stream, which makes the first
+        # gate row an outlier far outside any calibrated range
+        rng = _np.random.RandomState(0x5EED)
+        rungs = {}
+        worst_err = 0.0
+        worst_top1 = None
+
+        def _fail(why):
+            _QUANT_GATE_FAILURES.inc()
+            _obs_events.emit("quantize", kind="gate_failed", model=name,
+                             mode=policy.mode, error=why)
+            raise QuantizationError(
+                "model %r failed the quantization gate: %s" % (name, why))
+
+        try:
+            for b in pred.ladder.batches:
+                if not proof(pred, b):
+                    _fail("rung %d: no int8 %s in its program" % (
+                        b, "products" if policy.mode == "int8"
+                        else "tensors"))
+                errs, agree = [], []
+                for _ in range(max(1, policy.gate_batches)):
+                    data = {n: rng.standard_normal(
+                        (b,) + tuple(s[1:])).astype(
+                            dtype_name(pred._data_dtypes[n]))
+                        for n, s in pred._data_shapes.items()}
+                    q_out = pred.predict(data)
+                    f_out = ref.predict(data)
+                    for qo, fo in zip(q_out, f_out):
+                        # reduced where the answers lie: the same float32
+                        # max |q - f| and argmax as on the host, without
+                        # reading an LM's logits back
+                        qa, fa = qo._data, fo._data
+                        denom = float(fa.abs().max()) or 1.0
+                        errs.append(float((qa - fa).abs().max()) / denom)
+                        if fa.dim() == 2 and fa.shape[1] > 1:
+                            agree.append(float((qa.argmax(1) ==
+                                                fa.argmax(1)).double()
+                                               .mean()))
+                err = max(errs)
+                top1 = min(agree) if agree else None
+                rungs[b] = {"rel_err": round(err, 6),
+                            "top1_agreement": top1,
+                            "work": int8_work(pred, b),
+                            "fp32_work": int8_work(ref, b)}
+                worst_err = max(worst_err, err)
+                if top1 is not None:
+                    worst_top1 = top1 if worst_top1 is None \
+                        else min(worst_top1, top1)
+                if err > policy.max_rel_err:
+                    _fail("rung %d: rel err %.4f > %.4f vs fp32"
+                          % (b, err, policy.max_rel_err))
+                if policy.min_top1_agreement is not None and \
+                        top1 is not None and \
+                        top1 < policy.min_top1_agreement:
+                    _fail("rung %d: top-1 agreement %.4f < %.4f vs fp32"
+                          % (b, top1, policy.min_top1_agreement))
+        finally:
+            del ref
+        pred.quantization = {
+            "mode": policy.mode,
+            "calib_sha": report.get("calib_sha"),
+            "layers": report.get("layers"),
+            "passthrough": report.get("passthrough"),
+            "covered": report.get("covered"),
+            "total": report.get("total"),
+            "policy": policy.to_dict(),
+            "gate": {"max_rel_err": round(worst_err, 6),
+                     "min_top1_agreement": worst_top1,
+                     "rungs": rungs},
+        }
+        _obs_events.emit(
+            "quantize", kind="gate", model=name, mode=policy.mode,
+            covered=report.get("covered"), total=report.get("total"),
+            max_rel_err=round(worst_err, 6), rungs=sorted(rungs),
+            calib_sha=(report.get("calib_sha") or "")[:12] or None)
 
     def load_checkpoint(self, name, prefix, epoch, data_shapes, ctx=None,
                         **kwargs):
@@ -323,6 +526,8 @@ class ModelRegistry:
                 del self._aliases[a]
             batcher = self._batchers.pop(name, None) or batcher
             _MODELS_GAUGE.dec()
+            if getattr(pred, "quantization", None) is not None:
+                _QUANT_MODELS_GAUGE.dec()
         if batcher is not None:
             # the board entry dies below — a late dispatcher crash must
             # not resurrect it under the dropped name
@@ -401,6 +606,36 @@ class ModelRegistry:
                 closed_dirty=batcher.closed_dirty,
                 requests=batcher.request_count,
                 batches=batcher.batch_count)
+        tuning = getattr(pred, "tuning", None)
+        if tuning:
+            from ..config import get_env
+            info["tuning"] = {
+                "workload": tuning.get("workload"),
+                "device_kind": tuning.get("device_kind"),
+                "config": tuning.get("config"),
+                "score": tuning.get("score"),
+                "baseline_score": tuning.get("baseline_score"),
+                "gain_pct": tuning.get("gain_pct"),
+                "source": get_env("MXNET_TUNING_STORE"),
+            }
+            if batcher is not None:
+                # what applied after env-wins resolution: an exported env
+                # var makes this differ from config
+                info["tuning"]["applied"] = {
+                    "ladder": list(pred.ladder.batches),
+                    "max_wait_ms": batcher._max_wait * 1e3,
+                    "max_batch": batcher._max_batch,
+                }
+        quant = getattr(pred, "quantization", None)
+        if quant:
+            info["quantization"] = {
+                "mode": quant.get("mode"),
+                "calib_sha": quant.get("calib_sha"),
+                "covered": quant.get("covered"),
+                "total": quant.get("total"),
+                "layers": quant.get("layers"),
+                "gate": quant.get("gate"),
+            }
         engines = list(pred._decode_engines) if pred is not None else []
         if engines:
             dbs = [db for eng in engines for db in eng._batchers]

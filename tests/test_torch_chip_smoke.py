@@ -49,7 +49,15 @@ logits are within 1e-5 of the JAX ``TransformerLM`` forward; paged
 streams equal the dense ``make_decoder`` streams; a freed block filled
 with NaN — by ids past the table, or by hand — leaves the next
 sessions' streams unchanged; every check of the phase is wired; the
-phase raises without CUDA."""
+phase raises without CUDA.
+
+Phase 13 (int8 serving and tuning): at a small size on the CPU (a
+thumbnail ResNet-18 at 32 x 32, rungs 1, 2, 4; a 2-layer LM of dim 128;
+a 0.3 s trace over three ladders topping at 4) the quantized loads pass
+their gates, every rung counts its int8 products, the answers match the
+CPU run, the traffic coalesces, the tuned entry is picked up by a fresh
+load; every check of the phase is wired; the phase raises without
+CUDA."""
 
 import os
 import sys
@@ -608,7 +616,10 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
         "phase_module": lambda t, c, s: {"launches": {k: 240
                                                       for k in kernels}},
         "phase_lstm": lambda t, c, s: {},
-        "phase_data": lambda t, c, s: {}}
+        "phase_data": lambda t, c, s: {},
+        "phase_quant": lambda t, c, s: {"lm": {
+            "int8": {"launches": {"eager": 96, "graph": 300}},
+            "int8-weight-only": {"launches": {"eager": 84, "graph": 240}}}}}
     for name, fn in stub.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     assert chip_smoke.main() == 0
@@ -623,7 +634,13 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
     assert fwd["launches_by_path"][
         "user-surface LM train (eager nd, adam)"] == 72
     assert fwd["launches_by_path"][chip_smoke.MODULE_PATH] == 240
-    assert fwd["launches"] == 72 + 108 + 420 + 60 + 60 + 552 + 72 + 240
+    assert fwd["launches_by_path"][
+        "quantized LM serve (eager: calibration, warm-ups)"] == 96 + 84
+    assert fwd["launches_by_path"][
+        "quantized LM serve (graph replays: gate, traffic, checks)"] == \
+        300 + 240
+    assert fwd["launches"] == 72 + 108 + 420 + 60 + 60 + 552 + 72 + 240 + \
+        96 + 84 + 300 + 240
     for k in json.loads(lines[-2])["kernels"][1:]:
         assert k["launches"] == 60 + 60 + 72 + 240
     for k in json.loads(lines[-2])["kernels"]:
@@ -1107,3 +1124,173 @@ def test_data_phase_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         chip_smoke.phase_data(torch, "no card", 0)
+
+
+# phase 13 (int8 serving and tuning) at a small size on the CPU
+QUANT_SMALL = dict(
+    resnet=dict(model="resnet18_v1", classes=10, image=32, rungs=(1, 2, 4),
+                calib=(2, 4), check_rows=(1, 2), traffic=(3, 6, 4, 200.0),
+                layers=21),
+    lm=dict(cfg=(97, 128, 4, 2, 32), rungs=(1, 2, 4), seq_axes={1: 16},
+            calib=(2, 2), check_seq=16, traffic=(3, 6, 2, 200.0)),
+    tune_spec=dict(rate=60.0, seconds=0.3, rows=(1, 2), max_rows=4,
+                   ladders=((1, 2, 4), (1, 4), (2, 4)), trials=2,
+                   neighbor_trials=1))
+
+
+@pytest.fixture
+def one_thread():
+    """Phase 13's CPU cases in one torch thread: the suite runs beside
+    other workers, and many threads each would oversubscribe the cores."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# the wiring cases: phase 13 (a) in int8 only, at two rungs
+QUANT_WIRING = dict(QUANT_SMALL["resnet"], modes=("int8",), rungs=(1, 2),
+                    calib=(1, 4), check_rows=(2,), traffic=(3, 4, 2, 200.0))
+
+
+def test_quant_phase_runs_on_the_cpu(one_thread):
+    import torch
+    import mxnet_tpu_torch as mx
+    rec = chip_smoke.phase_quant(torch, "cpu", 0, ctx=mx.cpu(),
+                                 **QUANT_SMALL)
+    for mode in ("int8", "int8-weight-only"):
+        r = rec["resnet"][mode]
+        assert r["covered"] == 21
+        assert sorted(r["rungs"]) == [1, 2, 4]
+        for row in r["rungs"].values():
+            key = "int8_products" if mode == "int8" else "int8_dequantized"
+            assert row["work"][key] == 21
+        assert all(c["rel"] == 0.0 and c["products_equal"] ==
+                   c["products"] for c in r["cpu"])
+        assert rec["lm"][mode]["traffic"]["builds"] == 0
+    assert rec["resnet"]["int8"]["rungs"][1]["byte_ratio"] > 1.0
+    assert rec["tune"]["device_kind"] == "cpu"
+    assert rec["lm"]["verdicts"]["int8"] == "pass"
+
+
+def _quant_resnet(torch, mx, tmp_path, spec=QUANT_WIRING):
+    import numpy as np
+    failures = []
+    gen = torch.Generator().manual_seed(0)
+    rec, sym, args, aux = chip_smoke.quant_resnet(
+        torch, np, mx, mx.cpu(), gen, np.random.RandomState(0), spec,
+        str(tmp_path), failures)
+    return failures, (sym, args, aux)
+
+
+@pytest.mark.parametrize("fault", ["products", "float", "bytes", "cpu",
+                                   "product", "traffic", "covered"])
+def test_quant_checks_are_wired(monkeypatch, tmp_path, one_thread, fault):
+    """Each check of phase 13 (a) fails the phase when its numbers break."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import quantize
+    real_work = quantize.int8_work
+    if fault in ("products", "float", "bytes"):
+        def work(pred, b):
+            w = dict(real_work(pred, b))
+            if pred.quantization is not None:
+                if fault == "products":
+                    w["int8_products"] = w["int8_dequantized"] = 0
+                elif fault == "float":
+                    w["float_products"] = 1
+                else:
+                    w["compute_bytes"] *= 100
+            return w
+        monkeypatch.setattr(quantize, "int8_work", work)
+    elif fault == "cpu":
+        real = chip_smoke.cpu_outputs
+
+        def moved(*a):
+            outs, products = real(*a)
+            return [o + 1e3 * abs(o).max() for o in outs], products
+        monkeypatch.setattr(chip_smoke, "cpu_outputs", moved)
+    elif fault == "product":
+        real = chip_smoke.cpu_outputs
+
+        def one_off(*a):
+            outs, products = real(*a)
+            if products:            # int8 mode; weight-only has none
+                fn, ins, params, want = products[-1]
+                products[-1] = (fn, ins, params, want + 1)
+            return outs, products
+        monkeypatch.setattr(chip_smoke, "cpu_outputs", one_off)
+    elif fault == "traffic":
+        monkeypatch.setattr(chip_smoke, "record_batches", lambda pred: (
+            [None] * 100, lambda: None))
+    else:
+        monkeypatch.setitem(QUANT_WIRING, "layers", 22)
+    failures, _ = _quant_resnet(torch, mx, tmp_path)
+    message = {"products": "no int8 products", "float": "float products",
+               "bytes": "not fewer", "cpu": "against the CPU run",
+               "product": "bit-equal 20 of 21",
+               "traffic": "batches for", "covered": "layers covered"}[fault]
+    assert any(message in f for f in failures), failures
+
+
+def _tiny_image_model(mx):
+    """A one-conv, one-fc image model: (symbol, args, aux, data shape)."""
+    import numpy as np
+    data = mx.sym.var("data0")
+    net = mx.sym.Convolution(data, kernel=(3, 3), num_filter=4, name="tc")
+    net = mx.sym.FullyConnected(mx.sym.relu(net), num_hidden=5, name="tf")
+    shape = (1, 3, 8, 8)
+    rs = np.random.RandomState(0)
+    args = {n: mx.nd.array(rs.randn(*s).astype("float32") * 0.3,
+                           ctx=mx.cpu())
+            for n, s in zip(net.list_arguments(),
+                            net.infer_shape(data0=shape)[0])
+            if n != "data0"}
+    return net, args, {}, shape
+
+
+def test_quant_tune_check_is_wired(monkeypatch, one_thread):
+    """An entry keyed on another device kind fails phase 13 (c)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.autotune import store
+    model = _tiny_image_model(mx)
+    failures = []
+    rec = chip_smoke.quant_tune(torch, np, mx, mx.cpu(), "cpu",
+                                QUANT_SMALL["tune_spec"], model, failures)
+    assert failures == [] and rec["device_kind"] == "cpu"
+    monkeypatch.setattr(store, "device_kind", lambda device=None: "TPU v4")
+    chip_smoke.quant_tune(torch, np, mx, mx.cpu(), "cpu",
+                          QUANT_SMALL["tune_spec"], model, failures)
+    assert any("keyed" in f for f in failures), failures
+
+
+def test_quant_phase_raises_at_its_end(monkeypatch):
+    """A failure found in any part fails the phase, after every part ran."""
+    import torch
+    import mxnet_tpu_torch as mx
+    ran = []
+
+    def part(name, fails, out):
+        def run(*a):
+            ran.append(name)
+            if fails:
+                a[-1].append(name + " broke")
+            return out
+        return run
+    monkeypatch.setattr(chip_smoke, "quant_resnet",
+                        part("resnet", True, ({}, None, None, None)))
+    monkeypatch.setattr(chip_smoke, "quant_tune", part("tune", False, {}))
+    monkeypatch.setattr(chip_smoke, "quant_lm", part("lm", True, {}))
+    with pytest.raises(RuntimeError, match="resnet broke; lm broke"):
+        chip_smoke.phase_quant(torch, "cpu", 0, ctx=mx.cpu(), **QUANT_SMALL)
+    assert ran == ["resnet", "tune", "lm"]
+
+
+def test_quant_phase_raises_without_cuda(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chip_smoke.phase_quant(torch, "no card", 0)

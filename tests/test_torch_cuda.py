@@ -10,7 +10,10 @@ the paged engine's CUDA graphs per rung over a pool updated in place, a
 pool rebuild under captured graphs, and the dense decoder's graph; the
 data path: nvJPEG's decode and the route's geometry on the card, the
 ImageRecordIter's batches on the card, and the prefetchers' copy stream
-ordered before the consumer's reads.
+ordered before the consumer's reads; the int8 products: ``_int_mm`` with
+the zero padding its limits need, the int8 convolution's columns, and a
+quantized rung's CUDA graph counting its int8 products, each bit-equal to
+the plain CPU version.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one.
 This file imports neither jax nor the JAX package, so it runs on a
@@ -1020,3 +1023,85 @@ def test_prefetcher_copy_stream_is_ordered_before_the_consumer(cuda):
     finally:
         pf.close()
     assert i == n - 1
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 1000), (17, 64, 64),
+                                   (5, 147, 64), (2048, 1024, 3072),
+                                   (3, 9, 6)])
+def test_int8_matmul_pads_to_int_mm_limits_and_matches_cpu(cuda, m, k, n):
+    """Rows <= 16 and widths off a multiple of 8 (the FC at rung 1, the
+    ResNet stem's 3 * 7 * 7 = 147) pad with zeros: exact, bit-equal to the
+    CPU's float64 product, and counted as one int8 product."""
+    from mxnet_tpu_torch.ops import quantization as q
+    g = torch.Generator().manual_seed(m * 131 + k)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    with q.counting() as work:
+        got = q.int8_matmul(a.to(cuda), b.to(cuda))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    assert work["int8_products"] == 1
+    torch.testing.assert_close(got.cpu(), q.int8_matmul(a, b), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("shape,w,stride,pad,groups", [
+    ((2, 3, 224, 224), (64, 3, 7, 7), 2, 3, 1),
+    ((4, 64, 56, 56), (64, 64, 3, 3), 1, 1, 1),
+    ((4, 256, 28, 28), (512, 256, 1, 1), 2, 0, 1),
+    ((2, 8, 9, 9), (8, 2, 3, 3), 1, 1, 4)])
+def test_int8_convolution_matches_the_plain_version(cuda, shape, w, stride,
+                                                    pad, groups):
+    """The columns-and-_int_mm convolution against the CPU's exact float64
+    convolution: int32 accumulators bit-equal."""
+    from mxnet_tpu_torch.ops import registry as reg
+    fn = reg.get_op("_contrib_quantized_conv").fn
+    g = torch.Generator().manual_seed(sum(shape))
+    d = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    wt = torch.randint(-127, 128, w, generator=g, dtype=torch.int8)
+    r = [torch.tensor(v) for v in (-1.0, 1.0, -0.5, 0.5)]
+    kw = dict(kernel=w[2:], stride=(stride, stride), pad=(pad, pad),
+              num_filter=w[0], num_group=groups)
+    got = fn(d.to(cuda), wt.to(cuda), *[t.to(cuda) for t in r], **kw)
+    want = fn(d, wt, *r, **kw)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1].cpu(), want[1])
+
+
+def test_quantized_rung_graph_counts_int8_products(cuda):
+    """A quantized convnet served on the card: each rung's CUDA graph
+    recorded its int8 products at capture, the load gate passed, and a
+    replay's answer is within 2**-20 of its magnitude of the same
+    quantized graph run eagerly on the CPU with the same int8 weights
+    (the int32 accumulators are exact; the float32 ops round alike)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.quantize import int8_work
+    data = mx.sym.var("data")
+    net = mx.sym.Convolution(data, kernel=(3, 3), num_filter=16, name="c1")
+    net = mx.sym.Activation(net, act_type="relu", name="a1")
+    net = mx.sym.Pooling(net, kernel=(2, 2), stride=(2, 2), name="p1")
+    net = mx.sym.FullyConnected(net, num_hidden=24, name="f1")
+    rs = np.random.RandomState(0)
+    shapes = {"c1_weight": (16, 3, 3, 3), "c1_bias": (16,),
+              "f1_weight": (24, 16 * 7 * 7), "f1_bias": (24,)}
+    params = {n: mx.nd.array(rs.randn(*s).astype(np.float32) * 0.1,
+                             ctx=mx.cpu()) for n, s in shapes.items()}
+    batches = [rs.randn(8, 3, 16, 16).astype(np.float32) for _ in range(3)]
+    reg = mx.serve.ModelRegistry()
+    pred = reg.load("q", net, params, data_shapes={"data": (1, 3, 16, 16)},
+                    ladder=mx.serve.BucketLadder(batches=(1, 8)),
+                    quantize="int8", calib_batches=batches, ctx=mx.gpu(0))
+    try:
+        for b in (1, 8):
+            work = int8_work(pred, b)
+            assert work["int8_products"] == 2 and work["float_products"] == 0
+        x = rs.randn(8, 3, 16, 16).astype(np.float32)
+        got = pred.predict({"data": x})[0].asnumpy()
+        cpu_args = {n: mx.nd.array(t.cpu(), ctx=mx.cpu())
+                    for n, t in pred._params.items()}
+        cpu_args["data"] = mx.nd.array(x, ctx=mx.cpu())
+        want = pred._symbol.bind(mx.cpu(), args=cpu_args).forward()[0]
+        want = want.asnumpy()
+        assert np.abs(got - want).max() <= 2.0 ** -20 * np.abs(want).max()
+    finally:
+        reg.close()
+

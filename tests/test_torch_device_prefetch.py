@@ -5,9 +5,8 @@ the cases of ``tests/test_device_prefetch.py`` that need no job state,
 on a CPU target.  The card's copy-stream ordering is held by chip_smoke
 phase 12 (f) and ``tests/test_torch_cuda.py``.
 
-As in the JAX package's cases, training draws from mx.random's stream;
-the port's Module initializer draws from torch's default generator, so
-each run seeds both."""
+As in the JAX package's cases, training draws from mx.random's stream,
+which the Module initializer draws from too."""
 
 import hashlib
 
@@ -31,7 +30,6 @@ def _clean(monkeypatch):
 
 def _seed(s):
     mx.random.seed(s)
-    torch.manual_seed(s)
 
 
 def _mlp():

@@ -75,7 +75,17 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.ndarray.image, mxnet_tpu_torch.symbol.image, "
             "mxnet_tpu_torch.gluon.data, "
             "mxnet_tpu_torch.gluon.data.dataloader, "
-            "mxnet_tpu_torch.gluon.data.vision.transforms; "
+            "mxnet_tpu_torch.gluon.data.vision.transforms, "
+            "mxnet_tpu_torch.ops.quantization, mxnet_tpu_torch.quantize, "
+            "mxnet_tpu_torch.quantize.calibrate, "
+            "mxnet_tpu_torch.quantize.lower, mxnet_tpu_torch.quantize.policy, "
+            "mxnet_tpu_torch.contrib, mxnet_tpu_torch.contrib.quantization, "
+            "mxnet_tpu_torch.autotune, mxnet_tpu_torch.autotune.space, "
+            "mxnet_tpu_torch.autotune.trace, mxnet_tpu_torch.autotune.store, "
+            "mxnet_tpu_torch.autotune.measure, "
+            "mxnet_tpu_torch.autotune.search, "
+            "mxnet_tpu_torch.autotune.__main__, "
+            "mxnet_tpu_torch.resilience.checkpoint; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')))")
@@ -135,7 +145,12 @@ def test_gpu_context_without_cuda_raises(no_cuda):
                                    "get_lstm_lm initialize",
                                    "SequentialModule", "DevicePrefetcher",
                                    "ImageRecordIter", "fit device_prefetch",
-                                   "ImageRecordDataset"])
+                                   "ImageRecordDataset",
+                                   "load quantize int8",
+                                   "load quantize int8-weight-only",
+                                   "calibrate", "quantize_model",
+                                   "contrib quantize_model", "tune",
+                                   "DecodeMeasurer"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -256,6 +271,38 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
             ds = mx.gluon.data.vision.ImageRecordDataset(
                 str(tmp_path / "i.rec"))
             call = lambda: ds[0]
+    elif entry.startswith(("load quantize", "calibrate", "quantize_model",
+                           "contrib")):
+        out = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2,
+                                    name="fc")
+        w = {"fc_weight": mx.nd.ones((2, 3), ctx=mx.cpu()),
+             "fc_bias": mx.nd.zeros((2,), ctx=mx.cpu())}
+        batches = [np.ones((2, 3), np.float32)]
+        if entry.startswith("load quantize"):
+            call = lambda: mx.serve.ModelRegistry().load(
+                "q", out, w, data_shapes={"data": (1, 3)},
+                quantize=entry.split()[-1], calib_batches=batches)
+        elif entry == "calibrate":
+            call = lambda: mx.quantize.calibrate(out, w, batches)
+        elif entry == "quantize_model":
+            call = lambda: mx.quantize.quantize_model(
+                out, w, policy="int8-weight-only")
+        else:
+            call = lambda: mx.contrib.quantization.quantize_model(
+                out, w, calib_mode="none")
+    elif entry == "tune":
+        from mxnet_tpu_torch.autotune import (serve_space, synth_serve_trace,
+                                              tune)
+        from mxnet_tpu_torch.autotune.measure import ServeMeasurer
+        from mxnet_tpu_torch.autotune.search import serve_objective
+        trace = synth_serve_trace(rate=50, seconds=0.1, dim=4)
+        call = lambda: tune(serve_space(max_rows=4), ServeMeasurer(trace),
+                            serve_objective(), model="m", workload="serve",
+                            trials=1, neighbor_trials=0)
+    elif entry == "DecodeMeasurer":
+        from mxnet_tpu_torch.autotune import synth_decode_trace
+        from mxnet_tpu_torch.autotune.measure import DecodeMeasurer
+        call = lambda: DecodeMeasurer(synth_decode_trace(seconds=0.5))
     else:
         mx.nd.save(str(tmp_path / "m-0000.params"),
                    {"arg:w": mx.nd.array(np.ones(2), ctx=mx.cpu())})

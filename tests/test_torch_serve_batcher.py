@@ -388,14 +388,22 @@ class TestDynamicBatcher:
             b.close()
 
     def test_tuning_is_not_ported(self, monkeypatch):
-        """The knobs resolve argument > exported env > default; a tuned
-        value has no layer to land in, so ``tuning=`` raises."""
+        """(The name is from before the tuning store was ported.)  The
+        knobs resolve argument > exported env > ``tuning=`` > default,
+        as the JAX package's do."""
         _, _, _, pred = _batcher_pred(batches=(1, 2))
-        with pytest.raises(ServeError, match="not ported"):
-            DynamicBatcher(pred, tuning={"MXNET_SERVE_MAX_WAIT_MS": 7})
+        monkeypatch.delenv("MXNET_SERVE_MAX_WAIT_MS", raising=False)
+        b = DynamicBatcher(pred, tuning={"MXNET_SERVE_MAX_WAIT_MS": 7,
+                                         "MXNET_SERVE_MAX_BATCH": 1})
+        try:
+            assert b._max_wait == pytest.approx(7e-3)
+            assert b._max_batch == 1
+        finally:
+            b.close()
         monkeypatch.setenv("MXNET_SERVE_MAX_WAIT_MS", "9")
         for kw, want in (({}, 9e-3), ({"max_wait_ms": 3}, 3e-3)):
-            b = DynamicBatcher(pred, tuning={}, **kw)
+            b = DynamicBatcher(pred, tuning={"MXNET_SERVE_MAX_WAIT_MS": 7},
+                               **kw)
             try:
                 assert b._max_wait == pytest.approx(want)
             finally:
@@ -1324,14 +1332,36 @@ class TestModelRegistry:
             reg.close()
 
     def test_quantized_load_is_not_ported(self):
+        """(The name is from before quantized serving was ported.)  An
+        int8 load without calibration ranges fails typed and installs
+        nothing; with them, every rung passes the gate and the model
+        serves through the batcher."""
+        from mxnet_tpu_torch.quantize import QuantizationError
         reg = ModelRegistry()
         net = _mlp()
         params, aux = _params_for(net, 12)
-        with pytest.raises(ServeError, match="not ported"):
+        with pytest.raises(QuantizationError, match="calib"):
             reg.load("q", net, params, aux_params=aux,
                      data_shapes={"data": (1, 12)}, ctx=CPU,
                      quantize="int8")
         assert reg.names() == []
+        rs = np.random.RandomState(3)
+        try:
+            pred = reg.load(
+                "q", net, params, aux_params=aux,
+                data_shapes={"data": (1, 12)}, ctx=CPU, quantize="int8",
+                ladder=BucketLadder(batches=(1, 2, 4)),
+                calib_batches=[rs.randn(4, 12).astype(np.float32)
+                               for _ in range(3)])
+            q = reg.health("q")["quantization"]
+            assert q["mode"] == "int8" and q["covered"] == q["total"] == 2
+            assert sorted(q["gate"]["rungs"]) == [1, 2, 4]
+            out = reg.submit("q", rs.randn(3, 12).astype(np.float32)) \
+                .result(30)[0]
+            assert out.shape == (3, 4)
+            assert pred.quantization is not None
+        finally:
+            reg.close()
 
 
 # ---------------------------------------------------------------------------
