@@ -1126,13 +1126,18 @@ def test_data_phase_raises_without_cuda(monkeypatch):
         chip_smoke.phase_data(torch, "no card", 0)
 
 
-# phase 13 (int8 serving and tuning) at a small size on the CPU
+# phase 13 (int8 serving and tuning) at a small size on the CPU, where the
+# served answers and the "CPU run" come from one device: their limit is
+# 1e-6, below every small model's int8 (and weight-only) distance from fp32
+QUANT_CPU_LIMIT = {"int8": 1e-6, "int8-weight-only": 1e-6}
+QUANT_ARGMAX = {"int8": 0.99, "int8-weight-only": 0.99}
 QUANT_SMALL = dict(
     resnet=dict(model="resnet18_v1", classes=10, image=32, rungs=(1, 2, 4),
                 calib=(2, 4), check_rows=(1, 2), traffic=(3, 6, 4, 200.0),
-                layers=21),
+                layers=21, cpu_limit=QUANT_CPU_LIMIT, argmax=QUANT_ARGMAX),
     lm=dict(cfg=(97, 128, 4, 2, 32), rungs=(1, 2, 4), seq_axes={1: 16},
-            calib=(2, 2), check_seq=16, traffic=(3, 6, 2, 200.0)),
+            calib=(2, 2), check_seq=16, traffic=(3, 6, 2, 200.0),
+            cpu_limit=QUANT_CPU_LIMIT, argmax=QUANT_ARGMAX),
     tune_spec=dict(rate=60.0, seconds=0.3, rows=(1, 2), max_rows=4,
                    ladders=((1, 2, 4), (1, 4), (2, 4)), trials=2,
                    neighbor_trials=1))
@@ -1168,8 +1173,20 @@ def test_quant_phase_runs_on_the_cpu(one_thread):
             assert row["work"][key] == 21
         assert all(c["rel"] == 0.0 and c["products_equal"] ==
                    c["products"] for c in r["cpu"])
+        for c in r["cpu"] + rec["lm"][mode]["cpu"]:
+            nodes = c["nodes"]
+            assert nodes["codes"][0] == nodes["codes"][1]
+            assert nodes["codes"][2] == 0
+            assert nodes["dequantized"][0] == nodes["dequantized"][1] > 0
+            assert c["fp32_rel"] > c["limit"]
         assert rec["lm"][mode]["traffic"]["builds"] == 0
-    assert rec["resnet"]["int8"]["rungs"][1]["byte_ratio"] > 1.0
+    for model in ("resnet", "lm"):
+        for row in rec[model]["int8"]["rungs"].values():
+            # on the CPU no conv pads its int8 input: the counts are exact
+            assert row["byte_ratio"] == pytest.approx(
+                row["shape_byte_ratio"], rel=1e-12)
+            assert row["byte_ratio"] > 1.0
+    assert rec["lm"]["int8"]["cpu"][0]["plain_attention_rel"] == 0.0
     assert rec["tune"]["device_kind"] == "cpu"
     assert rec["lm"]["verdicts"]["int8"] == "pass"
 
@@ -1185,7 +1202,8 @@ def _quant_resnet(torch, mx, tmp_path, spec=QUANT_WIRING):
 
 
 @pytest.mark.parametrize("fault", ["products", "float", "bytes", "cpu",
-                                   "product", "traffic", "covered"])
+                                   "product", "codes", "dequantized",
+                                   "fp32", "traffic", "covered"])
 def test_quant_checks_are_wired(monkeypatch, tmp_path, one_thread, fault):
     """Each check of phase 13 (a) fails the phase when its numbers break."""
     import torch
@@ -1211,16 +1229,25 @@ def test_quant_checks_are_wired(monkeypatch, tmp_path, one_thread, fault):
             outs, products = real(*a)
             return [o + 1e3 * abs(o).max() for o in outs], products
         monkeypatch.setattr(chip_smoke, "cpu_outputs", moved)
-    elif fault == "product":
+    elif fault in ("product", "codes", "dequantized"):
         real = chip_smoke.cpu_outputs
+        ops = {"product": chip_smoke.Q_PRODUCTS,
+               "codes": ("_contrib_quantize",),
+               "dequantized": ("_contrib_dequantize",)}[fault]
 
         def one_off(*a):
-            outs, products = real(*a)
-            if products:            # int8 mode; weight-only has none
-                fn, ins, params, want = products[-1]
-                products[-1] = (fn, ins, params, want + 1)
-            return outs, products
+            outs, nodes = real(*a)
+            last = max(i for i, n in enumerate(nodes) if n[0] in ops)
+            op, fn, ins, params, want = nodes[last]
+            # a product one off; two codes apart; a value 1e-5 off
+            want = want + {"product": 1, "codes": 2}.get(
+                fault, 1e-5 * float(want.abs().max()))
+            nodes[last] = (op, fn, ins, params, want)
+            return outs, nodes
         monkeypatch.setattr(chip_smoke, "cpu_outputs", one_off)
+    elif fault == "fp32":
+        # a limit no lower than int8's own distance from fp32
+        monkeypatch.setitem(QUANT_WIRING, "cpu_limit", {"int8": 1.0})
     elif fault == "traffic":
         monkeypatch.setattr(chip_smoke, "record_batches", lambda pred: (
             [None] * 100, lambda: None))
@@ -1228,8 +1255,11 @@ def test_quant_checks_are_wired(monkeypatch, tmp_path, one_thread, fault):
         monkeypatch.setitem(QUANT_WIRING, "layers", 22)
     failures, _ = _quant_resnet(torch, mx, tmp_path)
     message = {"products": "no int8 products", "float": "float products",
-               "bytes": "not fewer", "cpu": "against the CPU run",
+               "bytes": "the shapes give", "cpu": "against the CPU run",
                "product": "bit-equal 20 of 21",
+               "codes": "in 20 of 21 nodes",
+               "dequantized": "in 20 of 21 nodes",
+               "fp32": "not below the int8 answers' distance",
                "traffic": "batches for", "covered": "layers covered"}[fault]
     assert any(message in f for f in failures), failures
 
