@@ -217,6 +217,41 @@ Phases, each reported on its own line; any failure exits non-zero:
              far another f32 summation order moves the int8 answers); the
              default policy's gate must accept the model.  Peak memory and
              the phase's seconds.
+14. fleet  — the serving fleet (``serve.Fleet``: replica processes on the
+             one card, each serving on cuda:0 behind ``serve.Router``), as
+             bench.py --serve-fleet and --serve-decode --failover measure
+             it.  The LM at phase 4's width is exported twice (v1 from
+             --seed, v2 from --seed + 1); each replica serves it on the
+             ladder 1, 2, 4 (a CUDA graph a rung, flash_fwd inside).
+             Requests of 1-2 rows x 2048 tokens draw their rows from a
+             seeded pool of 8; the parent replays every pool row at every
+             rung of both versions and keeps SHA-256 hashes of the logits.
+             (a) One replica: a closed loop of 2 clients x 4 requests, then
+             an open loop of 60 at half its rate; a second replica
+             spawned, the same open loop again, then closed loops of 2 x 4
+             and 4 x 4: up and scale-out seconds, requests/s, p50 and the
+             slowest request (from each send in a closed loop, whose
+             answers are hashed after it; from each scheduled arrival in
+             an open loop), the router's mean beside the replicas'
+             submit-to-answer; every
+             answer bit-equal to the parent's replay at some rung, the
+             replicas' dispatches equal to the answers, no dedup hit.  (b)
+             ``fleet.replace(key, extra_env={"MXNET_CHAOS":
+             "replica_kill_at=3"})`` under 8 requests: rc 137, every
+             request answered bit-equal (or failed typed, none expected),
+             the successor with 0 nvcc seconds.  (c) ``fleet.deploy`` onto
+             v2 under the same open loop: zero dropped, answers v1 or v2
+             during and v2 only after, each drain record not timed out.
+             Every replica's STATS is read before it is stopped: a graph a
+             rung and no more (no capture in the request path), no nvcc,
+             its peak memory, and its flash_fwd launches (the killed
+             replica's are lost); dispatches over all replicas equal the
+             answers less the killed replica's.  (d) The reference's
+             decode_lm (vocab 32, dim 16, seed 5) on 2 replicas, one armed
+             with replica_kill_decode_at=30: 6 streams of 48 tokens, each
+             bit-equal to the dense decode, rc 137, at least one failed
+             over (resume p50 and slowest), tokens/s steady and in the
+             dip, no capture on the survivors, no KV block left in use.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -6038,6 +6073,608 @@ def phase_quant(torch, card, seed, ctx=None, resnet=None, lm=None,
     return rec
 
 
+# phase 14: the serving fleet (bench.py:1067 --serve-fleet and
+# bench.py:1479 --serve-decode --failover, ci/fleet_chaos_drill.py's
+# scenarios) with the LM at full width: replica processes on the one card
+# behind serve.Router, requests of 1-2 rows x 2048 tokens on the ladder
+# 1, 2, 4.  Requests draw their rows from a seeded pool, so the parent
+# replays every pool row at every rung once and keeps SHA-256 hashes of
+# the logits (262 MB a row), never the arrays.  In an open loop answers
+# are hashed by a pool of threads beside the clients, which go on sending
+# meanwhile; a closed loop keeps its answers and hashes them after its
+# window, so no hashing competes with the router inside it.  closed:
+# (clients, requests each) at 1 replica; closed_two: the same at 2 replicas.
+FLEET = dict(cfg=(VOCAB, DIM, HEADS, LAYERS, SEQ), rungs=(1, 2, 4),
+             rows=(1, 2), pool=8, closed=(2, 4),
+             closed_two=((2, 4), (4, 4)), open_share=0.5,
+             open_requests=60, kill_at=3, kill_requests=8, deploy_tail=4,
+             max_wait_ms=MAX_WAIT_MS, spawn_timeout=600.0, workers=16,
+             hashers=6)
+# (d): the reference's own decode_lm (bench.py:1479-1500)
+FLEET_DECODE = dict(streams=6, new_tokens=48, vocab=32, dim=16, seed=5,
+                    kill_at=30, block_size=4, max_len=64, rungs=[1, 2, 4],
+                    prompt=[3, 1, 2], window=0.05)
+FLEET_PATH = "fleet serve (replica processes; the killed replica's lost)"
+
+
+def sha256_rows(out):
+    """The SHA-256 of each row's bytes of a C-contiguous host array."""
+    import hashlib
+    return [hashlib.sha256(memoryview(out[j]).cast("B")).hexdigest()
+            for j in range(out.shape[0])]
+
+
+def fleet_export(torch, mx, ctx, spec, prefix, seed):
+    """Export the LM twice, v1 (epoch 1) from *seed* and v2 (epoch 2) from
+    *seed* + 1, under one parameter prefix."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        get_transformer_lm
+    vocab, dim, heads, layers, seq = spec["cfg"]
+    for version in (1, 2):
+        gen = torch.Generator(device=ctx.torch_device)
+        gen.manual_seed(seed + version - 1)
+        net = get_transformer_lm(vocab=vocab, dim=dim, heads=heads,
+                                 layers=layers, max_seq=seq,
+                                 prefix="fleetlm_")
+        net.initialize(ctx=ctx, generator=gen)
+        net.hybridize()
+        net(mx.nd.array(np.zeros((1, seq), "float32"), ctx=ctx))
+        net.export(prefix, version)
+        del net
+        if ctx.device_type == "gpu":
+            torch.cuda.empty_cache()
+
+
+def fleet_refs(torch, mx, ctx, spec, prefix, pool):
+    """{version: [{rung: hash} per pool row]}: the parent's own graph
+    replay of each pool row at each rung (the rung's batch filled with
+    pool rows, the rows are independent), hashed by a few threads."""
+    rungs = spec["rungs"]
+    refs = {}
+    with concurrent.futures.ThreadPoolExecutor(8) as hashers:
+        for version in (1, 2):
+            reg = mx.serve.ModelRegistry()
+            pred = reg.load_checkpoint(
+                "v%d" % version, prefix, version,
+                data_shapes={"data0": (1, spec["cfg"][4])},
+                ladder=mx.serve.BucketLadder(batches=rungs), ctx=ctx)
+            rows = [{} for _ in range(len(pool))]
+            jobs = []
+            for rung in rungs:
+                for lo in range(0, len(pool), rung):
+                    out = pred.predict({"data0": pool[lo:lo + rung]})[0]
+                    host = out._data.cpu().numpy()
+                    jobs.append((rung, lo, hashers.submit(sha256_rows,
+                                                          host)))
+            for rung, lo, job in jobs:
+                for j, h in enumerate(job.result()):
+                    rows[lo + j][rung] = h
+            refs[version] = rows
+            reg.close()
+            del reg, pred
+            if ctx.device_type == "gpu":
+                torch.cuda.empty_cache()
+    return refs
+
+
+def fleet_versions(refs, idx, hashes, rungs):
+    """The versions whose replay at one rung gives every row's hash."""
+    return sorted(v for v, rows in refs.items()
+                  if any(rung >= len(idx) and
+                         all(rows[i].get(rung) == h
+                             for i, h in zip(idx, hashes))
+                         for rung in rungs))
+
+
+class FleetTraffic:
+    """Requests through ``router.predict``, each a list of pool-row
+    indices; per request its latency (from its scheduled arrival in an
+    open loop, from its send in a closed one), its rows and the
+    versions its answer's hashes match, or its error and whether that
+    error was typed.  Each answer goes to a few hashing threads and is
+    let go: the client does not wait for its hash.  A closed loop may
+    *defer* the hashing: its answers are kept and hashed after its last
+    answer, outside its timed window."""
+
+    def __init__(self, router, pool, refs, spec):
+        self.router, self.pool, self.refs = router, pool, refs
+        self.spec = spec
+        self.records = []
+        self._lock = threading.Lock()
+        self._hashers = concurrent.futures.ThreadPoolExecutor(
+            spec["hashers"])
+
+    def _hash(self, rec, idx, out):
+        ok = out.shape == (len(idx), self.spec["cfg"][4],
+                           self.spec["cfg"][0])
+        rec["versions"] = fleet_versions(self.refs, idx, sha256_rows(out),
+                                         self.spec["rungs"]) if ok else []
+
+    def _one(self, idx, t_sched, defer=False):
+        from mxnet_tpu_torch.serve import ServeError
+        x = self.pool[idx]
+        t0 = time.monotonic()
+        try:
+            out = self.router.predict("lm", {"data0": x})[0]
+        except Exception as e:          # recorded, judged by the caller
+            rec = {"error": "%s: %s" % (type(e).__name__, str(e)[:200]),
+                   "typed": isinstance(e, ServeError)}
+        else:
+            t1 = time.monotonic()
+            rec = {"latency": t1 - (t_sched or t0), "end": t1,
+                   "rows": len(idx)}
+            if defer:
+                rec["out"] = (idx, out)
+            else:
+                rec["job"] = self._hashers.submit(self._hash, rec, idx, out)
+            del out
+        with self._lock:
+            self.records.append(rec)
+
+    def _settled(self, n0):
+        """The records since *n0*, each answer's hash matched."""
+        recs = self.records[n0:]
+        for r in recs:
+            if "out" in r:
+                idx, out = r.pop("out")
+                r["job"] = self._hashers.submit(self._hash, r, idx, out)
+        for r in recs:
+            if "job" in r:
+                r.pop("job").result()
+        return recs
+
+    def closed(self, reqs, threads, defer=False):
+        """*threads* clients, each sending its share one after another;
+        with *defer*, the answers are hashed after the last one.
+        Returns (records, wall seconds to the last answer)."""
+        n0 = len(self.records)
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(threads) as ex:
+            jobs = [ex.submit(lambda m: [self._one(reqs[i], None, defer)
+                                         for i in m],
+                              list(range(t, len(reqs), threads)))
+                    for t in range(threads)]
+            for j in jobs:
+                j.result()
+        wall = time.monotonic() - t0
+        return self._settled(n0), wall
+
+    def open(self, reqs, rate, stop=None):
+        """reqs[i] sent at i / *rate* s after the first (until *stop* is
+        set, when given), whatever the answers.  Returns (records, wall
+        seconds from the first arrival to the last answer)."""
+        n0 = len(self.records)
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(
+                self.spec["workers"]) as ex:
+            for i, idx in enumerate(reqs):
+                if stop is not None and stop.is_set():
+                    break
+                t_sched = t0 + i / rate
+                delay = t_sched - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
+                ex.submit(self._one, idx, t_sched)
+        recs = self._settled(n0)
+        ends = [r["end"] for r in recs if "end" in r]
+        return recs, (max(ends) if ends else time.monotonic()) - t0
+
+    def close(self):
+        self._hashers.shutdown()
+
+
+def fleet_requests(rng, spec, n):
+    return [list(rng.randint(0, spec["pool"],
+                             int(rng.choice(spec["rows"]))))
+            for _ in range(n)]
+
+
+def fleet_summary(recs, wall):
+    good = [r for r in recs if "latency" in r]
+    lat = [r["latency"] for r in good]
+    return {"requests": len(recs), "answered": len(good),
+            "failed": len(recs) - len(good),
+            "rows": sum(r["rows"] for r in good),
+            "requests_s": len(good) / wall if wall else None,
+            "p50_ms": percentile(lat, 50) * 1e3 if lat else None,
+            "slowest_ms": max(lat) * 1e3 if lat else None,
+            "wall_s": wall}
+
+
+def fleet_dispatch(fleet, before=None):
+    """{key: (predicts_dispatched, predict_seconds, dup_hits)} of the live
+    replicas, less *before*'s."""
+    out = {}
+    for k in fleet.keys():
+        st = fleet.stats(k)
+        now = (st["predicts_dispatched"], st["predict_seconds"],
+               st["dup_hits"])
+        b = (before or {}).get(k, (0, 0.0, 0))
+        out[k] = tuple(n - o for n, o in zip(now, b))
+    return out
+
+
+def fleet_stage(fleet, traffic, what, reqs, rate, card, failures,
+                threads=None):
+    """One stage, an open loop at *rate* or, given *threads*, a closed loop
+    of that many clients whose answers are hashed after its window: the
+    router's numbers beside the replicas' dispatch time; every answer
+    must match a v1 hash."""
+    before = fleet_dispatch(fleet)
+    if threads:
+        recs, wall = traffic.closed(reqs, threads, defer=True)
+        how = ("in a closed loop of %d clients (latency from each send; "
+               "answers hashed after the loop)" % threads)
+    else:
+        recs, wall = traffic.open(reqs, rate)
+        how = ("offered at %.3f/s (latency from each scheduled arrival; "
+               "answers hashed meanwhile)" % rate)
+    st = fleet_summary(recs, wall)
+    grew = fleet_dispatch(fleet, before)
+    dispatched = sum(v[0] for v in grew.values())
+    st["replica_ms"] = (1e3 * sum(v[1] for v in grew.values())
+                        / dispatched) if dispatched else None
+    st["mean_ms"] = (1e3 * sum(r["latency"] for r in recs if "latency" in r)
+                     / st["answered"]) if st["answered"] else None
+    st["dispatched"], st["dup_hits"] = dispatched, sum(
+        v[2] for v in grew.values())
+    st["v1_equal"] = sum(1 for r in recs if r.get("versions") == [1])
+    log("fleet %s on %s: %d requests (%d rows of %d tokens) %s over %d "
+        "replica(s): %.3f answered/s, p50 %.2f ms, slowest %.2f ms (%d "
+        "requests are too few for a p99), mean %.2f ms at the router "
+        "against %.2f ms submit-to-answer in the replicas (their batcher, "
+        "replay and readback; the rest is the wire, the router's copies "
+        "and this process's own work); %d dispatched, %d dedup hits; %d "
+        "answers bit-equal to the parent's v1 replay at a rung" % (
+            what, card, st["requests"], st["rows"], traffic.spec["cfg"][4],
+            how, len(fleet.keys()), st["requests_s"] or 0.0,
+            st["p50_ms"] or 0.0, st["slowest_ms"] or 0.0, st["requests"],
+            st["mean_ms"] or 0.0, st["replica_ms"] or 0.0, dispatched,
+            st["dup_hits"], st["v1_equal"]))
+    if st["failed"] or st["v1_equal"] != st["requests"]:
+        failures.append("%s: %d failed, %d of %d bit-equal to v1" % (
+            what, st["failed"], st["v1_equal"], st["requests"]))
+    if dispatched != st["answered"] or st["dup_hits"]:
+        failures.append("%s: %d dispatches and %d dedup hits for %d "
+                        "answers" % (what, dispatched, st["dup_hits"],
+                                     st["answered"]))
+    return st
+
+
+def fleet_decode(np, mx, ctx, card, dec, tmp, failures):
+    """(d): streams of the reference's decode_lm over 2 replicas, one
+    armed to die at its kill_at-th decode request; every stream resumes
+    from the router's journal bit-equal to the dense decode."""
+    from mxnet_tpu_torch.test_utils import (dense_decode_reference,
+                                            tiny_attention_lm)
+    prompt = np.asarray(dec["prompt"], np.int32)
+    blocks_per = -(-dec["max_len"] // dec["block_size"])
+    spec = [{"name": "lm", "kind": "decode_lm", "vocab": dec["vocab"],
+             "dim": dec["dim"], "seed": dec["seed"], "dtype": "float32",
+             "max_len": dec["max_len"], "block_size": dec["block_size"],
+             "num_blocks": dec["streams"] * blocks_per + 8,
+             "rungs": dec["rungs"]}]
+    params, step, _, _, _ = tiny_attention_lm(
+        vocab=dec["vocab"], dim=dec["dim"], seed=dec["seed"], ctx=ctx)
+    ref = dense_decode_reference(params, step, list(prompt),
+                                 dec["new_tokens"], dec["max_len"],
+                                 dec["dim"])
+    fleet = mx.serve.Fleet(spec, replicas=1, workdir=tmp, max_wait_ms=1.0,
+                           ctx=ctx, router_kwargs={"probe_interval": 0.2,
+                                                   "retries": 4})
+    stamps, errors, rec = [], [], {}
+    lock = threading.Lock()
+
+    def consume(s):
+        while True:
+            try:
+                s.next_output(timeout=120)
+            except StopIteration:
+                return
+            except Exception as e:      # recorded, fails the phase
+                with lock:
+                    errors.append("stream %d: %r" % (s.seq, e))
+                return
+            with lock:
+                stamps.append(time.monotonic())
+
+    try:
+        fleet.start()
+        armed = fleet._spawn(extra_env={
+            "MXNET_CHAOS": "replica_kill_decode_at=%d" % dec["kill_at"]})
+        fleet.wait_routable(count=2, model="lm")
+        survivors = [k for k in fleet.keys() if k != armed]
+        warm = {k: fleet.stats(k)["decode"]["lm"]["compile_count"]
+                for k in survivors}
+        t0 = time.monotonic()
+        opened = [fleet.router.decode_open("lm", {"tok": prompt},
+                                           max_new_tokens=dec["new_tokens"])
+                  for _ in range(dec["streams"])]
+        threads = [threading.Thread(target=consume, args=(s,))
+                   for s in opened]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.monotonic() - t0
+        rec["kill_rc"] = fleet.record(armed)["proc"].wait(60)
+        rec["bit_equal"] = sum(1 for s in opened if [
+            int(np.asarray(t)) for t in s.tokens()] == ref)
+        moved = [s for s in opened if s.failover_count >= 1]
+        resume = sorted(b - a for s in moved for a, b in s.resume_stamps)
+        for s in opened:
+            s.close()
+        after = {k: fleet.stats(k)["decode"]["lm"] for k in survivors}
+        rec["request_path_captures"] = sum(
+            after[k]["compile_count"] - warm[k] for k in survivors)
+        rec["blocks_in_use"] = sum(after[k]["blocks_in_use"]
+                                   for k in survivors)
+    finally:
+        fleet.stop()
+    times = sorted(stamps)
+    rates = []
+    if len(times) > 1:
+        n_win = max(1, int((times[-1] - times[0]) / dec["window"]))
+        counts = [0] * n_win
+        for t in times:
+            counts[min(n_win - 1, int((t - times[0]) / dec["window"]))] += 1
+        rates = [c / dec["window"] for c in (counts[1:-1] or counts)]
+    rec.update(streams=len(opened), moved=len(moved), resumes=len(resume),
+               tokens=len(stamps), tokens_s=len(stamps) / wall,
+               resume_p50_ms=percentile(resume, 50) * 1e3
+               if resume else None,
+               resume_slowest_ms=resume[-1] * 1e3 if resume else None,
+               steady_tokens_s=max(rates) if rates else None,
+               dip_tokens_s=min(rates) if rates else None, errors=errors)
+    log("fleet decode failover on %s (decode_lm vocab %d, dim %d, seed %d): "
+        "%d streams of %d tokens over 2 replicas, one killed at its decode "
+        "request %d (rc %s): %d streams bit-equal to the dense decode, %d "
+        "failed over (%d resumes: p50 %s, slowest %s); %.1f tokens/s, "
+        "steady %s, dip %s (%d ms windows); survivors captured %d graphs "
+        "in the request path, %d KV blocks in use after; errors %s" % (
+            card, dec["vocab"], dec["dim"], dec["seed"], rec["streams"],
+            dec["new_tokens"], dec["kill_at"], rec["kill_rc"],
+            rec["bit_equal"], rec["moved"], rec["resumes"],
+            "%.2f ms" % rec["resume_p50_ms"] if resume else "none",
+            "%.2f ms" % rec["resume_slowest_ms"] if resume else "none",
+            rec["tokens_s"], "%.1f/s" % rec["steady_tokens_s"]
+            if rates else "not measured", "%.1f/s" % rec["dip_tokens_s"]
+            if rates else "not measured", int(dec["window"] * 1e3),
+            rec["request_path_captures"], rec["blocks_in_use"],
+            errors or "none"))
+    if (errors or rec["bit_equal"] != dec["streams"] or not moved
+            or rec["kill_rc"] != 137 or rec["request_path_captures"]
+            or rec["blocks_in_use"]):
+        failures.append("decode failover: %d/%d bit-equal, %d moved, rc "
+                        "%s, %d captures, %d blocks, errors %s" % (
+                            rec["bit_equal"], dec["streams"], len(moved),
+                            rec["kill_rc"], rec["request_path_captures"],
+                            rec["blocks_in_use"], errors[:3]))
+    return rec
+
+
+def phase_fleet(torch, card, seed, ctx=None, spec=None, dec=None):
+    """Phase 14: the serving fleet (see the module docstring).  *ctx*,
+    *spec* and *dec* size it down for the CPU test.  Raises at its end if
+    any check failed.  Returns the record; ``rec["launches"]`` holds the
+    replicas' flash_fwd launches (wrapper and graph replays), read from
+    each one's STATS before it was stopped."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    if ctx is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("phase 14 needs CUDA")
+        ctx = mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    spec, dec = spec or FLEET, dec or FLEET_DECODE
+    vocab, seq = spec["cfg"][0], spec["cfg"][4]
+    rng = np.random.RandomState(seed + 14)
+    failures = []
+    t_phase = time.perf_counter()
+    if on_card:
+        # the replicas are processes of their own: they cannot reuse the
+        # parent's cached blocks
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    prefix = os.path.join(tmp, "lm")
+    rec = {"card": card}
+    fleet = traffic = None
+    try:
+        t0 = time.perf_counter()
+        fleet_export(torch, mx, ctx, spec, prefix, seed)
+        pool = rng.randint(0, vocab, (spec["pool"], seq)).astype("float32")
+        refs = fleet_refs(torch, mx, ctx, spec, prefix, pool)
+        log("fleet: exported v1 and v2 of the LM, replayed %d pool rows at "
+            "rungs %s of each and hashed them in %.2f s" % (
+                spec["pool"], list(spec["rungs"]),
+                time.perf_counter() - t0))
+        model = {"name": "lm", "prefix": prefix, "epoch": 1,
+                 "data_shapes": {"data0": [1, seq]},
+                 "batches": list(spec["rungs"])}
+        fleet = mx.serve.Fleet(
+            [model], replicas=1, workdir=tmp, ctx=ctx,
+            max_wait_ms=spec["max_wait_ms"],
+            spawn_timeout=spec["spawn_timeout"],
+            router_kwargs={"probe_interval": 0.2, "eject_timeout": 5.0})
+        traffic = FleetTraffic(fleet.router, pool, refs, spec)
+        # (a) one replica, its closed-loop rate, half of it open; then two
+        t0 = time.perf_counter()
+        fleet.start()
+        rec["up_s"] = time.perf_counter() - t0
+        log("fleet: first replica up in %.2f s" % rec["up_s"])
+        threads, per = spec["closed"]
+        rec["closed"] = fleet_stage(
+            fleet, traffic, "closed loop, 1 replica",
+            fleet_requests(rng, spec, threads * per), None, card, failures,
+            threads=threads)
+        rate = spec["open_share"] * rec["closed"]["requests_s"]
+        rec["one"] = fleet_stage(
+            fleet, traffic, "open loop, 1 replica",
+            fleet_requests(rng, spec, spec["open_requests"]), rate, card,
+            failures)
+        t0 = time.perf_counter()
+        fleet._spawn()
+        fleet.wait_routable(count=2)
+        rec["scale_out_s"] = time.perf_counter() - t0
+        log("fleet: scale-out to 2 replicas in %.2f s" % rec["scale_out_s"])
+        rec["two"] = fleet_stage(
+            fleet, traffic, "open loop, 2 replicas",
+            fleet_requests(rng, spec, spec["open_requests"]), rate, card,
+            failures)
+        # the rate two replicas take in, with as many clients and twice
+        rec["closed_two"] = [fleet_stage(
+            fleet, traffic, "closed loop, 2 replicas",
+            fleet_requests(rng, spec, threads * per), None, card, failures,
+            threads=threads) for threads, per in spec["closed_two"]]
+        # (b) a replica killed under traffic, then replaced
+        armed = fleet.replace(fleet.keys()[0], extra_env={
+            "MXNET_CHAOS": "replica_kill_at=%d" % spec["kill_at"]})
+        fleet.wait_routable(count=2)
+        recs, wall = traffic.open(fleet_requests(rng, spec,
+                                                 spec["kill_requests"]),
+                                  rate)
+        kill = fleet_summary(recs, wall)
+        kill["rc"] = fleet.record(armed)["proc"].wait(120)
+        kill["bit_equal"] = sum(1 for r in recs if r.get("versions") == [1])
+        kill["untyped"] = sum(1 for r in recs
+                              if "error" in r and not r["typed"])
+        t0 = time.perf_counter()
+        successor = fleet.replace(armed)
+        kill["replace_s"] = time.perf_counter() - t0
+        st = fleet.stats(successor)
+        kill["successor_nvcc_s"] = st["nvcc_seconds"]
+        kill["successor_captures"] = st["compile_count"]
+        log("fleet kill on %s: replica_kill_at=%d under %d requests at "
+            "%.3f/s: rc %s; %d answered (%d bit-equal to v1), %d failed "
+            "(%d untyped), p50 %.2f ms, slowest %.2f ms; replaced in %.2f "
+            "s, the successor spent %.2f nvcc seconds and captured %s at "
+            "load" % (card, spec["kill_at"], kill["requests"], rate,
+                      kill["rc"],
+                      kill["answered"], kill["bit_equal"], kill["failed"],
+                      kill["untyped"], kill["p50_ms"] or 0.0,
+                      kill["slowest_ms"] or 0.0, kill["replace_s"],
+                      kill["successor_nvcc_s"], kill["successor_captures"]))
+        if kill["rc"] != 137 or kill["failed"] or \
+                kill["bit_equal"] != kill["requests"] or \
+                kill["successor_nvcc_s"] != 0.0:
+            failures.append("kill: rc %s, %d failed, %d of %d bit-equal, "
+                            "successor nvcc %.2f s" % (
+                                kill["rc"], kill["failed"],
+                                kill["bit_equal"], kill["requests"],
+                                kill["successor_nvcc_s"]))
+        rec["kill"] = kill
+        # (c) a rolling deploy onto v2 under the same traffic
+        fleet.wait_routable(count=2)
+        stop = threading.Event()
+        during = {}
+        feeder = threading.Thread(target=lambda: during.update(zip(
+            ("recs", "wall"), traffic.open(
+                fleet_requests(rng, spec, 2000), rate, stop=stop))))
+        feeder.start()
+        t0 = time.perf_counter()
+        try:
+            fleet.deploy([dict(model, epoch=2)])
+        finally:
+            stop.set()
+            feeder.join(600)
+        deploy_s = time.perf_counter() - t0
+        recs_after, _ = traffic.closed(
+            fleet_requests(rng, spec, spec["deploy_tail"]), 1)
+        dep = fleet_summary(during["recs"], during["wall"])
+        dep.update(seconds=deploy_s,
+                   either=sum(1 for r in during["recs"]
+                              if r.get("versions") in ([1], [2], [1, 2])),
+                   v2_after=sum(1 for r in recs_after
+                                if r.get("versions") == [2]),
+                   after=len(recs_after),
+                   drains=[{k: d.get(k) for k in ("replica",
+                                                  "waited_requests",
+                                                  "timed_out")}
+                           for d in fleet.drain_records])
+        log("fleet deploy on %s: both replicas cycled onto v2 in %.2f s "
+            "under %d requests at %.3f/s: %d answered, %d dropped, %d "
+            "bit-equal to v1 or v2, p50 %.2f ms, slowest %.2f ms; after "
+            "it %d of %d answers bit-equal to v2 only; drains %s" % (
+                card, deploy_s, dep["requests"], rate, dep["answered"],
+                dep["failed"], dep["either"], dep["p50_ms"] or 0.0,
+                dep["slowest_ms"] or 0.0, dep["v2_after"], dep["after"],
+                dep["drains"]))
+        if dep["failed"] or dep["either"] != dep["requests"] or \
+                dep["v2_after"] != dep["after"] or \
+                any(d["timed_out"] is not False for d in dep["drains"]) or \
+                len(dep["drains"]) != 2:
+            failures.append("deploy: %d dropped, %d of %d v1-or-v2, %d of "
+                            "%d v2 after, drains %s" % (
+                                dep["failed"], dep["either"],
+                                dep["requests"], dep["v2_after"],
+                                dep["after"], dep["drains"]))
+        rec["deploy"] = dep
+        answered = sum(1 for r in traffic.records if "latency" in r)
+    finally:
+        if fleet is not None:
+            fleet.stop()
+        if traffic is not None:
+            traffic.close()
+    # every replica's STATS, read before it was stopped (None: killed)
+    reaped = fleet.reaped()
+    final = [r["final_stats"] for r in reaped if r["final_stats"]]
+    dispatched = sum(s["predicts_dispatched"] for s in final)
+    rec["replicas"] = [{
+        "name": r["name"], "rc": r["rc"],
+        "captures": (r["final_stats"] or {}).get("compile_count"),
+        "nvcc_s": (r["final_stats"] or {}).get("nvcc_seconds"),
+        "peak_gb": ((r["final_stats"] or {}).get("peak_memory_bytes")
+                    or 0) / 1e9 if r["final_stats"] else None,
+        "dispatched": (r["final_stats"] or {}).get("predicts_dispatched")}
+        for r in reaped]
+    for r in rec["replicas"]:
+        log("fleet replica %s: rc %s, programs built %s (a CUDA graph a "
+            "rung on the card), nvcc %s s, "
+            "peak device memory %s, %s predicts dispatched" % (
+                r["name"], r["rc"], r["captures"], r["nvcc_s"],
+                "%.3f GB" % r["peak_gb"] if r["peak_gb"] is not None
+                and on_card else "not measured (killed)"
+                if r["captures"] is None else "not measured",
+                r["dispatched"]))
+    want_captures = {"lm": len(spec["rungs"])}
+    if any(r["captures"] not in (None, want_captures)
+           for r in rec["replicas"]):
+        failures.append("a replica captured graphs in the request path: %s"
+                        % [r["captures"] for r in rec["replicas"]])
+    if any(r["nvcc_s"] not in (None, 0.0) for r in rec["replicas"]):
+        failures.append("a replica compiled kernels: %s"
+                        % [r["nvcc_s"] for r in rec["replicas"]])
+    # the killed replica dispatched kill_at - 1 predicts before it died
+    if dispatched + spec["kill_at"] - 1 != answered or \
+            sum(s["dup_hits"] for s in final):
+        failures.append("exactly once: %d dispatched + %d by the killed "
+                        "replica for %d answered, %d dedup hits" % (
+                            dispatched, spec["kill_at"] - 1, answered,
+                            sum(s["dup_hits"] for s in final)))
+    rec["launches"] = {
+        kind: sum(s["kernels"]["flash_fwd"][kind] for s in final)
+        for kind in ("wrapper", "graph")}
+    log("fleet: flash_fwd in the replica processes (their STATS before "
+        "each was stopped; the killed replica's are lost): %d wrapper "
+        "launches (warm-ups), %d by graph replays" % (
+            rec["launches"]["wrapper"], rec["launches"]["graph"]))
+    if on_card and not (rec["launches"]["wrapper"] and
+                        rec["launches"]["graph"]):
+        failures.append("the replicas launched no flash_fwd: %s"
+                        % rec["launches"])
+    rec["decode"] = fleet_decode(np, mx, ctx, card, dec, tmp, failures)
+    shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log("fleet: phase 14 in %.1f s on %s; %d failed checks" % (
+        rec["seconds"], card, len(failures)))
+    log("fleet record: " + json.dumps(rec, default=str))
+    if failures:
+        raise RuntimeError("phase 14 failed: " + "; ".join(failures))
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6065,6 +6702,7 @@ def main():
     phase_lstm(torch, card, args.seed)
     phase_data(torch, card, args.seed)
     quant = phase_quant(torch, card, args.seed)["lm"]
+    fleet = phase_fleet(torch, card, args.seed)["launches"]
     quant_launches = {
         kind: sum(quant[m]["launches"][kind]
                   for m in ("int8", "int8-weight-only"))
@@ -6094,7 +6732,9 @@ def main():
                 "quantized LM serve (eager: calibration, warm-ups)":
                 quant_launches["eager"],
                 "quantized LM serve (graph replays: gate, traffic, "
-                "checks)": quant_launches["graph"]}
+                "checks)": quant_launches["graph"],
+                FLEET_PATH + ", eager: warm-ups": fleet["wrapper"],
+                FLEET_PATH + ", graph replays": fleet["graph"]}
         kernels.append(dict({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/" + source,

@@ -1,6 +1,6 @@
 """Environment-knob registry (port of ``mxnet_tpu/config.py``, subset: the
-knobs that serving, decode, the sanitizer bridge, events and chaos
-read).
+knobs that serving, decode, the fleet, the kernel build, the sanitizer
+bridge, events and chaos read).
 
 Every knob is declared here with type, default and doc, and read at call
 time (not import time) so tests can monkeypatch the environment.  A read
@@ -239,3 +239,62 @@ register_env("MXNET_TUNING_STORE", str, "",
              "it for the winning config keyed (model_name, device_kind, "
              "workload); an exported env var still beats a stored "
              "tuning; empty = no store")
+register_env("MXNET_SERVE_HTTP_PORT", int, 0,
+             "Per-replica HTTP probe port (serve.replica): serves "
+             "/metrics (Prometheus exposition of the process metrics "
+             "registry), /healthz (liveness) and /readyz (readiness "
+             "+ per-model health JSON) over stdlib http.server so "
+             "the fleet router and any external orchestrator can "
+             "scrape it; 0 = probe server off (the fleet passes an "
+             "explicit port when it spawns replicas)")
+register_env("MXNET_SERVE_HEDGE_MS", float, 0.0,
+             "Router-side request hedging: after this many "
+             "milliseconds without an answer, re-issue the still-"
+             "pending predict (SAME request id) to a second replica "
+             "— first typed answer wins, the loser is cancelled "
+             "through the replica's idempotency window so no request "
+             "is ever dispatched twice on one replica or answered "
+             "twice; 0 = hedging off")
+register_env("MXNET_SERVE_RPC_TIMEOUT", float, 60.0,
+             "Per-call socket timeout (seconds) on router->replica "
+             "RPCs: a replica that dies mid-reply surfaces as a "
+             "transport failure the router fails over, instead of "
+             "hanging the caller; 0 = no timeout")
+register_env("MXNET_SERVE_ROUTER_RETRIES", int, 3,
+             "Total transport attempts per routed request (first "
+             "try + failovers): a connection failure retries the "
+             "SAME (client, seq, incarnation) request id on the "
+             "next eligible replica — wrapping around to an "
+             "already-tried replica only when no fresh one is left, "
+             "where the dedup window answers a retried id from "
+             "cache instead of re-dispatching")
+register_env("MXNET_SERVE_BREAKER_FAILURES", int, 3,
+             "Consecutive transport failures that open one "
+             "replica's router-side circuit breaker (no requests "
+             "routed while open)")
+register_env("MXNET_SERVE_BREAKER_COOLDOWN", float, 1.0,
+             "Seconds an open circuit breaker waits before letting "
+             "ONE half-open trial request through; success closes "
+             "the breaker, failure re-opens it for another cooldown")
+register_env("MXNET_SERVE_FLEET_HEARTBEAT", float, 0.5,
+             "Router health-probe cadence (seconds): each replica "
+             "is probed with a HEALTH RPC this often, feeding "
+             "readiness-aware routing and heartbeat-staleness "
+             "ejection")
+register_env("MXNET_SERVE_EJECT_TIMEOUT", float, 5.0,
+             "Seconds without a successful health probe before the "
+             "router ejects a replica from the rotation (breaker "
+             "forced open); the next successful probe rejoins it")
+register_env("MXNET_SERVE_DEDUP_WINDOW", int, 256,
+             "Per-client replica-side idempotency window: how many "
+             "recent predict request ids each replica remembers so "
+             "a retried or hedged RPC is answered from cache "
+             "instead of re-dispatched (in-flight entries are "
+             "never trimmed)")
+register_env("MXNET_COMPILE_CACHE_DIR", str, "",
+             "Directory of the built kernel libraries (nvcc's and "
+             "g++'s, with their logs): where a kernel is looked up "
+             "before it is compiled and where a new build lands; "
+             "empty = build/torch_kernels/ at the root of the "
+             "checkout.  A serve.Fleet points every replica at one "
+             "directory, so a replica after the first builds nothing")

@@ -16,7 +16,11 @@ fields, with the JAX package's names: ``load`` / ``load_failed`` /
 ``unload`` / ``alias`` / ``unalias`` / ``compile`` (one per rung's
 program: a CUDA graph capture on the card) / ``shed`` / ``expired`` /
 ``cancelled`` / ``dispatcher_restart`` / ``unhealthy`` / ``drain`` /
-``drain_complete`` / ``cutover_flush`` / ``resume`` / ``health``.
+``drain_complete`` / ``cutover_flush`` / ``resume`` / ``health``.  The
+``fleet`` category carries the fleet's trail (replica start, load, drain,
+cancel and exit; the router's admit, failover, hedge, eject and rejoin;
+the fleet's spawn, reap and deploy steps).  ``_CATEGORIES`` lists the
+categories the package emits; a caller may emit any other.
 
 Each line is ONE ``os.write`` on an ``O_APPEND`` fd, so concurrent
 threads and processes never interleave bytes mid-line; the directory is
@@ -36,6 +40,9 @@ from . import metrics as _metrics
 
 __all__ = ["enabled", "emit", "configure", "path", "read_events",
            "tail_records"]
+
+_CATEGORIES = ("guard", "chaos", "retry", "respawn", "serve", "decode",
+               "fleet", "autotune", "quantize")
 
 def _spec():
     raw = os.environ.get("MXNET_OBS", "").strip().lower()

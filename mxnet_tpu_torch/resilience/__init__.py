@@ -5,7 +5,8 @@ uses):
   injectable clock (the batcher's restart schedule);
 * :mod:`.chaos` — the deterministic fault-injection spec;
 * :mod:`.servechaos` — the serving-path injection points (dispatch
-  raise / hang / slow, program-build reject);
+  raise / hang / slow, program-build reject, decode tick raise, and the
+  fleet's replica kill / slow and router partition);
 * the errors the Module training loop raises: ``DivergenceError`` (the
   non-finite guard's divergence action) and ``StateMismatchError`` (an
   optimizer-state file of another optimizer);

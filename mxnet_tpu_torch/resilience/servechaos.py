@@ -1,6 +1,5 @@
 """Deterministic fault injection for the serving request path (port of
-``mxnet_tpu/resilience/servechaos.py``, subset: the batcher, predictor
-and decode choke points).
+``mxnet_tpu/resilience/servechaos.py``).
 
 The injection points are consulted by the production serving code — the
 :class:`~mxnet_tpu_torch.serve.batcher.DynamicBatcher` dispatcher right
@@ -9,7 +8,12 @@ before it runs a coalesced batch,
 before it builds a rung's program, and
 :meth:`~mxnet_tpu_torch.serve.decode.DecodeEngine.tick` before its
 dispatch — so a chaos-armed test drives the exact supervision /
-shedding / drain / rebuild code a real outage exercises.
+shedding / drain / rebuild code a real outage exercises.  The fleet's
+points are consulted by :class:`~mxnet_tpu_torch.serve.replica.
+ReplicaServer` connection handlers (arm them through a replica process's
+own ``MXNET_CHAOS`` env) and by :class:`~mxnet_tpu_torch.serve.router.
+Router` right before a frame goes out on a replica socket (arm them with
+``chaos.configure`` in the router's process).
 Spec keys (all integers, on the :mod:`.chaos` spec):
 
 ``dispatch_raise_at=K`` (+ optional ``dispatch_raise_for=N``)
@@ -28,22 +32,40 @@ Spec keys (all integers, on the :mod:`.chaos` spec):
     Raise ``RuntimeError`` out of the K-th decode-engine tick (and the
     following N-1) — the crash escapes the DecodeBatcher loop, so the
     quarantine-and-rebuild path must run.
-
-The fleet keys of the JAX module (``replica_kill_decode_at`` and the
-router's partition keys) wait for the fleet: arming
-``replica_kill_decode_at`` makes the decode tick raise.
+``replica_kill_at=K``
+    The replica process hard-exits (``os._exit(137)``, the patchable
+    ``_exit`` seam) on receiving its K-th PREDICT request — before
+    dispatch, so the router sees the connection die mid-request and must
+    fail the request over to another replica.
+``replica_kill_decode_at=K``
+    The same hard exit, counting DECODE_OPEN / DECODE_NEXT requests: the
+    replica dies mid-stream, so the router must re-open every live
+    decode session on a healthy replica from its journal and resume it
+    bit-equal.
+``slow_replica_ms=X`` (+ optional ``slow_replica_for=N``)
+    Every PREDICT (or the first N) sleeps X milliseconds before
+    dispatch — the straggling replica that hedging and the breaker are
+    for.
+``fleet_partition_at=K`` (+ optional ``fleet_partition_for=N``,
+``fleet_partition_port=P``)
+    The K-th (through K+N-1-th) router->replica send raises
+    ``ConnectionError`` without touching the wire — a router<->replica
+    partition; with ``fleet_partition_port=P`` only sends to the replica
+    on port P count (and are cut).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 from . import chaos
 from .. import sanitizer as _san
 
-__all__ = ["on_dispatch", "on_warm", "on_decode_tick", "release_hangs",
-           "reset_hangs"]
+__all__ = ["on_dispatch", "on_warm", "on_replica_request",
+           "on_replica_decode", "on_decode_tick", "on_router_send",
+           "release_hangs", "reset_hangs"]
 
 log = logging.getLogger(__name__)
 
@@ -120,6 +142,80 @@ def on_warm(model):
             "model %r)" % (n, model))
 
 
+# patchable seam so unit tests can assert the kill without dying
+_exit = os._exit
+
+
+def on_replica_request(replica):
+    """Replica-side fleet choke point, consulted by the replica's
+    connection handler for every PREDICT request before it reaches the
+    registry.  ``replica_kill_at=K`` hard-exits the process on the K-th
+    request (the router must fail over mid-request);
+    ``slow_replica_ms`` makes this replica a straggler."""
+    if not chaos.enabled():
+        return
+    spec = chaos.active()
+    kill_at = spec.get("replica_kill_at")
+    slow = spec.get("slow_replica_ms")
+    if kill_at is None and slow is None:
+        return
+    n = chaos.tick("replica_predict")
+    if slow and n <= spec.get("slow_replica_for", 1 << 62):
+        chaos.note_injection("slow_replica_ms", at=n, replica=replica)
+        time.sleep(slow / 1000.0)
+    if kill_at is not None and n == kill_at:
+        chaos.note_injection("replica_kill_at", at=n, replica=replica)
+        log.warning("servechaos: hard-killing replica %r at predict %d",
+                    replica, n)
+        _exit(137)
+
+
+def on_replica_decode(replica):
+    """Replica-side decode choke point, consulted for every DECODE_OPEN /
+    DECODE_NEXT request before it reaches the decode batcher.
+    ``replica_kill_decode_at=K`` hard-exits the process on the K-th
+    decode request — the router must re-open this replica's live
+    sessions elsewhere from their journals and resume them bit-equal."""
+    if not chaos.enabled():
+        return
+    kill_at = chaos.active().get("replica_kill_decode_at")
+    if kill_at is None:
+        return
+    n = chaos.tick("replica_decode")
+    if n == kill_at:
+        chaos.note_injection("replica_kill_decode_at", at=n,
+                             replica=replica)
+        log.warning("servechaos: hard-killing replica %r at decode "
+                    "request %d", replica, n)
+        _exit(137)
+
+
+def on_router_send(replica, port=None):
+    """Router-side fleet choke point, consulted right before a frame goes
+    out on a replica socket.  ``fleet_partition_at=K`` (+
+    ``fleet_partition_for=N``) raises ``ConnectionError`` without
+    touching the wire, so the router's failover/breaker path runs as it
+    would on a real partition; ``fleet_partition_port=P`` restricts the
+    cut (and its tick counter) to the replica on port P."""
+    if not chaos.enabled():
+        return
+    spec = chaos.active()
+    at = spec.get("fleet_partition_at")
+    if at is None:
+        return
+    pfilter = spec.get("fleet_partition_port")
+    if pfilter and port != pfilter:
+        return
+    n = chaos.tick("fleet_send")
+    if at <= n < at + spec.get("fleet_partition_for", 1):
+        chaos.note_injection("fleet_partition_at", at=n, replica=replica)
+        log.warning("servechaos: partitioning router<->replica %r at "
+                    "send %d", replica, n)
+        raise ConnectionError(
+            "servechaos: injected router<->replica partition "
+            "(send %d, replica %r)" % (n, replica))
+
+
 def on_decode_tick(name):
     """Decode tick choke point, consulted by
     :meth:`~mxnet_tpu_torch.serve.decode.DecodeEngine.tick` before the
@@ -130,11 +226,6 @@ def on_decode_tick(name):
     if not chaos.enabled():
         return
     spec = chaos.active()
-    if spec.get("replica_kill_decode_at") is not None:
-        from ..base import MXNetError
-        raise MXNetError("servechaos: replica_kill_decode_at is not ported "
-                         "(it kills a fleet replica; the fleet is queue A "
-                         "item 7)")
     raise_at = spec.get("decode_tick_raise_at")
     if raise_at is None:
         return

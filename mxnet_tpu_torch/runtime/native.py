@@ -4,8 +4,9 @@ sources.
 ``src/io/recordio_reader.cc`` (the RecordIO reader) and
 ``src/io/jpeg_decode_pool.cc`` (the libjpeg decode and augment worker
 team) export plain C functions.  ``g++ -O2 -fPIC -shared -std=c++17``
-compiles each into ``build/torch_kernels/`` beside the port's CUDA
-kernels, at first use; ``ctypes`` loads it.  As for the kernels, the
+compiles each into ``build/torch_kernels/`` (or the directory
+``MXNET_COMPILE_CACHE_DIR`` names) beside the port's CUDA kernels, at
+first use; ``ctypes`` loads it.  As for the kernels, the
 library's file name carries a hash of its source and the compiler's
 output is kept beside it as ``.log``.  A failed build raises with that
 output: no caller falls back to another decoder.
@@ -57,7 +58,9 @@ def _paths(name):
     src = os.path.join(SOURCE_DIR, source)
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return src, os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest))
+    from ..ops._cuda import build_dir
+    return src, os.path.join(build_dir(BUILD_DIR),
+                             "lib%s-%s.so" % (name, digest))
 
 
 def command(name):
@@ -77,7 +80,7 @@ def build(name):
         with open(lib + ".log") as f:
             return {"path": lib, "seconds": 0.0, "log": f.read(),
                     "command": " ".join(cmd)}
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
     tmp = cmd[cmd.index("-o") + 1]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,

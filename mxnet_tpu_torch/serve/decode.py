@@ -128,6 +128,10 @@ _COMPILES_TOTAL = _obs_metrics.counter(
     "serve_compiles_total",
     "rung programs built (CUDA graph captures on the card); flat after "
     "warmup or the request path is building programs")
+_FAILOVERS_TOTAL = _obs_metrics.counter(
+    "serve_decode_failovers_total",
+    "decode sessions re-opened on another replica after their "
+    "replica died / ejected / drained (router-side journal resume)")
 _REBUILDS_TOTAL = _obs_metrics.counter(
     "serve_decode_rebuilds_total",
     "decode pool quarantine-and-rebuild cycles after a tick-loop "

@@ -1,0 +1,452 @@
+"""Fleet — N replica processes, one router, rolling deploys (port of
+``mxnet_tpu/serve/fleet.py``).
+
+The :class:`Fleet` spawns N replica processes (each a full ModelRegistry
+behind the socket RPC surface of replica.py, serving on ``cuda:0``),
+fronts them with a :class:`~mxnet_tpu_torch.serve.router.Router`, and
+owns the operations a fleet needs:
+
+* **Spawn / replace** — replicas share one kernel build directory
+  (``compile_cache_dir``, passed to each as ``MXNET_COMPILE_CACHE_DIR``;
+  by default the checkout's ``build/torch_kernels/``, where the parent
+  builds), so a replica after the first compiles no kernel.  Its CUDA
+  graphs live in the process and are captured at load.  A replica is
+  READY only after every model in its spec is loaded AND warm.
+* **Rolling deploy** — :meth:`deploy` cycles replicas one at a time:
+  mark draining at the router (new requests route around it) -> DRAIN
+  RPC (bounded wait for every accepted request; the drain record must
+  report zero abandoned work or the deploy aborts loudly) -> STOP + reap
+  -> spawn the successor on the new checkpoint -> readmit once probes see
+  it ready.  Zero accepted requests dropped.
+* **Fleet view** — :meth:`scrape` aggregates every replica's HTTP probe
+  surface (``/metrics`` + ``/readyz``) into one dict and refreshes the
+  ``fleet_replicas_ready`` gauge.
+
+Child processes are bounded on the way down too: :meth:`stop` sends STOP
+RPCs, then terminates, then kills — a failed run can not leak a replica.
+Each replica's last STATS reply (its kernel launches, graph captures and
+peak memory) is read before it is stopped and kept in :meth:`reaped`.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import subprocess
+import sys
+import tempfile
+import time as _time
+
+from .buckets import ServeError
+from .replica import MSG_DRAIN, MSG_STATS, MSG_STOP
+from .router import _REPLICAS_READY, Router
+from .. import sanitizer as _san
+from ..observability import events as _obs_events
+from ..observability import metrics as _obs_metrics
+
+__all__ = ["Fleet", "parse_exposition"]
+
+log = logging.getLogger(__name__)
+
+_DEPLOYS = _obs_metrics.counter(
+    "fleet_deploys_total",
+    "rolling deploys completed across the fleet")
+
+
+def parse_exposition(text):
+    """Prometheus text exposition -> {metric name: float} for the
+    plain counter/gauge samples (histogram series keep their
+    ``_bucket``/``_sum``/``_count`` suffixes)."""
+    out = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        parts = line.split()
+        if len(parts) != 2:
+            continue
+        try:
+            out[parts[0]] = float(parts[1])
+        except ValueError:
+            continue
+    return out
+
+
+class Fleet:
+    """N replica processes behind one router.
+
+    Parameters
+    ----------
+    model_specs : list of dict
+        Per-model replica spec entries:
+        ``{"name", "prefix", "epoch", "data_shapes", "batches"}``
+        (see ``serve.replica.main`` for the schema).
+    replicas : int
+        Fleet size (default 3).
+    compile_cache_dir : str, optional
+        The kernel build directory every replica shares (default: the
+        parent's, ``build/torch_kernels/`` unless
+        ``MXNET_COMPILE_CACHE_DIR`` names another).  A replica finds the
+        kernels built there and compiles none.
+    workdir : str, optional
+        Where spec files / logs live (default: a fresh tempdir).
+    max_wait_ms : float, optional
+        Replica batcher coalescing window override.
+    env : dict, optional
+        Extra environment for every replica process.
+    router_kwargs : dict, optional
+        Passed to the :class:`Router` constructor.
+    spawn_timeout : float
+        Seconds to wait for a replica's READY line (load, warm-up and
+        the capture of every rung's CUDA graph).
+    ctx : Context, optional
+        ``cpu()`` makes every replica serve on the CPU (its spec gets
+        ``"ctx": "cpu"``); by default each serves on ``cuda:0`` and a
+        machine without CUDA fails the spawn.
+    """
+
+    def __init__(self, model_specs, replicas=3, compile_cache_dir=None,
+                 workdir=None, max_wait_ms=None, env=None,
+                 router_kwargs=None, spawn_timeout=300.0, ctx=None):
+        from ..ops import _cuda
+        self.model_specs = list(model_specs)
+        self.size = int(replicas)
+        self.workdir = workdir or tempfile.mkdtemp(prefix="mxnet_fleet_")
+        self.compile_cache_dir = compile_cache_dir or _cuda.build_dir()
+        self.ctx = None if ctx is None else ctx.device_type
+        if self.ctx not in (None, "cpu", "gpu"):
+            raise ServeError("Fleet ctx %r: expected cpu() or gpu()"
+                             % (ctx,))
+        self.max_wait_ms = max_wait_ms
+        self._extra_env = dict(env or {})
+        self._spawn_timeout = float(spawn_timeout)
+        self.router = Router(**(router_kwargs or {}))
+        self._lock = _san.lock(label="serve.fleet")
+        self._procs = {}        # key -> record dict
+        self._reaped = []       # records of stopped replicas
+        #: each deploy's drain records, one per replica cycled
+        self.drain_records = []
+        self._next_id = 0
+        _san.track(self, ("_procs", "_reaped", "_next_id"),
+                   label="serve.fleet")
+
+    # -- spawning ----------------------------------------------------------
+    def _write_spec(self, name, model_specs):
+        spec = {"name": name, "models": model_specs}
+        if self.ctx == "cpu":
+            spec["ctx"] = "cpu"
+        if self.max_wait_ms is not None:
+            spec["max_wait_ms"] = float(self.max_wait_ms)
+        path = os.path.join(self.workdir, "%s.spec.json" % name)
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        return path
+
+    def _spawn(self, model_specs=None, extra_env=None):
+        """Start one replica process, wait for its READY line, and
+        register it with the router.  Returns the replica key."""
+        with self._lock:
+            rid = self._next_id
+            self._next_id += 1
+        name = "replica-%d" % rid
+        spec_path = self._write_spec(name,
+                                     model_specs or self.model_specs)
+        env = dict(os.environ)
+        env.update(self._extra_env)
+        env.update(extra_env or {})
+        env["MXNET_COMPILE_CACHE_DIR"] = self.compile_cache_dir
+        # make the package importable regardless of the caller's cwd
+        pkg_root = os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))))
+        env["PYTHONPATH"] = pkg_root + (
+            os.pathsep + env["PYTHONPATH"]
+            if env.get("PYTHONPATH") else "")
+        # -c instead of -m: runpy would re-execute serve.replica on
+        # top of the already-imported package module (RuntimeWarning)
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys; from mxnet_tpu_torch.serve.replica import main; "
+             "sys.exit(main())",
+             "--spec", spec_path, "--port", "0", "--http-port", "0"],
+            env=env, stdout=subprocess.PIPE, text=True)
+        ready = {}
+        done = _san.event()
+
+        def _read_stdout():
+            for line in proc.stdout:
+                if line.startswith("REPLICA READY"):
+                    for part in line.split()[2:]:
+                        k, _, v = part.partition("=")
+                        ready[k] = int(v)
+                    done.set()
+            done.set()      # EOF without READY: spawn failed
+
+        reader = _san.thread(target=_read_stdout,
+                             name="fleet-stdout-%s" % name, daemon=True)
+        reader.start()
+        if not done.wait(self._spawn_timeout) or "port" not in ready:
+            proc.kill()
+            proc.wait(timeout=10)
+            raise ServeError(
+                "replica %s did not come up within %.0fs (rc=%s)"
+                % (name, self._spawn_timeout, proc.poll()))
+        handle = self.router.add_replica(
+            ("127.0.0.1", ready["port"], ready.get("http", 0)))
+        record = {"key": handle.key, "name": name, "proc": proc,
+                  "port": ready["port"], "http_port": ready.get("http", 0),
+                  "pid": ready.get("pid"), "spec_path": spec_path,
+                  "models": list(model_specs or self.model_specs)}
+        with self._lock:
+            self._procs[handle.key] = record
+        _obs_events.emit("fleet", kind="spawn", replica=handle.key,
+                         name=name, pid=record["pid"])
+        return handle.key
+
+    def start(self):
+        """Spawn the whole fleet (sequential: the first replica builds
+        any kernel the build directory lacks) and wait until the router
+        can route to every one.  Returns self."""
+        for _ in range(self.size):
+            self._spawn()
+        self.wait_routable(count=self.size)
+        return self
+
+    def keys(self):
+        with self._lock:
+            return sorted(self._procs)
+
+    def record(self, key):
+        with self._lock:
+            return dict(self._procs[key])
+
+    def wait_routable(self, count=None, model=None, timeout=60.0):
+        """Block until *count* replicas (default: the whole fleet)
+        are routable for *model* per the router's probes."""
+        count = self.size if count is None else count
+        deadline = _time.monotonic() + timeout
+        while _time.monotonic() < deadline:
+            self.router.probe_once()
+            if self.router.ready_count(model) >= count:
+                return True
+            _time.sleep(0.05)
+        raise ServeError(
+            "only %d/%d replicas routable after %.0fs"
+            % (self.router.ready_count(model), count, timeout))
+
+    # -- teardown / replacement --------------------------------------------
+    def _reap(self, key, rpc_stop=True, timeout=15.0):
+        """Stop one replica process, bounded: STOP RPC -> wait ->
+        terminate -> kill.  Removes it from the router."""
+        with self._lock:
+            record = self._procs.pop(key, None)
+        self.router.remove_replica(key)
+        if record is None:
+            return None
+        proc = record["proc"]
+        record["final_stats"] = None
+        if rpc_stop and proc.poll() is None:
+            # the router handle is gone: one direct best-effort STATS
+            # (what the replica ran, before it is lost) and STOP
+            from .router import ReplicaHandle
+            h = ReplicaHandle("127.0.0.1", record["port"])
+            try:
+                stats, _ = self.router._call(h, MSG_STATS, {},
+                                             timeout=5.0)
+                if stats.get("status") == "ok":
+                    record["final_stats"] = stats
+                self.router._call(h, MSG_STOP, {}, timeout=5.0)
+            except (ConnectionError, OSError, ServeError):
+                pass
+            h.close_pool()
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.terminate()
+            try:
+                proc.wait(timeout=5.0)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=5.0)
+        record["rc"] = proc.returncode
+        with self._lock:
+            self._reaped.append(record)
+        _obs_events.emit("fleet", kind="reap", replica=key,
+                         rc=proc.returncode)
+        return record
+
+    def reaped(self):
+        """Records of the replicas stopped so far, oldest first: each
+        with its ``rc`` and ``final_stats`` (the STATS reply read before
+        the STOP; None for a replica that was already dead)."""
+        with self._lock:
+            return [dict(r) for r in self._reaped]
+
+    def replace(self, key, model_specs=None, extra_env=None):
+        """Replace a (dead or retiring) replica with a fresh spawn — the
+        crash-recovery path after a replica kill.  Returns the
+        successor's key."""
+        self._reap(key)
+        return self._spawn(model_specs=model_specs,
+                           extra_env=extra_env)
+
+    def stop(self, timeout=15.0):
+        """Tear the whole fleet down, bounded (a failed run must not leak
+        replica processes)."""
+        for key in self.keys():
+            self._reap(key, timeout=timeout)
+        self.router.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+    # -- rolling deploy ----------------------------------------------------
+    def deploy(self, model_specs, drain_timeout=None):
+        """Drain-aware rolling deploy: cycle replicas one at a time onto
+        *model_specs* (the new checkpoint) — drain -> swap -> load and
+        warm the successor -> readmit — dropping zero accepted
+        requests.  Live streaming decode sessions are
+        MIGRATED, not waited out: the DRAIN evicts them with the
+        typed ``draining`` code and the router re-opens each on a
+        healthy replica from its journal (same handle, bit-equal
+        resume).  A drain that times out (abandoned accepted work)
+        aborts the deploy loudly.  Returns the list of successor
+        replica keys."""
+        model_specs = list(model_specs)
+        names = sorted({m["name"] for m in model_specs})
+        _obs_events.emit("fleet", kind="deploy_start", models=names,
+                         replicas=self.keys())
+        from ..config import get_env
+        per_model_drain = (float(drain_timeout)
+                           if drain_timeout is not None
+                           else get_env("MXNET_SERVE_DRAIN_TIMEOUT"))
+        successors = []
+        for key in self.keys():
+            self.router.set_draining(key, True)
+            dead = self.record(key)["proc"].poll() is not None
+            if not dead:
+                # the RPC's socket timeout must outlive the WHOLE
+                # drain (drain_all waits per model, sequentially) —
+                # with the default 60s RPC timeout a long legitimate
+                # drain would otherwise surface as a transport
+                # failure and skip the resume path below
+                n_models = max(1, len(self.record(key)["models"]))
+                rpc_budget = per_model_drain * n_models + 30.0
+                try:
+                    stats, _ = self.router.control(
+                        key, MSG_DRAIN, {"timeout": drain_timeout},
+                        timeout=rpc_budget)
+                except ConnectionError as exc:
+                    if self.record(key)["proc"].poll() is not None:
+                        stats = {}      # died mid-drain: replace it
+                    else:
+                        # alive but unreachable: hand it back and
+                        # abort — never reap a replica that may still
+                        # hold accepted work we could not drain
+                        try:
+                            self.router.control(key, MSG_DRAIN,
+                                                {"resume": True})
+                        except (ConnectionError, ServeError):
+                            pass
+                        self.router.set_draining(key, False)
+                        raise ServeError(
+                            "deploy aborted: DRAIN RPC to live "
+                            "replica %s failed in transport (%s) — "
+                            "replica resumed, fleet unchanged"
+                            % (key, exc)) from exc
+                if stats.get("timed_out"):
+                    # hand the replica BACK to service before
+                    # aborting: without the resume it would shed
+                    # every predict (draining) for the rest of its
+                    # life — a silent one-replica-short fleet
+                    try:
+                        self.router.control(key, MSG_DRAIN,
+                                            {"resume": True})
+                    except (ConnectionError, ServeError):
+                        pass    # the abort below is the headline
+                    self.router.set_draining(key, False)
+                    raise ServeError(
+                        "deploy aborted: replica %s drain timed out "
+                        "with %d accepted requests outstanding — "
+                        "accepted work is never dropped (replica "
+                        "resumed, fleet unchanged)"
+                        % (key, stats.get("waited_requests", -1)))
+                self.drain_records.append(dict(stats, replica=key))
+                _obs_events.emit(
+                    "fleet", kind="deploy_drain", replica=key,
+                    waited_requests=stats.get("waited_requests"),
+                    decode_evicted=stats.get("decode_evicted", 0),
+                    timed_out=False)
+            new_key = self.replace(key, model_specs=model_specs)
+            # the successor is only READY after load+warm (spawn
+            # gates on the READY line), but wait for the router's own
+            # probes before moving to the next replica so the fleet
+            # never has two replicas out of rotation at once
+            self.wait_routable(count=len(self.keys()), model=None)
+            successors.append(new_key)
+            _obs_events.emit("fleet", kind="deploy_replica",
+                             replica=key, successor=new_key)
+        self.model_specs = model_specs
+        _DEPLOYS.inc()
+        _obs_events.emit("fleet", kind="deploy", models=names,
+                         replicas=successors)
+        return successors
+
+    # -- fleet view --------------------------------------------------------
+    def stats(self, key):
+        """One replica's STATS RPC (dispatch/dedup/compile counters —
+        the exactly-once evidence — and its kernel launches, nvcc
+        seconds and peak device memory)."""
+        rmeta, _ = self.router.control(key, MSG_STATS, {})
+        return rmeta
+
+    def scrape(self, timeout=5.0):
+        """Aggregate every replica's HTTP probe surface into one
+        fleet view::
+
+            {"replicas": {key: {"ready": bool, "readyz": {...},
+                                "metrics": {name: value}}},
+             "ready": N, "size": M}
+
+        and refresh the ``fleet_replicas_ready`` gauge.  Replicas
+        without a probe port (http_port 0) report ``scraped: False``.
+        """
+        import urllib.error
+        import urllib.request
+        view = {"replicas": {}, "size": len(self.keys())}
+        ready = 0
+        for key in self.keys():
+            record = self.record(key)
+            entry = {"scraped": False, "ready": False}
+            port = record.get("http_port")
+            if port:
+                base = "http://127.0.0.1:%d" % port
+                try:
+                    with urllib.request.urlopen(base + "/readyz",
+                                                timeout=timeout) as r:
+                        entry["readyz"] = json.loads(r.read().decode())
+                        entry["ready"] = True
+                except urllib.error.HTTPError as e:
+                    try:
+                        entry["readyz"] = json.loads(e.read().decode())
+                    except ValueError:
+                        pass
+                except (OSError, ValueError) as e:
+                    entry["error"] = str(e)[:200]
+                try:
+                    with urllib.request.urlopen(base + "/metrics",
+                                                timeout=timeout) as r:
+                        entry["metrics"] = parse_exposition(
+                            r.read().decode())
+                        entry["scraped"] = True
+                except (OSError, ValueError) as e:
+                    entry.setdefault("error", str(e)[:200])
+            view["replicas"][key] = entry
+            ready += bool(entry["ready"])
+        view["ready"] = ready
+        _REPLICAS_READY.set(self.router.ready_count())
+        return view

@@ -1,0 +1,1065 @@
+"""ReplicaServer — one serving process behind a socket RPC surface (port
+of ``mxnet_tpu/serve/replica.py``).
+
+A replica wraps a :class:`~mxnet_tpu_torch.serve.registry.ModelRegistry`
+behind the kvstore's length-framed wire format (``_kvstore_impl``'s
+``frame := u64 len | u8 kind | json meta | tensors``, byte for byte the
+JAX package's), so a fleet of replica processes fronted by a
+:class:`~mxnet_tpu_torch.serve.router.Router` gets the process-level
+fault model:
+
+* **Idempotent predicts** — every PREDICT carries a ``(client, seq,
+  incarnation)`` request id; the replica keeps a per-client dedup window
+  whose first arrival executes and publishes the reply, while duplicates
+  (a router retry after a torn connection, the losing half of a hedged
+  pair) wait and answer from cache with ``dup: true`` — a retried predict
+  is never dispatched twice on one replica.
+* **Cancellation through the window** — CANCEL marks the id's window
+  entry and cancels its in-flight future; a LATE arrival of a cancelled
+  id answers ``cancelled`` from cache instead of running.
+* **Typed errors over the wire** — shedding, deadlines, drains and
+  internal failures reply with a ``code`` that the router maps back onto
+  the same typed exception classes (:func:`error_code`,
+  :func:`error_class`), never a silent drop.
+* **Streaming decode over the wire** — ``DECODE_OPEN`` / ``NEXT`` /
+  ``CANCEL`` / ``CLOSE`` expose the continuously-batched decode path:
+  OPEN is keyed by ``(client, session_seq)`` and idempotent (a resume
+  OPEN carries the router's journaled tokens, replayed bit-checked),
+  NEXT(i) answers token *i* from the session's retained stream and
+  answers ``pending`` rather than block past its bound, and a DRAIN
+  evicts live wire sessions with the typed ``draining`` code so the
+  router migrates them from its journal.
+* **Probe surface** — a HEALTH RPC for the router's heartbeat loop, and
+  a stdlib ``http.server`` endpoint (``MXNET_SERVE_HTTP_PORT``) serving
+  ``/metrics``, ``/healthz`` and ``/readyz``.
+
+The models run on ``cuda:0`` unless the replica is given ``ctx=cpu()``
+(the process entry: ``"ctx": "cpu"`` in its spec); answers are read back
+to the host by the batcher (one readback per coalesced batch) and cross
+the wire as numpy arrays.  Fleet chaos (``replica_kill_at``,
+``slow_replica_ms``, ``replica_kill_decode_at``) is consulted at the
+PREDICT and DECODE choke points.
+
+``python -c "from mxnet_tpu_torch.serve.replica import main; main()"
+--spec spec.json`` is the process entry that
+:class:`~mxnet_tpu_torch.serve.fleet.Fleet` spawns: it loads and warms
+the spec's models (one CUDA graph per rung), starts serving and prints
+one ``REPLICA READY port=.. http=.. pid=..`` line for the parent.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import logging
+import socket
+import time as _time
+
+import numpy as _np
+
+from .buckets import (BucketLadder, DeadlineExceededError,
+                      OverloadError, RequestCancelled, ServeError)
+from .. import sanitizer as _san
+from ..observability import events as _obs_events
+from ..observability import metrics as _obs_metrics
+from ..resilience import servechaos as _servechaos
+
+__all__ = ["ReplicaServer", "ReplicaDraining", "start_http_probe",
+           "MSG_PREDICT", "MSG_HEALTH", "MSG_LOAD", "MSG_UNLOAD",
+           "MSG_DRAIN", "MSG_STATS", "MSG_CANCEL", "MSG_STOP",
+           "MSG_DECODE_OPEN", "MSG_DECODE_NEXT", "MSG_DECODE_CANCEL",
+           "MSG_DECODE_CLOSE", "MSG_REPLY", "error_code",
+           "error_class", "main"]
+
+log = logging.getLogger(__name__)
+
+# wire message kinds (the framing is _kvstore_impl's; these kinds are the
+# serve protocol's own namespace, on the replica's own port)
+MSG_REPLY = 0
+MSG_PREDICT = 1
+MSG_HEALTH = 2
+MSG_LOAD = 3
+MSG_UNLOAD = 4
+MSG_DRAIN = 5
+MSG_STATS = 6
+MSG_CANCEL = 7
+MSG_STOP = 8
+MSG_DECODE_OPEN = 9
+MSG_DECODE_NEXT = 10
+MSG_DECODE_CANCEL = 11
+MSG_DECODE_CLOSE = 12
+
+_REPLICA_REQUESTS = _obs_metrics.counter(
+    "fleet_replica_requests_total",
+    "predict RPCs received by this replica (dedup hits included)")
+_REPLICA_DUP_HITS = _obs_metrics.counter(
+    "fleet_replica_dedup_hits_total",
+    "predict RPCs answered from the idempotency window instead of "
+    "re-dispatched (router retries, hedge losers)")
+
+
+class ReplicaDraining(ServeError):
+    """Shed at admission because this replica is draining (deploy in
+    progress).  The request was never dispatched, so the router may
+    safely reroute it to another replica — the zero-drop half of the
+    rolling-deploy contract."""
+
+
+# typed serve errors <-> wire codes: the router re-raises the SAME class
+# the replica's registry raised
+_CODE_FOR = (
+    (ReplicaDraining, "draining"),
+    (OverloadError, "overload"),          # KVPoolExhausted included
+    (DeadlineExceededError, "deadline"),
+    (RequestCancelled, "cancelled"),
+    (TimeoutError, "timeout"),
+    (ServeError, "serve"),
+)
+_CLASS_FOR = {
+    "draining": ReplicaDraining,
+    "overload": OverloadError,
+    "deadline": DeadlineExceededError,
+    "cancelled": RequestCancelled,
+    "timeout": ServeError,
+    "serve": ServeError,
+    "internal": ServeError,
+}
+
+
+def error_code(exc):
+    """The wire code for a serve-side exception."""
+    for cls, code in _CODE_FOR:
+        if isinstance(exc, cls):
+            return code
+    return "internal"
+
+
+def error_class(code):
+    """The typed exception class the router raises for a wire code."""
+    return _CLASS_FOR.get(code, ServeError)
+
+
+def _error_reply(exc):
+    return {"status": "err", "code": error_code(exc),
+            "msg": "%s: %s" % (type(exc).__name__, str(exc)[:500])}, ()
+
+
+class _Pending:
+    """One idempotency-window entry: the first arrival of a request id
+    owns it and publishes the full reply through ``event``; duplicates
+    wait on the event and answer from ``result`` with ``dup: true``."""
+
+    __slots__ = ("event", "result", "future", "cancelled")
+
+    def __init__(self):
+        self.event = _san.event()
+        self.result = None      # (reply meta, reply tensors)
+        self.future = None      # live ServeFuture while dispatching
+        self.cancelled = False
+
+
+def _resolve_ctx(ctx):
+    """The replica's context: *ctx* (a Context, ``"cpu"`` or ``"gpu"``),
+    by default ``gpu(0)``, which raises on a machine without CUDA."""
+    from ..context import Context, cpu, gpu
+    if isinstance(ctx, Context):
+        out = ctx
+    elif ctx == "cpu":
+        out = cpu()
+    elif ctx in (None, "gpu"):
+        out = gpu(0)
+    else:
+        raise ServeError("replica ctx %r: expected 'cpu' or 'gpu'" % (ctx,))
+    out.torch_device    # a gpu context without CUDA raises here
+    return out
+
+
+class ReplicaServer:
+    """One serving replica: a ModelRegistry behind the kvstore wire
+    framing, with idempotent predicts and the probe surface a fleet router
+    needs.
+
+    Parameters
+    ----------
+    registry : ModelRegistry, optional
+        Created fresh when omitted.
+    host, port : bind address (port 0 = ephemeral, read ``.port``).
+    http_port : int, optional
+        Probe endpoint port (0 = ephemeral; None = consult
+        ``MXNET_SERVE_HTTP_PORT``, whose 0 default means off).
+    name : str, optional
+        Replica id used in events/chaos blame (default host:port).
+    ctx : Context or str, optional
+        Where a LOAD RPC puts its model: default ``gpu(0)`` (resolved at
+        the first LOAD, so a replica of preloaded models needs no card).
+    """
+
+    def __init__(self, registry=None, host="127.0.0.1", port=0,
+                 http_port=None, name=None, ctx=None):
+        from .registry import ModelRegistry
+        from ..config import get_env
+        self.registry = registry if registry is not None \
+            else ModelRegistry()
+        self.ctx = ctx
+        self._dedup_window = max(8, get_env("MXNET_SERVE_DEDUP_WINDOW"))
+        self._rpc_timeout = get_env("MXNET_SERVE_RPC_TIMEOUT")
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self.sock.bind((host, port))
+        self.host = host
+        self.port = self.sock.getsockname()[1]
+        self.sock.listen(64)
+        self.name = name or ("%s:%d" % (self.host, self.port))
+        self._lock = _san.lock(label="serve.replica.%s" % self.name)
+        self._dedup = {}        # (client, inc) -> OrderedDict(seq -> _Pending)
+        self._draining = False
+        self._stop = _san.event()
+        self._thread = None
+        self._predicts_dispatched = 0   # the exactly-once proof counter
+        self._predict_seconds = 0.0     # submit -> answer, dispatched ones
+        self._requests_received = 0
+        self._dup_hits = 0
+        self._cancels_received = 0
+        # wire decode surface: name -> DecodeBatcher, and the session map
+        # keyed by (client, session_seq) — the session's retained output
+        # stream IS the NEXT dedup cache
+        self._decoders = collections.OrderedDict()
+        self._dsessions = collections.OrderedDict()
+        self._decode_requests = 0
+        _san.track(self, ("_dedup", "_draining", "_predicts_dispatched",
+                          "_predict_seconds", "_requests_received",
+                          "_dup_hits", "_cancels_received", "_decoders",
+                          "_dsessions", "_decode_requests"),
+                   label="serve.replica.%s" % self.name)
+        self.http_server = None
+        if http_port is None:
+            knob = get_env("MXNET_SERVE_HTTP_PORT")
+            http_port = knob if knob else None
+        if http_port is not None:
+            self.http_server = start_http_probe(
+                self.registry, port=http_port, replica=self)
+        self.http_port = self.http_server.server_address[1] \
+            if self.http_server is not None else 0
+
+    @property
+    def draining(self):
+        """Has this replica been told to drain (DRAIN RPC)?  A draining
+        replica keeps answering in-flight work but reports not-ready on
+        every probe surface."""
+        with self._lock:
+            return self._draining
+
+    @property
+    def predicts_dispatched(self):
+        """Predicts actually dispatched to the registry (dedup hits
+        excluded) — the per-replica exactly-once proof counter."""
+        with self._lock:
+            return self._predicts_dispatched
+
+    @property
+    def requests_received(self):
+        with self._lock:
+            return self._requests_received
+
+    @property
+    def dup_hits(self):
+        with self._lock:
+            return self._dup_hits
+
+    @property
+    def cancels_received(self):
+        with self._lock:
+            return self._cancels_received
+
+    @property
+    def decode_requests(self):
+        with self._lock:
+            return self._decode_requests
+
+    # -- wire decode surface -----------------------------------------------
+    def add_decoder(self, name, batcher):
+        """Expose *batcher* (a :class:`~mxnet_tpu_torch.serve.decode.
+        DecodeBatcher`) over the DECODE_* wire surface as model *name*.
+        Returns the batcher."""
+        with self._lock:
+            self._decoders[name] = batcher
+        return batcher
+
+    def decoders(self):
+        with self._lock:
+            return dict(self._decoders)
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self):
+        """Accept connections on a background thread; returns self."""
+        self._thread = _san.thread(
+            target=self.run, name="serve-replica-%s" % self.name,
+            daemon=True)
+        self._thread.start()
+        return self
+
+    def run(self):
+        """Accept loop (blocks; the process entry's main thread)."""
+        self.sock.settimeout(0.5)
+        conns = []
+        while not self._stop.is_set():
+            try:
+                conn, _ = self.sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            t = _san.thread(target=self._serve_conn, args=(conn,),
+                            daemon=True)
+            t.start()
+            # prune sockets their handler already closed (fileno -1): a
+            # router that reconnects per breaker trip must not make this
+            # list grow for the replica's lifetime
+            conns = [c for c in conns if c.fileno() != -1]
+            conns.append(conn)
+        # an in-process stop must look like a process death to peers:
+        # shut every accepted connection so blocked conn threads wake
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def stop(self):
+        """Stop accepting and close the listen socket (idempotent).
+        Loaded models stay; :meth:`close` also closes the registry."""
+        self._stop.set()
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+        # swap-then-close: a STOP rpc and the entry's finally may both
+        # tear down — only one closer wins
+        with self._lock:
+            http, self.http_server = self.http_server, None
+        if http is not None:
+            http.shutdown()
+            http.server_close()
+
+    def wait(self, timeout=None):
+        """Block until the accept loop stops (the entry's main thread)."""
+        return self._stop.wait(timeout)
+
+    def close(self):
+        self.stop()
+        for b in self.decoders().values():
+            try:
+                b.close()
+                b.engine.close()
+            except Exception:
+                log.exception("replica %r: decoder close failed",
+                              self.name)
+        self.registry.close()
+
+    # -- connection handling -----------------------------------------------
+    def _serve_conn(self, conn):
+        from .._kvstore_impl import _recv_frame, _send_frame
+        try:
+            while not self._stop.is_set():
+                try:
+                    kind, meta, tensors = _recv_frame(conn)
+                except (ConnectionError, OSError, ValueError):
+                    return
+                try:
+                    rmeta, rtensors = self._handle(kind, meta, tensors)
+                except Exception as exc:   # typed error over the wire
+                    rmeta, rtensors = _error_reply(exc)
+                try:
+                    _send_frame(conn, MSG_REPLY, rmeta, rtensors)
+                except (ConnectionError, OSError):
+                    return
+                if kind == MSG_STOP and rmeta.get("status") == "ok":
+                    self.stop()
+                    return
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _handle(self, kind, meta, tensors):
+        if kind == MSG_PREDICT:
+            return self._handle_predict(meta, tensors)
+        if kind == MSG_HEALTH:
+            return self._handle_health()
+        if kind == MSG_CANCEL:
+            return self._handle_cancel(meta)
+        if kind == MSG_DECODE_OPEN:
+            return self._handle_decode_open(meta, tensors)
+        if kind == MSG_DECODE_NEXT:
+            return self._handle_decode_next(meta)
+        if kind == MSG_DECODE_CANCEL:
+            return self._handle_decode_cancel(meta)
+        if kind == MSG_DECODE_CLOSE:
+            return self._handle_decode_close(meta)
+        if kind == MSG_LOAD:
+            return self._handle_load(meta)
+        if kind == MSG_UNLOAD:
+            self.registry.unload(meta["model"],
+                                 drain=bool(meta.get("drain", True)))
+            return {"status": "ok"}, ()
+        if kind == MSG_DRAIN:
+            return self._handle_drain(meta)
+        if kind == MSG_STATS:
+            return self._handle_stats()
+        if kind == MSG_STOP:
+            return {"status": "ok"}, ()
+        raise ServeError("replica %r: unknown message kind %d"
+                         % (self.name, kind))
+
+    def _handle_drain(self, meta):
+        if meta.get("resume"):
+            # undo a drain (aborted deploy): reopen admissions
+            resumed = self.registry.resume_all()
+            with self._lock:
+                self._draining = False
+            _obs_events.emit("fleet", kind="replica_resume",
+                             replica=self.name, models=resumed)
+            return {"status": "ok", "resumed": resumed}, ()
+        with self._lock:
+            self._draining = True
+        # evict live wire decode sessions BEFORE draining the registry:
+        # each fails typed 'draining', so the router migrates it to a
+        # successor from its journal instead of this drain waiting out
+        # (or killing) long streams
+        evicted = self._evict_decode_sessions()
+        stats = self.registry.drain_all(meta.get("timeout"))
+        stats = dict(stats, decode_evicted=evicted)
+        _obs_events.emit("fleet", kind="replica_drain",
+                         replica=self.name, **stats)
+        return dict(stats, status="ok"), ()
+
+    # -- predict with the idempotency window -------------------------------
+    def _publish(self, ent, result):
+        """Publish *result* as THE answer for an id — exactly once.  A
+        cancel and the owner's dispatch can race; whichever publishes
+        first wins and every reader (owner reply included) returns the
+        SAME cached answer."""
+        with self._lock:
+            if not ent.event.is_set():
+                ent.result = result
+                ent.event.set()
+            return ent.result
+
+    def _handle_predict(self, meta, tensors):
+        # fleet chaos choke point: kill/slow BEFORE dedup or dispatch, so
+        # an armed kill dies holding the request — the router must see
+        # the connection drop and fail the request over
+        _servechaos.on_replica_request(self.name)
+        _REPLICA_REQUESTS.inc()
+        with self._lock:
+            self._requests_received += 1
+        req = meta.get("req")
+        if req is None:
+            return self._execute_predict(meta, tensors)
+        client, seq, inc = req[0], int(req[1]), int(req[2])
+        with self._lock:
+            fresh_window = (client, inc) not in self._dedup
+            window = self._dedup.setdefault((client, inc),
+                                            collections.OrderedDict())
+            ent = window.get(seq)
+            owner = ent is None
+            if owner:
+                ent = _Pending()
+                window[seq] = ent
+                # trim COMPLETED entries past the window bound; in-flight
+                # entries are never trimmed (their retries must keep
+                # finding them)
+                while len(window) > self._dedup_window:
+                    oldest = next(iter(window))
+                    if not window[oldest].event.is_set():
+                        break
+                    del window[oldest]
+            if fresh_window:
+                # bound incarnation buckets per client: every router
+                # restart mints a new incarnation, and dead ones must not
+                # accumulate; only fully-settled buckets are dropped
+                same = sorted(k for k in self._dedup if k[0] == client)
+                for old in same[:-4]:
+                    if all(p.event.is_set()
+                           for p in self._dedup[old].values()):
+                        del self._dedup[old]
+        if not owner:
+            with self._lock:
+                self._dup_hits += 1
+            _REPLICA_DUP_HITS.inc()
+            if not ent.event.wait(self._rpc_timeout or None):
+                raise ServeError(
+                    "replica %r: duplicate of (%s, %d, %d) timed out "
+                    "waiting for the first arrival's reply"
+                    % (self.name, client, seq, inc))
+            rmeta, rtensors = ent.result
+            rmeta = dict(rmeta)
+            rmeta["dup"] = True
+            return rmeta, rtensors
+        try:
+            result = self._execute_predict(meta, tensors, ent)
+        except Exception as exc:
+            # failed ids leave the window: a retry after a transient
+            # failure re-executes instead of replaying the error from
+            # cache.  Cancelled ids STAY — the hedge loser's late retry
+            # must answer 'cancelled'.
+            if not isinstance(exc, RequestCancelled) \
+                    and not ent.cancelled:
+                with self._lock:
+                    win = self._dedup.get((client, inc))
+                    if win is not None and win.get(seq) is ent:
+                        del win[seq]
+            # reply with whatever got published first (a racing cancel
+            # may have won) — one story per id
+            return self._publish(ent, _error_reply(exc))
+        return self._publish(ent, result)
+
+    def _execute_predict(self, meta, tensors, ent=None):
+        if self.draining:
+            # shed BEFORE dispatch with the distinct 'draining' code: the
+            # router reroutes (the request never ran here)
+            raise ReplicaDraining(
+                "replica %r is draining — rerouting" % self.name)
+        model = meta["model"]
+        names = meta.get("inputs") or []
+        if not names and len(tensors) == 1:
+            data = tensors[0]
+        elif len(names) != len(tensors):
+            raise ServeError(
+                "replica %r: %d input names for %d tensors"
+                % (self.name, len(names), len(tensors)))
+        else:
+            data = dict(zip(names, tensors))
+        deadline_ms = meta.get("deadline_ms")
+        t0 = _time.perf_counter()
+        try:
+            fut = self.registry.submit(model, data,
+                                       deadline_ms=deadline_ms)
+        except ServeError as exc:
+            if self.draining and not isinstance(
+                    exc, (OverloadError, DeadlineExceededError,
+                          RequestCancelled, ReplicaDraining)):
+                # the batcher's own draining shed raced the check above:
+                # re-code it as reroutable so the deploy stays zero-drop
+                raise ReplicaDraining(
+                    "replica %r is draining — rerouting"
+                    % self.name) from exc
+            raise
+        if ent is not None:
+            with self._lock:
+                if ent.cancelled:
+                    # CANCEL raced the dispatch: reclaim the slot now
+                    fut.cancel()
+                else:
+                    ent.future = fut
+        budget = (float(deadline_ms) / 1e3 + 5.0) if deadline_ms \
+            else (self._rpc_timeout or 60.0)
+        try:
+            outs = fut.result(budget)
+        except TimeoutError:
+            fut.cancel()
+            raise
+        with self._lock:
+            self._predicts_dispatched += 1
+            self._predict_seconds += _time.perf_counter() - t0
+        return ({"status": "ok", "outputs": len(outs)},
+                [_np.asarray(o) for o in outs])
+
+    def _handle_cancel(self, meta):
+        """Hedge-loser / abandoned-request cancellation through the
+        idempotency window: reclaim the queued slot when possible, and
+        pin the id as cancelled so a LATE arrival answers ``cancelled``
+        from cache instead of dispatching."""
+        req = meta["req"]
+        client, seq, inc = req[0], int(req[1]), int(req[2])
+        with self._lock:
+            self._cancels_received += 1
+            window = self._dedup.setdefault((client, inc),
+                                            collections.OrderedDict())
+            ent = window.get(seq)
+            if ent is None:
+                ent = _Pending()
+                window[seq] = ent
+            ent.cancelled = True
+            fut = ent.future
+        reclaimed = bool(fut.cancel()) if fut is not None else False
+        if fut is None:
+            # never dispatched here (or not yet): publish the typed
+            # cancelled reply through _publish, so an owner racing past
+            # the cancelled check cannot later overwrite it
+            self._publish(ent, ({"status": "err", "code": "cancelled",
+                                 "msg": "RequestCancelled: cancelled "
+                                        "by the router (hedge "
+                                        "loser)"}, ()))
+        # req_seq, not seq: a bare ``seq`` field would clobber the event
+        # envelope's own monotone seq
+        _obs_events.emit("fleet", kind="replica_cancel",
+                         replica=self.name, client=client,
+                         req_seq=seq, reclaimed=reclaimed)
+        return {"status": "ok", "reclaimed": reclaimed}, ()
+
+    # -- wire decode (idempotent streaming sessions) -----------------------
+    @staticmethod
+    def _out_wire(out):
+        """``(out_names, tensors)`` for one delivered output tree — dict
+        outputs go as sorted named leaves, anything else as the single
+        bare leaf."""
+        if isinstance(out, dict):
+            names = sorted(out)
+            return names, [_np.asarray(out[n]) for n in names]
+        return None, [_np.asarray(out)]
+
+    @staticmethod
+    def _out_unwire(names, leaves):
+        if names:
+            return {n: _np.array(a) for n, a in zip(names, leaves)}
+        return _np.array(leaves[0])
+
+    def _handle_decode_open(self, meta, tensors):
+        # decode chaos choke point first (replica_kill_decode_at): an
+        # armed kill dies holding the OPEN, and the router must re-place
+        # the session from its journal
+        _servechaos.on_replica_decode(self.name)
+        with self._lock:
+            self._decode_requests += 1
+        ident = meta["session"]
+        client, seq, inc = ident[0], int(ident[1]), int(ident[2])
+        key = (client, seq)
+        with self._lock:
+            ent = self._dsessions.get(key)
+        if ent is not None:
+            if ent.get("cancelled"):
+                raise RequestCancelled(
+                    "decode session (%s, %d) was cancelled — a cancelled "
+                    "session is never resumed" % (client, seq))
+            if ent["sess"] is not None:
+                # duplicate OPEN (router retry after a torn reply): the
+                # live session IS the cached answer
+                return {"status": "ok", "dup": True,
+                        "sid": ent["sess"].sid, "base": ent["base"]}, ()
+        if self.draining:
+            raise ReplicaDraining(
+                "replica %r is draining — open decode session (%s, %d) "
+                "elsewhere" % (self.name, client, seq))
+        model = meta["model"]
+        with self._lock:
+            batcher = self._decoders.get(model)
+        if batcher is None:
+            raise ServeError(
+                "replica %r serves no decode model %r (have %s)"
+                % (self.name, model, sorted(self.decoders())))
+        if batcher.rebuilding:
+            # mid-quarantine: shed reroutable, like overload
+            raise OverloadError(
+                "replica %r decode model %r is rebuilding its pool — "
+                "open elsewhere" % (self.name, model))
+        names = meta.get("inputs") or []
+        n_in = len(names) if names else 1
+        if names:
+            prompt = {n: _np.array(t)
+                      for n, t in zip(names, tensors[:n_in])}
+        else:
+            prompt = _np.array(tensors[0])
+        resume = []
+        count = int(meta.get("resume") or 0)
+        if count:
+            out_names = meta.get("out_names")
+            per = len(out_names) if out_names else 1
+            flat = [_np.array(t) for t in tensors[n_in:]]
+            if len(flat) != count * per:
+                raise ServeError(
+                    "decode OPEN (%s, %d): %d resume tensors for %d "
+                    "journaled token(s) of %d leaf/leaves"
+                    % (client, seq, len(flat), count, per))
+            for i in range(count):
+                resume.append(self._out_unwire(
+                    out_names, flat[i * per:(i + 1) * per]))
+        sess = batcher.start(
+            prompt, max_new_tokens=meta.get("max_new_tokens"),
+            deadline_ms=meta.get("deadline_ms"),
+            journal_key=key, incarnation=inc,
+            resume_tokens=resume or None)
+        entry = {"sess": sess, "model": model, "incarnation": inc,
+                 "base": len(resume), "cancelled": False}
+        with self._lock:
+            old = self._dsessions.get(key)
+            if old is not None and old.get("cancelled"):
+                # a CANCEL raced this open: honor it
+                sess.cancel()
+                entry["cancelled"] = True
+            self._dsessions[key] = entry
+            self._trim_dsessions_locked()
+        _obs_events.emit("fleet", kind="decode_open", replica=self.name,
+                         model=model, client=str(client),
+                         session_seq=seq, incarnation=inc,
+                         resumed=len(resume))
+        return {"status": "ok", "sid": sess.sid,
+                "base": len(resume)}, ()
+
+    def _handle_decode_next(self, meta):
+        _servechaos.on_replica_decode(self.name)
+        with self._lock:
+            self._decode_requests += 1
+        ident = meta["session"]
+        key = (ident[0], int(ident[1]))
+        with self._lock:
+            ent = self._dsessions.get(key)
+        if ent is None or ent["sess"] is None:
+            if ent is not None and ent.get("cancelled"):
+                raise RequestCancelled(
+                    "decode session (%s, %d) was cancelled"
+                    % (key[0], key[1]))
+            raise ServeError("replica %r knows no decode session (%s, %d)"
+                             % (self.name, key[0], key[1]))
+        sess = ent["sess"]
+        i = int(meta["index"])
+        local = i - ent["base"]
+        if local < 0:
+            raise ServeError(
+                "decode session (%s, %d): token %d predates this "
+                "replica's resume base %d — the router already holds it"
+                % (key[0], key[1], i, ent["base"]))
+        wait_s = float(meta.get("wait_s") or 10.0)
+        if self._rpc_timeout:
+            wait_s = min(wait_s, self._rpc_timeout * 0.5)
+        try:
+            out = sess.output_at(local, timeout=wait_s)
+        except StopIteration:
+            return {"status": "ok", "done": True,
+                    "reason": sess.finish_reason,
+                    "total": ent["base"] + sess.token_count}, ()
+        except TimeoutError:
+            # bounded wait: token *i* is not decoded yet — answer
+            # 'pending' so the router polls again
+            return {"status": "ok", "pending": True, "index": i}, ()
+        names, leaves = self._out_wire(out)
+        return {"status": "ok", "index": i, "out_names": names}, leaves
+
+    def _handle_decode_cancel(self, meta):
+        ident = meta["session"]
+        key = (ident[0], int(ident[1]))
+        with self._lock:
+            self._cancels_received += 1
+            ent = self._dsessions.get(key)
+            if ent is None:
+                # cancel racing a failover re-open: pin the id so a LATE
+                # resume OPEN answers cancelled
+                ent = {"sess": None, "model": None, "incarnation": -1,
+                       "base": 0, "cancelled": True}
+                self._dsessions[key] = ent
+            else:
+                ent["cancelled"] = True
+            sess = ent["sess"]
+        reclaimed = bool(sess.cancel()) if sess is not None else False
+        _obs_events.emit("fleet", kind="decode_cancel", replica=self.name,
+                         client=str(key[0]), session_seq=key[1],
+                         reclaimed=reclaimed)
+        return {"status": "ok", "reclaimed": reclaimed}, ()
+
+    def _handle_decode_close(self, meta):
+        ident = meta["session"]
+        key = (ident[0], int(ident[1]))
+        with self._lock:
+            ent = self._dsessions.pop(key, None)
+        sess = ent["sess"] if ent else None
+        if sess is not None and not sess.done():
+            sess.cancel()
+        return {"status": "ok", "closed": ent is not None}, ()
+
+    def _trim_dsessions_locked(self):
+        # settled entries (finished session or cancel pin) age out past
+        # the dedup window; live sessions are never trimmed
+        while len(self._dsessions) > self._dedup_window:
+            for k, e in list(self._dsessions.items()):
+                if e["sess"] is None or e["sess"].done():
+                    del self._dsessions[k]
+                    break
+            else:
+                return
+
+    def _evict_decode_sessions(self):
+        """Fail every live wire decode session with the typed
+        ``draining`` code — the deploy-migration handoff: the router
+        re-opens each on a successor from its journal."""
+        with self._lock:
+            entries = [(k, e) for k, e in self._dsessions.items()
+                       if e["sess"] is not None]
+            decoders = dict(self._decoders)
+        evicted = 0
+        for key, ent in entries:
+            sess = ent["sess"]
+            batcher = decoders.get(ent["model"])
+            if sess.done() or batcher is None:
+                continue
+            batcher.engine.release(
+                sess, "migrated", ReplicaDraining(
+                    "replica %r is draining — resume decode session "
+                    "(%s, %d) on a successor"
+                    % (self.name, key[0], key[1])))
+            evicted += 1
+            _obs_events.emit("decode", kind="migrate", replica=self.name,
+                             model=ent["model"], client=str(key[0]),
+                             session_seq=key[1],
+                             tokens=ent["base"] + sess.token_count)
+        return evicted
+
+    # -- control plane -----------------------------------------------------
+    def _handle_health(self):
+        models = {}
+        for n, info in self.registry.health().items():
+            models[n] = {"state": info.get("state"),
+                         "ready": info.get("state") == "ready",
+                         "queue_depth": info.get("queue_depth", 0)}
+        # wire decode models ride the same surface so the router's
+        # eligible(model) placement sees them
+        for n, b in self.decoders().items():
+            state = b.health_state()
+            models.setdefault(n, {
+                "state": state, "ready": state == "ready",
+                "queue_depth": b.session_count, "decode": True})
+        with self._lock:
+            draining = self._draining
+        return {"status": "ok", "replica": self.name,
+                "live": self.registry.live(), "draining": draining,
+                "models": models}, ()
+
+    def _handle_load(self, meta):
+        ladder = None
+        if meta.get("batches"):
+            ladder = BucketLadder(batches=tuple(meta["batches"]))
+        self.ctx = _resolve_ctx(self.ctx)
+        pred = self.registry.load_checkpoint(
+            meta["model"], meta["prefix"], int(meta["epoch"]),
+            {n: tuple(s) for n, s in meta["data_shapes"].items()},
+            ladder=ladder, ctx=self.ctx)
+        # eager batcher so readiness probes see dispatcher liveness from
+        # the first health RPC, not the first request
+        self.registry.batcher(meta["model"])
+        with self._lock:
+            self._draining = False
+        _obs_events.emit("fleet", kind="replica_load", replica=self.name,
+                         model=meta["model"], programs=pred.compile_count)
+        return {"status": "ok", "programs": pred.compile_count}, ()
+
+    def _handle_stats(self):
+        with self._lock:
+            stats = {"predicts_dispatched": self._predicts_dispatched,
+                     "predict_seconds": self._predict_seconds,
+                     "requests_received": self._requests_received,
+                     "dup_hits": self._dup_hits,
+                     "cancels_received": self._cancels_received,
+                     "decode_requests": self._decode_requests}
+        compiles, graph = {}, {}
+        for n in self.registry.names():
+            try:
+                pred = self.registry.get(n)
+            except ServeError:
+                continue
+            compiles[n] = pred.compile_count
+            for k, c in pred.graph_launches().items():
+                graph[k] = graph.get(k, 0) + c
+        stats["compile_count"] = compiles
+        decode = {}
+        for n, b in self.decoders().items():
+            decode[n] = dict(b.rebuild_state(),
+                             compile_count=b.engine.compile_count,
+                             sessions=b.session_count,
+                             blocks_in_use=b.engine.pool.blocks_in_use,
+                             state=b.health_state())
+        stats["decode"] = decode
+        stats.update(_process_stats(graph))
+        return dict(stats, status="ok"), ()
+
+
+def _process_stats(graph):
+    """What this process spent on the card: each attention kernel's
+    launches (``wrapper``: real launches; ``graph``: replays x captured
+    launches of the served models' CUDA graphs), nvcc seconds, and peak
+    device memory (None off the card)."""
+    import torch
+    from ..ops import _cuda
+    from ..ops import attention as _att
+    kernels = {k: {"wrapper": n, "graph": graph.get(k, 0)}
+               for k, n in _att.launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated() \
+        if torch.cuda.is_initialized() else None
+    return {"kernels": kernels, "nvcc_seconds": _cuda.nvcc_seconds(),
+            "peak_memory_bytes": peak}
+
+
+# -- HTTP probe endpoint ------------------------------------------------------
+
+def start_http_probe(registry, port=0, host="127.0.0.1", replica=None):
+    """Serve ``/metrics`` (Prometheus exposition of the process metrics
+    registry), ``/healthz`` (liveness) and ``/readyz`` (readiness +
+    per-model health JSON) on a stdlib ``ThreadingHTTPServer``.  Returns
+    the server (call ``shutdown()`` + ``server_close()`` to stop); the
+    serving thread is daemonic."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class _ProbeHandler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):   # quiet by default
+            log.debug("probe %s", fmt % args)
+
+        def _send(self, code, body, ctype="application/json"):
+            payload = body.encode() if isinstance(body, str) else body
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def do_GET(self):
+            try:
+                if self.path == "/metrics":
+                    self._send(200, _obs_metrics.exposition(),
+                               ctype="text/plain; version=0.0.4")
+                    return
+                if self.path == "/healthz":
+                    live = registry.live()
+                    self._send(200 if live else 503,
+                               json.dumps({"live": bool(live)}))
+                    return
+                if self.path == "/readyz":
+                    health = registry.health()
+                    draining = bool(replica is not None and
+                                    replica.draining)
+                    ready = (bool(health) and not draining and
+                             all(m.get("state") == "ready"
+                                 for m in health.values()))
+                    body = {"ready": ready, "draining": draining,
+                            "models": {n: m.get("state")
+                                       for n, m in health.items()}}
+                    self._send(200 if ready else 503, json.dumps(body))
+                    return
+                self._send(404, json.dumps({"error": "unknown path",
+                                            "have": ["/metrics",
+                                                     "/healthz",
+                                                     "/readyz"]}))
+            except Exception as exc:
+                log.warning("probe endpoint error on %s: %s",
+                            self.path, exc)
+                try:
+                    self._send(500, json.dumps({"error": str(exc)[:200]}))
+                except OSError:
+                    pass
+
+    srv = ThreadingHTTPServer((host, port), _ProbeHandler)
+    srv.daemon_threads = True
+    t = _san.thread(target=srv.serve_forever,
+                    name="serve-probe-%d" % srv.server_address[1],
+                    daemon=True)
+    t.start()
+    return srv
+
+
+# -- process entry (the fleet's spawn target) ---------------------------------
+
+def _decode_lm(m, ctx, batcher_kwargs):
+    """A ``"kind": "decode_lm"`` spec entry: the deterministic
+    ``test_utils.tiny_attention_lm`` (same seed on every replica ->
+    identical params -> bit-equal cross-replica failover) behind a
+    :class:`~mxnet_tpu_torch.serve.decode.DecodeBatcher`."""
+    from ..test_utils import tiny_attention_lm
+    from .decode import DecodeBatcher, DecodeEngine
+    params, step_fn, prefill_fn, token_spec, input_spec = \
+        tiny_attention_lm(vocab=int(m.get("vocab", 32)),
+                          dim=int(m.get("dim", 16)),
+                          seed=int(m.get("seed", 0)),
+                          dtype=m.get("dtype", "float32"), ctx=ctx)
+    eng = DecodeEngine(
+        step_fn, prefill_fn=prefill_fn, token_spec=token_spec,
+        input_spec=input_spec, params=params,
+        max_len=int(m.get("max_len", 32)),
+        block_size=int(m["block_size"]) if m.get("block_size") else None,
+        num_blocks=int(m["num_blocks"]) if m.get("num_blocks") else None,
+        session_rungs=tuple(m["rungs"]) if m.get("rungs") else None,
+        device=ctx, label=m["name"])
+    return DecodeBatcher(eng, name=m["name"], **batcher_kwargs)
+
+
+def main(argv=None):
+    """``python -c "from mxnet_tpu_torch.serve.replica import main;
+    main()" --spec spec.json [--port P] [--http-port H]``
+
+    Spec schema::
+
+        {"name": "replica-0",               # optional
+         "max_wait_ms": 1.0,                # optional batcher knob
+         "ctx": "cpu",                      # optional: serve on the CPU
+         "models": [{"name": "m", "prefix": "/ckpt/m", "epoch": 3,
+                     "data_shapes": {"data": [1, 16]},
+                     "batches": [1, 2, 4]},
+                    {"name": "lm", "kind": "decode_lm",
+                     "vocab": 32, "dim": 16, "seed": 0,
+                     "dtype": "float32", "max_len": 32,
+                     "block_size": 4, "num_blocks": 24,
+                     "rungs": [1, 2, 4]}]}
+
+    Without ``"ctx": "cpu"`` the models go to ``cuda:0``, and a machine
+    without CUDA raises here, before any READY line.  Loads and warms
+    every model (kernels come from the shared build directory,
+    ``MXNET_COMPILE_CACHE_DIR``), starts the RPC and probe servers,
+    prints one ``REPLICA READY`` line and blocks until a STOP RPC."""
+    import argparse
+    import os as _os
+
+    parser = argparse.ArgumentParser(prog="mxnet_tpu_torch.serve.replica")
+    parser.add_argument("--spec", required=True,
+                        help="JSON replica spec (models to serve)")
+    parser.add_argument("--port", type=int, default=0)
+    parser.add_argument("--http-port", type=int, default=0)
+    args = parser.parse_args(argv)
+    with open(args.spec) as f:
+        spec = json.load(f)
+
+    from .registry import ModelRegistry
+    ctx = _resolve_ctx(spec.get("ctx"))
+    registry = ModelRegistry()
+    server = ReplicaServer(registry, port=args.port,
+                           http_port=args.http_port,
+                           name=spec.get("name"), ctx=ctx)
+    batcher_kwargs = {}
+    if spec.get("max_wait_ms") is not None:
+        batcher_kwargs["max_wait_ms"] = float(spec["max_wait_ms"])
+    try:
+        for m in spec.get("models", ()):
+            if m.get("kind") == "decode_lm":
+                server.add_decoder(m["name"],
+                                   _decode_lm(m, ctx, batcher_kwargs))
+                continue
+            ladder = BucketLadder(batches=tuple(m["batches"])) \
+                if m.get("batches") else None
+            registry.load_checkpoint(
+                m["name"], m["prefix"], int(m["epoch"]),
+                {n: tuple(s) for n, s in m["data_shapes"].items()},
+                ladder=ladder, ctx=ctx)
+            registry.batcher(m["name"], **batcher_kwargs)
+    except BaseException:
+        server.close()
+        raise
+    server.start()
+    _obs_events.emit("fleet", kind="replica_start", replica=server.name,
+                     port=server.port, http=server.http_port,
+                     pid=_os.getpid(),
+                     models=registry.names() + sorted(server.decoders()))
+    print("REPLICA READY port=%d http=%d pid=%d"
+          % (server.port, server.http_port, _os.getpid()), flush=True)
+    try:
+        server.wait()
+    finally:
+        _obs_events.emit("fleet", kind="replica_exit",
+                         replica=server.name, pid=_os.getpid())
+        server.close()
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main())

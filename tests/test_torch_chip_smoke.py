@@ -619,7 +619,9 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
         "phase_data": lambda t, c, s: {},
         "phase_quant": lambda t, c, s: {"lm": {
             "int8": {"launches": {"eager": 96, "graph": 300}},
-            "int8-weight-only": {"launches": {"eager": 84, "graph": 240}}}}}
+            "int8-weight-only": {"launches": {"eager": 84, "graph": 240}}}},
+        "phase_fleet": lambda t, c, s: {"launches": {"wrapper": 36,
+                                                     "graph": 1500}}}
     for name, fn in stub.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     assert chip_smoke.main() == 0
@@ -639,8 +641,12 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
     assert fwd["launches_by_path"][
         "quantized LM serve (graph replays: gate, traffic, checks)"] == \
         300 + 240
+    assert fwd["launches_by_path"][
+        chip_smoke.FLEET_PATH + ", eager: warm-ups"] == 36
+    assert fwd["launches_by_path"][
+        chip_smoke.FLEET_PATH + ", graph replays"] == 1500
     assert fwd["launches"] == 72 + 108 + 420 + 60 + 60 + 552 + 72 + 240 + \
-        96 + 84 + 300 + 240
+        96 + 84 + 300 + 240 + 36 + 1500
     for k in json.loads(lines[-2])["kernels"][1:]:
         assert k["launches"] == 60 + 60 + 72 + 240
     for k in json.loads(lines[-2])["kernels"]:

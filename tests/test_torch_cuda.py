@@ -13,7 +13,10 @@ ImageRecordIter's batches on the card, and the prefetchers' copy stream
 ordered before the consumer's reads; the int8 products: ``_int_mm`` with
 the zero padding its limits need, the int8 convolution's columns, and a
 quantized rung's CUDA graph counting its int8 products, each bit-equal to
-the plain CPU version.
+the plain CPU version; the serving fleet: two replica processes on the
+card answering bit-equal to an in-process registry, building no kernel
+and capturing nothing in the request path, and a replica that refuses to
+start without CUDA unless its spec says ``"ctx": "cpu"``.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one.
 This file imports neither jax nor the JAX package, so it runs on a
@@ -1105,3 +1108,91 @@ def test_quantized_rung_graph_counts_int8_products(cuda):
     finally:
         reg.close()
 
+
+
+def _fleet_checkpoint(tmp_path):
+    """A small LM (2 layers, dim 64) exported for the fleet cases."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        get_transformer_lm
+    net = get_transformer_lm(vocab=50, dim=64, heads=4, layers=2,
+                             max_seq=16, prefix="cudafleet0_")
+    gen = torch.Generator().manual_seed(3)
+    net.initialize(ctx=mx.cpu(), generator=gen)
+    net.hybridize()
+    net(mx.nd.array(np.zeros((1, 8), np.float32), ctx=mx.cpu()))
+    prefix = str(tmp_path / "lm")
+    net.export(prefix, 0)
+    return {"name": "lm", "prefix": prefix, "epoch": 0,
+            "data_shapes": {"data0": [1, 8]}, "batches": [1, 2]}
+
+
+def test_two_replica_fleet_round_trip_on_the_card(cuda, tmp_path):
+    """Two replica processes serve the LM on cuda:0 (a CUDA graph per
+    rung, flash_fwd inside): answers through the router are bit-equal to
+    an in-process registry on the card at the request's rung, no replica
+    captures in the request path, and a replica after the first builds
+    no kernel."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import _cuda
+    _cuda.build("flash_fwd")    # the parent builds; replicas find it
+    spec = _fleet_checkpoint(tmp_path)
+    reg = mx.serve.ModelRegistry()
+    reg.load_checkpoint("lm", spec["prefix"], 0,
+                        data_shapes={"data0": (1, 8)},
+                        ladder=mx.serve.BucketLadder(batches=(1, 2)),
+                        ctx=mx.gpu(0))
+    fleet = mx.serve.Fleet([spec], replicas=2, workdir=str(tmp_path),
+                           max_wait_ms=1.0)
+    try:
+        fleet.start()
+        warm = {k: fleet.stats(k)["compile_count"] for k in fleet.keys()}
+        rs = np.random.RandomState(4)
+        for rows in (1, 2, 1, 2):
+            x = rs.randint(0, 50, (rows, 8)).astype(np.float32)
+            got = fleet.router.predict("lm", {"data0": x})[0]
+            want = reg.predict("lm", x)[0].asnumpy()
+            assert np.array_equal(got, want)
+        for k in fleet.keys():
+            st = fleet.stats(k)
+            assert st["compile_count"] == warm[k] == {"lm": 2}
+            assert st["nvcc_seconds"] == 0.0
+            assert st["kernels"]["flash_fwd"]["wrapper"] > 0
+            assert st["peak_memory_bytes"] > 0
+        assert sum(fleet.stats(k)["predicts_dispatched"]
+                   for k in fleet.keys()) == 4
+    finally:
+        fleet.stop()
+        reg.close()
+
+
+def test_replica_refuses_to_start_without_cuda_unless_told_cpu(cuda,
+                                                               tmp_path):
+    """A replica process that sees no CUDA device raises before its
+    READY line unless its spec says "ctx": "cpu"; with it, it serves."""
+    import json
+    import os
+    import subprocess
+    import sys
+    spec = _fleet_checkpoint(tmp_path)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=root)
+    code = ("import sys; from mxnet_tpu_torch.serve.replica import main; "
+            "sys.exit(main())")
+    path = tmp_path / "spec.json"
+    path.write_text(json.dumps({"models": [spec]}))
+    out = subprocess.run([sys.executable, "-c", code, "--spec", str(path)],
+                         capture_output=True, text=True, timeout=300,
+                         env=env, cwd=root)
+    assert out.returncode != 0 and "REPLICA READY" not in out.stdout
+    assert "CUDA" in out.stderr
+    path.write_text(json.dumps({"models": [spec], "ctx": "cpu"}))
+    proc = subprocess.Popen([sys.executable, "-c", code, "--spec",
+                             str(path)], stdout=subprocess.PIPE, text=True,
+                            env=env, cwd=root)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("REPLICA READY"), line
+    finally:
+        proc.kill()
+        proc.wait(30)

@@ -32,7 +32,6 @@ import torch
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import sym
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.resilience import chaos
 from mxnet_tpu_torch.serve import (BucketLadder, CompiledPredictor,
                                    DeadlineExceededError, DecodeBatcher,
@@ -925,17 +924,40 @@ class TestRebuildResume:
         eng.close()
 
 
-def test_replica_kill_decode_is_not_ported():
-    """The fleet's chaos key arms nothing silently: the decode tick
-    raises while it is set."""
-    eng, _, _ = _engine(session_rungs=(1,), prefill_rungs=(4,))
-    sess = eng.admit({"tok": np.asarray([1, 2], np.int32)},
-                     max_new_tokens=2)
+def test_replica_kill_decode_exits_137_through_the_exit_seam(monkeypatch):
+    """``replica_kill_decode_at=K`` leaves the engine's tick alone and
+    hard-exits the replica (``servechaos._exit``, patched here to record
+    instead of dying) on its K-th DECODE_OPEN / DECODE_NEXT request."""
+    from mxnet_tpu_torch.resilience import servechaos
+
+    class Exited(Exception):
+        pass
+
+    codes = []
+
+    def _exit(code):
+        codes.append(code)
+        raise Exited(code)
+
+    monkeypatch.setattr(servechaos, "_exit", _exit)
+    eng, params, step_fn = _engine(session_rungs=(1,), prefill_rungs=(4,))
+    prompt = np.asarray([1, 2], np.int32)
+    sess = eng.admit({"tok": prompt}, max_new_tokens=2)
     eng.prefill(sess)
-    chaos.configure(replica_kill_decode_at=1)
+    chaos.configure(replica_kill_decode_at=3)
     try:
-        with pytest.raises(MXNetError, match="not ported"):
-            eng.tick([sess])
+        eng.tick([sess])            # the engine decodes as if unarmed
+        eng.tick([sess])
+        servechaos.on_replica_decode("replica-0")
+        servechaos.on_replica_decode("replica-0")
+        assert codes == []
+        with pytest.raises(Exited):
+            servechaos.on_replica_decode("replica-0")
+        assert codes == [137]
+        servechaos.on_replica_decode("replica-0")   # only the K-th
+        assert codes == [137]
     finally:
         chaos.reset()
+    assert [int(o) for o in sess.outputs()] == _dense_ref(
+        params, step_fn, prompt, 2, eng.padded_len, "float32")
     eng.close()

@@ -2,6 +2,7 @@
 ``mxnet_tpu``, and it never runs on the CPU unless asked to."""
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -85,7 +86,9 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.autotune.measure, "
             "mxnet_tpu_torch.autotune.search, "
             "mxnet_tpu_torch.autotune.__main__, "
-            "mxnet_tpu_torch.resilience.checkpoint; "
+            "mxnet_tpu_torch.resilience.checkpoint, "
+            "mxnet_tpu_torch._kvstore_impl, mxnet_tpu_torch.serve.replica, "
+            "mxnet_tpu_torch.serve.router, mxnet_tpu_torch.serve.fleet; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')))")
@@ -150,7 +153,8 @@ def test_gpu_context_without_cuda_raises(no_cuda):
                                    "load quantize int8-weight-only",
                                    "calibrate", "quantize_model",
                                    "contrib quantize_model", "tune",
-                                   "DecodeMeasurer"])
+                                   "DecodeMeasurer", "ReplicaServer LOAD",
+                                   "replica main"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -299,6 +303,27 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         call = lambda: tune(serve_space(max_rows=4), ServeMeasurer(trace),
                             serve_objective(), model="m", workload="serve",
                             trials=1, neighbor_trials=0)
+    elif entry in ("ReplicaServer LOAD", "replica main"):
+        out = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2,
+                                    name="fc")
+        mx.model.save_checkpoint(str(tmp_path / "m"), 1, out, {
+            "fc_weight": mx.nd.zeros((2, 3), ctx=mx.cpu()),
+            "fc_bias": mx.nd.zeros((2,), ctx=mx.cpu())}, {})
+        model = {"model": "m", "name": "m", "prefix": str(tmp_path / "m"),
+                 "epoch": 1, "data_shapes": {"data": [1, 3]}}
+        if entry == "ReplicaServer LOAD":
+            from mxnet_tpu_torch.serve.replica import MSG_LOAD
+            def call():
+                rep = mx.serve.ReplicaServer()
+                try:
+                    rep._handle(MSG_LOAD, model, ())
+                finally:
+                    rep.close()
+        else:
+            from mxnet_tpu_torch.serve.replica import main
+            (tmp_path / "spec.json").write_text(
+                '{"models": [%s]}' % json.dumps(model))
+            call = lambda: main(["--spec", str(tmp_path / "spec.json")])
     elif entry == "DecodeMeasurer":
         from mxnet_tpu_torch.autotune import synth_decode_trace
         from mxnet_tpu_torch.autotune.measure import DecodeMeasurer

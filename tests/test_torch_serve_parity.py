@@ -46,9 +46,9 @@ PER_THREAD = 3
 ATOL = 1e-5
 
 # the port's instruments are the JAX package's serve instruments, less
-# those of what it has not ported (the fleet's decode failover counter,
-# which the JAX package declares in decode.py)
-UNPORTED = ("serve_decode_failovers_total",)
+# those of what it has not ported (none left: the fleet's decode failover
+# counter, declared in decode.py, came with the fleet)
+UNPORTED = ()
 
 PKGS = {
     "jax": dict(mx=jmx, serve=jserve, metrics=jmetrics, chaos=jchaos,
