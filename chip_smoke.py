@@ -252,6 +252,42 @@ Phases, each reported on its own line; any failure exits non-zero:
              bit-equal to the dense decode, rc 137, at least one failed
              over (resume p50 and slowest), tokens/s steady and in the
              dip, no capture on the survivors, no KV block left in use.
+15. zoo    — transposed convolution, the other layer ops of ops/nn.py and
+             the vision zoo; no kernel of the repo lies on these paths
+             (the JAX ops are XLA's), and none of the three attention
+             kernels launches in the phase.  (a) Every case of
+             ``test_utils.layer_op_cases`` (Deconvolution in 1-d, 2-d and
+             3-d with groups, dilation, adj below and at or past the
+             stride, with and without bias; LRN; UpSampling; the contrib
+             resizes, adaptive pool and div_sqrt_dim; softmin;
+             SoftmaxActivation; softmax_cross_entropy; the CTC loss under
+             its four names, both blank modes, with and without lengths
+             and an alignment that cannot exist; the ``*_v1`` names) and
+             Conv1D/2D/3DTranspose on the card against the port's CPU
+             path, outputs and gradients within 2**-18 x max(1,
+             max|cpu|); the Deconvolution cases again with TF32
+             convolutions, the worst of which must break that limit.
+             (b) DCGAN at the published width of the reference's
+             example/gan/dcgan.py (nz 100, ngf 64, ndf
+             64, 3 x 64 x 64, batch 64, no biases, N(0, 0.02)): a check
+             iteration (the discriminator's and the generator's half from
+             one set of weights) in f32 against f64 on the card, losses
+             within 1e-5, every gradient within 1e-4 of its max |g| with
+             the ReLU and LeakyReLU masks frozen to f64's, TF32 must
+             break that; then 60 iterations of examples/train_dcgan.py's
+             two-Trainer loop (adam lr 2e-4, beta1 0.5, hybridized):
+             ms an iteration (3-60), images/s, peak memory; the mean D
+             loss of the last 20 below the first 10's, the generated
+             (4, 3, 64, 64) images finite.  (c) alexnet, vgg16,
+             inception_v3 (299 x 299), mobilenet1_0, mobilenet_v2_1_0,
+             densenet121 and squeezenet1_1 (1000 classes, He-initialized
+             from --seed): hybridize, export, ``ModelRegistry.
+             load_checkpoint`` on rungs 1 and 32 (one CUDA graph each,
+             no more after the requests); a request of each rung's size
+             against the same graph and weights in f64 on the card within
+             3e-5 x max(1, max|logit|) (vgg16's TF32 answers must break
+             it); graph and eager ms per request at each rung, the
+             parameter count, peak memory.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -263,6 +299,8 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import gc
 import json
 import math
 import os
@@ -1181,13 +1219,14 @@ def serve_failures(s):
 
 
 def graph_vs_eager(torch, pred, rng, card, what, rows_list, make_input,
-                   limit):
+                   limit, record=None):
     """For each rung: ms of a request, from its host input to its
     answer on the device, through the graph (``predict``: pad on the
     host, copy in, replay, clone out) against the same eager graph (pad
     on the host, copy in, run op by op), each over GRAPH_ITERS runs, and
     the replay's error against eager as a share of *limit* x max(1,
-    max |eager|).  Returns the worst share."""
+    max |eager|).  Returns the worst share; a dict *record* gets {rows:
+    {"graph": ms, "eager": ms}}."""
     worst = 0.0
     name = next(iter(pred._data_shapes))
     for rows in rows_list:
@@ -1218,6 +1257,8 @@ def graph_vs_eager(torch, pred, rng, card, what, rows_list, make_input,
         scale = max(1.0, want.abs().max().item())
         share = (got - want).abs().max().item() / (limit * scale)
         worst = max(worst, share)
+        if record is not None:
+            record[rows] = dict(times)
         log("%s: %d rows (rung %d): graph %.3f ms, eager %.3f ms per "
             "request (%d runs each), peak device memory %.3f / %.3f GB; "
             "replay vs eager %.4f of the limit (%g x max(1, max|eager|)), "
@@ -6675,6 +6716,545 @@ def phase_fleet(torch, card, seed, ctx=None, spec=None, dec=None):
     return rec
 
 
+# phase 15: transposed convolution, the other layer ops of ops/nn.py and
+# the vision zoo.  (a) every case of test_utils.layer_op_cases and the
+# three transposed layers on the card against the port's CPU path at
+# phase 9 (a)'s limit.  (b) DCGAN at the published width of the
+# reference's example/gan/dcgan.py (MXNet 1.3.1, which
+# examples/train_dcgan.py:1 names; Radford et al., arXiv:1511.06434): nz
+# 100, ngf 64, ndf 64, 3 channels, 64 x 64 images, batch 64, Adam lr 2e-4,
+# beta1 0.5, N(0, 0.02) weights, no biases (its no_bias=True), through
+# the example's two-Trainer gluon loop (examples/train_dcgan.py:75-115).
+# (c) the zoo families of tools/benchmark_score.py:30-33 that the port
+# lacked (alexnet, vgg16, inception_v3 at 299, mobilenet1_0) and one model
+# of each other new family, 1000 classes, served from a checkpoint on
+# rungs 1 and 32.
+ZOO_TRANSPOSED = (      # (layer, data shape, kwargs)
+    ("Conv1DTranspose", (4, 32, 50), dict(channels=16, kernel_size=5,
+                                          strides=3, padding=1,
+                                          output_padding=4)),
+    ("Conv2DTranspose", (8, 64, 8, 8), dict(channels=32, kernel_size=4,
+                                            strides=2, padding=1,
+                                            use_bias=False)),
+    ("Conv3DTranspose", (2, 8, 4, 5, 4), dict(channels=4, kernel_size=3,
+                                              strides=2, padding=1,
+                                              output_padding=(1, 2, 3),
+                                              dilation=(1, 1, 2))),
+)
+DCGAN = dict(nz=100, ngf=64, ndf=64, nc=3, image=64, batch=64, lr=2e-4,
+             beta1=0.5, sigma=0.02, iters=60, timed_from=3, early=10,
+             late=20, images=4)
+TOL_DCGAN_LOSS = 1e-5       # x max(1, |loss|), f32 vs f64
+TOL_DCGAN_GRAD = 1e-4       # x each gradient's max |g|, masks frozen
+ZOO = dict(models=(("alexnet", 224), ("vgg16", 224), ("inception_v3", 299),
+                   ("mobilenet1_0", 224), ("mobilenet_v2_1_0", 224),
+                   ("densenet121", 224), ("squeezenet1_1", 224)),
+           rungs=(1, 32), classes=1000, tf32="vgg16")
+
+
+def sync(torch):
+    """Wait for the card, where there is one."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def peak_since(torch, on_card, held):
+    """(peak GB since the last reset, its text): the card's peak beside
+    the *held* GB that earlier phases still held at the reset."""
+    if not on_card:
+        return None, "not measured"
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return peak, "%.3f GB (%.3f GB of it held before the path began)" % (
+        peak, held)
+
+
+def layer_sweep(torch, mx, dev, on_card, card, seed, failures):
+    """Phase 15 (a): every layer op case and the transposed layers on
+    *dev* against the CPU, outputs and gradients (seeded cotangents)
+    within 2**-18 x max(1, max |cpu|); the Deconvolution cases run again
+    with TF32 convolutions, and the worst of them must break that limit
+    (cuDNN runs some small transposed convolutions without tensor cores
+    even where TF32 is allowed, so not every case can).  Returns {case
+    id: ratio}."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import registry as reg
+    from mxnet_tpu_torch.test_utils import layer_op_cases
+
+    def run_op(case, device, low=False):
+        ins = [torch.from_numpy(a).to(device) for a in case["inputs"]]
+        for i in case["grads"]:
+            ins[i].requires_grad_()
+        with tf32_convolutions(torch) if low else contextlib.nullcontext():
+            out = reg.get_op(case["name"]).fn(*ins, **case["params"])
+            outs = out if isinstance(out, tuple) else (out,)
+            rs = np.random.RandomState(seed + 15)
+            cots = [torch.from_numpy(rs.standard_normal(tuple(o.shape))
+                                     .astype(np.float32)).to(device)
+                    for o in outs]
+            torch.autograd.backward(list(outs), cots)
+        return [o.detach().cpu().double() for o in outs] + \
+            [ins[i].grad.cpu().double() for i in case["grads"]]
+
+    def run_layer(spec, params, device):
+        layer, shape, kw = spec
+        ctx = mx.cpu() if device.type == "cpu" else mx.gpu(0)
+        net = getattr(mx.gluon.nn, layer)(prefix="up_", **kw)
+        net.initialize(ctx=ctx)
+        rs = np.random.RandomState(seed + 16)
+        x = mx.nd.array(rs.standard_normal(shape).astype(np.float32),
+                        ctx=ctx)
+        net(x)
+        for name, p in net.collect_params().items():
+            if name not in params:
+                params[name] = rs.standard_normal(p.shape).astype(
+                    np.float32) / np.float32(np.sqrt(np.prod(p.shape[1:])))
+            p.set_data(mx.nd.array(params[name], ctx=ctx))
+        x.attach_grad()
+        with mx.autograd.record():
+            out = net(x)
+        cot = np.random.RandomState(seed + 17).standard_normal(
+            out.shape).astype(np.float32)
+        out.backward(mx.nd.array(cot, ctx=ctx))
+        return [out._data.cpu().double(), x.grad._data.cpu().double()] + \
+            [p.grad()._data.cpu().double()
+             for p in net.collect_params().values()]
+
+    def ratio(got, want):
+        worst = 0.0
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                return math.inf
+            scale = max(1.0, w.abs().max().item()) if w.numel() else 1.0
+            err = (g - w).abs().max().item() if w.numel() else 0.0
+            worst = max(worst, err / (TOL_SWEEP * scale))
+        return worst
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    ratios, tf32 = {}, {}
+    cases = layer_op_cases(seed)
+    for case in cases:
+        want = run_op(case, cpu)
+        ratios[case["id"]] = ratio(run_op(case, dev), want)
+        if on_card and case["name"] == "Deconvolution":
+            tf32[case["id"]] = ratio(run_op(case, dev, low=True), want)
+    for spec in ZOO_TRANSPOSED:
+        params = {}
+        want = run_layer(spec, params, cpu)
+        ratios[spec[0]] = ratio(run_layer(spec, params, dev), want)
+    bad = {k: r for k, r in ratios.items() if not r <= 1.0}
+    names = {c["name"] for c in cases}
+    log("zoo: layer op sweep of %d cases over %d op names and the 3 "
+        "transposed layers on %s against the CPU in %.1f s: worst %.4g "
+        "of the limit (2**-18 x max(1, max|cpu|), outputs and gradients, "
+        "%s); %d failed" % (
+            len(cases), len(names), card, time.perf_counter() - t0,
+            max(ratios.values()), max(ratios, key=ratios.get), len(bad)))
+    for k, r in sorted(bad.items()):
+        failures.append("layer sweep %s: %.4g of the limit" % (k, r))
+    if on_card:
+        low = max(tf32.values())
+        log("zoo: Deconvolution with TF32 convolutions, of the limit: %s; "
+            "worst %.4g (must exceed 1) -> %s" % (
+                ", ".join("%s %.3g" % kv for kv in sorted(tf32.items())),
+                low, "ok" if low > 1.0 else "FAIL"))
+        if not low > 1.0:
+            failures.append("every TF32 Deconvolution stayed within the "
+                            "f32 limit (worst %.4g)" % low)
+    else:
+        log("zoo: the TF32 run is the card's (cuDNN); not run on %s" % card)
+    return ratios
+
+
+def dcgan_nets(mx, spec):
+    """The reference's DCGAN at *spec*'s widths: the generator a stack of
+    Conv2DTranspose (1 -> 4 -> ... -> 64) with BatchNorm and ReLU ending
+    in tanh, the discriminator strided Conv2D with BatchNorm and
+    LeakyReLU 0.2; no biases."""
+    nn = mx.gluon.nn
+    ngf, ndf = spec["ngf"], spec["ndf"]
+    gen = nn.HybridSequential(prefix="gen_")
+    with gen.name_scope():
+        gen.add(nn.Conv2DTranspose(ngf * 8, 4, 1, 0, use_bias=False),
+                nn.BatchNorm(), nn.Activation("relu"))
+        for m in (4, 2, 1):
+            gen.add(nn.Conv2DTranspose(ngf * m, 4, 2, 1, use_bias=False),
+                    nn.BatchNorm(), nn.Activation("relu"))
+        gen.add(nn.Conv2DTranspose(spec["nc"], 4, 2, 1, use_bias=False),
+                nn.Activation("tanh"))
+    disc = nn.HybridSequential(prefix="disc_")
+    with disc.name_scope():
+        disc.add(nn.Conv2D(ndf, 4, 2, 1, use_bias=False), nn.LeakyReLU(0.2))
+        for m in (2, 4, 8):
+            disc.add(nn.Conv2D(ndf * m, 4, 2, 1, use_bias=False),
+                     nn.BatchNorm(), nn.LeakyReLU(0.2))
+        disc.add(nn.Conv2D(1, 4, 1, 0, use_bias=False))
+    return gen, disc
+
+
+def dcgan_real(np, rng, n, spec):
+    """examples/train_dcgan.py's "real" images at *spec*'s channels and
+    size: seeded 4 x 4 noise blown up by repetition, through tanh."""
+    rep = spec["image"] // 4
+    lo = rng.randn(n, spec["nc"], 4, 4).astype(np.float32)
+    return np.tanh(lo.repeat(rep, axis=2).repeat(rep, axis=3))
+
+
+def bce_sum(torch, out, target):
+    """The sum over the batch of SigmoidBinaryCrossEntropyLoss (logits):
+    relu(x) - x * y + log1p(exp(-|x|)), each row's mean."""
+    x = out.reshape(out.shape[0], -1)
+    per = torch.relu(x) - x * target + torch.log1p(torch.exp(-x.abs()))
+    return per.mean(dim=1).sum()
+
+
+def masked_acts(torch, frozen=None):
+    """op_impls for a check iteration: Activation (relu) and LeakyReLU
+    record each call's mask (x > 0) in order; given another run's
+    *frozen* masks they take those branches instead."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    seen = []
+
+    def mask(x):
+        seen.append(x.detach() > 0)
+        return seen[-1] if frozen is None else frozen[len(seen) - 1]
+
+    def act(x, act_type="relu"):
+        if act_type != "relu":
+            return nn_ops._activation(x, act_type)
+        return torch.where(mask(x), x, torch.zeros_like(x))
+
+    def leaky(x, *rest, act_type="leaky", slope=0.25, **kw):
+        if act_type != "leaky":
+            raise RuntimeError("check iteration: LeakyReLU %r" % act_type)
+        return torch.where(mask(x), x, slope * x)
+    return {"Activation": act, "LeakyReLU": leaky}, seen
+
+
+def dcgan_check(torch, mx, card, gen, disc, real, z, failures):
+    """Phase 15 (b), the check iteration: the discriminator's half (real
+    and detached fakes) and the generator's half of one iteration, each
+    from the same weights, in f32, in f64 and in f32 with TF32
+    convolutions on the card; activation masks frozen to the f64 run's.
+    Returns the record."""
+    from mxnet_tpu_torch.executor import _build_eval
+    graphs = (gen._cached_graph, disc._cached_graph)
+    nets = (gen, disc)
+
+    def run(dtype, acts, low=False):
+        evs = [_build_eval(g.symbol, True, op_impls=acts) for g in graphs]
+        leaves, aux = [], []
+        for net, g in zip(nets, graphs):
+            ps = net.collect_params()
+            leaves.append({n: ps[n].data()._data.detach().to(dtype)
+                           .requires_grad_() for n in g.param_names})
+            aux.append({n: ps[n].data()._data.to(dtype)
+                        for n in g.aux_names})
+
+        def fwd(i, data):
+            return evs[i](dict(leaves[i], data0=data), aux[i])[0][0]
+        with torch.enable_grad(), mx.enable_x64(), \
+                (tf32_convolutions(torch) if low
+                 else contextlib.nullcontext()):
+            fake = fwd(0, z.to(dtype))
+            d_loss = bce_sum(torch, fwd(1, real.to(dtype)), 1.0) + \
+                bce_sum(torch, fwd(1, fake.detach()), 0.0)
+            d_grads = torch.autograd.grad(d_loss, list(leaves[1].values()))
+            g_loss = bce_sum(torch, fwd(1, fwd(0, z.to(dtype))), 1.0)
+            g_grads = torch.autograd.grad(g_loss, list(leaves[0].values()))
+        grads = dict(zip(leaves[1], d_grads))
+        grads.update(zip(leaves[0], g_grads))
+        b = real.shape[0]
+        return (d_loss.item() / b, g_loss.item() / b), \
+            {n: g.double() for n, g in grads.items()}
+
+    t0 = time.perf_counter()
+    acts64, masks = masked_acts(torch)
+    loss64, g64 = run(torch.float64, acts64)
+    sync(torch)
+    t64 = time.perf_counter() - t0
+    acts32, seen = masked_acts(torch, masks)
+    loss32, g32 = run(torch.float32, acts32)
+    flips = sum(int((a != m).sum()) for a, m in zip(seen, masks))
+    units = sum(int(m.numel()) for m in masks)
+    gaps = grad_gaps(torch, g32, g64)
+    rec = {"loss_f64": loss64, "loss_f32": loss32, "flips": flips,
+           "units": units, "grad_worst": worst_share(gaps)}
+    loss_ratios = [within(abs(a - b), abs(b), TOL_DCGAN_LOSS)[0]
+                   for a, b in zip(loss32, loss64)]
+    rec["loss_ratio"] = max(loss_ratios)
+    on_card = real.device.type == "cuda"
+    if on_card:
+        acts_low, _ = masked_acts(torch, masks)
+        _, g_low = run(torch.float32, acts_low, low=True)
+        rec["grad_worst_tf32"] = worst_share(grad_gaps(torch, g_low, g64))
+    ok = rec["loss_ratio"] <= 1.0 and rec["grad_worst"] <= TOL_DCGAN_GRAD
+    tf32_ok = not on_card or rec["grad_worst_tf32"] > TOL_DCGAN_GRAD
+    log("zoo: DCGAN check iteration, batch %d on %s (f64 %.2f s): D loss "
+        "f32 %.7f, f64 %.7f; G loss f32 %.7f, f64 %.7f; worst %.4f of the "
+        "limit (%g x max(1, |loss|))" % (
+            real.shape[0], card, t64, loss32[0], loss64[0], loss32[1],
+            loss64[1], rec["loss_ratio"], TOL_DCGAN_LOSS))
+    log("zoo: DCGAN check iteration: activation units on the other branch "
+        "than f64's, of %d: %d (frozen to f64's masks); f32 vs f64: %s"
+        % (units, flips, gap_text(gaps)))
+    log("zoo: DCGAN check iteration: f32 gradients worst %.4g of max |g| "
+        "(limit %g), TF32 convolutions %s (must exceed the limit) -> %s" % (
+            rec["grad_worst"], TOL_DCGAN_GRAD,
+            "%.4g" % rec["grad_worst_tf32"] if on_card else "not run on "
+            "the CPU", "ok" if ok and tf32_ok else "FAIL"))
+    if not (ok and tf32_ok):
+        failures.append("the DCGAN check iteration failed")
+    return rec
+
+
+def dcgan_phase(torch, mx, ctx, card, gen_rng, rng, spec, failures):
+    """Phase 15 (b): DCGAN at *spec*'s width: the check iteration, then
+    the example's loop for spec["iters"] iterations."""
+    import numpy as np
+    on_card = ctx.device_type == "gpu"
+    gen, disc = dcgan_nets(mx, spec)
+    for net in (gen, disc):
+        net.initialize(mx.init.Normal(spec["sigma"]), ctx=ctx,
+                       generator=gen_rng)
+        net.hybridize()
+    b, nz = spec["batch"], spec["nz"]
+    real = mx.nd.array(dcgan_real(np, rng, b, spec), ctx=ctx)
+    z = mx.nd.array(rng.randn(b, nz, 1, 1).astype(np.float32), ctx=ctx)
+    disc(gen(z))                  # the cached graphs, no state changed
+    counts = [sum(int(np.prod(p.shape)) for p in n.collect_params().values()
+                  if p.grad_req != "null") for n in (gen, disc)]
+    log("zoo: DCGAN generator %d and discriminator %d trainable values "
+        "(nz %d, ngf %d, ndf %d, %d x %d x %d images)" % (
+            counts[0], counts[1], nz, spec["ngf"], spec["ndf"], spec["nc"],
+            spec["image"], spec["image"]))
+    rec = {"params": counts,
+           "check": dcgan_check(torch, mx, card, gen, disc, real._data,
+                                z._data, failures)}
+
+    gluon, autograd, nd = mx.gluon, mx.autograd, mx.nd
+    loss_fn = gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    opt = {"learning_rate": spec["lr"], "beta1": spec["beta1"]}
+    t_gen = gluon.Trainer(gen.collect_params(), "adam", dict(opt))
+    t_disc = gluon.Trainer(disc.collect_params(), "adam", dict(opt))
+    ones = nd.array(np.ones((b,), np.float32), ctx=ctx)
+    zeros = nd.array(np.zeros((b,), np.float32), ctx=ctx)
+    if on_card:
+        gc.collect()            # what earlier paths left behind in cycles
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    d_losses, g_losses, stamps = [], [], []
+
+    def iteration():
+        real = nd.array(dcgan_real(np, rng, b, spec), ctx=ctx)
+        z = nd.array(rng.randn(b, nz, 1, 1).astype(np.float32), ctx=ctx)
+        with autograd.record():
+            out_r = disc(real).reshape((b,))
+            fake = gen(z)
+            out_f = disc(fake.detach()).reshape((b,))
+            d_loss = loss_fn(out_r, ones) + loss_fn(out_f, zeros)
+        d_loss.backward()
+        t_disc.step(b)
+        with autograd.record():
+            out_f = disc(gen(z)).reshape((b,))
+            g_loss = loss_fn(out_f, ones)
+        g_loss.backward()
+        t_gen.step(b)
+        d_losses.append(float(nd.mean(d_loss).asnumpy()))
+        g_losses.append(float(nd.mean(g_loss).asnumpy()))
+        stamps.append(time.perf_counter())
+
+    sync(torch)
+    for _ in range(spec["iters"]):
+        iteration()
+    first = spec["timed_from"] - 1
+    ms = (stamps[-1] - stamps[first - 1]) * 1e3 / (len(stamps) - first)
+    img = gen(nd.array(rng.randn(spec["images"], nz, 1, 1)
+                       .astype(np.float32), ctx=ctx)).asnumpy()
+    early = float(np.mean(d_losses[:spec["early"]]))
+    late = float(np.mean(d_losses[-spec["late"]:]))
+    peak, peak_text = peak_since(torch, on_card, held)
+    rec.update(ms=ms, images_s=b / ms * 1e3, d_early=early, d_late=late,
+               peak_gb=peak, held_gb=held, img_shape=list(img.shape),
+               d_losses=list(d_losses), g_losses=list(g_losses))
+    finite = bool(np.isfinite(img).all() and np.isfinite(d_losses).all()
+                  and np.isfinite(g_losses).all())
+    shape_ok = img.shape == (spec["images"], spec["nc"], spec["image"],
+                             spec["image"])
+    log("zoo: DCGAN train, %d iterations of batch %d on %s: %.3f ms an "
+        "iteration (iterations %d-%d, host clock, a loss readback each), "
+        "%.1f images/s, peak device memory %s; mean D loss of the first "
+        "%d %.4f, of the last %d %.4f (must fall); G loss %.4f -> %.4f; "
+        "images %s finite %s -> %s" % (
+            spec["iters"], b, card, ms, spec["timed_from"], spec["iters"],
+            rec["images_s"], peak_text, spec["early"], early, spec["late"],
+            late,
+            g_losses[0], g_losses[-1], tuple(img.shape), finite,
+            "ok" if late < early and finite and shape_ok else "FAIL"))
+    if not (late < early and finite and shape_ok):
+        failures.append("DCGAN: D loss %.4f -> %.4f, images %s finite %s"
+                        % (early, late, img.shape, finite))
+    if on_card:
+        rec["profile"] = profile(torch, iteration, "zoo: one DCGAN "
+                                 "iteration after the timed ones", card,
+                                 shares=RESNET_SHARES)
+    return rec
+
+
+def zoo_serve(torch, mx, ctx, card, gen_rng, rng, spec, tmp, failures):
+    """Phase 15 (c): each zoo model hybridized, exported, loaded by
+    ``ModelRegistry.load_checkpoint`` on the rungs (one CUDA graph each
+    on the card), requests of each rung's size held against the same
+    graph and weights in f64, graph against eager per rung."""
+    import numpy as np
+    from mxnet_tpu_torch.executor import _build_eval
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    on_card = ctx.device_type == "gpu"
+    recs = {}
+    for name, side in spec["models"]:
+        t0 = time.perf_counter()
+        if on_card:
+            gc.collect()        # the previous model's registry and graphs
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9 if on_card else None
+        net = vision.get_model(name, classes=spec["classes"])
+        net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                      magnitude=2), ctx=ctx,
+                       generator=gen_rng)
+        net.hybridize()
+        shape = (1, 3, side, side)
+        net(mx.nd.array(rng.randn(*shape).astype(np.float32), ctx=ctx))
+        count = sum(int(np.prod(p.shape))
+                    for p in net.collect_params().values())
+        prefix = os.path.join(tmp, name)
+        net.export(prefix, 0)
+        del net
+        reg = mx.serve.ModelRegistry()
+        pred = reg.load_checkpoint(
+            name, prefix, 0, data_shapes={"data0": shape},
+            ladder=mx.serve.BucketLadder(batches=spec["rungs"]), ctx=ctx)
+        captures = pred.compile_count
+        rec = {"params": count, "side": side, "captures": captures,
+               "load_s": time.perf_counter() - t0}
+        ev = _build_eval(pred._symbol, False)
+        p64 = {n: t.double() for n, t in pred._params.items()}
+        a64 = {n: t.double() for n, t in pred._aux.items()}
+        worst = worst_tf32 = 0.0
+        for rows in spec["rungs"]:
+            x = rng.randn(rows, *shape[1:]).astype(np.float32)
+            got = reg.predict(name, x)[0]._data
+            xd = torch.from_numpy(x).to(ctx.torch_device)
+            with torch.no_grad():
+                with mx.enable_x64():
+                    want = ev(dict(p64, data0=xd.double()), a64)[0][0]
+                if on_card and name == spec["tf32"]:
+                    with tf32_convolutions(torch):
+                        low = ev(dict(pred._params, data0=xd),
+                                 pred._aux)[0][0]
+                    worst_tf32 = max(worst_tf32, within(
+                        (low.double() - want).abs().max().item(),
+                        want.abs().max().item(), TOL_RESNET_SERVE)[0])
+            ok_shape = tuple(got.shape) == (rows, spec["classes"]) and \
+                bool(torch.isfinite(got).all())
+            r = within((got.double() - want).abs().max().item(),
+                       want.abs().max().item(), TOL_RESNET_SERVE)[0] \
+                if ok_shape else math.inf
+            worst = max(worst, r)
+            log("zoo serve %s: request of %d images (rung %d) vs the f64 "
+                "graph: %.4f of the limit (%g x max(1, max|logit|), max "
+                "|logit| %.4g)" % (name, rows, pred.ladder.batch_for(rows),
+                                   r, TOL_RESNET_SERVE,
+                                   want.abs().max().item()))
+        del ev, p64, a64
+        if on_card:
+            rec["ms"] = {}
+            rec["graph_vs_eager"] = graph_vs_eager(
+                torch, pred, rng, card, "zoo serve %s graph vs eager" % name,
+                spec["rungs"], lambda r, n: r.randn(n, *shape[1:]).astype(
+                    np.float32), TOL_RESNET_SERVE, record=rec["ms"])
+            worst = max(worst, rec["graph_vs_eager"])
+            top = spec["rungs"][-1]
+            rec["images_s"] = top / rec["ms"][top]["graph"] * 1e3
+            log("zoo serve %s: %.1f images/s at rung %d through the graph "
+                "(%.1f eager) on %s" % (
+                    name, rec["images_s"], top,
+                    top / rec["ms"][top]["eager"] * 1e3, card))
+        peak, peak_text = peak_since(torch, on_card, held)
+        rec.update(worst=worst, captures_after=pred.compile_count,
+                   peak_gb=peak, held_gb=held)
+        flat = captures == rec["captures_after"] == len(spec["rungs"]) \
+            if on_card else True
+        tf32_ok = True
+        if on_card and name == spec["tf32"]:
+            rec["tf32"] = worst_tf32
+            tf32_ok = worst_tf32 > 1.0
+            log("zoo serve %s: TF32 convolutions vs the f64 graph: %.4f of "
+                "the limit (must exceed 1)" % (name, worst_tf32))
+        log("zoo serve %s (%d x %d, %d parameters): load + %d captures "
+            "%.2f s, captures after the requests %d, worst %.4f of the "
+            "limit, peak device memory %s on %s -> %s" % (
+                name, side, side, count, captures, rec["load_s"],
+                rec["captures_after"], worst, peak_text, card,
+                "ok" if worst <= 1.0 and flat and tf32_ok else "FAIL"))
+        if not (worst <= 1.0 and flat and tf32_ok):
+            failures.append("zoo serve %s: worst %.4g, captures %d/%d, "
+                            "TF32 %s" % (name, worst, captures,
+                                         rec["captures_after"],
+                                         rec.get("tf32")))
+        reg.close()
+        del reg, pred
+        recs[name] = rec
+    return recs
+
+
+def phase_zoo(torch, card, seed, ctx=None, dcgan=None, zoo=None):
+    """Phase 15: the layer ops and the transposed layers on the card
+    against the CPU, DCGAN at its published width, and the new vision
+    zoo families served (see the module docstring).  *ctx*, *dcgan* and
+    *zoo* size it down for the CPU test.  Raises at its end if any check
+    failed; returns the record."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import attention as att
+    if ctx is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("phase 15 needs CUDA")
+        ctx = mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    dcgan, zoo = dcgan or DCGAN, zoo or ZOO
+    gen_rng = torch.Generator(device=ctx.torch_device)
+    gen_rng.manual_seed(seed + 15)
+    rng = np.random.RandomState(seed + 15)
+    t_phase = time.perf_counter()
+    failures = []
+    before = att.launch_counts()
+    rec = {"card": card}
+    rec["layers"] = layer_sweep(torch, mx, ctx.torch_device, on_card, card,
+                                seed, failures)
+    rec["dcgan"] = dcgan_phase(torch, mx, ctx, card, gen_rng, rng, dcgan,
+                               failures)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    try:
+        rec["zoo"] = zoo_serve(torch, mx, ctx, card, gen_rng, rng, zoo, tmp,
+                               failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["attention_launches"] = {k: v - before[k]
+                                 for k, v in att.launch_counts().items()}
+    rec["seconds"] = time.perf_counter() - t_phase
+    log("zoo: phase 15 in %.1f s on %s; attention kernel launches %s (none "
+        "lies on these paths); %d failed checks" % (
+            rec["seconds"], card, rec["attention_launches"], len(failures)))
+    log("zoo record: " + json.dumps(
+        {k: v for k, v in rec.items() if k != "layers"}, default=str))
+    if any(rec["attention_launches"].values()):
+        failures.append("an attention kernel launched in phase 15")
+    if failures:
+        raise RuntimeError("phase 15 failed: " + "; ".join(failures))
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6703,6 +7283,7 @@ def main():
     phase_data(torch, card, args.seed)
     quant = phase_quant(torch, card, args.seed)["lm"]
     fleet = phase_fleet(torch, card, args.seed)["launches"]
+    phase_zoo(torch, card, args.seed)
     quant_launches = {
         kind: sum(quant[m]["launches"][kind]
                   for m in ("int8", "int8-weight-only"))

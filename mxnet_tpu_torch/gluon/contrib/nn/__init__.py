@@ -1,3 +1,5 @@
-"""Contrib layers (port of ``mxnet_tpu/gluon/contrib/nn/``, subset)."""
+"""Contrib layers (port of ``mxnet_tpu/gluon/contrib/nn/``, less
+SparseEmbedding and MoEFFN)."""
 
-from .basic_layers import MultiHeadAttention  # noqa: F401
+from .basic_layers import (Concurrent, HybridConcurrent, Identity,  # noqa
+                           MultiHeadAttention, SyncBatchNorm)

@@ -1,12 +1,60 @@
-"""Contrib layers (port of ``mxnet_tpu/gluon/contrib/nn/basic_layers.py``,
-subset: MultiHeadAttention)."""
+"""Contrib layers (port of ``mxnet_tpu/gluon/contrib/nn/basic_layers.py``
+less SparseEmbedding and MoEFFN): Concurrent, HybridConcurrent,
+Identity, SyncBatchNorm and MultiHeadAttention."""
 
 from __future__ import annotations
 
 from ... import nn
 from ...block import HybridBlock
+from .... import ndarray as nd
 
-__all__ = ["MultiHeadAttention"]
+__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SyncBatchNorm",
+           "MultiHeadAttention"]
+
+
+class Concurrent(nn.Sequential):
+    """Runs each child on the same input and concatenates their outputs
+    along *axis*."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x):
+        out = [blk(x) for blk in self._children.values()]
+        return nd.concat(*out, dim=self.axis)
+
+
+class HybridConcurrent(nn.HybridSequential):
+    """Hybridizable :class:`Concurrent`."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def hybrid_forward(self, F, x):
+        out = [blk(x) for blk in self._children.values()]
+        return F.concat(*out, dim=self.axis)
+
+
+class Identity(HybridBlock):
+    """Passes its input through (a branch of a Concurrent)."""
+
+    def hybrid_forward(self, F, x):
+        return x
+
+
+class SyncBatchNorm(nn.BatchNorm):
+    """BatchNorm on axis 1 with the JAX layer's signature.  As there,
+    outside a data-parallel mesh the statistics are the local batch's,
+    which is the cross-device statistic on one device; *num_devices* is
+    kept and unused."""
+
+    def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
+                 epsilon=1e-5, **kwargs):
+        super().__init__(axis=1, momentum=momentum, epsilon=epsilon,
+                         in_channels=in_channels, **kwargs)
+        self._num_devices = num_devices
 
 
 class MultiHeadAttention(HybridBlock):

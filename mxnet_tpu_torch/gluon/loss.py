@@ -1,5 +1,4 @@
-"""Gluon losses (port of ``mxnet_tpu/gluon/loss.py``; ``CTCLoss`` waits
-for the CTC op, ROADMAP queue A item 12).
+"""Gluon losses (port of ``mxnet_tpu/gluon/loss.py``).
 
 Reduction semantics are the reference's: elementwise loss, then the
 optional ``sample_weight`` (broadcast) and scalar ``weight``, then the
@@ -12,7 +11,8 @@ from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
-           "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
+           "KLDivLoss", "CTCLoss", "HuberLoss", "HingeLoss",
+           "SquaredHingeLoss",
            "LogisticLoss", "TripletLoss"]
 
 
@@ -152,6 +152,36 @@ class KLDivLoss(Loss):
             F.log_softmax(pred, axis=self._axis)
         raw = label * (F.log(label + 1e-12) - logp)
         return self._per_sample(F, raw, sample_weight)
+
+
+class CTCLoss(Loss):
+    """The CTCLoss op with blank the last class (the reference's
+    warp-ctc binding), over batch-major (``layout`` "NTC") or time-major
+    ("TNC") activations and labels laid out "NT" or "TN"; the optional
+    length tensors become the op's gated inputs."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC") or label_layout not in ("NT", "TN"):
+            raise ValueError("CTCLoss: layout must be NTC or TNC and "
+                             "label_layout NT or TN, got %r, %r"
+                             % (layout, label_layout))
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":           # the op takes time-major data
+            pred = F.SwapAxis(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.SwapAxis(label, dim1=0, dim2=1)
+        extra = [t for t in (pred_lengths, label_lengths) if t is not None]
+        raw = F.CTCLoss(pred, label, *extra,
+                        use_data_lengths=pred_lengths is not None,
+                        use_label_lengths=label_lengths is not None,
+                        blank_label="last")
+        return self._scale(F, raw, sample_weight)
 
 
 class HuberLoss(Loss):

@@ -1,0 +1,43 @@
+"""AlexNet (port of ``mxnet_tpu/gluon/model_zoo/vision/alexnet.py``;
+reference: model_zoo/vision/alexnet.py; Krizhevsky et al. 2012)."""
+
+from __future__ import annotations
+
+from ...block import HybridBlock
+from ... import nn
+
+__all__ = ["AlexNet", "alexnet"]
+
+
+class AlexNet(HybridBlock):
+    def __init__(self, classes=1000, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(nn.Conv2D(64, 11, 4, 2,
+                                        activation="relu"))
+            self.features.add(nn.MaxPool2D(3, 2))
+            self.features.add(nn.Conv2D(192, 5, padding=2,
+                                        activation="relu"))
+            self.features.add(nn.MaxPool2D(3, 2))
+            self.features.add(nn.Conv2D(384, 3, padding=1,
+                                        activation="relu"))
+            self.features.add(nn.Conv2D(256, 3, padding=1,
+                                        activation="relu"))
+            self.features.add(nn.Conv2D(256, 3, padding=1,
+                                        activation="relu"))
+            self.features.add(nn.MaxPool2D(3, 2))
+            self.features.add(nn.Flatten())
+            self.features.add(nn.Dense(4096, activation="relu"))
+            self.features.add(nn.Dropout(0.5))
+            self.features.add(nn.Dense(4096, activation="relu"))
+            self.features.add(nn.Dropout(0.5))
+            self.output = nn.Dense(classes)
+
+    def hybrid_forward(self, F, x):
+        x = self.features(x)
+        return self.output(x)
+
+
+def alexnet(pretrained=False, ctx=None, **kwargs):
+    return AlexNet(**kwargs)

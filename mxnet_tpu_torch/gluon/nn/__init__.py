@@ -5,7 +5,9 @@ from .basic_layers import (Sequential, HybridSequential, Dense,  # noqa
                            LayerNorm, Flatten, Lambda, HybridLambda,
                            Activation, LeakyReLU, PReLU, ELU, SELU, Swish,
                            GELU)
-from .conv_layers import (Conv1D, Conv2D, Conv3D, MaxPool1D,  # noqa
+from .conv_layers import (Conv1D, Conv2D, Conv3D,  # noqa: F401
+                          Conv1DTranspose, Conv2DTranspose, Conv3DTranspose,
+                          MaxPool1D,
                           MaxPool2D, MaxPool3D, AvgPool1D, AvgPool2D,
                           AvgPool3D, GlobalMaxPool1D, GlobalMaxPool2D,
                           GlobalMaxPool3D, GlobalAvgPool1D,

@@ -1,14 +1,14 @@
 """Convolution and pooling Gluon layers (port of
-``mxnet_tpu/gluon/nn/conv_layers.py``, subset: Conv1D-3D, Max/Avg pooling
-and the global poolings).  The transposed convolutions need the
-``Deconvolution`` op, which is not ported yet."""
+``mxnet_tpu/gluon/nn/conv_layers.py``): Conv1D-3D, Conv1D-3DTranspose,
+Max/Avg pooling and the global poolings."""
 
 from __future__ import annotations
 
 from ..block import HybridBlock
 from .basic_layers import Activation
 
-__all__ = ["Conv1D", "Conv2D", "Conv3D", "MaxPool1D", "MaxPool2D",
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "Conv3DTranspose", "MaxPool1D", "MaxPool2D",
            "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
            "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
            "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D"]
@@ -21,22 +21,32 @@ def _tup(v, n):
 
 
 class _Conv(HybridBlock):
-    """N-d convolution; weight laid out as (channels, in_channels /
-    groups, *kernel_size), the in_channels deferred when 0."""
+    """N-d convolution (*op_name* "Convolution"; weight (channels,
+    in_channels / groups, *kernel_size)) or transposed convolution
+    ("Deconvolution" with *adj*; weight (in_channels, channels / groups,
+    *kernel_size)), the in_channels deferred when 0."""
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", **kwargs):
+                 bias_initializer="zeros", op_name="Convolution", adj=None,
+                 **kwargs):
         super().__init__(**kwargs)
         self._channels = channels
+        self._op_name = op_name
         self._kwargs = {
             "kernel": kernel_size, "stride": strides, "dilate": dilation,
             "pad": padding, "num_filter": channels, "num_group": groups,
             "no_bias": not use_bias, "layout": layout}
+        if adj is not None:
+            self._kwargs["adj"] = adj
         with self.name_scope():
-            wshape = (channels, in_channels // groups if in_channels
-                      else 0) + tuple(kernel_size)
+            if op_name == "Convolution":
+                wshape = (channels, in_channels // groups if in_channels
+                          else 0) + tuple(kernel_size)
+            else:
+                wshape = (in_channels, channels // groups if channels
+                          else 0) + tuple(kernel_size)
             self.weight = self.params.get(
                 "weight", shape=wshape, init=weight_initializer,
                 allow_deferred_init=True)
@@ -52,10 +62,11 @@ class _Conv(HybridBlock):
                 self.act = None
 
     def hybrid_forward(self, F, x, weight, bias=None):
+        op = getattr(F, self._op_name)
         if bias is None:
-            out = F.Convolution(x, weight, **self._kwargs)
+            out = op(x, weight, **self._kwargs)
         else:
-            out = F.Convolution(x, weight, bias, **self._kwargs)
+            out = op(x, weight, bias, **self._kwargs)
         if self.act is not None:
             out = self.act(out)
         return out
@@ -97,6 +108,37 @@ class Conv3D(_Conv):
                          _tup(padding, 3), _tup(dilation, 3), groups,
                          layout, in_channels, activation, use_bias,
                          weight_initializer, bias_initializer, **kwargs)
+
+
+class _ConvTranspose(_Conv):
+    """N-d transposed convolution over ``Deconvolution``; an int argument
+    is every axis, *output_padding* its ``adj``."""
+    _n = 0
+    _layout = ""
+
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout=None,
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        n = self._n
+        super().__init__(channels, _tup(kernel_size, n), _tup(strides, n),
+                         _tup(padding, n), _tup(dilation, n), groups,
+                         layout or self._layout, in_channels, activation,
+                         use_bias, weight_initializer, bias_initializer,
+                         op_name="Deconvolution",
+                         adj=_tup(output_padding, n), **kwargs)
+
+
+class Conv1DTranspose(_ConvTranspose):
+    _n, _layout = 1, "NCW"
+
+
+class Conv2DTranspose(_ConvTranspose):
+    _n, _layout = 2, "NCHW"
+
+
+class Conv3DTranspose(_ConvTranspose):
+    _n, _layout = 3, "NCDHW"
 
 
 class _Pooling(HybridBlock):

@@ -1,8 +1,11 @@
-"""Neural-network ops (port of ``mxnet_tpu/ops/nn.py``, subset:
-FullyConnected, Convolution, Pooling, Activation, BatchNorm, LayerNorm,
-InstanceNorm, Dropout, softmax, log_softmax, and the loss heads
-SoftmaxOutput, LinearRegressionOutput, MAERegressionOutput,
-LogisticRegressionOutput, BlockGrad and make_loss).
+"""Neural-network ops (port of ``mxnet_tpu/ops/nn.py``, less ROIPooling,
+Custom and MoEFFN): FullyConnected, Convolution, Deconvolution, Pooling,
+Activation, BatchNorm, LayerNorm, InstanceNorm, LRN, Dropout, softmax,
+log_softmax, softmin, SoftmaxActivation, UpSampling, the contrib
+BilinearResize2D, AdaptiveAvgPooling2D and div_sqrt_dim, the losses
+softmax_cross_entropy and CTCLoss, the loss heads SoftmaxOutput,
+LinearRegressionOutput, MAERegressionOutput, LogisticRegressionOutput,
+BlockGrad and make_loss, and the ``*_v1`` spellings.
 
 Matrix products and convolutions stay with PyTorch (cuBLAS and cuDNN on
 the card), as the JAX package left them to XLA.  A float32 contraction
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from ..runtime import rng as _rng
-from .registry import register_op, get_op
+from .registry import register_op, get_op, alias
 
 
 @register_op("FullyConnected", input_names=("data", "weight", "bias"))
@@ -92,32 +95,39 @@ class _Convolution(torch.autograd.Function):
     imported would change every other convolution of the process.  So
     the forward sets *precision* around ``aten.convolution`` and the
     backward sets it again around ``aten.convolution_backward``, which
-    computes the data and weight gradients (and the bias's)."""
+    computes the data and weight gradients (and the bias's).  With
+    *transposed* it is the transposed convolution (``Deconvolution``),
+    weight (C_in, C_out / groups, *kernel), grown by *output_padding* on
+    the high side of each axis."""
 
     @staticmethod
     def forward(ctx, data, weight, bias, stride, pad, dilate, groups,
-                precision):
+                precision, transposed=False, output_padding=None):
+        out_pad = output_padding or [0] * len(stride)
         with _cudnn_conv_precision(precision):
             out = torch.ops.aten.convolution(
-                data, weight, bias, stride, pad, dilate, False,
-                [0] * len(stride), groups)
+                data, weight, bias, stride, pad, dilate, transposed,
+                out_pad, groups)
         ctx.save_for_backward(data, weight)
         ctx.conf = (stride, pad, dilate, groups, precision,
-                    None if bias is None else list(bias.shape))
+                    None if bias is None else list(bias.shape), transposed,
+                    out_pad)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
         data, weight = ctx.saved_tensors
-        stride, pad, dilate, groups, precision, bias_shape = ctx.conf
+        (stride, pad, dilate, groups, precision, bias_shape, transposed,
+         out_pad) = ctx.conf
         need = ctx.needs_input_grad
         with _cudnn_conv_precision(precision):
             gdata, gweight, gbias = torch.ops.aten.convolution_backward(
-                dout, data, weight, bias_shape, stride, pad, dilate, False,
-                [0] * len(stride), groups,
+                dout, data, weight, bias_shape, stride, pad, dilate,
+                transposed, out_pad, groups,
                 [need[0], need[1], bias_shape is not None and need[2]])
-        return gdata, gweight, gbias, None, None, None, None, None
+        return gdata, gweight, gbias, None, None, None, None, None, None, \
+            None
 
 
 def conv_precision(dtype):
@@ -142,6 +152,54 @@ def _convolution(data, weight, *rest, kernel=(), stride=(), dilate=(),
 
 
 get_op("Convolution").active_inputs = _bias_inputs
+
+
+@register_op("Deconvolution", input_names=("data", "weight", "bias"))
+def _deconvolution(data, weight, *rest, kernel=(), stride=(), dilate=(),
+                   pad=(), adj=(), target_shape=(), num_filter=0,
+                   num_group=1, workspace=1024, no_bias=True,
+                   cudnn_tune=None, cudnn_off=False, layout=None):
+    """N-d transposed convolution, weight (C_in, num_filter / num_group,
+    *kernel).  Each spatial extent is (in - 1) * stride - 2 * pad +
+    dilate * (kernel - 1) + 1 + adj; *target_shape* is ignored, as in the
+    JAX package.  Torch takes ``output_padding`` only below the stride or
+    the dilation; a larger *adj* runs the full transposed convolution
+    (pad 0) and takes the window [pad, pad + out) of each axis, zeros
+    past the full result's end, before the bias is added."""
+    nd = data.dim() - 2
+    kernel = tuple(weight.shape[2:])
+    stride = list(_tup(stride, nd, 1))
+    dilate = list(_tup(dilate, nd, 1))
+    pad = list(_tup(pad, nd, 0))
+    adj = list(_tup(adj, nd, 0))
+    bias = rest[0] if rest and not no_bias else None
+    prec = conv_precision(data.dtype)
+    if all(a < max(s, d) for a, s, d in zip(adj, stride, dilate)):
+        return _Convolution.apply(data, weight, bias, stride, pad, dilate,
+                                  int(num_group), prec, True, adj)
+    full = _Convolution.apply(data, weight, None, stride, [0] * nd, dilate,
+                              int(num_group), prec, True, None)
+    # F.pad takes (lo, hi) pairs from the last axis back; a negative
+    # amount crops
+    window = []
+    for i in reversed(range(nd)):
+        eff_k = (kernel[i] - 1) * dilate[i] + 1
+        size = (data.shape[2 + i] - 1) * stride[i] + eff_k
+        out = size - 2 * pad[i] + adj[i]
+        window += [-pad[i], out + pad[i] - size]
+    out = F.pad(full, window)
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+def _deconv_inputs(params):
+    if params.get("no_bias", True):
+        return ("data", "weight")
+    return ("data", "weight", "bias")
+
+
+get_op("Deconvolution").active_inputs = _deconv_inputs
 
 
 # -- Pooling -----------------------------------------------------------------
@@ -552,3 +610,260 @@ def _block_grad(x):
 def _make_loss(x):
     """The value as a loss head (its head gradient is ones)."""
     return x * 1.0
+
+
+# ---------------------------------------------------------------------------
+# softmax variants, LRN, resizing and the CTC loss
+# ---------------------------------------------------------------------------
+
+@register_op("softmin")
+def _softmin(x, axis=-1, temperature=None):
+    """softmax(-x) over *axis*; *temperature* is ignored, as in the JAX
+    package."""
+    return torch.softmax(-x, dim=axis)
+
+
+@register_op("SoftmaxActivation")
+def _softmax_activation(x, mode="instance"):
+    """Softmax over the channel axis ("channel") or over all but the
+    first axis ("instance")."""
+    if mode == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+@register_op("softmax_cross_entropy")
+def _softmax_cross_entropy(data, label):
+    """Sum over the batch of -log softmax(data)[label] (a 0-d tensor)."""
+    logp = torch.log_softmax(data, dim=-1)
+    return -torch.gather(logp, -1, label.long()[:, None]).sum()
+
+
+@register_op("LRN", num_outputs=2, num_visible_outputs=1)
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Across-channel local response normalization (reference
+    ``src/operator/nn/lrn.cc``): (data * norm, norm), norm = (knorm +
+    alpha / nsize * the sum of squares over *nsize* channels) ** -beta."""
+    half = nsize // 2
+    sq = F.pad(torch.square(data), (0, 0) * (data.dim() - 2) + (half, half))
+    c = data.shape[1]
+    acc = torch.zeros_like(data)
+    for i in range(nsize):
+        acc = acc + sq[:, i:i + c]
+    norm = torch.pow(knorm + (alpha / nsize) * acc, -beta)
+    return data * norm, norm
+
+
+def _resize(data, size):
+    """Bilinear resize of NCHW data to *size*, antialiased when it
+    shrinks: the function of ``jax.image.resize`` with "bilinear" or
+    "linear" that the JAX package calls (without ``antialias`` torch
+    samples a shrunk image at two points and parts from it by up to
+    ~1.8 at 17 x 23 -> 5 x 7)."""
+    return F.interpolate(data, size=tuple(int(s) for s in size),
+                         mode="bilinear", align_corners=False,
+                         antialias=True)
+
+
+@register_op("UpSampling")
+def _upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+                num_filter=0, multi_input_mode="concat", workspace=512):
+    """Nearest: each input's pixels repeated *scale* times on both
+    spatial axes, the inputs concatenated on channels or summed.
+    Bilinear: the first input resized by *scale*; the weight input is
+    ignored, as in the JAX package."""
+    if sample_type == "nearest":
+        outs = [d.repeat_interleave(scale, dim=2)
+                .repeat_interleave(scale, dim=3) for d in args]
+        if len(outs) == 1:
+            return outs[0]
+        if multi_input_mode == "sum":
+            out = outs[0]
+            for o in outs[1:]:
+                out = out + o
+            return out
+        return torch.cat(outs, dim=1)
+    h, w = args[0].shape[2:]
+    return _resize(args[0], (h * scale, w * scale))
+
+
+@register_op("_contrib_BilinearResize2D")
+def _bilinear_resize2d(data, height=0, width=0, scale_height=None,
+                       scale_width=None, mode="size"):
+    h, w = data.shape[2:]
+    if scale_height is not None:
+        height = int(h * scale_height)
+        width = int(w * scale_width)
+    return _resize(data, (height, width))
+
+
+@register_op("_contrib_AdaptiveAvgPooling2D")
+def _adaptive_avg_pool(data, output_size=()):
+    """Mean over equal windows when the output divides the input on both
+    axes; otherwise the bilinear resize the JAX package falls back to
+    (not torch's adaptive pooling, which parts from it)."""
+    if not output_size:
+        oh = ow = 1
+    elif isinstance(output_size, int):
+        oh = ow = output_size
+    elif len(output_size) == 1:
+        oh = ow = output_size[0]
+    else:
+        oh, ow = output_size
+    n, c, h, w = data.shape
+    if h % oh == 0 and w % ow == 0:
+        return data.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+    return _resize(data, (oh, ow))
+
+
+@register_op("_contrib_div_sqrt_dim")
+def _div_sqrt_dim(data):
+    """data / sqrt(its last extent), the root taken in float32 and
+    rounded to data's dtype (reference ``src/operator/contrib/
+    transformer.cc:33``)."""
+    root = torch.tensor(float(data.shape[-1]), dtype=torch.float32).sqrt()
+    return data / float(root.to(data.dtype))
+
+
+for _old, _new in (("BatchNorm_v1", "BatchNorm"),
+                   ("Convolution_v1", "Convolution"),
+                   ("Pooling_v1", "Pooling")):
+    alias(_old, _new)
+
+# optax's stand-in for log(0) in the JAX package's CTC loss
+_CTC_LOG_EPS = -1e5
+
+
+class _LogAddExp(torch.autograd.Function):
+    """log(exp(a) + exp(b)) with the gradients g * exp(a - out) and g *
+    exp(b - out), the formulas of ``jnp.logaddexp``.  Torch's own
+    backward, g / (1 + exp(b - a)), is the more accurate one; but where
+    the CTC recursion runs near -1e5 its out carries an f32 rounding of
+    ~0.004, which moves JAX's gradient by ~0.4 %, and the port follows
+    the JAX package's numbers."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.maximum(a, b) + torch.log1p(torch.exp(-(a - b).abs()))
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+        return g * torch.exp(a - out), g * torch.exp(b - out)
+
+
+def _ctc_dp(logp, logit_pad, labels, label_pad):
+    """Per-sequence CTC loss by the recursion of ``optax.ctc_loss``
+    (blank 0, log(0) taken as -1e5): an alignment that cannot exist
+    costs 1e5 for each transition it lacks, where torch's loss is
+    infinite.  logp (B, T, K) log-probabilities, logit_pad (B, T) and
+    label_pad (B, N) 1.0 at padding, labels (B, N) right-padded."""
+    b, _, k = logp.shape
+    n = labels.shape[1]
+    eps = _CTC_LOG_EPS
+    dt = logp.dtype
+    lens = n - label_pad.sum(dim=1).long()
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).to(dt), (0, 1))
+    phi_lp = logp[:, :, 0].t().unsqueeze(-1)                # (T, B, 1)
+    emit_lp = torch.gather(
+        logp, 2, labels.long().clamp(0, k - 1)[:, None, :]
+        .expand(b, logp.shape[1], n)).transpose(0, 1)       # (T, B, N)
+    # a label outside [0, K) is a one_hot of zeros: log-prob 0
+    inside = ((labels >= 0) & (labels < k)).to(dt)
+    emit_lp = emit_lp * inside
+    phi = torch.full((b, n + 1), eps, dtype=dt, device=logp.device)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), eps, dtype=dt, device=logp.device)
+
+    lae = _LogAddExp.apply
+
+    def add_phi(p, score):
+        return torch.cat([p[:, :1], lae(p[:, 1:], score)], -1)
+
+    pads = logit_pad.t().to(dt)
+    for t in range(logp.shape[1]):
+        prev_phi = phi
+        p = add_phi(phi, emit + eps * repeat)
+        next_emit = lae(p[:, :-1] + emit_lp[t], emit + emit_lp[t])
+        next_phi = add_phi(p + phi_lp[t],
+                           emit + phi_lp[t] + eps * (1.0 - repeat))
+        pad = pads[t].reshape(b, 1)
+        emit = pad * emit + (1.0 - pad) * next_emit
+        phi = pad * prev_phi + (1.0 - pad) * next_phi
+    last = add_phi(phi, emit)
+    return -torch.gather(last, 1, lens[:, None])[:, 0]
+
+
+@register_op("CTCLoss", aliases=("ctc_loss", "_contrib_CTCLoss",
+                                 "_contrib_ctc_loss"),
+             input_names=("data", "label", "data_lengths",
+                          "label_lengths"))
+def _ctc_loss(*inputs, use_data_lengths=False, use_label_lengths=False,
+              blank_label="first"):
+    """CTC loss per sequence; data (seq, batch, alphabet), labels (batch,
+    N).  The length tensors are inputs gated by ``use_*_lengths``;
+    without label lengths, label 0 is padding.  Blank "first" is class
+    0; "last" rotates the alphabet so that the last class is 0 and the
+    labels move up by one, as the JAX package does.
+
+    The loss is ``F.ctc_loss``'s.  A sequence whose alignment cannot
+    exist (fewer frames than labels plus adjacent repeats) or whose label
+    is the blank takes the JAX package's finite value instead, by
+    ``_ctc_dp``, as does its gradient."""
+    expected = 2 + bool(use_data_lengths) + bool(use_label_lengths)
+    if len(inputs) != expected:
+        raise TypeError(
+            "CTCLoss expects %d inputs for use_data_lengths=%r, "
+            "use_label_lengths=%r; got %d"
+            % (expected, use_data_lengths, use_label_lengths, len(inputs)))
+    rest = list(inputs[2:])
+    data_lengths = rest.pop(0) if use_data_lengths else None
+    label_lengths = rest.pop(0) if use_label_lengths else None
+    data, label = inputs[0], inputs[1]
+    seq, batch, _ = data.shape
+    if data.device.type == "meta":      # shape inference
+        return data.new_empty((batch,))
+    logits = data.transpose(0, 1)                           # (B, T, A)
+    labels = label.long()
+    if blank_label != "first":
+        logits = torch.cat([logits[..., -1:], logits[..., :-1]], -1)
+        labels = labels + 1
+    dev = data.device
+    if data_lengths is not None:
+        t_len = data_lengths.long().reshape(-1)
+    else:
+        t_len = torch.full((batch,), seq, dtype=torch.long, device=dev)
+    cols = torch.arange(labels.shape[1], device=dev)[None, :]
+    if label_lengths is not None:
+        label_pad = cols >= label_lengths.long().reshape(-1, 1)
+    else:
+        label_pad = labels <= 0
+    l_len = labels.shape[1] - label_pad.sum(dim=1)
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = F.ctc_loss(logp.transpose(0, 1), labels.clamp(min=0), t_len,
+                      l_len, blank=0, reduction="none", zero_infinity=True)
+    valid = ~label_pad
+    repeats = ((labels[:, 1:] == labels[:, :-1]) & valid[:, 1:]).sum(dim=1)
+    by_dp = (t_len < l_len + repeats) | ((labels == 0) & valid).any(dim=1)
+    # F.ctc_loss takes the lengths to the host, so this read adds no sync
+    if bool(by_dp.any()):
+        pad_t = (torch.arange(seq, device=dev)[None, :] >=
+                 t_len[:, None]).to(logp.dtype)
+        dp = _ctc_dp(logp, pad_t, labels, label_pad.to(logp.dtype))
+        loss = torch.where(by_dp, dp, loss)
+    return loss
+
+
+def _ctc_inputs(params):
+    names = ["data", "label"]
+    if params.get("use_data_lengths", False):
+        names.append("data_lengths")
+    if params.get("use_label_lengths", False):
+        names.append("label_lengths")
+    return tuple(names)
+
+
+get_op("CTCLoss").active_inputs = _ctc_inputs

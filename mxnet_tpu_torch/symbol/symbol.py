@@ -13,8 +13,9 @@ subgraph as its repr, which no reader can rebuild).
 
 Shape inference (``_infer_shapes``, which resolves deferred parameter
 shapes at a block's first forward) runs per-op rules where parameter
-shapes are deduced bottom-up (FullyConnected, Convolution, BatchNorm,
-LayerNorm, InstanceNorm, Embedding; ``shape_rule`` registers more), and
+shapes are deduced bottom-up (FullyConnected, Convolution,
+Deconvolution, BatchNorm, LayerNorm, InstanceNorm, Embedding;
+``shape_rule`` registers more), and
 otherwise runs the op itself on ``meta`` tensors, which carry shapes and
 no data.
 
@@ -664,6 +665,33 @@ def _conv_shape(params, ins):
     spatial = tuple(
         (data[2 + i] + 2 * pad[i] - ((kernel[i] - 1) * dilate[i] + 1))
         // stride[i] + 1 for i in range(nd))
+    return ins, [(data[0], nf) + spatial]
+
+
+@shape_rule("Deconvolution")
+def _deconv_shape(params, ins):
+    """Deconvolution: weight (C, num_filter / num_group, *kernel), bias
+    (num_filter,), each spatial extent (in - 1) * stride - 2 * pad +
+    dilate * (kernel - 1) + 1 + adj (mirrors ``mxnet_tpu/symbol/
+    symbol.py`` ``_deconv_shape``)."""
+    kernel = _as_shape(params.get("kernel", ()))
+    nd = len(kernel)
+    nf = int(params.get("num_filter", 0))
+    ng = int(params.get("num_group", 1))
+    stride = _tup(params.get("stride"), nd, 1)
+    dilate = _tup(params.get("dilate"), nd, 1)
+    pad = _tup(params.get("pad"), nd, 0)
+    adj = _tup(params.get("adj"), nd, 0)
+    data = ins[0]
+    if data is None:
+        return ins, [None]
+    ins = list(ins)
+    ins[1] = (data[1], nf // ng) + kernel
+    if len(ins) > 2:
+        ins[2] = (nf,)
+    spatial = tuple(
+        (data[2 + i] - 1) * stride[i] - 2 * pad[i] +
+        (kernel[i] - 1) * dilate[i] + 1 + adj[i] for i in range(nd))
     return ins, [(data[0], nf) + spatial]
 
 

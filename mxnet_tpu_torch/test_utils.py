@@ -1,9 +1,12 @@
 """Test fixtures (port of ``mxnet_tpu/test_utils.py``, subset: the tiny
 attention language model behind the paged-decode tests and its dense
-greedy-decode oracle), and the op sweep: one or more small cases for
+greedy-decode oracle), and the op sweeps: one or more small cases for
 every op name of the elementwise, reduce, tensor, random and Dropout /
-InstanceNorm families, which the CPU tests run against the JAX package
-and ``chip_smoke.py`` runs on the card against the CPU."""
+InstanceNorm families (``op_sweep_cases``) and of the layer ops
+(``layer_op_cases``: Deconvolution, LRN, the resizes, the softmax
+variants, CTC and the ``*_v1`` spellings), which the CPU tests run
+against the JAX package and ``chip_smoke.py`` runs on the card against
+the CPU."""
 
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from .base import torch_dtype
 from .serve.kvpool import as_device
 
 __all__ = ["tiny_attention_lm", "dense_decode_reference", "op_sweep_cases",
-           "SAMPLER_MOMENTS", "moments_within"]
+           "layer_op_cases", "SAMPLER_MOMENTS", "moments_within"]
 
 
 def tiny_attention_lm(vocab=32, dim=16, seed=0, dtype="float32", ctx=None):
@@ -539,3 +542,137 @@ def op_sweep_cases(seed=0, draws=100000):
             c2["id"] = name + ("-" + c["tag"] if c["tag"] else "")
             out.append(c2)
     return out
+
+
+# Deconvolution cases: (id, data shape, params, with bias).  1-d, 2-d and
+# 3-d; groups; dilation; adj below the stride (torch's output_padding)
+# and at or past it (the full transposed convolution, windowed), with pad
+# 0 and pad > 0
+DECONV_CASES = [
+    ("1d-adj-ge-stride", (2, 4, 7),
+     dict(kernel=(3,), stride=(3,), pad=(1,), adj=(4,), num_filter=5), True),
+    ("2d-s2-p1", (2, 8, 5, 6),
+     dict(kernel=(4, 4), stride=(2, 2), pad=(1, 1), num_filter=6), False),
+    ("2d-adj-lt-stride", (2, 4, 5, 6),
+     dict(kernel=(4, 4), stride=(2, 2), pad=(1, 1), adj=(1, 1),
+          num_filter=3), True),
+    ("2d-adj-ge-stride-pad0", (2, 4, 5, 6),
+     dict(kernel=(3, 3), stride=(2, 2), adj=(2, 2), num_filter=6), False),
+    ("2d-adj-ge-stride-pad1-groups", (2, 4, 5, 6),
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), adj=(3, 2),
+          num_group=2, num_filter=6), True),
+    ("2d-dilate-groups", (2, 4, 5, 6),
+     dict(kernel=(3, 2), stride=(1, 2), pad=(2, 0), adj=(0, 1),
+          dilate=(2, 1), num_group=4, num_filter=8), True),
+    ("3d-adj-ge-stride", (1, 2, 3, 4, 3),
+     dict(kernel=(2, 3, 2), stride=(2, 1, 2), pad=(0, 1, 1), adj=(1, 0, 3),
+          dilate=(1, 1, 2), num_filter=3), True),
+    ("2d-wide", (2, 16, 6, 6),
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), adj=(1, 1),
+          num_filter=16), True),
+]
+
+# the CTC op's spellings, each given the cases of "CTCLoss"
+CTC_NAMES = ("CTCLoss", "ctc_loss", "_contrib_CTCLoss", "_contrib_ctc_loss")
+# the deprecated spellings and the case each gets
+V1_NAMES = ("BatchNorm_v1", "Convolution_v1", "Pooling_v1")
+
+
+def layer_op_cases(seed=0):
+    """The layer op sweep: dicts with ``name``, ``id``, ``inputs`` (numpy
+    arrays), ``params`` and ``grads`` (the indices of the inputs that take
+    gradients), one or more for each op name of ops/nn.py that the JAX
+    package has and the op sweep lacks: Deconvolution (``DECONV_CASES``),
+    LRN, UpSampling (nearest with one and two inputs, concat and sum;
+    bilinear with its ignored weight), the contrib BilinearResize2D
+    (shrink, enlarge, by scale), AdaptiveAvgPooling2D (divisible, not
+    divisible, global) and div_sqrt_dim, softmin, SoftmaxActivation
+    (instance and channel), softmax_cross_entropy, the CTC loss under its
+    four names (both blank modes, with and without lengths, and an
+    alignment that cannot exist) and the ``*_v1`` spellings."""
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+
+    def n(*shape):
+        return rs.standard_normal(shape).astype(f32)
+
+    cases = []
+
+    def add(name, inputs, params=None, grads=(0,), tag=""):
+        cases.append({"name": name, "inputs": [np.asarray(a) for a in inputs],
+                      "params": dict(params or {}), "grads": tuple(grads),
+                      "id": name + ("-" + tag if tag else "")})
+
+    for tag, shape, params, bias in DECONV_CASES:
+        g = params.get("num_group", 1)
+        w = (shape[1], params["num_filter"] // g) + params["kernel"]
+        ins = [n(*shape), n(*w) / np.sqrt(np.prod(w[1:])).astype(f32)]
+        if bias:
+            ins.append(n(params["num_filter"]))
+        add("Deconvolution", ins, dict(params, no_bias=not bias),
+            grads=range(len(ins)), tag=tag)
+    img = n(2, 5, 17, 23)
+    add("LRN", [img])
+    add("LRN", [img], dict(nsize=4, alpha=1e-2, beta=0.5, knorm=1.0),
+        tag="nsize4")
+    add("UpSampling", [img], dict(scale=2), tag="nearest")
+    add("UpSampling", [img, n(2, 3, 17, 23)], dict(scale=3, num_args=2),
+        grads=(0, 1), tag="nearest-concat")
+    add("UpSampling", [img, n(2, 5, 17, 23)],
+        dict(scale=2, num_args=2, multi_input_mode="sum"), grads=(0, 1),
+        tag="nearest-sum")
+    add("UpSampling", [img, n(5, 1, 4, 4)],
+        dict(scale=2, sample_type="bilinear", num_args=2, num_filter=5),
+        tag="bilinear")
+    add("_contrib_BilinearResize2D", [img], dict(height=5, width=7),
+        tag="shrink")
+    add("_contrib_BilinearResize2D", [img], dict(height=40, width=31),
+        tag="enlarge")
+    add("_contrib_BilinearResize2D", [img],
+        dict(scale_height=0.5, scale_width=1.5), tag="scale")
+    add("_contrib_AdaptiveAvgPooling2D", [img], dict(output_size=(5, 7)),
+        tag="resize")
+    add("_contrib_AdaptiveAvgPooling2D", [img[:, :, :16, :20]],
+        dict(output_size=(4, 5)), tag="divisible")
+    add("_contrib_AdaptiveAvgPooling2D", [img], tag="global")
+    add("_contrib_div_sqrt_dim", [img])
+    add("softmin", [img], dict(axis=1))
+    add("SoftmaxActivation", [img], tag="instance")
+    add("SoftmaxActivation", [img], dict(mode="channel"), tag="channel")
+    add("softmax_cross_entropy",
+        [n(6, 10), rs.randint(0, 10, 6).astype(f32)])
+    t, b, a = 12, 4, 6
+    acts = n(t, b, a)
+    labels = np.array([[1, 2, 3, 0], [2, 2, 0, 0], [1, 1, 1, 1],
+                       [5, 4, 3, 2]], f32)
+    data_len = np.array([12, 3, 7, 4], f32)
+    label_len = np.array([3, 2, 4, 4], f32)
+    # rows 0 and 2 cannot align: 2 frames for 3 labels, 6 for 4 labels
+    # with 3 repeats; row 3's label 0 inside its length is the blank
+    impossible = (np.array([2, 3, 6, 12], f32), np.array([3, 2, 4, 2], f32),
+                  np.array([[1, 2, 3, 0], [2, 2, 0, 0], [1, 1, 1, 1],
+                            [5, 0, 3, 2]], f32))
+    for name in CTC_NAMES:
+        add(name, [acts, labels], tag="first")
+        add(name, [acts, labels - 1], dict(blank_label="last"), tag="last")
+        add(name, [acts, labels, data_len, label_len],
+            dict(use_data_lengths=True, use_label_lengths=True),
+            tag="lengths")
+        add(name, [acts, labels - 1, data_len],
+            dict(use_data_lengths=True, blank_label="last"),
+            tag="last-data-lengths")
+        add(name, [acts, labels, label_len], dict(use_label_lengths=True),
+            tag="label-lengths")
+        add(name, [acts, impossible[2], impossible[0], impossible[1]],
+            dict(use_data_lengths=True, use_label_lengths=True),
+            tag="impossible")
+    add("BatchNorm_v1", [n(4, 3, 5, 5), n(3), n(3), n(3),
+                         rs.uniform(0.5, 2.0, 3).astype(f32)],
+        dict(fix_gamma=False), grads=(0, 1, 2))
+    add("Convolution_v1", [n(2, 4, 9, 8), n(6, 4, 3, 3) / f32(6), n(6)],
+        dict(kernel=(3, 3), stride=(1, 2), pad=(1, 0), num_filter=6),
+        grads=(0, 1, 2))
+    add("Pooling_v1", [n(2, 3, 9, 9)],
+        dict(kernel=(3, 3), stride=(2, 2), pool_type="avg",
+             pooling_convention="full"))
+    return cases

@@ -88,7 +88,16 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.autotune.__main__, "
             "mxnet_tpu_torch.resilience.checkpoint, "
             "mxnet_tpu_torch._kvstore_impl, mxnet_tpu_torch.serve.replica, "
-            "mxnet_tpu_torch.serve.router, mxnet_tpu_torch.serve.fleet; "
+            "mxnet_tpu_torch.serve.router, mxnet_tpu_torch.serve.fleet, "
+            "mxnet_tpu_torch.gluon.model_zoo.model_store, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.alexnet, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.vgg, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.squeezenet, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.mobilenet, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.densenet, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.inception, "
+            "mxnet_tpu_torch.gluon.contrib.nn, "
+            "mxnet_tpu_torch.gluon.contrib.nn.basic_layers; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')))")
@@ -154,7 +163,8 @@ def test_gpu_context_without_cuda_raises(no_cuda):
                                    "calibrate", "quantize_model",
                                    "contrib quantize_model", "tune",
                                    "DecodeMeasurer", "ReplicaServer LOAD",
-                                   "replica main"])
+                                   "replica main", "get_model pretrained",
+                                   "alexnet initialize"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -324,6 +334,19 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
             (tmp_path / "spec.json").write_text(
                 '{"models": [%s]}' % json.dumps(model))
             call = lambda: main(["--spec", str(tmp_path / "spec.json")])
+    elif entry == "get_model pretrained":
+        # a checkpoint written on the CPU loads onto the current context,
+        # the card, which raises without CUDA
+        net = mx.gluon.model_zoo.vision.get_model("squeezenet1_1",
+                                                  classes=4)
+        net.initialize(ctx=mx.cpu())
+        net(mx.nd.zeros((1, 3, 32, 32), ctx=mx.cpu()))
+        net.save_parameters(str(tmp_path / "squeezenet1_1.params"))
+        call = lambda: mx.gluon.model_zoo.vision.get_model(
+            "squeezenet1_1", classes=4, pretrained=True, root=str(tmp_path))
+    elif entry == "alexnet initialize":
+        net = mx.gluon.model_zoo.vision.get_model("alexnet")
+        call = net.initialize
     elif entry == "DecodeMeasurer":
         from mxnet_tpu_torch.autotune import synth_decode_trace
         from mxnet_tpu_torch.autotune.measure import DecodeMeasurer

@@ -37,11 +37,12 @@ from mxnet_tpu_torch.test_utils import (SAMPLER_MOMENTS, moments_within,
                                         op_sweep_cases)
 
 FLOAT_TOL = 1e-6
-# the port's registry: these families' 275 names and 75 others (the
+# the port's registry: these families' 275 names and 91 others (the
 # layers' ops, the loss heads, attention, the optimizer updates, RNN, the
-# four control-flow ops, the nine _image_* ops with their aliases, and
-# the 17 quantization names)
-N_PORT_OPS = 350
+# four control-flow ops, the nine _image_* ops with their aliases, the
+# 17 quantization names, and the 16 layer-op names of
+# test_utils.layer_op_cases)
+N_PORT_OPS = 366
 
 _JAX_MODULES = {"mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.reduce",
                 "mxnet_tpu.ops.tensor", "mxnet_tpu.ops.random_ops"}

@@ -219,12 +219,17 @@ def test_space_to_depth_stem_matches_jax():
     assert net(tmx.nd.array(x, ctx=tmx.cpu())).shape == (BATCH, CLASSES)
 
 
-def test_get_model_surface():
+def test_get_model_surface(tmp_path):
     assert tvision.get_model("ResNet50-v1", classes=3).output._units == 3
     with pytest.raises(ValueError, match="not found"):
-        tvision.get_model("vgg16")
+        tvision.get_model("vgg9000")
+    # pretrained weights load from the local model directory, as in the
+    # JAX package; a missing file raises there as here
+    with pytest.raises(FileNotFoundError, match="no network egress"):
+        tvision.get_model("resnet18_v1", pretrained=True,
+                          root=str(tmp_path))
     with pytest.raises(ValueError, match="pretrained"):
-        tvision.get_model("resnet18_v1", pretrained=True)
+        tvision.get_resnet(1, 18, pretrained=True)
 
 
 def test_export_keys_match_and_both_registries_serve_it(jax_models,
