@@ -288,6 +288,43 @@ Phases, each reported on its own line; any failure exits non-zero:
              3e-5 x max(1, max|logit|) (vgg16's TF32 answers must break
              it); graph and eager ms per request at each rung, the
              parameter count, peak memory.
+16. detection — the detection and spatial ops and SSD-300; no kernel of
+             the repo lies on these paths (the JAX ops are XLA's), and none
+             of the three attention kernels launches in the phase.  (a)
+             Every case of ``test_utils.detection_op_cases`` (the 17 names
+             of ops/detection.py, ROIPooling and the 19 of ops/spatial.py)
+             on the card against the port's CPU path, outputs and gradients
+             within 2**-18 x max(1, max|cpu|), keep masks, class ids,
+             ordering scores and matched targets bit-equal unless the
+             case's decision margin lies below 2**-20; the
+             DeformableConvolution and Correlation cases again with TF32
+             products, the worst of which must break the limit.  (b) 320
+             seeded JPEGs (sides 300-500, 1-4 class-coloured boxes)
+             through ``ImageDetIter`` with ``CreateDetAugmenter(rand_crop=
+             0.5, rand_pad=0.5, rand_mirror=True, mean=True, std=True)``,
+             decoded on the card by nvJPEG, its batches against a cv2
+             replay of the same augmenters (labels equal, pixels within
+             1 level on average); SSD-300 (VGG16-reduced, 20 classes, 300
+             x 300, 8732 anchors) through ``Module`` (SGD lr 0.004,
+             momentum 0.9, wd 5e-4): a batch-8 check step in f32 against
+             f64 on the card (loss within 1e-5, every gradient within 1e-4
+             of its max |g| with the ReLU masks, the max-pool choices and
+             MultiBoxTarget's outputs frozen to f64's; TF32 must break
+             it), one fused step bit-equal to one legacy step, then 20
+             batches of 32 of examples/train_ssd.py's loop: ms a batch,
+             images/s, peak memory, the loss falls.  (c) The trained
+             weights exported with the inference graph (nms_threshold
+             0.45, nms_topk 400), ``ModelRegistry.load_checkpoint`` on
+             rungs 1, 8, 32 (one CUDA graph each, none after the
+             requests); a request of each size: the heads against f64
+             within 3e-5 x max(1, max|out|), MultiBoxDetection on the card
+             against the CPU path on the same heads and the served rows
+             against it (equal, or parted at a margin below 2**-20),
+             output (B, 8732, 6); graph and eager ms a request, images/s
+             at 32, the detection head's share of a rung-32 replay.  (d)
+             examples/train_ssd.py's flow at its defaults (64 x 64, 3
+             classes, 256 examples, 5 epochs): the loss falls and
+             MultiBoxDetection finds detections.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -7255,6 +7292,1024 @@ def phase_zoo(torch, card, seed, ctx=None, dcgan=None, zoo=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: detection
+# ---------------------------------------------------------------------------
+# SSD-300 on the VGG16-reduced backbone, the reference's detection headline
+# (examples/ssd_model.py, tools/benchmark_ssd.py, examples/train_ssd.py):
+# 20 classes (VOC), 300 x 300, 8732 anchors over six scales.  The graph functions
+# below are this script's own copy of examples/ssd_model.py's and of
+# examples/train_ssd.py's build_ssd; each takes the package's namespace
+# (``mx``), so a test can build the same graph in both packages.  *div*
+# divides every convolution's width (the CPU tests' small nets).
+SSD_SIZES = [(0.1, 0.141), (0.2, 0.272), (0.37, 0.447), (0.54, 0.619),
+             (0.71, 0.79), (0.88, 0.961)]
+SSD_RATIOS = [(1.0, 2.0, 0.5), (1.0, 2.0, 0.5, 3.0, 1.0 / 3),
+              (1.0, 2.0, 0.5, 3.0, 1.0 / 3), (1.0, 2.0, 0.5, 3.0, 1.0 / 3),
+              (1.0, 2.0, 0.5), (1.0, 2.0, 0.5)]
+SSD_ANCHORS = 8732
+SSD = dict(classes=20, image=300, batch=32, check_batch=8, records=320,
+           sides=(300, 500), boxes=(1, 4), quality=90, threads=4, lr=0.004,
+           momentum=0.9, wd=5e-4, batches=20, timed_from=3, window=5,
+           rungs=(1, 8, 32), nms_thresh=0.45, nms_topk=400, div=1,
+           route_images=8)
+# examples/train_ssd.py at its defaults
+SSD_EXAMPLE = dict(size=64, classes=3, examples=256, epochs=5, batch=16,
+                   lr=0.1)
+TOL_SSD_LOSS = 1e-5          # x max(1, |loss|), f32 vs f64
+TOL_SSD_GRAD = 1e-4          # x each gradient's max |g|, masks frozen
+TOL_SSD_SERVE = 3e-5         # x max(1, max |out|) of each f64 head
+TOL_DET_PIXELS = 1.0         # mean |d| in 0-255 levels, route vs replay
+TIE_MARGIN = 2.0 ** -20      # a decision nearer a flip than this may part
+SSD_SHARES = (
+    ("convolution", lambda k: any(w in k for w in CONV_KEYS)),
+    ("sort", lambda k: "sort" in k),
+)
+
+
+def ssd_vgg16_reduced(sym, data, div=1):
+    """VGG16 through conv5_3, then the dilated fc6 and fc7 and the four
+    extra blocks: the six feature maps (38, 19, 10, 5, 3, 1 at 300)."""
+    def w(f):
+        return max(1, f // div)
+    x = data
+    feats = []
+    for b, (n, f) in enumerate([(2, 64), (2, 128), (3, 256), (3, 512)]):
+        for i in range(n):
+            x = sym.Convolution(x, num_filter=w(f), kernel=(3, 3),
+                                pad=(1, 1),
+                                name="conv%d_%d" % (b + 1, i + 1))
+            x = sym.Activation(x, act_type="relu")
+        if b == 3:
+            feats.append(x)
+        # ceil-mode pooling: 75 -> 38, for the 8732-anchor grid
+        x = sym.Pooling(x, kernel=(2, 2), stride=(2, 2), pool_type="max",
+                        pooling_convention="full", name="pool%d" % (b + 1))
+    for i in range(3):
+        x = sym.Convolution(x, num_filter=w(512), kernel=(3, 3), pad=(1, 1),
+                            name="conv5_%d" % (i + 1))
+        x = sym.Activation(x, act_type="relu")
+    x = sym.Pooling(x, kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                    pool_type="max", name="pool5")
+    x = sym.Convolution(x, num_filter=w(1024), kernel=(3, 3), pad=(6, 6),
+                        dilate=(6, 6), name="fc6")
+    x = sym.Activation(x, act_type="relu")
+    x = sym.Convolution(x, num_filter=w(1024), kernel=(1, 1), name="fc7")
+    x = sym.Activation(x, act_type="relu")
+    feats.append(x)
+    for j, (f1, f2, s, p) in enumerate(
+            [(256, 512, 2, 1), (128, 256, 2, 1),
+             (128, 256, 1, 0), (128, 256, 1, 0)]):
+        x = sym.Convolution(x, num_filter=w(f1), kernel=(1, 1),
+                            name="extra%d_1x1" % j)
+        x = sym.Activation(x, act_type="relu")
+        x = sym.Convolution(x, num_filter=w(f2), kernel=(3, 3),
+                            stride=(s, s), pad=(p, p),
+                            name="extra%d_3x3" % j)
+        x = sym.Activation(x, act_type="relu")
+        feats.append(x)
+    return feats
+
+
+def ssd_multibox_layers(sym, feats, num_classes):
+    """Per-scale class and offset heads and anchors, concatenated over the
+    scales: cls_pred (B, A, C+1), loc_pred (B, A*4), anchor (1, A, 4)."""
+    cls_preds, loc_preds, anchors = [], [], []
+    for i, feat in enumerate(feats):
+        na = len(SSD_SIZES[i]) + len(SSD_RATIOS[i]) - 1
+        if i == 0:
+            feat = sym.L2Normalization(feat, mode="channel",
+                                       name="relu4_3_norm")
+        cp = sym.Convolution(feat, num_filter=na * (num_classes + 1),
+                             kernel=(3, 3), pad=(1, 1),
+                             name="cls_pred%d" % i)
+        cp = sym.transpose(cp, (0, 2, 3, 1))
+        cls_preds.append(sym.Reshape(cp, (0, -1, num_classes + 1)))
+        lp = sym.Convolution(feat, num_filter=na * 4, kernel=(3, 3),
+                             pad=(1, 1), name="loc_pred%d" % i)
+        lp = sym.transpose(lp, (0, 2, 3, 1))
+        loc_preds.append(sym.Flatten(lp))
+        anchors.append(sym.Reshape(
+            sym.MultiBoxPrior(feat, sizes=SSD_SIZES[i], ratios=SSD_RATIOS[i],
+                              clip=True, name="anchors%d" % i),
+            (1, -1, 4)))
+    return (sym.concat(*cls_preds, dim=1), sym.concat(*loc_preds, dim=1),
+            sym.concat(*anchors, dim=1))
+
+
+def build_ssd300_heads(mx, num_classes=20, div=1):
+    """The inference graph less MultiBoxDetection: (cls_prob (B, C+1,
+    A), loc_pred (B, A*4), anchor (1, A, 4))."""
+    sym = mx.sym
+    feats = ssd_vgg16_reduced(sym, sym.var("data0"), div)
+    cls_pred, loc_pred, anchor = ssd_multibox_layers(sym, feats, num_classes)
+    cls_prob = sym.transpose(sym.softmax(cls_pred, axis=-1), (0, 2, 1))
+    return cls_prob, loc_pred, anchor
+
+
+def build_ssd300_infer(mx, num_classes=20, nms_thresh=0.45, nms_topk=400,
+                       div=1):
+    """data0 -> (B, A, 6) rows [cls, score, l, t, r, b]."""
+    cls_prob, loc_pred, anchor = build_ssd300_heads(mx, num_classes, div)
+    return mx.sym.MultiBoxDetection(
+        cls_prob, loc_pred, anchor, nms_threshold=nms_thresh,
+        nms_topk=nms_topk, name="detection")
+
+
+def build_ssd300_train(mx, num_classes=20, div=1):
+    """The training graph: SoftmaxOutput over the matched classes
+    (normalization "valid") and smooth-L1 on the offsets; outputs
+    (cls_prob (B*A, C+1), loc_loss (B, A*4), anchor)."""
+    sym = mx.sym
+    label = sym.var("label")
+    feats = ssd_vgg16_reduced(sym, sym.var("data0"), div)
+    cls_pred, loc_pred, anchor = ssd_multibox_layers(sym, feats, num_classes)
+    cls_prob_t = sym.transpose(sym.softmax(cls_pred, axis=-1), (0, 2, 1))
+    tgt_loc, tgt_mask, tgt_cls = sym.MultiBoxTarget(
+        anchor, label, cls_prob_t, name="target")
+    cls_loss = sym.SoftmaxOutput(
+        sym.Reshape(cls_pred, (-1, num_classes + 1)),
+        sym.Reshape(tgt_cls, (-1,)), ignore_label=-1, use_ignore=True,
+        normalization="valid", name="cls_prob")
+    loc_loss = sym.MakeLoss(
+        sym.smooth_l1((loc_pred - tgt_loc) * tgt_mask, scalar=1.0),
+        name="loc_loss")
+    return sym.Group([cls_loss, loc_loss, sym.BlockGrad(anchor)])
+
+
+def build_ssd_example(mx, num_classes, num_anchors):
+    """examples/train_ssd.py's build_ssd: a three-convolution backbone and
+    one SSD head on its 8 x 8 map."""
+    sym = mx.sym
+    label = sym.var("label")
+    x = sym.var("data")
+    for i, f in enumerate((16, 32, 64)):
+        x = sym.Convolution(x, num_filter=f, kernel=(3, 3), stride=(2, 2),
+                            pad=(1, 1), name="conv%d" % i)
+        x = sym.Activation(x, act_type="relu")
+    cls_pred = sym.Convolution(x, num_filter=num_anchors * (num_classes + 1),
+                               kernel=(3, 3), pad=(1, 1), name="cls_pred")
+    loc_pred = sym.Convolution(x, num_filter=num_anchors * 4, kernel=(3, 3),
+                               pad=(1, 1), name="loc_pred")
+    anchors = sym.MultiBoxPrior(x, sizes=(0.3, 0.5), ratios=(1.0, 2.0, 0.5),
+                                name="anchors")
+    cls_pred = sym.Reshape(sym.transpose(cls_pred, (0, 2, 3, 1)),
+                           (0, -1, num_classes + 1))
+    loc_pred = sym.Flatten(sym.transpose(loc_pred, (0, 2, 3, 1)))
+    cls_prob = sym.transpose(cls_pred, (0, 2, 1))
+    tgt_loc, tgt_mask, tgt_cls = sym.MultiBoxTarget(
+        anchors, label, cls_prob, name="target")
+    cls_loss = sym.SoftmaxOutput(
+        sym.Reshape(cls_pred, (-1, num_classes + 1)),
+        sym.Reshape(tgt_cls, (-1,)), ignore_label=-1, use_ignore=True,
+        normalization="valid", name="cls_prob")
+    loc_loss = sym.MakeLoss(
+        sym.smooth_l1((loc_pred - tgt_loc) * tgt_mask, scalar=1.0),
+        name="loc_loss")
+    return sym.Group([cls_loss, loc_loss, sym.BlockGrad(anchors),
+                      sym.BlockGrad(tgt_cls), sym.BlockGrad(loc_pred)])
+
+
+def ssd_example_data(np, n, size=64, classes=3, seed=7):
+    """examples/train_ssd.py's synthetic_detection_set: one coloured
+    rectangle on noise per image, its class the lit channel."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, 3, size, size).astype(np.float32) * 0.2
+    Y = np.zeros((n, 1, 5), np.float32)
+    for i in range(n):
+        cls = rng.randint(classes)
+        w, h = rng.randint(size // 4, size // 2, 2)
+        x0 = rng.randint(0, size - w)
+        y0 = rng.randint(0, size - h)
+        X[i, cls, y0:y0 + h, x0:x0 + w] += 0.8
+        Y[i, 0] = [cls, x0 / size, y0 / size, (x0 + w) / size,
+                   (y0 + h) / size]
+    return X, Y
+
+
+def ssd_image(np, seed, i, spec):
+    """Record *i*: a seeded smooth field with 1-4 rectangles, each painted
+    in its class's colour; label rows [cls, x1, y1, x2, y2] normalized."""
+    rs = np.random.RandomState(seed * 1000003 + i)
+    h, w = (int(v) for v in rs.randint(spec["sides"][0],
+                                       spec["sides"][1] + 1, 2))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([(yy * 0.3 + i * 7) % 256, (xx * 0.2) % 256,
+                    ((yy + xx) * 0.1) % 256], -1) * 0.5
+    img += rs.randint(0, 20, img.shape).astype(np.float32)
+    k = rs.randint(spec["boxes"][0], spec["boxes"][1] + 1)
+    label = np.zeros((k, 5), np.float32)
+    for j in range(k):
+        cls = rs.randint(spec["classes"])
+        bw, bh = (int(v) for v in (rs.uniform(0.15, 0.6, 2) * (w, h)))
+        x0, y0 = rs.randint(0, w - bw), rs.randint(0, h - bh)
+        colour = ((cls * 67) % 256, (cls * 131 + 60) % 256,
+                  (cls * 29 + 120) % 256)
+        img[y0:y0 + bh, x0:x0 + bw] = colour
+        label[j] = (cls, x0 / w, y0 / h, (x0 + bw) / w, (y0 + bh) / h)
+    return img.clip(0, 255).astype(np.uint8), label
+
+
+def ssd_records(np, tmp, seed, spec):
+    """(b): the seeded JPEGs through ``MXIndexedRecordIO``, each label the
+    flat [cls, x1, y1, x2, y2] * k vector.  Returns (prefix, bytes,
+    seconds)."""
+    from mxnet_tpu_torch import recordio
+    t0 = time.perf_counter()
+
+    def encode(i):
+        img, label = ssd_image(np, seed, i, spec)
+        return recordio.pack_img(recordio.IRHeader(0, label.ravel(), i, 0),
+                                 img, quality=spec["quality"])
+
+    with concurrent.futures.ThreadPoolExecutor(
+            len(os.sched_getaffinity(0))) as pool:
+        packed = list(pool.map(encode, range(spec["records"])))
+    prefix = os.path.join(tmp, "ssd")
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i, s in enumerate(packed):
+        rec.write_idx(i, s)
+    rec.close()
+    return prefix, os.path.getsize(prefix + ".rec"), time.perf_counter() - t0
+
+
+def ssd_augmenters(mx, spec):
+    s = spec["image"]
+    return mx.image.CreateDetAugmenter(
+        (3, s, s), rand_crop=0.5, rand_pad=0.5, rand_mirror=True, mean=True,
+        std=True)
+
+
+def ssd_iter(mx, ctx, prefix, spec, batch, shuffle=True):
+    """``ImageDetIter`` over the records on *ctx* (nvJPEG on the card)."""
+    s = spec["image"]
+    with ctx:
+        return mx.image.ImageDetIter(
+            batch, (3, s, s), path_imgrec=prefix + ".rec",
+            path_imgidx=prefix + ".idx", shuffle=shuffle,
+            aug_list=ssd_augmenters(mx, spec), data_name="data0",
+            label_name="label", label_shape=(spec["boxes"][1], 5),
+            num_threads=spec["threads"])
+
+
+def ssd_route_check(torch, np, mx, ctx, card, prefix, spec, seed, failures):
+    """(b): the iterator's route against a replay: the first records
+    decoded at full size by the route's own decoder, brought to the host,
+    and put through the same augmenters on numpy (cv2) under the same
+    ``random`` seed.  Labels must be equal, pixels within TOL_DET_PIXELS
+    (mean |d| in 0-255 levels; the route resamples with torch's bicubic,
+    the replay with cv2's)."""
+    import random as pyrandom
+    from mxnet_tpu_torch import recordio
+    n = spec["route_images"]
+    pyrandom.seed(seed)
+    it = ssd_iter(mx, ctx, prefix, spec, n, shuffle=False)
+    batch = it.next()
+    got, got_lab = batch.data[0]._data, batch.label[0]._data
+    route = "nvJPEG" if it._decoder is not None else "cv2"
+    rec = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "r")
+    bufs, labels = [], []
+    for i in range(n):
+        header, buf = recordio.unpack(rec.read_idx(i))
+        bufs.append(bytes(buf))
+        labels.append(it._parse_label(header.label))
+    rec.close()
+    if it._decoder is not None:
+        hw, _ = it._decoder.info(bufs)
+        full = [t.cpu().numpy() for t in it._decoder.decode_full(bufs, hw)]
+    else:
+        full = [mx.image.imdecode(b) for b in bufs]
+    pyrandom.seed(seed)
+    augs = ssd_augmenters(mx, spec)
+    s = spec["image"]
+    want = np.zeros((n, 3, s, s), np.float32)
+    want_lab = np.full((n, spec["boxes"][1], 5), -1.0, np.float32)
+    for k, (img, objs) in enumerate(zip(full, labels)):
+        padded = np.full((spec["boxes"][1], 5), -1.0, np.float32)
+        padded[:objs.shape[0]] = objs
+        for aug in augs:
+            img, padded = aug(img, padded)
+        want[k] = np.asarray(img, np.float32).transpose(2, 0, 1)
+        want_lab[k] = padded
+    std = np.array([58.395, 57.12, 57.375], np.float32)[None, :, None, None]
+    levels = np.abs(got.cpu().numpy() - want) * std
+    mean_d, labels_ok = float(levels.mean()), bool(
+        np.array_equal(got_lab.cpu().numpy(), want_lab))
+    boxes = int((want_lab[..., 0] >= 0).sum())
+    ok = labels_ok and mean_d <= TOL_DET_PIXELS
+    log("ssd data: ImageDetIter's %s route on %s against a replay of the "
+        "same augmenters on the host (cv2) over %d records' full decodes: "
+        "labels equal %s (%d boxes), pixels mean |d| %.4f levels (limit "
+        "%g), max %.1f -> %s" % (route, card, n, labels_ok, boxes, mean_d,
+                                 TOL_DET_PIXELS, float(levels.max()),
+                                 "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("ImageDetIter's route parts from the replay: labels "
+                        "%s, mean |d| %.4f" % (labels_ok, mean_d))
+    return {"route": route, "labels_equal": labels_ok, "mean_levels": mean_d,
+            "boxes": boxes}
+
+
+def ssd_loss(torch, cls_prob, loc_loss, tgt_cls):
+    """The example's loss: cross entropy of the matched classes over the
+    anchors not ignored, plus the mean smooth-L1 of the offsets."""
+    t = tgt_cls.reshape(-1)
+    valid = t >= 0
+    p = cls_prob.gather(1, torch.clamp(t, min=0).long()[:, None])[:, 0]
+    ce = -(torch.log(torch.clamp(p, min=1e-9)) * valid).sum() / \
+        torch.clamp(valid.sum(), min=1)
+    return ce + loc_loss.mean()
+
+
+def frozen_max_pools(torch, frozen=None):
+    """op_impls for a check step: max Pooling records which element of
+    each window it took (the padded input's flat index, as the port's op
+    pads it); given another run's *frozen* choices it takes those
+    elements instead, so that a window whose two largest values swap
+    order between f32 and f64 routes its gradient as f64's does.  Other
+    pooling types run the port's op."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    seen = []
+
+    def pool(data, **kw):
+        if kw.get("pool_type", "max") != "max" or kw.get("global_pool") or \
+                data.dim() != 4:
+            return nn_ops._pooling(data, **kw)
+        kernel = nn_ops._tup(kw.get("kernel"), 2, 1)
+        stride = nn_ops._tup(kw.get("stride"), 2, 1)
+        pad = nn_ops._tup(kw.get("pad"), 2, 0)
+        pads = []
+        for i in range(2):
+            hi = pad[i]
+            if kw.get("pooling_convention", "valid") == "full":
+                rem = (data.shape[2 + i] + 2 * pad[i] - kernel[i]) % stride[i]
+                hi += stride[i] - rem if rem else 0
+            pads.append((pad[i], hi))
+        x = F.pad(data, [p for lo_hi in reversed(pads) for p in lo_hi],
+                  value=float("-inf"))
+        out, idx = F.max_pool2d(x, kernel, stride, return_indices=True)
+        seen.append(idx)
+        if frozen is None:
+            return out
+        take = frozen[len(seen) - 1]
+        return x.flatten(2).gather(2, take.flatten(2)).view(take.shape)
+    return {"Pooling": pool}, seen
+
+
+def ssd_check_step(torch, mx, card, symbol, weights, x, y, failures):
+    """(b) The check step: the training graph's loss and every parameter
+    gradient from one set of weights in f32 and in f64 on the device, the
+    ReLU masks, the max-pool choices and MultiBoxTarget's outputs frozen
+    to the f64 run's; again
+    with TF32 convolutions (on the card), which must break the gradient
+    limit.  Returns the record."""
+    from mxnet_tpu_torch.executor import _build_eval
+    from mxnet_tpu_torch.ops import detection
+
+    def targets(frozen, seen, diff):
+        def fn(anchor, label, cls_pred, **kw):
+            real = detection._multibox_target(anchor, label, cls_pred, **kw)
+            if frozen is None:
+                seen.append([t.detach() for t in real])
+                return real
+            f = frozen[len(diff)]
+            diff.append(int(((real[2] != f[2].to(real[2].dtype)) |
+                             (real[1].reshape(real[2].shape + (4,))[..., 0]
+                              != f[1].reshape(f[2].shape + (4,))[..., 0]
+                              .to(real[1].dtype))).sum()))
+            return tuple(t.to(real[0].dtype) for t in f)
+        return fn
+
+    def run(dtype, acts, pools, frozen=None, low=False):
+        seen, diff = [], []
+        impls = dict(acts, **pools)
+        impls["_contrib_MultiBoxTarget"] = targets(frozen, seen, diff)
+        ev = _build_eval(symbol, True, op_impls=impls)
+        leaves = {n: w.detach().to(dtype).requires_grad_()
+                  for n, w in weights.items()}
+        with torch.enable_grad(), mx.enable_x64(), \
+                (tf32_convolutions(torch) if low
+                 else contextlib.nullcontext()):
+            outs = ev(dict(leaves, data0=x.to(dtype), label=y.to(dtype)),
+                      {})[0]
+            tgt = (seen[0] if frozen is None else frozen[0])[2]
+            loss = ssd_loss(torch, outs[0], outs[1], tgt).item()
+            torch.autograd.backward([outs[0], outs[1]],
+                                    [torch.ones_like(outs[0]),
+                                     torch.ones_like(outs[1])])
+        grads = {n: leaf.grad.double() for n, leaf in leaves.items()}
+        return loss, grads, seen, sum(diff)
+
+    t0 = time.perf_counter()
+    acts64, masks = masked_acts(torch)
+    pools64, picks = frozen_max_pools(torch)
+    loss64, g64, tg64, _ = run(torch.float64, acts64, pools64)
+    sync(torch)
+    t64 = time.perf_counter() - t0
+    acts32, seen = masked_acts(torch, masks)
+    pools32, seen_picks = frozen_max_pools(torch, picks)
+    loss32, g32, _, tdiff = run(torch.float32, acts32, pools32, frozen=tg64)
+    flips = sum(int((a != m).sum()) for a, m in zip(seen, masks))
+    units = sum(int(m.numel()) for m in masks)
+    swaps = sum(int((a != m).sum()) for a, m in zip(seen_picks, picks))
+    windows = sum(int(m.numel()) for m in picks)
+    gaps = grad_gaps(torch, g32, g64)
+    on_card = x.device.type == "cuda"
+    rec = {"loss_f64": loss64, "loss_f32": loss32, "flips": flips,
+           "units": units, "pool_swaps": swaps, "windows": windows,
+           "target_anchors_differ": tdiff,
+           "anchors": int(tg64[0][2].numel()),
+           "grad_worst": worst_share(gaps),
+           "loss_ratio": within(abs(loss32 - loss64), abs(loss64),
+                                TOL_SSD_LOSS)[0]}
+    if on_card:
+        acts_low, _ = masked_acts(torch, masks)
+        pools_low, _ = frozen_max_pools(torch, picks)
+        _, g_low, _, _ = run(torch.float32, acts_low, pools_low, frozen=tg64,
+                             low=True)
+        rec["grad_worst_tf32"] = worst_share(grad_gaps(torch, g_low, g64))
+    ok = rec["loss_ratio"] <= 1.0 and rec["grad_worst"] <= TOL_SSD_GRAD
+    tf32_ok = not on_card or rec["grad_worst_tf32"] > TOL_SSD_GRAD
+    log("ssd train: check step, batch %d on %s (f64 %.2f s): loss f32 "
+        "%.7f, f64 %.7f, %.4f of the limit (%g x max(1, |loss|)); target "
+        "anchors of %d that f32's MultiBoxTarget sets otherwise than f64's "
+        "(before freezing): %d" % (
+            x.shape[0], card, t64, loss32, loss64, rec["loss_ratio"],
+            TOL_SSD_LOSS, rec["anchors"], tdiff))
+    top = sorted(gaps, key=lambda n: -gaps[n][0])[:4]
+    log("ssd train: check step: ReLU units on the other branch than f64's, "
+        "of %d: %d; max-pool windows whose f32 maximum is another element "
+        "than f64's, of %d: %d (both frozen to f64's); f32 vs f64: %s; "
+        "largest: %s" % (
+            units, flips, windows, swaps, gap_text(gaps),
+            ", ".join("%s %.3g" % (n, gaps[n][0]) for n in top)))
+    log("ssd train: check step: f32 gradients worst %.4g of max |g| (limit "
+        "%g), TF32 convolutions %s (must exceed the limit) -> %s" % (
+            rec["grad_worst"], TOL_SSD_GRAD,
+            "%.4g" % rec["grad_worst_tf32"] if on_card else "not run on the "
+            "CPU", "ok" if ok and tf32_ok else "FAIL"))
+    if not (ok and tf32_ok):
+        failures.append("the SSD check step failed")
+    return rec
+
+
+def ssd_module(mx, ctx, symbol, it, spec):
+    mod = mx.mod.Module(symbol, data_names=("data0",),
+                        label_names=("label",), context=[ctx])
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": spec["lr"], "momentum": spec["momentum"],
+        "wd": spec["wd"]})
+    return mod
+
+
+def ssd_batch_loss(torch, outs, label):
+    """The example's loss of a batch from the module's outputs, its
+    targets matched again from the anchors and the batch's labels."""
+    from mxnet_tpu_torch.ops import detection
+    cls_prob, loc_loss, anchor = (o._data for o in outs[:3])
+    b, a = loc_loss.shape[0], anchor.shape[1]
+    cls_t = cls_prob.reshape(b, a, -1).transpose(1, 2)
+    tgt = detection._multibox_target(anchor, label._data.to(anchor.device),
+                                     cls_t)[2]
+    return ssd_loss(torch, cls_prob, loc_loss, tgt).item()
+
+
+def ssd_train(torch, mx, ctx, card, prefix, spec, seed, failures):
+    """(b): the check step, one fused step against one legacy step, then
+    the example's loop over ImageDetIter's batches.  Returns (record,
+    module)."""
+    import numpy as np
+    on_card = ctx.device_type == "gpu"
+    symbol = build_ssd300_train(mx, spec["classes"], spec["div"])
+    it = ssd_iter(mx, ctx, prefix, spec, spec["batch"])
+    mod = ssd_module(mx, ctx, symbol, it, spec)
+    args, _ = mod.get_params()
+    count = sum(int(np.prod(a.shape)) for a in args.values())
+    rec = {"params": count}
+    batch = it.next()
+    b = spec["check_batch"]
+    weights = {n: a._data for n, a in args.items()}
+    dev = ctx.torch_device
+    rec["check"] = ssd_check_step(
+        torch, mx, card, symbol, weights, batch.data[0]._data[:b].to(dev),
+        batch.label[0]._data[:b].to(dev), failures)
+
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        got = module_fused_vs_legacy(torch, mx, mod, batch,
+                                     {n: a.copy() for n, a in args.items()})
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = prev
+    differ, total, names, _ = module_compare(got[True], got[False], set())
+    fused = mod.fused_step
+    rec["fused"] = {"differ": differ, "total": total,
+                    "captures": getattr(fused, "captures", None),
+                    "replays": getattr(fused, "replays", None)}
+    log("ssd train: one fused step (%s) against one legacy step from the "
+        "same weights, deterministic cuDNN: %d of %d weight and momentum "
+        "values differ %s -> %s" % (
+            "one CUDA graph, captures %s" % rec["fused"]["captures"]
+            if on_card else "eager on the CPU", differ, total, names[:4],
+            "ok" if differ == 0 else "FAIL"))
+    if differ:
+        failures.append("SSD fused step parts from the legacy step in %d "
+                        "values" % differ)
+
+    mod.set_params({n: a.copy() for n, a in args.items()}, {})
+    for s in mod._updater.states.values():
+        s._data.zero_()
+    if on_card:
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    losses, stamps = [], []
+    it.reset()
+    sync(torch)
+    while len(losses) < spec["batches"]:
+        try:
+            batch = it.next()
+        except StopIteration:
+            it.reset()
+            continue
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(ssd_batch_loss(torch, mod.get_outputs(),
+                                     batch.label[0]))
+        stamps.append(time.perf_counter())
+    first = spec["timed_from"] - 1
+    ms = (stamps[-1] - stamps[first - 1]) * 1e3 / (len(stamps) - first)
+    w = spec["window"]
+    early, late = float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+    peak, peak_text = peak_since(torch, on_card, held)
+    rec.update(ms=ms, images_s=spec["batch"] / ms * 1e3, early=early,
+               late=late, losses=losses, peak_gb=peak, held_gb=held,
+               routes=dict(it.routes))
+    finite = bool(np.isfinite(losses).all())
+    ok = late < early and finite
+    log("ssd train: SSD-300 (VGG16-reduced, %d classes, %d parameters) on "
+        "%s, %d batches of %d from ImageDetIter (routes %s; SGD lr %g, "
+        "momentum %g, wd %g; forward_backward, update, get_outputs): %.3f "
+        "ms a batch (batches %d-%d, host clock, a loss readback each), %.1f "
+        "images/s, peak device memory %s; mean loss of the first %d %.4f, "
+        "of the last %d %.4f (must fall) -> %s" % (
+            spec["classes"], count, card, spec["batches"], spec["batch"],
+            rec["routes"], spec["lr"], spec["momentum"], spec["wd"], ms,
+            spec["timed_from"], spec["batches"], rec["images_s"], peak_text,
+            w, early, w, late, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("SSD train: loss %.4f -> %.4f, finite %s"
+                        % (early, late, finite))
+    return rec, mod
+
+
+def det_rows_equal(torch, got, want, margin_fn, tol=TOL_SWEEP):
+    """(True, 0.0) when MultiBoxDetection rows *got* agree with *want*:
+    class ids and scores equal, boxes within *tol* x max(1, max |want|).
+    Otherwise (False, the decision margin from *margin_fn*)."""
+    same = torch.equal(got[..., :2], want[..., :2])
+    if same:
+        scale = max(1.0, want[..., 2:].abs().max().item())
+        same = (got[..., 2:] - want[..., 2:]).abs().max().item() <= \
+            tol * scale
+    return (True, 0.0) if same else (False, margin_fn())
+
+
+def det_margin(np, heads, spec, with_scores):
+    """How near MultiBoxDetection's decisions on *heads* (f32 tensors)
+    sit to a flip, in float64: |IoU - nms threshold| over the top-k
+    boxes, and with *with_scores* the gaps between their scores and to
+    the 0.01 threshold (when the heads themselves may differ)."""
+    from mxnet_tpu_torch.test_utils import _decode, nms_margin
+    cp = heads[0].detach().cpu().double().numpy()
+    lp = heads[1].detach().cpu().double().numpy()
+    anc = heads[2].detach().cpu().double().numpy()
+    sc = cp[:, 1:].max(1)
+    ids = cp[:, 1:].argmax(1)
+    m = nms_margin(_decode(lp, anc), sc, sc > 0.01, spec["nms_thresh"],
+                   spec["nms_topk"], ids, False)
+    if with_scores:
+        for b in range(sc.shape[0]):
+            top = np.sort(sc[b])[::-1][:spec["nms_topk"] + 1]
+            m = min(m, float(np.abs(np.diff(top)).min()),
+                    float(np.abs(sc[b] - 0.01).min()))
+    return m
+
+
+def ssd_serve(torch, mx, ctx, card, mod, prefix_dir, spec, rng, failures):
+    """(c): the trained weights exported with the inference graph, loaded
+    by ``ModelRegistry.load_checkpoint`` on the rungs (a CUDA graph each
+    on the card); a request of each rung's size held in two parts: the
+    heads (the graph less MultiBoxDetection) against f64, and
+    MultiBoxDetection on the device against the CPU path on the device's
+    own f32 heads; the served rows against that detection."""
+    import numpy as np
+    from mxnet_tpu_torch.executor import _build_eval
+    from mxnet_tpu_torch.ops import detection
+    on_card = ctx.device_type == "gpu"
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    t0 = time.perf_counter()
+    infer = build_ssd300_infer(mx, spec["classes"], spec["nms_thresh"],
+                               spec["nms_topk"], spec["div"])
+    args, aux = mod.get_params()
+    prefix = os.path.join(prefix_dir, "ssd300")
+    mx.model.save_checkpoint(prefix, 0, infer, args, aux)
+    s = spec["image"]
+    reg = mx.serve.ModelRegistry()
+    pred = reg.load_checkpoint(
+        "ssd", prefix, 0, data_shapes={"data0": (1, 3, s, s)},
+        ladder=mx.serve.BucketLadder(batches=spec["rungs"]), ctx=ctx)
+    captures = pred.compile_count
+    count = sum(int(np.prod(p.shape)) for p in pred._params.values())
+    rec = {"params": count, "captures": captures,
+           "load_s": time.perf_counter() - t0, "rungs": {}}
+    heads = mx.sym.Group(list(build_ssd300_heads(mx, spec["classes"],
+                                                 spec["div"])))
+    ev = _build_eval(heads, False)
+    p64 = {n: t.double() for n, t in pred._params.items()}
+    det_kw = dict(nms_threshold=spec["nms_thresh"], nms_topk=spec["nms_topk"])
+    worst_head, parted, margins = 0.0, 0, []
+    shape_ok = True
+    xs = {}
+    for rows in spec["rungs"]:
+        x = rng.randn(rows, 3, s, s).astype(np.float32)
+        xs[rows] = x
+        got = reg.predict("ssd", x)[0]._data
+        xd = torch.from_numpy(x).to(ctx.torch_device)
+        with torch.no_grad():
+            h32 = ev(dict(pred._params, data0=xd), pred._aux)[0]
+            with mx.enable_x64():
+                h64 = ev(dict(p64, data0=xd.double()), {})[0]
+            det_dev = detection._multibox_detection(*h32, **det_kw)
+            det_cpu = detection._multibox_detection(
+                *[h.cpu() for h in h32], **det_kw)
+        ratios = [within((a.double() - b).abs().max().item(),
+                         b.abs().max().item(), TOL_SSD_SERVE)[0]
+                  for a, b in zip(h32, h64)]
+        worst_head = max(worst_head, max(ratios))
+        shape_ok &= tuple(got.shape) == (rows, SSD_ANCHORS, 6) and \
+            bool(torch.isfinite(got).all())
+        r = {"heads": ratios, "kept": int((got[..., 0] >= 0).sum())}
+        for what, a, b, scores in (("device vs CPU", det_dev.cpu(), det_cpu,
+                                    False),
+                                   ("served vs device", got, det_dev, True)):
+            eq, m = det_rows_equal(torch, a, b, lambda: det_margin(
+                np, h32, spec, scores))
+            r[what] = {"equal": eq, "margin": m}
+            if not eq:
+                parted += 1
+                margins.append(m)
+        rec["rungs"][rows] = r
+        log("ssd serve: request of %d images (rung %d) on %s: heads vs f64 "
+            "(cls_prob, loc_pred, anchor) %s of the limit (%g x max(1, "
+            "max|out|)); MultiBoxDetection rows on the device vs the CPU "
+            "path on the same heads: equal %s; served rows vs them: equal "
+            "%s; %d detections kept, output %s" % (
+                rows, pred.ladder.batch_for(rows), card,
+                ", ".join("%.4f" % v for v in ratios), TOL_SSD_SERVE,
+                r["device vs CPU"]["equal"], r["served vs device"]["equal"],
+                r["kept"], tuple(got.shape)))
+        del h32, h64, det_dev, det_cpu, got
+    del p64
+    bad_margin = [m for m in margins if not m < TIE_MARGIN]
+    rec.update(worst_head=worst_head, parted=parted,
+               largest_margin=max(margins) if margins else None)
+    log("ssd serve: detection rows that parted: %d of %d comparisons, "
+        "largest decision margin among them %s (each must lie below "
+        "2**-20)" % (parted, 2 * len(spec["rungs"]),
+                     "%.3g" % max(margins) if margins else "none"))
+    if on_card:
+        rec["ms"] = {}
+        graph_vs_eager(torch, pred, rng, card, "ssd serve graph vs eager",
+                       spec["rungs"], lambda r, n: r.randn(n, 3, s, s).astype(
+                           np.float32), TOL_SSD_SERVE, record=rec["ms"])
+        top = spec["rungs"][-1]
+        rec["images_s"] = top / rec["ms"][top]["graph"] * 1e3
+        rec["shares"] = ssd_head_share(torch, pred, ev, xs[top], det_kw,
+                                       card)
+    peak, peak_text = peak_since(torch, on_card, held)
+    rec.update(captures_after=pred.compile_count, peak_gb=peak, held_gb=held)
+    flat = captures == rec["captures_after"] == len(spec["rungs"]) \
+        if on_card else True
+    ok = worst_head <= 1.0 and not bad_margin and shape_ok and flat
+    log("ssd serve: SSD-300 (%d parameters, nms_threshold %g, nms_topk %d) "
+        "on rungs %s of %s: load + %d captures %.2f s, captures after the "
+        "requests %d, worst head %.4f of the limit, %s, peak device memory "
+        "%s -> %s" % (
+            count, spec["nms_thresh"], spec["nms_topk"], spec["rungs"], card,
+            captures, rec["load_s"], rec["captures_after"], worst_head,
+            "%.1f images/s at rung %d through the graph" % (
+                rec["images_s"], spec["rungs"][-1]) if on_card else
+            "no timing on the CPU", peak_text, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("SSD serve: head %.4g, margins %s, shape %s, "
+                        "captures %d/%d" % (worst_head, bad_margin, shape_ok,
+                                            captures, rec["captures_after"]))
+    reg.close()
+    return rec
+
+
+def graph_ms(torch, graph, iters=10):
+    """ms of one replay of a CUDA *graph*: CUDA events around *iters*
+    replays after one."""
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ssd_head_share(torch, pred, ev, x, det_kw, card):
+    """Where a rung's replay goes: the rung's own CUDA graph and a CUDA
+    graph of MultiBoxDetection alone on the same request's heads, each
+    timed by CUDA events; the detection head's share of the replay, the
+    backbone's (with the class and offset heads) the rest; and one
+    profiled request's kernels by kind."""
+    from mxnet_tpu_torch.ops import detection
+    xd = torch.from_numpy(x).to(pred._dev)
+    with torch.no_grad():
+        heads = [h.clone() for h in ev(dict(pred._params, data0=xd),
+                                       pred._aux)[0]]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            detection._multibox_detection(*heads, **det_kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            detection._multibox_detection(*heads, **det_kw)
+    rung = next(p for p in pred._programs.values()
+                if p._inputs["data0"].shape[0] == x.shape[0])
+    full, det = graph_ms(torch, rung._graph), graph_ms(torch, graph)
+    shares = profile(torch, lambda: pred.predict(x), "ssd serve: one "
+                     "profiled request of %d images" % x.shape[0], card,
+                     shares=SSD_SHARES)
+    log("ssd serve: rung %d's graph %.3f ms a replay, MultiBoxDetection "
+        "alone (a CUDA graph of it on the same heads) %.3f ms (CUDA "
+        "events, 10 replays each): the detection head %.3f of the replay, "
+        "the backbone and heads %.3f on %s" % (
+            x.shape[0], full, det, det / full, 1 - det / full, card))
+    return {"replay_ms": full, "detection_ms": det, "detection_share":
+            det / full, "request_shares": shares}
+
+
+def ssd_example(torch, mx, ctx, card, spec, failures):
+    """(d): examples/train_ssd.py's flow at *spec*: its synthetic set,
+    build_ssd, NDArrayIter, Module on *ctx*, SGD with momentum, the loop
+    (forward_backward, update, get_outputs) and its two assertions: the
+    loss falls first -> last epoch, and MultiBoxDetection finds
+    detections."""
+    import numpy as np
+    t0 = time.perf_counter()
+    X, Y = ssd_example_data(np, spec["examples"], spec["size"],
+                            spec["classes"])
+    num_anchors = 2 + 3 - 1
+    net = build_ssd_example(mx, spec["classes"], num_anchors)
+    it = mx.io.NDArrayIter({"data": X}, {"label": Y},
+                           batch_size=spec["batch"])
+    mod = mx.mod.Module(net, data_names=("data",), label_names=("label",),
+                        context=[ctx])
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": spec["lr"], "momentum": 0.9})
+    epochs = []
+    for _ in range(spec["epochs"]):
+        it.reset()
+        tot, n = 0.0, 0
+        for batch in it:
+            mod.forward_backward(batch)
+            mod.update()
+            outs = mod.get_outputs()
+            cls_prob = outs[0].asnumpy()
+            tgt_cls = outs[3].asnumpy().ravel()
+            valid = tgt_cls >= 0
+            p = cls_prob[np.arange(len(tgt_cls)), tgt_cls.astype(int)]
+            tot += -np.log(np.clip(p[valid], 1e-9, 1.0)).mean() + \
+                float(outs[1].asnumpy().mean())
+            n += 1
+        epochs.append(float(tot / n))
+    it.reset()
+    batch = next(iter(it))
+    mod.forward(batch, is_train=False)
+    outs = mod.get_outputs()
+    anchors = outs[2].asnumpy()
+    B, A = spec["batch"], anchors.shape[1]
+    probs = np.transpose(outs[0].asnumpy().reshape(B, A, spec["classes"] + 1),
+                         (0, 2, 1))
+    with ctx:
+        det = mx.nd.MultiBoxDetection(
+            mx.nd.array(probs), mx.nd.array(outs[4].asnumpy()),
+            mx.nd.array(anchors), nms_threshold=0.5, threshold=0.01)
+    det_np = det.asnumpy()
+    found = float((det_np[:, :, 0] >= 0).any(axis=1).mean())
+    ok = epochs[-1] < epochs[0] and found > 0
+    rec = {"epochs": epochs, "found": found, "det_shape": list(det.shape),
+           "seconds": time.perf_counter() - t0}
+    log("ssd example: examples/train_ssd.py's flow on %s (%d x %d, %d "
+        "classes, %d examples, %d epochs of batch %d): loss by epoch %s; "
+        "first %.4f -> last %.4f (must fall), detections %s, images with "
+        "detections %.2f (must be > 0), %.1f s -> %s" % (
+            card, spec["size"], spec["size"], spec["classes"],
+            spec["examples"], spec["epochs"], spec["batch"],
+            ", ".join("%.4f" % v for v in epochs), epochs[0], epochs[-1],
+            tuple(det.shape), found, rec["seconds"], "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("the train_ssd.py flow: loss %.4f -> %.4f, found "
+                        "%.2f" % (epochs[0], epochs[-1], found))
+    return rec
+
+
+def detection_sweep(torch, dev, on_card, card, seed, failures):
+    """(a): every case of test_utils.detection_op_cases on *dev* against
+    the CPU, outputs and gradients (seeded cotangents) within 2**-18 x
+    max(1, max |cpu|); each case's exact parts (keep masks, class ids,
+    ordering scores, matched targets) bit-equal, or else its decision
+    margin below 2**-20.  On the card the DeformableConvolution and
+    Correlation cases run again with TF32 products, and the worst must
+    break the limit."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import registry as reg
+    from mxnet_tpu_torch.test_utils import detection_op_cases
+
+    def run_op(case, device, low=False):
+        ins = [torch.from_numpy(a).to(device) for a in case["inputs"]]
+        for i in case["grads"]:
+            ins[i].requires_grad_()
+        with tf32_products(torch) if low else contextlib.nullcontext():
+            out = reg.get_op(case["name"]).fn(*ins, **case["params"])
+            outs = out if isinstance(out, tuple) else (out,)
+            rs = np.random.RandomState(seed + 16)
+            cots = [torch.from_numpy(rs.standard_normal(tuple(o.shape))
+                                     .astype(np.float32)).to(device)
+                    for o in outs]
+            live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+            if live:
+                torch.autograd.backward([o for o, _ in live],
+                                        [c for _, c in live])
+        grads = [ins[i].grad if ins[i].grad is not None
+                 else torch.zeros_like(ins[i]) for i in case["grads"]]
+        return [o.detach().cpu().double() for o in outs] + \
+            [g.cpu().double() for g in grads]
+
+    def ratio(got, want):
+        worst = 0.0
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                return math.inf
+            if not w.numel():
+                continue
+            scale = max(1.0, w.abs().max().item())
+            worst = max(worst, (g - w).abs().max().item() /
+                        (TOL_SWEEP * scale))
+        return worst
+
+    def exact(case, got, want):
+        for k, cols in case.get("exact", []):
+            g, w = got[k], want[k]
+            if cols is not None:
+                g, w = g[..., cols], w[..., cols]
+            if not torch.equal(g, w):
+                return False
+        return True
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    ratios, tf32, parted = {}, {}, {}
+    cases = detection_op_cases(seed)
+    for case in cases:
+        want = run_op(case, cpu)
+        got = run_op(case, dev)
+        r = ratio(got, want)
+        if "exact" in case and not (exact(case, got, want) and r <= 1.0):
+            parted[case["id"]] = case["margin"]
+            r = 0.0 if case["margin"] < TIE_MARGIN else max(r, math.inf)
+        ratios[case["id"]] = r
+        if on_card and case["name"] in (
+                "Correlation", "_contrib_DeformableConvolution",
+                "DeformableConvolution"):
+            tf32[case["id"]] = ratio(run_op(case, dev, low=True), want)
+    bad = {k: r for k, r in ratios.items() if not r <= 1.0}
+    names = {c["name"] for c in cases}
+    n_exact = sum("exact" in c for c in cases)
+    log("detection: op sweep of %d cases over %d op names on %s against the "
+        "CPU in %.1f s: worst %.4g of the limit (2**-18 x max(1, max|cpu|), "
+        "outputs and gradients, %s); %d cases with discrete outputs, %d "
+        "parted from the CPU, largest decision margin among them %s (each "
+        "must lie below 2**-20); smallest margin over all %.3g; %d failed" % (
+            len(cases), len(names), card, time.perf_counter() - t0,
+            max(ratios.values()), max(ratios, key=ratios.get), n_exact,
+            len(parted), "%.3g" % max(parted.values()) if parted else "none",
+            min(c["margin"] for c in cases if "margin" in c), len(bad)))
+    for k, r in sorted(bad.items()):
+        failures.append("detection sweep %s: %.4g of the limit%s" % (
+            k, r, " (parted at margin %.3g)" % parted[k] if k in parted
+            else ""))
+    if on_card:
+        low = max(tf32.values())
+        log("detection: DeformableConvolution and Correlation with TF32 "
+            "products, of the limit: %s; worst %.4g (must exceed 1) -> %s" % (
+                ", ".join("%s %.3g" % kv for kv in sorted(tf32.items())),
+                low, "ok" if low > 1.0 else "FAIL"))
+        if not low > 1.0:
+            failures.append("every TF32 DeformableConvolution/Correlation "
+                            "case stayed within the f32 limit (worst %.4g)"
+                            % low)
+    else:
+        log("detection: the TF32 run is the card's; not run on %s" % card)
+    return {"ratios": ratios, "tf32": tf32, "parted": parted}
+
+
+@contextlib.contextmanager
+def tf32_products(torch):
+    """A scope in which float32 matrix products and cuDNN convolutions run
+    in TF32: the pass that the f32 limits must catch."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with tf32_convolutions(torch):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def phase_detection(torch, card, seed, ctx=None, ssd=None, example=None):
+    """Phase 16: the detection and spatial ops on the card against the CPU,
+    SSD-300 trained from ImageDetIter's records and served from its
+    checkpoint, and examples/train_ssd.py's flow (see the module
+    docstring).  *ctx*, *ssd* and *example* size it down for the CPU test.
+    Raises at its end if any check failed; returns the record."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import attention as att
+    if ctx is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("phase 16 needs CUDA")
+        ctx = mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    ssd, example = ssd or SSD, example or SSD_EXAMPLE
+    if on_card:
+        gc.collect()            # what earlier phases left behind in cycles
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    log("detection: phase 16 starts on %s with %s GB of device memory held "
+        "by earlier phases" % (card, "%.3f" % held if on_card
+                               else "not measured"))
+    mx.random.seed(seed + 16)
+    torch.manual_seed(seed + 16)
+    rng = np.random.RandomState(seed + 16)
+    t_phase = time.perf_counter()
+    failures = []
+    before = att.launch_counts()
+    rec = {"card": card, "held_gb": held}
+    rec["ops"] = detection_sweep(torch, ctx.torch_device, on_card, card,
+                                 seed, failures)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssd_")
+    try:
+        prefix, size, secs = ssd_records(np, tmp, seed, ssd)
+        log("ssd data: %d seeded JPEGs (sides %d-%d, %d-%d boxes, quality "
+            "%d) through MXIndexedRecordIO: %.1f MB in %.2f s" % (
+                ssd["records"], ssd["sides"][0], ssd["sides"][1],
+                ssd["boxes"][0], ssd["boxes"][1], ssd["quality"], size / 1e6,
+                secs))
+        rec["route"] = ssd_route_check(torch, np, mx, ctx, card, prefix, ssd,
+                                       seed, failures)
+        rec["train"], mod = ssd_train(torch, mx, ctx, card, prefix, ssd,
+                                      seed, failures)
+        rec["serve"] = ssd_serve(torch, mx, ctx, card, mod, tmp, ssd, rng,
+                                 failures)
+        del mod
+        rec["example"] = ssd_example(torch, mx, ctx, card, example, failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["attention_launches"] = {k: v - before[k]
+                                 for k, v in att.launch_counts().items()}
+    rec["seconds"] = time.perf_counter() - t_phase
+    log("detection: phase 16 in %.1f s on %s; attention kernel launches %s "
+        "(none lies on these paths); %d failed checks" % (
+            rec["seconds"], card, rec["attention_launches"], len(failures)))
+    log("detection record: " + json.dumps(
+        {k: v for k, v in rec.items() if k != "ops"}, default=str))
+    if any(rec["attention_launches"].values()):
+        failures.append("an attention kernel launched in phase 16")
+    if failures:
+        raise RuntimeError("phase 16 failed: " + "; ".join(failures))
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7284,6 +8339,7 @@ def main():
     quant = phase_quant(torch, card, args.seed)["lm"]
     fleet = phase_fleet(torch, card, args.seed)["launches"]
     phase_zoo(torch, card, args.seed)
+    phase_detection(torch, card, args.seed)
     quant_launches = {
         kind: sum(quant[m]["launches"][kind]
                   for m in ("int8", "int8-weight-only"))

@@ -1,8 +1,6 @@
-"""mx.image — host-side image decode + augmentation (port of
-``mxnet_tpu/image/``; reference capability: python/mxnet/image/).
-
-``image/detection.py`` (``ImageDetIter``) is not ported: it needs the
-detection ops (ROADMAP queue A item 12)."""
+"""mx.image — image decode + augmentation (port of ``mxnet_tpu/image/``;
+reference capability: python/mxnet/image/), with the detection
+augmenters and ``ImageDetIter`` (``image/detection.py``)."""
 
 from .image import (imdecode, imread, imresize, resize_short,  # noqa
                     fixed_crop, center_crop, random_crop,
@@ -14,3 +12,7 @@ from .image import (imdecode, imread, imresize, resize_short,  # noqa
                     LightingAug, ColorNormalizeAug, RandomGrayAug,
                     HorizontalFlipAug, CastAug, CreateAugmenter,
                     ImageIter)
+from .detection import (DetAugmenter, DetBorrowAug,  # noqa: F401
+                        DetRandomSelectAug, DetHorizontalFlipAug,
+                        DetRandomCropAug, DetRandomPadAug,
+                        CreateDetAugmenter, ImageDetIter)

@@ -12,3 +12,5 @@ from . import rnn  # noqa: F401
 from . import control_flow  # noqa: F401
 from . import image  # noqa: F401
 from . import quantization  # noqa: F401
+from . import detection  # noqa: F401
+from . import spatial  # noqa: F401

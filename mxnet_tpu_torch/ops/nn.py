@@ -1,5 +1,5 @@
-"""Neural-network ops (port of ``mxnet_tpu/ops/nn.py``, less ROIPooling,
-Custom and MoEFFN): FullyConnected, Convolution, Deconvolution, Pooling,
+"""Neural-network ops (port of ``mxnet_tpu/ops/nn.py``, less Custom and
+MoEFFN): FullyConnected, Convolution, Deconvolution, Pooling, ROIPooling,
 Activation, BatchNorm, LayerNorm, InstanceNorm, LRN, Dropout, softmax,
 log_softmax, softmin, SoftmaxActivation, UpSampling, the contrib
 BilinearResize2D, AdaptiveAvgPooling2D and div_sqrt_dim, the losses
@@ -295,6 +295,38 @@ _ACTS = {
     "gelu": F.gelu,
     "swish": F.silu,
 }
+
+
+@register_op("ROIPooling")
+def _roi_pooling(data, rois, pooled_size=(), spatial_scale=1.0):
+    """Max pool each scaled ROI (R, 5) [batch_idx, x1, y1, x2, y2] of data
+    (N, C, H, W) to a (ph, pw) grid -> (R, C, ph, pw); an empty bin reads
+    0 (reference: roi_pooling-inl.h).  Every bin is a masked max over the
+    whole map, as in the JAX op, so ties share the gradient (``amax``)."""
+    ph, pw = (int(v) for v in pooled_size)
+    H, W = data.shape[2], data.shape[3]
+    dev = data.device
+    bidx = rois[:, 0].to(torch.int64)
+    x1, y1, x2, y2 = (torch.round(rois[:, i] * spatial_scale).to(torch.int64)
+                      for i in range(1, 5))
+    rh = torch.clamp(y2 - y1 + 1, min=1)[:, None]
+    rw = torch.clamp(x2 - x1 + 1, min=1)[:, None]
+    iy = torch.arange(ph, device=dev)[None, :]
+    ix = torch.arange(pw, device=dev)[None, :]
+    hstart = y1[:, None] + torch.div(iy * rh, ph, rounding_mode="floor")
+    hend = y1[:, None] + torch.div((iy + 1) * rh + ph - 1, ph,
+                                   rounding_mode="floor")
+    wstart = x1[:, None] + torch.div(ix * rw, pw, rounding_mode="floor")
+    wend = x1[:, None] + torch.div((ix + 1) * rw + pw - 1, pw,
+                                   rounding_mode="floor")
+    ys = torch.arange(H, device=dev)
+    xs = torch.arange(W, device=dev)
+    in_y = (ys >= hstart[..., None]) & (ys < hend[..., None])    # (R, ph, H)
+    in_x = (xs >= wstart[..., None]) & (xs < wend[..., None])    # (R, pw, W)
+    mask = in_y[:, :, None, :, None] & in_x[:, None, :, None, :]
+    img = data[bidx][:, :, None, None]                       # (R, C, 1, 1, H, W)
+    v = torch.where(mask[:, None], img, float("-inf")).amax(dim=(4, 5))
+    return torch.where(torch.isfinite(v), v, 0.0)
 
 
 @register_op("Activation")

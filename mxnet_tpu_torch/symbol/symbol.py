@@ -770,6 +770,100 @@ def _rnn_shape(params, ins):
     return ins, [(t, b, h * dirs)] + [state_shape] * (n_out - 1)
 
 
+# Detection ops: every output shape follows from the input shapes, so
+# shape inference never runs them (on meta tensors MultiBoxDetection would
+# still take its NMS loop and MultiBoxTarget its matching rounds).
+
+@shape_rule("_contrib_MultiBoxPrior")
+def _prior_shape(params, ins):
+    """(1, H * W * (sizes + ratios - 1), 4) from data (N, C, H, W)."""
+    from ..ops.detection import num_priors
+    data = ins[0]
+    if data is None:
+        return ins, [None]
+    a = num_priors(params.get("sizes", (1.0,)), params.get("ratios", (1.0,)))
+    return ins, [(1, data[2] * data[3] * a, 4)]
+
+
+@shape_rule("_contrib_MultiBoxTarget")
+def _target_shape(params, ins):
+    """(N, A * 4) twice and (N, A) from anchor (1, A, 4), label (N, G, 5)
+    and cls_pred (N, C, A)."""
+    anchor, label, cls_pred = ins
+    a = anchor[1] if anchor is not None else \
+        (cls_pred[2] if cls_pred is not None else None)
+    n = label[0] if label is not None else \
+        (cls_pred[0] if cls_pred is not None else None)
+    if a is None or n is None:
+        return ins, [None] * 3
+    return ins, [(n, a * 4), (n, a * 4), (n, a)]
+
+
+@shape_rule("_contrib_MultiBoxDetection")
+def _detection_shape(params, ins):
+    """(N, A, 6) from cls_prob (N, C, A)."""
+    cls_prob = ins[0]
+    if cls_prob is None:
+        return ins, [None]
+    return ins, [(cls_prob[0], cls_prob[2], 6)]
+
+
+@shape_rule("_contrib_box_nms")
+def _nms_shape(params, ins):
+    return ins, [ins[0], ins[0]]
+
+
+@shape_rule("_contrib_box_iou")
+def _iou_shape(params, ins):
+    lhs, rhs = ins
+    if lhs is None or rhs is None:
+        return ins, [None]
+    return ins, [tuple(lhs[:-1]) + tuple(rhs[:-1])]
+
+
+def _roi_shape(params, ins, default=None):
+    """(R, C, ph, pw) from data (N, C, H, W) and rois (R, 5)."""
+    from ..ops.detection import _seq
+    data, rois = ins
+    if data is None or rois is None:
+        return ins, [None]
+    ps = _seq(params.get("pooled_size", default))
+    ph, pw = (ps * 2 if len(ps) == 1 else ps)[:2]
+    return ins, [(rois[0], data[1], int(ph), int(pw))]
+
+
+@shape_rule("_contrib_ROIAlign")
+def _roi_align_shape(params, ins):
+    return _roi_shape(params, ins, (7, 7))
+
+
+@shape_rule("ROIPooling")
+def _roi_pool_shape(params, ins):
+    return _roi_shape(params, ins)
+
+
+@shape_rule("_contrib_PSROIPooling")
+def _psroi_shape(params, ins):
+    data, rois = ins
+    if data is None or rois is None:
+        return ins, [None]
+    k = int(params.get("pooled_size", 0))
+    return ins, [(rois[0], int(params.get("output_dim", 0)), k, k)]
+
+
+@shape_rule("_contrib_Proposal")
+def _proposal_shape(params, ins):
+    """(N * rpn_post_nms_top_n, 5), and the scores (N * post, 1) with
+    output_score, from cls_prob (N, 2A, H, W)."""
+    from ..ops.registry import get_op
+    n_out = get_op("_contrib_Proposal").n_out(params)
+    cls_prob = ins[0]
+    if cls_prob is None:
+        return ins, [None] * n_out
+    rows = cls_prob[0] * int(params.get("rpn_post_nms_top_n", 300))
+    return ins, [(rows, 5), (rows, 1)][:n_out]
+
+
 def _infer_shapes(symbol, known_var_shapes, partial=False):
     """Propagate shapes through the graph.  Returns ({(node_id, out_idx):
     shape}, {var_name: shape}); raises MXNetError when an argument stays

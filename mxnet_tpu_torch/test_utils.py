@@ -676,3 +676,400 @@ def layer_op_cases(seed=0):
         dict(kernel=(3, 3), stride=(2, 2), pool_type="avg",
              pooling_convention="full"))
     return cases
+
+
+# ---------------------------------------------------------------------------
+# detection and spatial op cases
+# ---------------------------------------------------------------------------
+
+DETECTION_NAMES = (
+    "_contrib_MultiBoxPrior", "MultiBoxPrior", "_contrib_MultiBoxTarget",
+    "MultiBoxTarget", "_contrib_MultiBoxDetection", "MultiBoxDetection",
+    "_contrib_box_iou", "box_iou", "_contrib_box_nms", "box_nms",
+    "_contrib_box_non_maximum_suppression", "_contrib_ROIAlign", "ROIAlign",
+    "_contrib_Proposal", "Proposal", "_contrib_MultiProposal",
+    "MultiProposal")
+SPATIAL_NAMES = (
+    "BilinearSampler", "GridGenerator", "SpatialTransformer", "Correlation",
+    "_contrib_DeformableConvolution", "DeformableConvolution",
+    "_contrib_PSROIPooling", "PSROIPooling", "_contrib_SyncBatchNorm",
+    "SyncBatchNorm", "_contrib_fft", "fft", "_contrib_ifft", "ifft",
+    "_contrib_count_sketch", "count_sketch", "_contrib_quadratic",
+    "quadratic", "_contrib_index_copy")
+
+
+def _np_iou(a, b):
+    """IoU of corner boxes a (N, 4) against b (M, 4) in float64."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    iw = np.maximum(0.0, np.minimum(a[:, None, 2], b[None, :, 2]) -
+                    np.maximum(a[:, None, 0], b[None, :, 0]))
+    ih = np.maximum(0.0, np.minimum(a[:, None, 3], b[None, :, 3]) -
+                    np.maximum(a[:, None, 1], b[None, :, 1]))
+    inter = iw * ih
+    area_a = np.maximum(0.0, a[:, 2] - a[:, 0]) * \
+        np.maximum(0.0, a[:, 3] - a[:, 1])
+    area_b = np.maximum(0.0, b[:, 2] - b[:, 0]) * \
+        np.maximum(0.0, b[:, 3] - b[:, 1])
+    union = area_a[:, None] + area_b[None, :] - inter
+    return np.where(union > 0, inter / np.where(union > 0, union, 1.0), 0.0)
+
+
+def _gaps(values):
+    """The smallest gap between two different values (inf if none)."""
+    v = np.unique(np.asarray(values, np.float64).ravel())
+    return float(np.diff(v).min()) if v.size > 1 else np.inf
+
+
+def nms_margin(boxes, scores, valid, thresh, topk=-1, ids=None,
+               force=True):
+    """How near greedy NMS's decisions sit to a flip, in float64: the
+    smallest |IoU - thresh| over pairs of valid boxes among the top-k.
+    boxes (B, N, 4) corner, scores and valid (B, N)."""
+    worst = np.inf
+    for b in range(boxes.shape[0]):
+        order = np.argsort(-np.asarray(scores[b], np.float64),
+                           kind="stable")
+        k = len(order) if topk <= 0 else min(len(order), topk)
+        top = order[:k][np.asarray(valid[b])[order[:k]]]
+        if top.size < 2:
+            continue
+        iou = _np_iou(boxes[b][top], boxes[b][top])
+        pair = ~np.eye(top.size, dtype=bool)
+        if ids is not None and not force:
+            pair &= ids[b][top][:, None] == ids[b][top][None, :]
+        if pair.any():
+            worst = min(worst, float(np.abs(iou[pair] - thresh).min()))
+    return worst
+
+
+def target_margin(anchor, label, cls_pred, overlap_threshold=0.5,
+                  negative_mining_ratio=-1.0, negative_mining_thresh=0.5,
+                  **_):
+    """The same for MultiBoxTarget, its matching replayed in float64: the
+    smallest gap between the best and the next IoU of each bipartite
+    round and of each anchor's best label, |best IoU - threshold| and,
+    when mining, |best IoU - mining threshold| and the gap between two
+    background probabilities."""
+    anchors = anchor.reshape(-1, 4)
+    worst = np.inf
+    for n in range(label.shape[0]):
+        lbl = label[n][label[n, :, 0] != -1]
+        if not lbl.size:
+            continue
+        iou = _np_iou(anchors, lbl[:, 1:5])
+        used = iou.copy()
+        for _ in range(lbl.shape[0]):
+            flat = np.sort(used.ravel())[::-1]
+            if flat[0] <= 1e-6:
+                break
+            worst = min(worst, flat[0] - flat[1])
+            i, j = np.unravel_index(np.argmax(used), used.shape)
+            used[i, :] = -1.0
+            used[:, j] = -1.0
+        if iou.shape[1] > 1:
+            top2 = np.sort(iou, 1)[:, -2:]
+            live = top2[:, 1] > overlap_threshold
+            if live.any():
+                worst = min(worst, float((top2[live, 1] -
+                                          top2[live, 0]).min()))
+        best = iou.max(1)
+        worst = min(worst, float(np.abs(best - overlap_threshold).min()))
+        if negative_mining_ratio > 0:
+            z = cls_pred[n].astype(np.float64)
+            p0 = np.exp(z[0] - z.max(0)) / np.exp(z - z.max(0)).sum(0)
+            worst = min(worst, _gaps(p0), float(np.abs(
+                best - negative_mining_thresh).min()))
+    return float(worst)
+
+
+def _decode(loc, anchors, var=(0.1, 0.1, 0.2, 0.2), clip=True):
+    a = anchors.reshape(-1, 4).astype(np.float64)
+    aw, ah = a[:, 2] - a[:, 0], a[:, 3] - a[:, 1]
+    ax, ay = (a[:, 0] + a[:, 2]) / 2, (a[:, 1] + a[:, 3]) / 2
+    loc = loc.reshape(loc.shape[0], -1, 4).astype(np.float64)
+    px = loc[..., 0] * var[0] * aw + ax
+    py = loc[..., 1] * var[1] * ah + ay
+    pw = np.exp(loc[..., 2] * var[2]) * aw / 2
+    ph = np.exp(loc[..., 3] * var[3]) * ah / 2
+    out = np.stack([px - pw, py - ph, px + pw, py + ph], -1)
+    return np.clip(out, 0.0, 1.0) if clip else out
+
+
+def detection_op_cases(seed=0):
+    """The detection and spatial op sweep, in layer_op_cases' format
+    (``name``, ``id``, ``inputs``, ``params``, ``grads``), over the 37
+    names of ops/detection.py, ROIPooling and ops/spatial.py, each with at
+    least one case.  A case whose outputs rest on discrete decisions
+    (matching, suppression, sorting) also has ``exact``, [(output index,
+    columns or None)] that must agree bit for bit, and ``margin``: how far
+    (in float64) its decision quantities lie from a flip, so that a
+    difference between two devices can be told from a fault."""
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+
+    def n(*shape):
+        return rs.standard_normal(shape).astype(f32)
+
+    def u(lo, hi, *shape):
+        return rs.uniform(lo, hi, shape).astype(f32)
+
+    cases = []
+
+    def add(name, inputs, params=None, grads=(0,), tag="", exact=None,
+            margin=None):
+        case = {"name": name, "inputs": [np.asarray(a) for a in inputs],
+                "params": dict(params or {}), "grads": tuple(grads),
+                "id": name + ("-" + tag if tag else "")}
+        if exact is not None:
+            case["exact"] = list(exact)
+            case["margin"] = float(margin)
+        cases.append(case)
+
+    def boxes(*lead, lo=0.0, hi=1.0, size=(0.05, 0.4)):
+        c = u(lo, hi, *lead, 2)
+        wh = u(size[0], size[1], *lead, 2)
+        return np.concatenate([c - wh / 2, c + wh / 2], -1).astype(f32)
+
+    # MultiBoxPrior: shape only (the data's gradient is zero)
+    add("_contrib_MultiBoxPrior", [n(2, 3, 5, 7)],
+        dict(sizes=(0.5, 0.3), ratios=(1.0, 2.0, 0.5)))
+    add("MultiBoxPrior", [n(1, 4, 38, 38)],
+        dict(sizes=(0.1, 0.141), ratios=(1.0, 2.0, 0.5), clip=True),
+        tag="ssd-scale0")
+    add("MultiBoxPrior", [n(1, 2, 3, 4)],
+        dict(sizes=(0.7,), ratios=(1.0, 3.0), steps=(0.3, 0.2),
+             offsets=(0.2, 0.7), clip=True), tag="steps")
+
+    # MultiBoxTarget over a prior grid
+    grid = np.concatenate([
+        _np_prior(6, 6, (0.2, 0.3), (1.0, 2.0, 0.5)),
+        _np_prior(3, 3, (0.5, 0.6), (1.0, 2.0))], axis=1)
+    # jittered, so that no two anchors tie in area by construction
+    grid = (grid + rs.uniform(-0.01, 0.01, grid.shape)).astype(f32)
+    A = grid.shape[1]
+    label = np.full((3, 4, 5), -1.0, f32)
+    for i, k in enumerate((1, 3, 4)):
+        label[i, :k, 0] = rs.randint(0, 3, k)
+        label[i, :k, 1:] = boxes(k, lo=0.2, hi=0.8, size=(0.15, 0.5))
+    cls = n(3, 4, A)
+    for name, tag, params in (
+            ("_contrib_MultiBoxTarget", "", {}),
+            ("MultiBoxTarget", "mining", dict(negative_mining_ratio=3.0,
+                                              negative_mining_thresh=0.5,
+                                              minimum_negative_samples=2)),
+            ("MultiBoxTarget", "thresh", dict(overlap_threshold=0.3,
+                                              ignore_label=-2.0,
+                                              variances=(0.2, 0.2, 0.1,
+                                                         0.1)))):
+        add(name, [grid, label, cls], params, grads=(0, 1), tag=tag,
+            exact=[(1, None), (2, None)],
+            margin=target_margin(grid, label, cls, **params))
+
+    # box_iou
+    add("_contrib_box_iou", [boxes(2, 3), boxes(5)], grads=(0, 1))
+    add("box_iou", [u(0.2, 0.8, 4, 4), u(0.2, 0.8, 3, 2, 4)],
+        dict(format="center"), grads=(0, 1), tag="center")
+
+    # box_nms: [id, score, l, t, r, b] rows
+    def nms_rows(b, k, ids=3):
+        r = np.zeros((b, k, 6), f32)
+        r[..., 0] = rs.randint(0, ids, (b, k))
+        r[..., 1] = u(0.0, 1.0, b, k)
+        r[..., 2:] = boxes(b, k, lo=0.3, hi=0.7, size=(0.1, 0.5))
+        return r
+    r = nms_rows(2, 24)
+    add("_contrib_box_nms", [r], dict(overlap_thresh=0.5,
+                                      force_suppress=True),
+        tag="force", exact=[(0, [1])],
+        margin=nms_margin(r[..., 2:], r[..., 1], r[..., 1] > 0, 0.5))
+    r = nms_rows(3, 20)
+    add("box_nms", [r], dict(overlap_thresh=0.4, valid_thresh=0.3, topk=8,
+                             id_index=0), tag="per-class-topk",
+        exact=[(0, [0, 1])],
+        margin=min(nms_margin(r[..., 2:], r[..., 1], r[..., 1] > 0.3, 0.4,
+                              8, r[..., 0], False),
+                   float(np.abs(r[..., 1] - 0.3).min())))
+    r = nms_rows(2, 16)
+    rc = r.copy()
+    rc[..., 2:4] = (r[..., 2:4] + r[..., 4:6]) / 2
+    rc[..., 4:6] = r[..., 4:6] - r[..., 2:4]
+    add("_contrib_box_non_maximum_suppression", [rc],
+        dict(overlap_thresh=0.5, topk=50, in_format="center",
+             out_format="corner"), tag="center-topk-past-n",
+        exact=[(0, [1])],
+        margin=nms_margin(r[..., 2:], r[..., 1], r[..., 1] > 0, 0.5, 50))
+
+    # MultiBoxDetection: softmax probabilities over 4 classes
+    def probs(*shape):
+        z = n(*shape) * 2.0
+        e = np.exp(z - z.max(1, keepdims=True))
+        return (e / e.sum(1, keepdims=True)).astype(f32)
+    cp, lp = probs(2, 4, A), n(2, A * 4) * f32(0.5)
+    dec = _decode(lp, grid)
+    sc = cp[:, 1:].max(1)
+    ids = cp[:, 1:].argmax(1)
+    add("_contrib_MultiBoxDetection", [cp, lp, grid], grads=(0, 1, 2),
+        exact=[(0, [0, 1])],
+        margin=min(nms_margin(dec, sc, sc > 0.01, 0.5, -1, ids, False),
+                   float(np.abs(sc - 0.01).min())))
+    cp, lp = probs(2, 4, A), n(2, A * 4) * f32(0.5)
+    dec = _decode(lp, grid, clip=False)
+    sc = cp[:, 1:].max(1)
+    add("MultiBoxDetection", [cp, lp, grid],
+        dict(nms_topk=20, force_suppress=True, threshold=0.3, clip=False,
+             nms_threshold=0.45), grads=(0, 1, 2), tag="topk-force",
+        exact=[(0, [0, 1])],
+        margin=min(nms_margin(dec, sc, sc > 0.3, 0.45, 20),
+                   float(np.abs(sc - 0.3).min())))
+
+    # ROIAlign, ROIPooling: rois [batch_idx, x1, y1, x2, y2] in pixels
+    def rois(r, nb, h, w):
+        x = np.sort(u(-1.0, w + 1.0, r, 2), 1)
+        y = np.sort(u(-1.0, h + 1.0, r, 2), 1)
+        b = rs.randint(0, nb, (r, 1)).astype(f32)
+        return np.concatenate([b, x[:, :1], y[:, :1], x[:, 1:], y[:, 1:]],
+                              1).astype(f32)
+    add("_contrib_ROIAlign", [n(2, 3, 8, 9), rois(4, 2, 16, 18)],
+        dict(pooled_size=(2, 3), spatial_scale=0.5, sample_ratio=2),
+        grads=(0, 1))
+    add("ROIAlign", [n(2, 3, 8, 9), rois(3, 2, 8, 9)],
+        dict(pooled_size=(3, 3)), grads=(0, 1), tag="sr-default")
+    add("ROIPooling", [n(2, 3, 10, 12), rois(4, 2, 20, 24)],
+        dict(pooled_size=(3, 2), spatial_scale=0.5))
+
+    # Proposal and its batched names
+    def rpn(nb, na, h, w):
+        return (u(0.0, 1.0, nb, 2 * na, h, w), n(nb, 4 * na, h, w) *
+                f32(0.1), np.tile(np.array([[64, 64, 1.0]], f32), (nb, 1)))
+    for name, tag, nb, params in (
+            ("_contrib_Proposal", "", 1, {}),
+            ("Proposal", "scores", 2, dict(output_score=True)),
+            ("_contrib_MultiProposal", "", 2, dict(rpn_pre_nms_top_n=20)),
+            ("MultiProposal", "scores", 2, dict(output_score=True,
+                                                threshold=0.5))):
+        c, b, info = rpn(nb, 3, 4, 4)
+        params = dict(dict(rpn_post_nms_top_n=10, scales=(2,),
+                           ratios=(0.5, 1, 2), feature_stride=16,
+                           rpn_min_size=4), **params)
+        add(name, [c, b, info], params, grads=(0, 1), tag=tag,
+            exact=[(1, None)] if params.get("output_score") else [],
+            margin=_proposal_margin(c, b, info, params))
+
+    # spatial
+    add("BilinearSampler", [n(2, 3, 5, 6), u(-1.1, 1.1, 2, 2, 4, 7)],
+        grads=(0, 1))
+    add("GridGenerator", [n(2, 6)], dict(target_shape=(5, 7)), tag="affine")
+    add("GridGenerator", [n(2, 2, 4, 5)], dict(transform_type="warp"),
+        tag="warp")
+    theta = np.tile(np.array([[0.8, 0.1, 0.05, -0.1, 0.9, 0.02]], f32),
+                    (2, 1)) + n(2, 6) * f32(0.05)
+    add("SpatialTransformer", [n(2, 3, 8, 8), theta],
+        dict(target_shape=(6, 5)), grads=(0, 1))
+    add("Correlation", [n(2, 4, 7, 8), n(2, 4, 7, 8)],
+        dict(max_displacement=2, pad_size=2), grads=(0, 1))
+    add("Correlation", [n(2, 3, 9, 9), n(2, 3, 9, 9)],
+        dict(kernel_size=3, max_displacement=2, stride1=2, stride2=2,
+             pad_size=3, is_multiply=False), grads=(0, 1), tag="abs-k3")
+    x = n(2, 4, 7, 7)
+    add("_contrib_DeformableConvolution",
+        [x, n(2, 2 * 9 * 2, 7, 7) * f32(0.7), n(6, 2, 3, 3) / f32(4), n(6)],
+        dict(kernel=(3, 3), pad=(1, 1), num_filter=6, num_group=2,
+             num_deformable_group=2), grads=(0, 1, 2, 3), tag="groups")
+    add("DeformableConvolution",
+        [n(2, 3, 9, 9), n(2, 18, 5, 5) * f32(0.7), n(4, 3, 3, 3) / f32(5)],
+        dict(kernel=(3, 3), stride=(2, 2), pad=(2, 2), dilate=(2, 2),
+             num_filter=4, no_bias=True), grads=(0, 1, 2),
+        tag="strided-dilated")
+    add("DeformableConvolution",
+        [n(2, 16, 14, 14), n(2, 18, 14, 14) * f32(0.7),
+         n(32, 16, 3, 3) / f32(12), n(32)],
+        dict(kernel=(3, 3), pad=(1, 1), num_filter=32), grads=(0, 1, 2, 3),
+        tag="wide")
+    feat = n(2, 8, 6, 6)
+    add("_contrib_PSROIPooling", [feat, rois(3, 2, 6, 6)],
+        dict(output_dim=2, pooled_size=2, group_size=2))
+    add("PSROIPooling", [n(2, 9, 8, 8), rois(3, 2, 16, 16)],
+        dict(output_dim=1, pooled_size=3, spatial_scale=0.5), tag="k3")
+    bn = [n(4, 3, 5, 5), u(0.5, 1.5, 3), n(3), n(3),
+          u(0.5, 2.0, 3)]
+    add("_contrib_SyncBatchNorm", bn, dict(fix_gamma=False),
+        grads=(0, 1, 2))
+    add("SyncBatchNorm", bn, dict(fix_gamma=False, use_global_stats=True),
+        grads=(0, 1, 2), tag="global-stats")
+    add("_contrib_fft", [n(3, 8)])
+    add("fft", [n(2, 3, 5)], tag="odd")
+    add("_contrib_ifft", [n(3, 16)])
+    add("ifft", [n(2, 2, 10)], tag="3d")
+    add("_contrib_count_sketch",
+        [n(2, 6), np.array([0, 2, 1, 2, 0, 1], f32),
+         np.array([1, -1, 1, 1, -1, 1], f32)], dict(out_dim=3),
+        grads=(0, 2))
+    add("count_sketch", [n(3, 4, 10), rs.randint(0, 5, 10).astype(f32),
+                         rs.choice([-1.0, 1.0], 10).astype(f32)],
+        dict(out_dim=5), grads=(0, 2), tag="3d")
+    add("_contrib_quadratic", [n(3, 4)], dict(a=0.5, b=-2.0, c=1.5))
+    add("quadratic", [n(2, 5)], dict(a=-1.0, c=3.0), tag="no-b")
+    add("_contrib_index_copy", [n(5, 3), np.array([-1, 7, 2], f32),
+                                n(3, 3)], grads=(0, 2))
+    return cases
+
+
+def _np_prior(h, w, sizes, ratios):
+    """MultiBoxPrior's anchors (1, h*w*A, 4) in numpy (clip off)."""
+    cy = (np.arange(h) + 0.5) / h
+    cx = (np.arange(w) + 0.5) / w
+    ws = [s * h / w / 2 for s in sizes]
+    hs = [s / 2 for s in sizes]
+    for r in ratios[1:]:
+        ws.append(sizes[0] * h / w * np.sqrt(r) / 2)
+        hs.append(sizes[0] / np.sqrt(r) / 2)
+    ws, hs = np.array(ws), np.array(hs)
+    cxg = np.broadcast_to(cx[None, :, None], (h, w, ws.size))
+    cyg = np.broadcast_to(cy[:, None, None], (h, w, ws.size))
+    return np.stack([cxg - ws, cyg - hs, cxg + ws, cyg + hs],
+                    -1).reshape(1, -1, 4)
+
+
+def _proposal_margin(cls_prob, bbox_pred, im_info, params):
+    """nms_margin of Proposal's decoded boxes (float64), and how near a
+    box side sits to the minimum size."""
+    nb, na2, h, w = cls_prob.shape
+    na = na2 // 2
+    base, worst = params["feature_stride"], np.inf
+    ws, hs = [], []
+    for r in params["ratios"]:
+        w0 = round((base * base / r) ** 0.5)
+        for s in params["scales"]:
+            ws.append(w0 * s)
+            hs.append(round(w0 * r) * s)
+    ws, hs = np.array(ws, np.float64), np.array(hs, np.float64)
+    cx = (base - 1) / 2.0
+    acx = cx + np.arange(w)[None, :, None] * base
+    acy = cx + np.arange(h)[:, None, None] * base
+    anc = np.stack([np.broadcast_to(acx - (ws - 1) / 2, (h, w, na)),
+                    np.broadcast_to(acy - (hs - 1) / 2, (h, w, na)),
+                    np.broadcast_to(acx + (ws - 1) / 2, (h, w, na)),
+                    np.broadcast_to(acy + (hs - 1) / 2, (h, w, na))],
+                   -1).reshape(-1, 4)
+    aw, ah = anc[:, 2] - anc[:, 0] + 1, anc[:, 3] - anc[:, 1] + 1
+    ax, ay = anc[:, 0] + 0.5 * (aw - 1), anc[:, 1] + 0.5 * (ah - 1)
+    thresh = params.get("threshold", 0.7)
+    topk = params.get("rpn_pre_nms_top_n", 6000)
+    for i in range(nb):
+        sc = cls_prob[i, na:].transpose(1, 2, 0).reshape(-1)
+        d = bbox_pred[i].reshape(na, 4, h, w).transpose(2, 3, 0, 1) \
+            .reshape(-1, 4).astype(np.float64)
+        px, py = d[:, 0] * aw + ax, d[:, 1] * ah + ay
+        pw, ph = np.exp(d[:, 2]) * aw, np.exp(d[:, 3]) * ah
+        bx = np.stack([px - 0.5 * (pw - 1), py - 0.5 * (ph - 1),
+                       px + 0.5 * (pw - 1), py + 0.5 * (ph - 1)], -1)
+        bx[:, 0::2] = np.clip(bx[:, 0::2], 0, im_info[i, 1] - 1)
+        bx[:, 1::2] = np.clip(bx[:, 1::2], 0, im_info[i, 0] - 1)
+        sides = np.stack([bx[:, 2] - bx[:, 0] + 1, bx[:, 3] - bx[:, 1] + 1])
+        min_size = params["rpn_min_size"] * im_info[i, 2]
+        worst = min(worst, float(np.abs(sides - min_size).min()))
+        ok = (sides >= min_size).all(0)
+        worst = min(worst, nms_margin(bx[None], sc[None], ok[None], thresh,
+                                      topk))
+    return worst

@@ -622,7 +622,8 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
             "int8-weight-only": {"launches": {"eager": 84, "graph": 240}}}},
         "phase_fleet": lambda t, c, s: {"launches": {"wrapper": 36,
                                                      "graph": 1500}},
-        "phase_zoo": lambda t, c, s: {}}
+        "phase_zoo": lambda t, c, s: {},
+        "phase_detection": lambda t, c, s: {}}
     for name, fn in stub.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     assert chip_smoke.main() == 0

@@ -97,7 +97,9 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.gluon.model_zoo.vision.densenet, "
             "mxnet_tpu_torch.gluon.model_zoo.vision.inception, "
             "mxnet_tpu_torch.gluon.contrib.nn, "
-            "mxnet_tpu_torch.gluon.contrib.nn.basic_layers; "
+            "mxnet_tpu_torch.gluon.contrib.nn.basic_layers, "
+            "mxnet_tpu_torch.ops.detection, mxnet_tpu_torch.ops.spatial, "
+            "mxnet_tpu_torch.image.detection; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')))")
@@ -164,7 +166,8 @@ def test_gpu_context_without_cuda_raises(no_cuda):
                                    "contrib quantize_model", "tune",
                                    "DecodeMeasurer", "ReplicaServer LOAD",
                                    "replica main", "get_model pretrained",
-                                   "alexnet initialize"])
+                                   "alexnet initialize", "ImageDetIter",
+                                   "nd.MultiBoxPrior", "SSD Module"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -347,6 +350,24 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
     elif entry == "alexnet initialize":
         net = mx.gluon.model_zoo.vision.get_model("alexnet")
         call = net.initialize
+    elif entry == "ImageDetIter":
+        img = str(tmp_path / "d.png")
+        import cv2
+        cv2.imwrite(img, np.zeros((8, 8, 3), np.uint8))
+        call = lambda: mx.image.ImageDetIter(
+            1, (3, 4, 4), imglist=[([0, 0.1, 0.1, 0.5, 0.5], img)])
+    elif entry == "nd.MultiBoxPrior":
+        call = lambda: mx.nd.contrib.MultiBoxPrior(
+            mx.nd.zeros((1, 2, 3, 3)), sizes=(0.5,))
+    elif entry == "SSD Module":
+        label = mx.sym.var("label")
+        anchors = mx.sym.MultiBoxPrior(mx.sym.var("data"), sizes=(0.5,))
+        out = mx.sym.MultiBoxTarget(anchors, label, mx.sym.var("cls"))[2]
+        call = lambda: mx.mod.Module(
+            mx.sym.MakeLoss(out), data_names=("data", "cls"),
+            label_names=("label",)).bind(
+                [("data", (1, 2, 3, 3)), ("cls", (1, 2, 9))],
+                [("label", (1, 1, 5))])
     elif entry == "DecodeMeasurer":
         from mxnet_tpu_torch.autotune import synth_decode_trace
         from mxnet_tpu_torch.autotune.measure import DecodeMeasurer

@@ -40,9 +40,10 @@ FLOAT_TOL = 1e-6
 # the port's registry: these families' 275 names and 91 others (the
 # layers' ops, the loss heads, attention, the optimizer updates, RNN, the
 # four control-flow ops, the nine _image_* ops with their aliases, the
-# 17 quantization names, and the 16 layer-op names of
-# test_utils.layer_op_cases)
-N_PORT_OPS = 366
+# 17 quantization names, the 16 layer-op names of
+# test_utils.layer_op_cases, and the 37 detection and spatial names of
+# test_utils.detection_op_cases)
+N_PORT_OPS = 403
 
 _JAX_MODULES = {"mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.reduce",
                 "mxnet_tpu.ops.tensor", "mxnet_tpu.ops.random_ops"}
