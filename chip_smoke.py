@@ -227,7 +227,7 @@ Phases, each reported on its own line; any failure exits non-zero:
              seeded pool of 8; the parent replays every pool row at every
              rung of both versions and keeps SHA-256 hashes of the logits.
              (a) One replica: a closed loop of 2 clients x 4 requests, then
-             an open loop of 60 at half its rate; a second replica
+             an open loop of 30 at half its rate; a second replica
              spawned, the same open loop again, then closed loops of 2 x 4
              and 4 x 4: up and scale-out seconds, requests/s, p50 and the
              slowest request (from each send in a closed loop, whose
@@ -325,6 +325,35 @@ Phases, each reported on its own line; any failure exits non-zero:
              examples/train_ssd.py's flow at its defaults (64 x 64, 3
              classes, 256 examples, 5 epochs): the loss falls and
              MultiBoxDetection finds detections.
+17. sparse — sparse storage and the long tail of ops; no kernel of its
+             own (PyTorch and, for linalg, cuSOLVER/cuBLAS compute them),
+             and its LM path launches the three attention kernels.  (a)
+             ``test_utils.sparse_op_cases`` (the 48 op names of the slice,
+             ``nd.sparse``, the lazy row updates, the executor's CSR and
+             row-sparse paths, a ``partition_graph`` round trip) on the
+             card against the CPU: float outputs and gradients within
+             2**-18 x max(1, max|cpu|), discrete ones equal, eigenvectors
+             and LQ factors up to each vector's sign, the samplers by
+             moments; the wide gemm2 and syrk cases in TF32 must break the
+             limit.  (b) Sparse linear classification at the Avazu width
+             of the reference's example/sparse/linear_classification
+             (1,000,001 features, batch 8192) on 131,072 seeded LibSVM
+             rows: a check step against the CPU (touched rows within
+             2**-18 x max |value|, untouched rows bit-unchanged), two
+             epochs of the example's local loop (LibSVMIter ->
+             sparse.dot -> compress_rowsparse -> AdaGrad's lazy row
+             update; the loss falls), the same model as a Symbol through
+             Module.fit (the legacy step: a CSR batch's nnz varies), and
+             the example's own flow at its defaults (accuracy >= 0.9).
+             (c) Phase 10's LM with its Embedding's sparse_grad set in the
+             Symbol's JSON, through Module: one fused step against the
+             dense-gradient Symbol's (touched rows within 2**-18 x max
+             |value|, everything else bit-equal), against a legacy step,
+             then six fused steps (SGD, momentum 0.9, wd 1e-4) whose loss
+             falls and whose untouched rows stay bit-unchanged, 12
+             launches of each attention kernel a step.  (d) A user
+             ``CustomOp`` on the card against the CPU, and as a layer of
+             an MLP through Module.fit (the legacy step).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -6165,7 +6194,7 @@ def phase_quant(torch, card, seed, ctx=None, resnet=None, lm=None,
 FLEET = dict(cfg=(VOCAB, DIM, HEADS, LAYERS, SEQ), rungs=(1, 2, 4),
              rows=(1, 2), pool=8, closed=(2, 4),
              closed_two=((2, 4), (4, 4)), open_share=0.5,
-             open_requests=60, kill_at=3, kill_requests=8, deploy_tail=4,
+             open_requests=30, kill_at=3, kill_requests=8, deploy_tail=4,
              max_wait_ms=MAX_WAIT_MS, spawn_timeout=600.0, workers=16,
              hashers=6)
 # (d): the reference's own decode_lm (bench.py:1479-1500)
@@ -8310,6 +8339,760 @@ def phase_detection(torch, card, seed, ctx=None, ssd=None, example=None):
     return rec
 
 
+# Phase 17: sparse storage and the long tail.  (b) is the reference's
+# example/sparse/linear_classification at the Avazu width it documents
+# (1,000,001 hashed features, batch 8192) on seeded LibSVM text: rows of
+# 10-20 hashed categorical features of value 1.0, their ids Zipf-skewed
+# over the id space (hot features repeat), labels from a planted weight
+# vector.  (c) is phase 10's LM with its Embedding's sparse_grad set in
+# the Symbol's JSON.
+SPARSE_LINEAR = dict(features=1000001, batch=8192, rows=131072, nnz=(10, 20),
+                     zipf=1.1, noise=0.5, epochs=2, lr=0.5)
+SPARSE_EXAMPLE = dict(features=1000, examples=2000, batch=64, epochs=5,
+                      lr=0.5, min_accuracy=0.9)     # the example's defaults
+SPARSE_LM_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+SPARSE_LM_STEPS = 6
+SPARSE_LM_PATH = "sparse-embedding LM train (Module, fused graph)"
+SPARSE_TF32 = ("linalg_gemm2-wide", "linalg_syrk-wide")
+
+
+def sparse_sweep(torch, mx, ctx, on_card, card, seed, failures):
+    """(a): every case of ``test_utils.sparse_op_cases`` on *ctx* against
+    the port's CPU path: float outputs and gradients (seeded cotangents)
+    within 2**-18 x max(1, max |cpu|), the discrete ones equal,
+    eigenvectors and LQ factors after matching each vector's sign, the
+    samplers by their moments within 4 standard errors; then the wide
+    gemm2 and syrk cases with TF32 products, whose worst must break the
+    limit (on the card)."""
+    import numpy as np
+    from mxnet_tpu_torch.ops import registry as reg
+    from mxnet_tpu_torch.test_utils import (SAMPLER_MOMENTS, align_signs,
+                                            moments_within, sparse_op_cases)
+    from mxnet_tpu_torch.runtime import rng as rt_rng
+
+    def run_op(case, device, low=False):
+        op = reg.get_op(case["name"])
+        ins = [torch.from_numpy(np.array(a)).to(device)
+               for a in case["inputs"]]
+        for i in case["grads"]:
+            ins[i].requires_grad_()
+        lead = [rt_rng.generator(device)] if op.needs_rng else []
+        with tf32_products(torch) if low else contextlib.nullcontext(), \
+                torch.device(device):
+            out = op.fn(*lead, *ins, **case["params"])
+            outs = list(out) if isinstance(out, tuple) else [out]
+            rs = np.random.RandomState(seed + 17)
+            cots = [torch.from_numpy(rs.standard_normal(tuple(o.shape))
+                                     .astype(np.float32)).to(device)
+                    for o in outs]
+            live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+            if live:
+                torch.autograd.backward([o for o, _ in live],
+                                        [c for _, c in live])
+        grads = [ins[i].grad if ins[i].grad is not None
+                 else torch.zeros_like(ins[i]) for i in case["grads"]]
+        return [o.detach().cpu() for o in outs] + [g.cpu() for g in grads]
+
+    def ratio(case, got, want):
+        worst, flips = 0.0, {}
+        signs = case.get("signs", {})
+        for k, (g, w) in enumerate(zip(got, want)):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                return math.inf
+            if k in case.get("exact", []):
+                if not torch.equal(g, w):
+                    return math.inf
+                continue
+            if k in signs:
+                link = case.get("sign_links", {}).get(k)
+                if link is None:
+                    g, flips[k] = align_signs(g, w, signs[k])
+                else:
+                    s = flips[link]
+                    g = g * (s if signs[k] == -1 else s.swapaxes(-1, -2))
+            g, w = g.double(), w.double()
+            if not bool(torch.isfinite(g).all()):
+                return math.inf
+            if w.numel():
+                scale = max(1.0, w.abs().max().item())
+                worst = max(worst, (g - w).abs().max().item() /
+                            (TOL_SWEEP * scale))
+        return worst
+
+    t0 = time.perf_counter()
+    cpu, dev = mx.cpu(), ctx.torch_device
+    cases = sparse_op_cases(seed)
+    ratios, tf32, moments = {}, {}, {}
+    for case in cases:
+        if case["kind"] == "sample":
+            draws = run_op(case, dev)[0].double().numpy()
+            means, vars_ = SAMPLER_MOMENTS[case["name"]]
+            texts = [moments_within(row, m, v)
+                     for row, m, v in zip(draws, means, vars_)]
+            moments[case["id"]] = all(ok for ok, _ in texts)
+            ratios[case["id"]] = 0.0 if moments[case["id"]] else math.inf
+            continue
+        if case["kind"] == "call":
+            want = [t.detach().cpu() for t in case["run"](mx, cpu)]
+            got = [t.detach().cpu() for t in case["run"](mx, ctx)]
+        else:
+            want = run_op(case, torch.device("cpu"))
+            got = run_op(case, dev)
+        ratios[case["id"]] = ratio(case, got, want)
+        if on_card and case["id"] in SPARSE_TF32:
+            tf32[case["id"]] = ratio(case, run_op(case, dev, low=True), want)
+    bad = {k: r for k, r in ratios.items() if not r <= 1.0}
+    names = {c["name"] for c in cases if "name" in c}
+    log("sparse: op sweep of %d cases over %d op names, nd.sparse, the lazy "
+        "row updates, the executor's CSR and row-sparse paths and a "
+        "partition_graph round trip on %s against the CPU in %.1f s: worst "
+        "%.4g of the limit (2**-18 x max(1, max|cpu|), %s); discrete "
+        "outputs equal; %d samplers by moments within 4 standard errors "
+        "(%d held); %d failed" % (
+            len(cases), len(names), card, time.perf_counter() - t0,
+            max(ratios.values()), max(ratios, key=ratios.get), len(moments),
+            sum(moments.values()), len(bad)))
+    for k, r in sorted(bad.items()):
+        failures.append("sparse sweep %s: %.4g of the limit" % (k, r))
+    if on_card:
+        low = max(tf32.values())
+        log("sparse: %s with TF32 products, of the limit: %s; worst %.4g "
+            "(must exceed 1) -> %s" % (
+                " and ".join(SPARSE_TF32), ", ".join(
+                    "%s %.3g" % kv for kv in sorted(tf32.items())), low,
+                "ok" if low > 1.0 else "FAIL"))
+        if not low > 1.0:
+            failures.append("the TF32 gemm2/syrk cases stayed within the f32 "
+                            "limit (worst %.4g)" % low)
+    else:
+        log("sparse: the TF32 run is the card's; not run on %s" % card)
+    return {"ratios": ratios, "tf32": tf32, "moments": moments}
+
+
+def zipf_ids(np, rng, n, features, s):
+    """*n* feature ids, Zipf-skewed over rank (p ~ (rank + 1)^-s) and
+    scattered over the id space by a fixed permutation, as hashed
+    categorical features are."""
+    cdf = np.cumsum(np.arange(1, features + 1, dtype=np.float64) ** -s)
+    ranks = np.searchsorted(cdf, rng.uniform(0, cdf[-1], n))
+    return rng.permutation(features)[np.minimum(ranks, features - 1)]
+
+
+def sparse_libsvm(np, path, seed, spec):
+    """Seeded LibSVM text at *spec*'s width (see SPARSE_LINEAR): returns
+    (rows, stored entries, seconds)."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    n, feats = spec["rows"], spec["features"]
+    k = rng.randint(spec["nnz"][0], spec["nnz"][1] + 1, n)
+    ids = zipf_ids(np, rng, int(k.sum()), feats, spec["zipf"])
+    row = np.repeat(np.arange(n), k)
+    order = np.lexsort((ids, row))
+    ids, row = ids[order], row[order]
+    keep = np.ones(ids.size, bool)      # a feature once a row
+    keep[1:] = (ids[1:] != ids[:-1]) | (row[1:] != row[:-1])
+    ids, row = ids[keep], row[keep]
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(row, minlength=n))])
+    w_true = rng.standard_normal(feats)
+    score = np.add.reduceat(w_true[ids], indptr[:-1])
+    label = (score + spec["noise"] * rng.standard_normal(n) > 0)
+    toks = np.char.add(ids.astype(str), ":1")
+    with open(path, "w") as f:
+        for r in range(n):
+            f.write("%d %s\n" % (label[r], " ".join(
+                toks[indptr[r]:indptr[r + 1]])))
+    return n, int(ids.size), time.perf_counter() - t0
+
+
+def sparse_linear_step(torch, mx, ctx, batch, weight, bias, upd):
+    """One step of the example's local loop on *ctx*: logits =
+    sparse.dot(csr, w) + b, dL/dlogits = (p - y) / batch, the weight's
+    gradient csr^T . dlogits compressed to its touched rows, AdaGrad's
+    lazy row update.  Returns (loss tensor, stored entries, rows
+    touched)."""
+    sp = mx.nd.sparse
+    csr = batch.data[0].as_in_context(ctx)
+    y = batch.label[0].as_in_context(ctx)._data.reshape(-1, 1)
+    z = (sp.dot(csr, weight) + bias)._data
+    p = torch.sigmoid(z)
+    loss = -(y * torch.log(p + 1e-12) +
+             (1 - y) * torch.log(1 - p + 1e-12)).mean()
+    dlogits = mx.nd.NDArray((p - y) / y.shape[0])
+    dw = sp.compress_rowsparse(sp.dot(csr, dlogits, transpose_a=True))
+    upd(0, dw, weight)
+    upd(1, mx.nd.NDArray(dlogits._data.sum(0)), bias)
+    return loss, int(csr.data.shape[0]), int(dw.indices.shape[0])
+
+
+def sparse_linear_check(torch, np, mx, ctx, card, batch, spec, seed,
+                        failures):
+    """(b) check: one step from seeded weights and AdaGrad history on the
+    card and on the CPU path: the touched rows of the weight and the
+    history within 2**-18 x max |value|, every untouched row
+    bit-unchanged."""
+    rng = np.random.RandomState(seed + 171)
+    feats = spec["features"]
+    w0 = (0.01 * rng.standard_normal((feats, 1))).astype(np.float32)
+    h0 = rng.uniform(0.1, 1.0, (feats, 1)).astype(np.float32)
+    out = {}
+    for where in (mx.cpu(), ctx):
+        weight = mx.nd.array(w0, ctx=where)
+        bias = mx.nd.zeros((1,), ctx=where)
+        upd = mx.optimizer.get_updater(mx.optimizer.create(
+            "adagrad", learning_rate=spec["lr"]))
+        upd.states[0], upd.states_synced[0] = mx.nd.array(h0, ctx=where), True
+        sparse_linear_step(torch, mx, where, batch, weight, bias, upd)
+        out[where.device_type] = (weight._data.cpu(),
+                                  upd.states[0]._data.cpu())
+    # the rows of the batch's features: every other row must not move
+    touched = batch.data[0].indices._data.long().unique().cpu()
+    gone = torch.ones(feats, dtype=torch.bool)
+    gone[touched] = False
+    worst, moved = 0.0, 0
+    for k, start in ((0, w0), (1, h0)):
+        g, w = out[ctx.device_type][k], out["cpu"][k]
+        scale = max(w[touched].abs().max().item(), 1e-30)
+        worst = max(worst, (g[touched] - w[touched]).abs().max().item() /
+                    (TOL_SWEEP * scale))
+        moved += int((g[gone] != torch.from_numpy(start)[gone]).sum())
+    log("sparse linear: check step on %s against the CPU from seeded weights "
+        "and history: %d rows touched, their weight and history worst gap "
+        "%.4g of the limit (2**-18 x max |value|); %d values of the %d "
+        "untouched rows moved" % (card, touched.numel(), worst, moved,
+                                  int(gone.sum())))
+    if not worst <= 1.0 or moved:
+        failures.append("sparse linear check step: %.4g of the limit, %d "
+                        "untouched values moved" % (worst, moved))
+    return {"touched": int(touched.numel()), "worst": worst,
+            "moved": moved}
+
+
+def sparse_linear_train(torch, np, mx, ctx, on_card, card, path, spec,
+                        failures):
+    """(b) the eager loop: LibSVMIter -> sparse.dot -> compress_rowsparse
+    -> AdaGrad's lazy row update for spec["epochs"] epochs: ms a batch,
+    examples/s, stored entries and rows touched a batch, peak memory; the
+    mean loss of the last epoch below the first's."""
+    t0 = time.perf_counter()
+    it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(spec["features"],),
+                          batch_size=spec["batch"])
+    parse_s = time.perf_counter() - t0
+    weight = mx.nd.zeros((spec["features"], 1), ctx=ctx)
+    bias = mx.nd.zeros((1,), ctx=ctx)
+    upd = mx.optimizer.get_updater(mx.optimizer.create(
+        "adagrad", learning_rate=spec["lr"]))
+    if on_card:
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+    epochs, stamps, nnz, rows = [], [], [], []
+    for _ in range(spec["epochs"]):
+        it.reset()
+        losses = []
+        for batch in it:
+            loss, n, r = sparse_linear_step(torch, mx, ctx, batch, weight,
+                                            bias, upd)
+            losses.append(loss)
+            nnz.append(n)
+            rows.append(r)
+            stamps.append(time.perf_counter())
+        epochs.append(float(torch.stack(losses).mean()))
+    batches = len(stamps)
+    ms = 1e3 * (stamps[-1] - stamps[1]) / (batches - 2)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    rec = {"epoch_loss": epochs, "ms": ms,
+           "examples_s": spec["batch"] / ms * 1e3,
+           "nnz_batch": float(np.mean(nnz)), "rows_batch": float(
+               np.mean(rows)), "peak_gb": peak, "parse_s": parse_s,
+           "batches": batches}
+    log("sparse linear on %s: %d features, batch %d, %d epochs of %d "
+        "batches (LibSVMIter parsed the file in %.2f s): mean loss by epoch "
+        "%s; %.3f ms a batch (batches 3-%d, host clock; each batch reads "
+        "back its touched rows), %.0f examples/s; %.0f stored entries and "
+        "%.0f touched weight rows a batch; peak device memory %.3f GB" % (
+            card, spec["features"], spec["batch"], spec["epochs"],
+            batches // spec["epochs"], parse_s,
+            ", ".join("%.6f" % v for v in epochs), ms, batches,
+            rec["examples_s"], rec["nnz_batch"], rec["rows_batch"], peak))
+    if not all(math.isfinite(v) for v in epochs) or \
+            not epochs[-1] < epochs[0]:
+        failures.append("sparse linear: the mean loss did not fall from "
+                        "epoch 1 to %d: %s" % (spec["epochs"], epochs))
+    return rec
+
+
+def sparse_linear_symbol(mx, features):
+    """dot(var('data', stype='csr'), weight) + bias ->
+    LogisticRegressionOutput, the example's model as a Symbol."""
+    x = mx.sym.var("data", stype="csr")
+    w = mx.sym.var("weight", shape=(features, 1))
+    b = mx.sym.var("bias", shape=(1,))
+    z = mx.sym.reshape(mx.sym.broadcast_add(mx.sym.dot(x, w), b),
+                       shape=(-1,))
+    return mx.sym.LogisticRegressionOutput(z, mx.sym.var("softmax_label"),
+                                           name="lro")
+
+
+def sparse_linear_module(torch, np, mx, ctx, on_card, card, path, spec,
+                         seed, failures):
+    """(b) the Symbol through Module: one step from seeded weights and
+    AdaGrad history on the card against the CPU path within 2**-18 x max
+    |value|, then Module.fit for one epoch
+    (the legacy step: a CSR batch's nnz changes from batch to batch);
+    ms a batch, captures."""
+    feats = spec["features"]
+    sym = sparse_linear_symbol(mx, feats)
+    it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(feats,),
+                          batch_size=spec["batch"])
+    first = next(iter(it))
+    rng = np.random.RandomState(seed + 172)
+    w0 = (0.01 * rng.standard_normal((feats, 1))).astype(np.float32)
+    # a seeded AdaGrad history, as (b)'s eager check has: from a zero one
+    # the first update is lr g / (|g| + 1e-7), which turns the ulps of a
+    # feature's gradient summed in another order (atomic adds on the
+    # card) into up to lr / 1e-7 times as much wherever |g| nears 1e-7
+    h0 = rng.uniform(0.1, 1.0, (feats, 1)).astype(np.float32)
+    got = {}
+    for where in (mx.cpu(), ctx):
+        mod = mx.mod.Module(sym, data_names=["data"],
+                            label_names=["softmax_label"], context=where)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params={
+            "weight": mx.nd.array(w0, ctx=where),
+            "bias": mx.nd.zeros((1,), ctx=where)})
+        mod.init_optimizer(optimizer="adagrad",
+                           optimizer_params={"learning_rate": spec["lr"]})
+        i = mod._exec_group.param_names.index("weight")
+        mod._updater.states[i] = mx.nd.array(h0, ctx=where)
+        mod._updater.states_synced[i] = True
+        mod.forward_backward_update(first)
+        got[where.device_type] = mod.get_params()[0]["weight"]._data.cpu()
+        legacy = mod._needs_legacy_step() and mod.fused_step is None
+        del mod
+    g, w = got[ctx.device_type], got["cpu"]
+    worst = (g - w).abs().max().item() / (TOL_SWEEP *
+                                          max(w.abs().max().item(), 1e-30))
+    mod = mx.mod.Module(sym, data_names=["data"],
+                        label_names=["softmax_label"], context=ctx)
+    stamps, losses = [], []
+
+    def record(param):
+        out = mod.get_outputs()[0]._data
+        lab = param.locals["data_batch"].label[0]._data.to(out.device)
+        losses.append(float(-(lab * torch.log(out + 1e-12) + (1 - lab) *
+                              torch.log(1 - out + 1e-12)).mean()))
+        stamps.append(time.perf_counter())
+
+    it.reset()
+    mod.fit(it, num_epoch=1, batch_end_callback=record, eval_metric="mse",
+            optimizer="adagrad", optimizer_params={"learning_rate": spec[
+                "lr"]}, arg_params={"weight": mx.nd.zeros((feats, 1),
+                                                          ctx=ctx),
+                                    "bias": mx.nd.zeros((1,), ctx=ctx)})
+    ms = 1e3 * (stamps[-1] - stamps[1]) / (len(stamps) - 2)
+    captures = mod.fused_step.captures if mod.fused_step else 0
+    step = "legacy" if mod.fused_step is None else "fused"
+    log("sparse linear Module on %s: one step against the CPU path from the "
+        "same weights and AdaGrad history: worst gap %.4g of the limit "
+        "(2**-18 x max |value|); "
+        "Module.fit, one epoch of %d batches: the %s step ran (a CSR "
+        "argument), %d captures; loss by batch %s; %.3f ms a batch "
+        "(batches 3-%d)" % (
+            card, worst, len(stamps), step, captures,
+            ", ".join("%.4f" % v for v in losses), ms, len(stamps)))
+    if not worst <= 1.0:
+        failures.append("sparse linear Module step: %.4g of the limit" % worst)
+    if not legacy or step != "legacy" or captures:
+        failures.append("sparse linear Module: the %s step ran (%d "
+                        "captures); a CSR graph takes the legacy step"
+                        % (step, captures))
+    if not losses[-1] < losses[0]:
+        failures.append("sparse linear Module: the loss did not fall: %s"
+                        % losses)
+    return {"worst": worst, "ms": ms, "step": step, "captures": captures,
+            "losses": losses}
+
+
+def sparse_example(torch, np, mx, ctx, card, tmp, spec, failures):
+    """(b) examples/train_sparse_linear.py's local flow at its defaults
+    (its synthetic data, 1000 features, 5 epochs, adagrad lr 0.5, batch
+    64) on the card: the final train accuracy must reach 0.9."""
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    from train_sparse_linear import make_synthetic_libsvm
+    path = os.path.join(tmp, "example.libsvm")
+    make_synthetic_libsvm(path, spec["examples"], spec["features"])
+    t0 = time.perf_counter()
+    it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(spec["features"],),
+                          batch_size=spec["batch"])
+    weight = mx.nd.zeros((spec["features"], 1), ctx=ctx)
+    bias = mx.nd.zeros((1,), ctx=ctx)
+    upd = mx.optimizer.get_updater(mx.optimizer.create(
+        "adagrad", learning_rate=spec["lr"]))
+    for _ in range(spec["epochs"]):
+        it.reset()
+        for batch in it:
+            sparse_linear_step(torch, mx, ctx, batch, weight, bias, upd)
+    it.reset()
+    right = total = 0
+    for batch in it:
+        z = (mx.nd.sparse.dot(batch.data[0].as_in_context(ctx), weight) +
+             bias).asnumpy()
+        y = batch.label[0].asnumpy().reshape(-1, 1)
+        right += int(((z > 0) == (y > 0.5)).sum())
+        total += y.shape[0]
+    acc = right / total
+    log("sparse example flow on %s (examples/train_sparse_linear.py at its "
+        "defaults: %d examples, %d features, %d epochs): final train "
+        "accuracy %.4f (bar %.2f) in %.1f s" % (
+            card, spec["examples"], spec["features"], spec["epochs"], acc,
+            spec["min_accuracy"], time.perf_counter() - t0))
+    if not acc >= spec["min_accuracy"]:
+        failures.append("sparse example: accuracy %.4f < %.2f"
+                        % (acc, spec["min_accuracy"]))
+    return {"accuracy": acc}
+
+
+def sparse_lm_symbol(mx, cfg, batch):
+    """Phase 10's LM Symbol with its Embedding's sparse_grad set in the
+    Symbol's JSON, as a user's saved symbol carries it: (net, sparse
+    symbol, dense symbol)."""
+    net, dense = module_symbol(mx, cfg, batch)
+    graph = json.loads(dense.tojson())
+    for node in graph["nodes"]:
+        if node["op"] == "Embedding":
+            node["attrs"]["sparse_grad"] = "True"
+    return net, mx.sym.load_json(json.dumps(graph)), dense
+
+
+def sparse_lm_module(mx, ctx, symbol, it, weights, opt):
+    mod = mx.mod.Module(symbol, context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=weights)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(opt))
+    return mod
+
+
+def sparse_lm(torch, np, mx, ctx, on_card, card, seed, cfg, batch,
+              module_rec, failures):
+    """(c): the LM with a row-sparse Embedding gradient through Module.
+    Check 1: one fused step against one step of the dense-gradient Symbol
+    (momentum 0, wd 0): the touched Embedding rows within 2**-18 x max
+    |value|, its untouched rows and every other array bit-equal.  Check 2:
+    one fused step against one legacy step: bit-equal but the
+    Embedding-read arrays.  Then SPARSE_LM_STEPS fused steps (momentum
+    0.9, wd 1e-4) on one batch: untouched rows bit-unchanged, the loss
+    falls, no (vocab, dim) gradient buffer; ms a step, peak memory,
+    launches."""
+    from mxnet_tpu_torch.ops import attention as att
+    vocab, layers = cfg[0], cfg[3]
+    gen = torch.Generator(device=ctx.torch_device)
+    gen.manual_seed(seed + 17)
+    rng = np.random.RandomState(seed + 17)
+    net, symbol, dense = sparse_lm_symbol(mx, cfg, batch)
+    weights = module_weights(mx, net, ctx, gen, cfg[4])
+    del net
+    it = module_batches(mx, rng, 1, batch, cfg)
+    first = next(iter(it))
+    emb = [n for n in symbol.list_arguments() if "embedding" in n][0]
+    ids = first.data[0]._data.long().reshape(-1).unique()
+    touched = torch.zeros(vocab, dtype=torch.bool)
+    touched[ids] = True
+    rec = {"touched_rows": int(touched.sum())}
+
+    # check 1: the sparse-gradient step against the dense-gradient one
+    plain = {"learning_rate": SPARSE_LM_OPT["learning_rate"]}
+    got = {}
+    for key, sym in (("sparse", symbol), ("dense", dense)):
+        mod = sparse_lm_module(mx, ctx, sym, it, weights, plain)
+        module_step(torch, mod, first, True)
+        got[key] = {n: a._data.clone()
+                    for n, a in mod.get_params()[0].items()}
+        del mod
+        if on_card:
+            torch.cuda.empty_cache()
+    a, b = got["sparse"], got["dense"]
+    t = touched.to(a[emb].device)
+    gap = (a[emb][t] - b[emb][t]).abs().max().item() / (
+        TOL_SCATTER * max(b[emb][t].abs().max().item(), 1e-30))
+    differ = int((a[emb][~t] != b[emb][~t]).sum()) + sum(
+        int((a[n] != b[n]).sum()) for n in b if n != emb)
+    total = sum(v.numel() for v in b.values()) - int(t.sum()) * cfg[1]
+    rec["vs_dense"] = {"gap": gap, "differ": differ, "total": total}
+    log("sparse LM: one fused step with the row-sparse Embedding gradient "
+        "against one step of the dense-gradient Symbol from the same "
+        "weights (momentum 0, wd 0) on %s: %d touched rows within %.4f of "
+        "the limit (2**-18 x max |value|); %d of %d values elsewhere "
+        "(untouched rows and every other array) differ" % (
+            card, rec["touched_rows"], gap, differ, total))
+    if not gap <= 1.0 or differ:
+        failures.append("sparse LM vs dense: %.4g of the limit, %d values "
+                        "differ" % (gap, differ))
+    del got, a, b
+
+    # the main path: counters to 0, then the fused steps
+    att_counters = (att.flash_fwd, att.flash_bwd_dkdv, att.flash_bwd_dq)
+    if on_card:
+        sync(torch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for c in att_counters:
+        c.launches = 0
+        c.captured = 0
+    mod = sparse_lm_module(mx, ctx, symbol, it, weights, SPARSE_LM_OPT)
+    # check 2: fused against legacy (scatter_arrays: the Embedding-read)
+    steps = module_fused_vs_legacy(torch, mx, mod, first, weights)
+    differ, total, names, worst = module_compare(
+        steps[True], steps[False], scatter_arrays(symbol))
+    del steps
+    rec["vs_legacy"] = {"differ": differ, "total": total, "worst": worst}
+    log("sparse LM: one fused step against one legacy step: %d of %d "
+        "values differ%s; the Embedding-read arrays worst gap / limit "
+        "%.4f" % (differ, total, " (%s)" % ", ".join(names[:5])
+                  if names else "", worst))
+    if differ or worst > 1.0:
+        failures.append("sparse LM: the fused step is not the legacy step")
+    legacy_launches = {c.__name__: c.launches for c in att_counters}
+    # the training run: SPARSE_LM_STEPS fused steps from the weights
+    mod.set_params(weights, {})
+    for s in mod._updater.states.values():
+        if s is not None:
+            s._data.zero_()
+    mod._optimizer._index_update_count.clear()
+    mod._optimizer.num_update = 0
+    w_start = weights[emb]._data.clone()
+    losses, stamps = [], []
+    for _ in range(SPARSE_LM_STEPS):
+        module_step(torch, mod, first, True)
+        nll, n = module_nll(torch, mod.get_outputs()[0], first.label[0])
+        losses.append(nll / n)
+        stamps.append(time.perf_counter())
+    ms = 1e3 * (stamps[-1] - stamps[1]) / (SPARSE_LM_STEPS - 2)
+    w_end = mod.get_params()[0][emb]._data
+    moved = int((w_end[~touched.to(w_end.device)] !=
+                 w_start[~touched.to(w_start.device)]).sum())
+    ex = mod._exec_group.execs[0]
+    # the table's gradient: row-sparse pairs, never a (vocab, dim) buffer
+    # (the output layer's weight is (vocab, dim) too, with its own dense
+    # gradient)
+    g_emb = ex.grad_dict[emb]
+    dense_bufs = [] if g_emb.stype == "row_sparse" and \
+        tuple(g_emb._data.shape) != (vocab, cfg[1]) else [emb]
+    prog = mod.fused_step
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    launches = module_launches(att, [(dict(prog.captured), prog.replays)])
+    rec.update(losses=losses, ms=ms, peak_gb=peak, moved=moved,
+               dense_buffers=dense_bufs, captures=prog.captures,
+               replays=prog.replays, captured=dict(prog.captured),
+               launches=launches, legacy_launches=legacy_launches)
+    dense_ms = (module_rec or {}).get("timing", {}).get("fused_ms")
+    dense_peak = (module_rec or {}).get("fit", {}).get("peak_gb")
+    log("sparse LM: %d fused steps (SGD %s) on one batch on %s: loss by "
+        "step %s; %.2f ms a step (steps 3-%d, host clock) against phase "
+        "10's dense-gradient fused step %s ms; peak device memory %.3f GB "
+        "against phase 10's %s GB; %d of the %d untouched Embedding rows' "
+        "values moved; the Embedding table's gradient held dense in the "
+        "executor: %s; captures %d, replays %d, captured %s a step" % (
+            SPARSE_LM_STEPS, SPARSE_LM_OPT, card,
+            ", ".join("%.6f" % v for v in losses), ms, SPARSE_LM_STEPS,
+            "%.2f" % dense_ms if dense_ms else "not measured", peak,
+            "%.3f" % dense_peak if dense_peak else "not measured", moved,
+            vocab - rec["touched_rows"], dense_bufs or "none", prog.captures,
+            prog.replays, prog.captured))
+    if not losses[-1] < losses[0] or not all(map(math.isfinite, losses)):
+        failures.append("sparse LM: the loss did not fall: %s" % losses)
+    if moved or dense_bufs:
+        failures.append("sparse LM: %d untouched values moved, dense "
+                        "buffers %s" % (moved, dense_bufs))
+    if on_card and (prog.captures != 1 or any(
+            prog.captured.get(c.__name__) != layers for c in att_counters)):
+        failures.append("sparse LM: %d captures, captured %s (expected "
+                        "one graph of %d launches of each kernel)"
+                        % (prog.captures, prog.captured, layers))
+    del mod, prog, ex
+    return rec
+
+
+@contextlib.contextmanager
+def _registered_custom_ops(mx):
+    """Phase 17's own copies of tests/test_custom_op.py's ``sqr`` and
+    ``twoout`` operators."""
+    op_mod = mx.operator
+
+    @op_mod.register("chip_sqr")
+    class _SqrProp(op_mod.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class _Sqr(op_mod.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    self.assign(out_data[0], req[0], in_data[0] * in_data[0])
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    self.assign(in_grad[0], req[0],
+                                2 * in_data[0] * out_grad[0])
+            return _Sqr()
+
+    @op_mod.register("chip_twoout")
+    class _TwoOutProp(op_mod.CustomOpProp):
+        def list_arguments(self):
+            return ["a", "b"]
+
+        def list_outputs(self):
+            return ["s", "p"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0], in_shape[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class _TwoOut(op_mod.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    a, b = in_data
+                    self.assign(out_data[0], req[0], a + b)
+                    self.assign(out_data[1], req[1], a * b)
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    a, b = in_data
+                    gs, gp = out_grad
+                    self.assign(in_grad[0], req[0], gs + gp * b)
+                    self.assign(in_grad[1], req[1], gs + gp * a)
+            return _TwoOut()
+    yield
+
+
+def sparse_custom(torch, np, mx, ctx, card, seed, failures):
+    """(d): the ``Custom`` operators eagerly on the card against the CPU
+    (outputs and gradients within 2**-18 x max(1, max |cpu|)), then
+    ``sqr`` as a layer of a small MLP through Module.fit for 3 epochs:
+    the legacy step runs and the loss falls."""
+    rs = np.random.RandomState(seed + 173)
+    a0, b0 = rs.standard_normal((2, 64, 32)).astype(np.float32)
+    with _registered_custom_ops(mx):
+        res = {}
+        for where in (mx.cpu(), ctx):
+            a = mx.nd.array(a0, ctx=where)
+            b = mx.nd.array(b0, ctx=where)
+            a.attach_grad()
+            b.attach_grad()
+            with mx.autograd.record():
+                s, p = mx.nd.Custom(a, b, op_type="chip_twoout")
+                q = mx.nd.Custom(s, op_type="chip_sqr")
+                loss = mx.nd.sum(q) + mx.nd.sum(p * p)
+            loss.backward()
+            res[where.device_type] = [t._data.cpu().double() for t in
+                                      (s, p, q, a.grad, b.grad)]
+        worst = max((g - w).abs().max().item() / (TOL_SWEEP * max(
+            1.0, w.abs().max().item())) for g, w in
+            zip(res[ctx.device_type], res["cpu"]))
+        x = rs.standard_normal((512, 16)).astype(np.float32)
+        y = (x[:, 0] * x[:, 1] > 0).astype(np.float32)
+        h = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=32,
+                                  name="fc1")
+        h = mx.sym.Custom(h, op_type="chip_sqr", name="sq")
+        out = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+            h, num_hidden=2, name="fc2"), mx.sym.var("softmax_label"),
+            name="sm")
+        mod = mx.mod.Module(out, context=ctx)
+        losses = []
+
+        def record(param):
+            pr = mod.get_outputs()[0]._data
+            lab = param.locals["data_batch"].label[0]._data.to(
+                pr.device).long()
+            losses.append(float(-torch.log(pr[torch.arange(
+                lab.numel(), device=pr.device), lab] + 1e-12).mean()))
+
+        mx.random.seed(seed + 17)
+        mod.fit(mx.io.NDArrayIter(x, y, batch_size=64), num_epoch=3,
+                optimizer="sgd", optimizer_params={"learning_rate": 0.05},
+                initializer=mx.init.Xavier(), batch_end_callback=record)
+        step = "legacy" if mod.fused_step is None else "fused"
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    log("sparse Custom on %s: twoout and sqr eagerly, outputs and gradients "
+        "against the CPU worst %.4g of the limit; an MLP with sqr as a "
+        "layer through Module.fit, 3 epochs of %d batches: the %s step ran; "
+        "mean loss of the first 4 batches %.4f, of the last 4 %.4f" % (
+            card, worst, len(losses) // 3, step, first, last))
+    if not worst <= 1.0:
+        failures.append("Custom on the card: %.4g of the limit" % worst)
+    if step != "legacy" or not last < first:
+        failures.append("Custom Module: the %s step ran, loss %.4f -> %.4f"
+                        % (step, first, last))
+    return {"worst": worst, "step": step, "loss": [first, last]}
+
+
+def phase_sparse(torch, card, seed, ctx=None, linear=None, example=None,
+                 lm_cfg=None, batch=BATCH, module_rec=None):
+    """Phase 17: sparse storage and the long tail (see the module
+    docstring).  *ctx*, *linear*, *example*, *lm_cfg* and *batch* size it
+    down for the CPU test; *module_rec* is phase 10's record (its
+    dense-gradient step time and peak beside this phase's).  Raises at
+    its end if any check failed; returns the record."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import attention as att
+    if ctx is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("phase 17 needs CUDA")
+        ctx = mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    linear, example = linear or SPARSE_LINEAR, example or SPARSE_EXAMPLE
+    lm_cfg = lm_cfg or (VOCAB, DIM, HEADS, LAYERS, SEQ)
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9 if on_card else None
+    log("sparse: phase 17 starts on %s with %s GB of device memory held by "
+        "earlier phases" % (card, "%.3f" % held if on_card
+                            else "not measured"))
+    mx.random.seed(seed + 17)
+    torch.manual_seed(seed + 17)
+    t_phase = time.perf_counter()
+    failures = []
+    rec = {"card": card, "held_gb": held}
+    rec["ops"] = sparse_sweep(torch, mx, ctx, on_card, card, seed, failures)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sparse_")
+    try:
+        path = os.path.join(tmp, "avazu_width.libsvm")
+        n, stored, secs = sparse_libsvm(np, path, seed + 17, linear)
+        log("sparse data: %d seeded LibSVM rows, %d features, %d stored "
+            "entries (%.2f a row, value 1.0, Zipf %.2f ids), %.1f MB in "
+            "%.2f s" % (n, linear["features"], stored, stored / n,
+                        linear["zipf"], os.path.getsize(path) / 1e6, secs))
+        it = mx.io.LibSVMIter(data_libsvm=path,
+                              data_shape=(linear["features"],),
+                              batch_size=linear["batch"])
+        rec["linear_check"] = sparse_linear_check(
+            torch, np, mx, ctx, card, next(iter(it)), linear, seed,
+            failures)
+        del it
+        rec["linear"] = sparse_linear_train(torch, np, mx, ctx, on_card,
+                                            card, path, linear, failures)
+        rec["linear_module"] = sparse_linear_module(
+            torch, np, mx, ctx, on_card, card, path, linear, seed, failures)
+        rec["example"] = sparse_example(torch, np, mx, ctx, card, tmp,
+                                        example, failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["lm"] = sparse_lm(torch, np, mx, ctx, on_card, card, seed, lm_cfg,
+                          batch, module_rec, failures)
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["custom"] = sparse_custom(torch, np, mx, ctx, card, seed, failures)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["launches"] = rec["lm"]["launches"]
+    log("sparse: phase 17 in %.1f s on %s; main-path launches %s (the "
+        "sparse-embedding LM's fused steps); %d failed checks" % (
+            rec["seconds"], card, rec["launches"], len(failures)))
+    log("sparse record: " + json.dumps(
+        {k: v for k, v in rec.items() if k != "ops"}, default=str))
+    if failures:
+        raise RuntimeError("phase 17 failed: " + "; ".join(failures))
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8333,13 +9116,16 @@ def main():
     ns_launches = phase_north_star(torch, card, args.seed)
     decode_launches = phase_decode(torch, card, args.seed)
     user_launches = phase_user_surface(torch, card, args.seed)
-    module_launches = phase_module(torch, card, args.seed)["launches"]
+    module_record = phase_module(torch, card, args.seed)
+    module_launches = module_record["launches"]
     phase_lstm(torch, card, args.seed)
     phase_data(torch, card, args.seed)
     quant = phase_quant(torch, card, args.seed)["lm"]
     fleet = phase_fleet(torch, card, args.seed)["launches"]
     phase_zoo(torch, card, args.seed)
     phase_detection(torch, card, args.seed)
+    sparse_launches = phase_sparse(torch, card, args.seed,
+                                   module_rec=module_record)["launches"]
     quant_launches = {
         kind: sum(quant[m]["launches"][kind]
                   for m in ("int8", "int8-weight-only"))
@@ -8356,7 +9142,8 @@ def main():
                    "north-star LM train (bf16)": ns_launches[name],
                    "user-surface LM train (eager nd, adam)":
                    user_launches[name],
-                   MODULE_PATH: module_launches[name]}
+                   MODULE_PATH: module_launches[name],
+                   SPARSE_LM_PATH: sparse_launches[name]}
         if name == "flash_fwd":
             by_path = {
                 "serve (eager: first forward, rung warm-ups)":

@@ -43,3 +43,5 @@ from . import parallel  # noqa: F401
 from . import contrib  # noqa: F401
 from . import quantize  # noqa: F401
 from . import autotune  # noqa: F401
+from . import operator  # noqa: F401
+from . import subgraph  # noqa: F401

@@ -190,6 +190,9 @@ register_env("MXNET_SERVE_DECODE_REBUILDS", int, 2,
              "journaled sessions are re-admitted via re-prefill + "
              "replayed ticks; past the budget the batcher degrades to "
              "unhealthy typed-fail")
+register_env("MXNET_SUBGRAPH_BACKEND", str, "",
+             "Subgraph property applied at bind time (see "
+             "mxnet_tpu_torch.subgraph)")
 register_env("MXNET_MODULE_FUSED_STEP", bool, True,
              "Module.forward_backward_update runs forward + backward + "
              "the optimizer update as one program when eligible (one "

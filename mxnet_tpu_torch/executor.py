@@ -18,8 +18,21 @@ one program: on the card one CUDA graph, captured at the first step and
 replayed for every step, reading its batch and hyper-parameters from
 static buffers; on the CPU the same function, run eagerly.
 
-Not ported: ``group2ctx`` model parallelism (ROADMAP queue A item 16) and
-``Embedding(sparse_grad=True)`` row-sparse gradients (item 12).
+Sparse arguments and gradients (``ops/sparse_graph.py``):
+
+- a ``CSRNDArray`` argument (bound, or fed to ``forward``) crosses the
+  graph as a ``CsrCarrier``; ``dot`` and ``cast_storage`` take it as it
+  is, every other op sees it densified, and it gets no gradient;
+- an ``Embedding(sparse_grad=True)`` weight gets its gradient as
+  deduplicated ``(ids, values)`` pairs in a ``RowSparseNDArray`` (made
+  once at bind and updated in place), from a zero per-occurrence leaf:
+  no dense (vocab, dim) gradient exists.  The JAX package's rules hold:
+  the Embedding's data and weight are variables, the weight feeds only
+  that Embedding, and its ``grad_req`` is not 'add'.  The fused step
+  takes the pairs too: their shape is the ids' shape, fixed at bind, so
+  the step stays one CUDA graph.
+
+Not ported: ``group2ctx`` model parallelism (ROADMAP queue A item 16).
 """
 
 from __future__ import annotations
@@ -29,10 +42,17 @@ import torch
 from .base import MXNetError, torch_dtype
 from .context import Context, current_context
 from .ndarray import NDArray
+from .ndarray.sparse import CSRNDArray, RowSparseNDArray
+from .ndarray.sparse import zeros as _sparse_zeros
 from .observability import metrics as _obs_metrics
 from .ops.attention import capture_counts
+from .ops.sparse_graph import CsrCarrier, SparseGradWeight, dedup_rsp_pairs
 
 __all__ = ["Executor", "_build_eval"]
+
+# ops that take a CSR carrier as it is; every other op sees it densified
+# (the reference's storage fallback)
+_CSR_AWARE = ("dot", "cast_storage")
 
 # the reference's profiler counters of the fused step: a compile is a
 # CUDA graph capture here, a dispatch one replay
@@ -83,6 +103,9 @@ def _build_eval(symbol, training, op_impls=None):
                 continue
             op = node.op
             ins = [vals[(id(s), i)] for (s, i) in node.inputs]
+            if op.name not in _CSR_AWARE:
+                ins = [v.todense() if isinstance(v, CsrCarrier) else v
+                       for v in ins]
             params = node.params
             if "training" in op.param_names:
                 params = dict(params, training=training)
@@ -110,6 +133,54 @@ def _build_eval(symbol, training, op_impls=None):
         return [vals[(id(n), i)] for (n, i) in out_entries], aux_updates
 
     return fn
+
+
+def _csr_vars(symbol):
+    """Names of the variables declared ``stype='csr'``."""
+    return {n.name for n in symbol._topo()
+            if n.is_var and n.attrs.get("__storage_type__") == "csr"}
+
+
+def _sparse_embeds(symbol, grad_req):
+    """{weight: (data name, output_dim)} of the Embedding nodes with
+    ``sparse_grad`` whose weight takes a gradient, with the JAX package's
+    checks (mxnet_tpu/executor.py:141-210)."""
+    out, nodes = {}, {}
+    for node in symbol._topo():
+        if node.is_var or node.op.name != "Embedding":
+            continue
+        if node.params.get("sparse_grad", False) not in \
+                (True, "True", "true", "1"):
+            continue
+        wsrc, _ = node.inputs[1]
+        dsrc, _ = node.inputs[0]
+        if grad_req.get(wsrc.name, "null") == "null":
+            continue
+        if not (wsrc.is_var and dsrc.is_var):
+            raise MXNetError(
+                "Embedding sparse_grad=True needs variable data and weight "
+                "inputs (got computed inputs for %r)" % node.name)
+        if grad_req[wsrc.name] == "add":
+            raise MXNetError(
+                "grad_req='add' is unsupported for sparse_grad Embedding "
+                "weights (the pairs are rebuilt each backward)")
+        if wsrc.name in out:
+            raise MXNetError(
+                "weight %r feeds multiple sparse_grad Embedding nodes; "
+                "share a dense-grad weight or split it" % wsrc.name)
+        out[wsrc.name] = (dsrc.name, int(node.params.get("output_dim")))
+        nodes[wsrc.name] = node
+    for node in symbol._topo():
+        if node.is_var:
+            continue
+        for i, (src, _) in enumerate(node.inputs):
+            if src.is_var and src.name in out and \
+                    not (node is nodes[src.name] and i == 1):
+                raise MXNetError(
+                    "weight %r has sparse_grad=True but is also consumed by "
+                    "%r (%s); weight tying requires a dense gradient"
+                    % (src.name, node.name, node.op.name))
+    return out
 
 
 def _tensor(x, device, dtype):
@@ -143,17 +214,27 @@ class Executor:
             grad_req = dict(zip(self._arg_names, grad_req))
         self._grad_req = {n: grad_req.get(n, "null")
                           for n in self._arg_names}
+        # a CSR argument gets no gradient (no csr-lhs dot has a backward)
+        csr = _csr_vars(symbol)
+        for n, a in arg_dict.items():
+            if isinstance(a, CSRNDArray) or n in csr:
+                self._grad_req[n] = "null"
         self._grad_names = [n for n in self._arg_names
                             if self._grad_req[n] != "null" and
                             grad_dict.get(n) is not None]
-        for node in symbol._topo():
-            if not node.is_var and node.op.name == "Embedding" and \
-                    node.params.get("sparse_grad", False) in \
-                    (True, "True", "true", "1") and \
-                    self._grad_req.get(node.inputs[1][0].name) not in \
-                    (None, "null"):
-                raise _not_ported("Embedding(sparse_grad=True) row-sparse "
-                                  "gradients", "item 12")
+        # {weight: (data name, output_dim)} of the sparse_grad Embeddings
+        self._sparse_embeds = _sparse_embeds(symbol, self._grad_req)
+        for n, (_, dim) in self._sparse_embeds.items():
+            if n in self._grad_names:
+                # the container callers hold stays the same object: each
+                # backward rebinds its pairs.  Until then one zero row at
+                # the out-of-range id (it densifies to zeros)
+                dense = grad_dict[n]
+                grad_dict[n] = RowSparseNDArray(
+                    torch.zeros((1, dim), dtype=dense._data.dtype,
+                                device=self._device),
+                    torch.full((1,), dense.shape[0], dtype=torch.int32,
+                               device=self._device), tuple(dense.shape))
         self.outputs = []
         self._gen = torch.Generator(device=self._device)
         self._gen.manual_seed(0)
@@ -163,6 +244,13 @@ class Executor:
         self._pending = None
         self._monitor = None
         self._monitor_all = False
+
+    def _sparse_leaf(self, n, arg_map):
+        """The zero per-occurrence leaf of sparse_grad weight *n*."""
+        dname, dim = self._sparse_embeds[n]
+        w = arg_map[n]
+        return torch.zeros(tuple(arg_map[dname].shape) + (dim,),
+                           dtype=w.dtype, device=w.device, requires_grad=True)
 
     # -- binding constructors ---------------------------------------------
     @staticmethod
@@ -177,10 +265,15 @@ class Executor:
         _, var_sh = _infer_shapes(symbol, shapes)
         type_dict = type_dict or {}
 
+        csr = _csr_vars(symbol)
+
         def fresh(n, shared):
             if shared_exec is not None and n in shared and \
                     tuple(shared[n].shape) == tuple(var_sh[n]):
                 return shared[n]
+            if n in csr:        # no dense (batch, features) placeholder
+                return _sparse_zeros("csr", var_sh[n], ctx,
+                                     type_dict.get(n, "float32"))
             return NDArray(torch.zeros(var_sh[n], device=dev, dtype=
                                        torch_dtype(type_dict.get(
                                            n, "float32"))))
@@ -254,16 +347,26 @@ class Executor:
     # -- execution ---------------------------------------------------------
     def _feed(self, kwargs):
         """Rebind the named arguments to the given values, in each
-        argument's dtype, on this executor's device."""
+        argument's dtype, on this executor's device (a CSR value stays
+        CSR)."""
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown forward argument %r" % k)
+            if isinstance(v, CSRNDArray):
+                self.arg_dict[k] = v.as_in_context(self._ctx)
+                continue
             dst = self.arg_dict[k]
+            if isinstance(dst, CSRNDArray):
+                raise MXNetError("argument %r is bound as CSR: feed a "
+                                 "CSRNDArray" % k)
             dst._data = _tensor(v, self._device, dst._data.dtype)
 
     def _maps(self):
-        return ({n: a._data for n, a in self.arg_dict.items()},
-                {n: a._data for n, a in self.aux_dict.items()})
+        args = {}
+        for n, a in self.arg_dict.items():
+            args[n] = CsrCarrier(a._data, a._aux[0], a._aux[1], a.shape) \
+                if isinstance(a, CSRNDArray) else a._data
+        return args, {n: a._data for n, a in self.aux_dict.items()}
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph; with *is_train*, on the tape, for a following
@@ -275,8 +378,13 @@ class Executor:
                       self._monitor_all) else None
         if is_train:
             leaves = {n: arg_map[n].detach().requires_grad_(True)
-                      for n in self._grad_names}
+                      for n in self._grad_names
+                      if n not in self._sparse_embeds}
             arg_map.update(leaves)
+            for n in self._grad_names:
+                if n in self._sparse_embeds:
+                    leaves[n] = self._sparse_leaf(n, arg_map)
+                    arg_map[n] = SparseGradWeight(arg_map[n], leaves[n])
             with torch.enable_grad():
                 outs, auxu = self._eval_train(arg_map, aux_map, self._gen,
                                               taps)
@@ -327,6 +435,13 @@ class Executor:
             dst = self.grad_dict[n]
             if g is None:
                 g = torch.zeros_like(leaves[n])
+            if n in self._sparse_embeds:
+                # deduplicated pairs into the bind-time container
+                dname = self._sparse_embeds[n][0]
+                ids, vals = dedup_rsp_pairs(self.arg_dict[dname]._data,
+                                            g.detach(), dst.shape[0])
+                dst._data, dst._aux[0] = vals.to(dst._data.dtype), ids
+                continue
             g = g.to(dst._data.dtype)
             if self._grad_req[n] == "add":
                 dst._data = dst._data + g
@@ -444,18 +559,27 @@ class FusedStep:
     def _body(self, generator):
         ex, names = self.ex, self.names
         params = {n: self.static[n] for n in names}
-        leaves = {n: p.detach().requires_grad_(True)
-                  for n, p in params.items()}
+        sparse = ex._sparse_embeds
         amap = dict(self.static)
-        amap.update(leaves)
+        leaves = {}
+        for n, p in params.items():
+            if n in sparse:
+                leaves[n] = ex._sparse_leaf(n, amap)
+                amap[n] = SparseGradWeight(p, leaves[n])
+            else:
+                leaves[n] = amap[n] = p.detach().requires_grad_(True)
         with torch.enable_grad():
             outs, auxu = ex._eval_train(amap, self.static_aux, generator)
             heads = [o for o in outs if o.requires_grad]
             grads = torch.autograd.grad(
                 heads, [leaves[n] for n in names],
                 [torch.ones_like(o) for o in heads], allow_unused=True)
-        grads = {n: g if g is not None else torch.zeros_like(params[n])
+        grads = {n: g if g is not None else torch.zeros_like(leaves[n])
                  for n, g in zip(names, grads)}
+        for n in names:
+            if n in sparse:
+                grads[n] = dedup_rsp_pairs(self.static[sparse[n][0]],
+                                           grads[n], params[n].shape[0])
         outs = [o.detach() for o in outs]
         from .optimizer.tree_opt import _tensors, nonfinite_any
         with torch.no_grad():

@@ -1,5 +1,5 @@
-"""Contrib layers (port of ``mxnet_tpu/gluon/contrib/nn/``, less
-SparseEmbedding and MoEFFN)."""
+"""Contrib layers (port of ``mxnet_tpu/gluon/contrib/nn/``, less MoEFFN)."""
 
 from .basic_layers import (Concurrent, HybridConcurrent, Identity,  # noqa
-                           MultiHeadAttention, SyncBatchNorm)
+                           MultiHeadAttention, SparseEmbedding,
+                           SyncBatchNorm)

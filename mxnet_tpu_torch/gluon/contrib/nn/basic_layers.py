@@ -1,15 +1,15 @@
 """Contrib layers (port of ``mxnet_tpu/gluon/contrib/nn/basic_layers.py``
-less SparseEmbedding and MoEFFN): Concurrent, HybridConcurrent,
-Identity, SyncBatchNorm and MultiHeadAttention."""
+less MoEFFN): Concurrent, HybridConcurrent, Identity, SparseEmbedding,
+SyncBatchNorm and MultiHeadAttention."""
 
 from __future__ import annotations
 
 from ... import nn
-from ...block import HybridBlock
+from ...block import Block, HybridBlock
 from .... import ndarray as nd
 
-__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SyncBatchNorm",
-           "MultiHeadAttention"]
+__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
+           "SyncBatchNorm", "MultiHeadAttention"]
 
 
 class Concurrent(nn.Sequential):
@@ -42,6 +42,30 @@ class Identity(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return x
+
+
+class SparseEmbedding(Block):
+    """An Embedding whose weight has a row-sparse gradient (reference:
+    basic_layers.py:116): the Trainer's lazy optimizers update only the
+    rows a batch touched."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim}
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer, stype="row_sparse",
+                grad_stype="row_sparse")
+
+    def forward(self, x):
+        weight = self.weight.row_sparse_data(x)
+        return nd.Embedding(x, weight, **self._kwargs, sparse_grad=True)
+
+    def __repr__(self):
+        return "SparseEmbedding({input_dim} -> {output_dim})".format(
+            **self._kwargs)
 
 
 class SyncBatchNorm(nn.BatchNorm):

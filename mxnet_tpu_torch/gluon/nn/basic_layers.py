@@ -124,7 +124,8 @@ class Embedding(HybridBlock):
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
-                init=weight_initializer, allow_deferred_init=True)
+                init=weight_initializer, allow_deferred_init=True,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,

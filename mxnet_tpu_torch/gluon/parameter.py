@@ -36,8 +36,14 @@ class Parameter:
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False, differentiable=True):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self.name = name
+        # storage types: the data is held dense either way; a row_sparse
+        # grad_stype makes the Trainer hand lazy optimizers the gradient's
+        # touched rows (trainer.py)
+        self._stype = stype
+        self._grad_stype = grad_stype
         self._differentiable = differentiable
         self._grad_req = grad_req if differentiable else "null"
         self._shape = tuple(shape) if shape is not None else None
@@ -158,6 +164,11 @@ class Parameter:
 
     def list_data(self):
         return [self.data()]
+
+    def row_sparse_data(self, row_id):
+        """The data for the rows *row_id*: on one device, all of it (the
+        JAX package fetches the whole weight too)."""
+        return self.data()
 
     def grad(self, ctx=None):
         self._check_initialized()

@@ -111,12 +111,24 @@ class Trainer:
         so there is nothing to sum."""
 
     def update(self, batch_size, ignore_stale_grad=False):
-        """Apply the optimizer to every parameter with a gradient."""
+        """Apply the optimizer to every parameter with a gradient.  A
+        parameter of ``grad_stype`` 'row_sparse' (``Embedding(
+        sparse_grad=True)``) hands an optimizer with a lazy row update (SGD
+        and AdaGrad, not under multi-precision) only its gradient's
+        touched rows, found on the host (``sparse.compress_rowsparse``):
+        rows the batch did not touch keep their weight and state bit for
+        bit.  Every other optimizer takes the dense gradient."""
+        from ..ndarray import sparse as _sp
         self._optimizer.rescale_grad = self._scale / batch_size
+        lazy_ok = isinstance(self._optimizer, (opt.SGD, opt.AdaGrad)) \
+            and not getattr(self._optimizer, "multi_precision", False)
         for i, param in enumerate(self._params):
             if param.grad_req == "null" or param._data is None:
                 continue
-            self._updater(i, param.grad(), param.data())
+            grad = param.grad()
+            if param._grad_stype == "row_sparse" and lazy_ok:
+                grad = _sp.compress_rowsparse(grad)
+            self._updater(i, grad, param.data())
 
     def save_states(self, fname):
         """Write the optimizer states (format-2 blob) to *fname*, beside

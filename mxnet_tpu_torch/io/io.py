@@ -1,5 +1,6 @@
 """Data iterators (port of ``mxnet_tpu/io/io.py``: DataDesc, DataBatch,
-DataIter, NDArrayIter, ResizeIter, PrefetchingIter, MNISTIter, CSVIter).
+DataIter, NDArrayIter, ResizeIter, PrefetchingIter, MNISTIter, CSVIter,
+LibSVMIter).
 
 Iterators produce host batches: NDArrays on the CPU, which the executor
 copies onto its device (into the fused step's static buffers on the
@@ -8,9 +9,8 @@ device, places batches there from that thread (pinned staging, a copy
 stream of its own, an event a batch that the consumer's stream waits
 on); ``ImageRecordIter`` and ``DevicePrefetcher`` use it so.
 
-Not ported: ``LibSVMIter`` (CSR storage, ROADMAP queue A item 12); the
-elastic partitioning and resumable positions of the reference's
-iterators (item 15).
+Not ported: the elastic partitioning and resumable positions of the
+reference's iterators (ROADMAP queue A item 15).
 """
 
 from __future__ import annotations
@@ -672,9 +672,84 @@ class CSVIter(_Wrapped):
 
 
 class LibSVMIter(DataIter):
-    """LibSVM files as CSR batches: not ported (CSR storage, ROADMAP queue
-    A item 12)."""
+    """LibSVM text (``label id:value id:value ...`` a line) as CSR batches
+    on the host (reference: src/io/iter_libsvm.cc; the JAX package's
+    io.py:836).  The file is parsed once; each batch is a
+    ``CSRNDArray`` of ``batch_size`` rows and ``data_shape`` columns, its
+    label a float32 NDArray.  With *round_batch* the last batch wraps to
+    the first rows (its ``pad`` says how many); without, a short last
+    batch is dropped."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("LibSVMIter is not ported to mxnet_tpu_torch (it "
-                         "yields CSR batches; ROADMAP queue A item 12)")
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 batch_size=1, round_batch=True, **kwargs):
+        num_features = data_shape[0] if isinstance(data_shape,
+                                                   (tuple, list)) \
+            else data_shape
+        labels, indptr, indices, values = [], [0], [], []
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                for tok in parts[1:]:
+                    i, _, v = tok.partition(":")
+                    indices.append(int(i))
+                    values.append(float(v))
+                indptr.append(len(indices))
+        self._values = _np.asarray(values, _np.float32)
+        self._indices = _np.asarray(indices, _np.int32)
+        self._indptr = _np.asarray(indptr, _np.int64)
+        self._labels = _np.asarray(labels, _np.float32)
+        self._num_features = int(num_features)
+        self._num = len(labels)
+        self._cursor = 0
+        self._round = round_batch
+        super().__init__(batch_size)
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._num_features))]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("softmax_label", (self.batch_size,))]
+
+    def reset(self):
+        self._cursor = 0
+
+    def _span(self, lo, hi):
+        s, e = self._indptr[lo], self._indptr[hi]
+        return (self._values[s:e], self._indices[s:e],
+                self._indptr[lo:hi + 1] - s)
+
+    def next(self):
+        from ..ndarray import sparse as _sp
+        if not self.iter_next():
+            raise StopIteration
+        lo = self._cursor
+        hi = lo + self.batch_size
+        pad = max(0, hi - self._num)
+        self._cursor = hi
+        spans = [self._span(lo, min(hi, self._num))]
+        rows = list(range(lo, min(hi, self._num)))
+        while pad and len(rows) < self.batch_size:     # wrap to the start
+            take = min(self.batch_size - len(rows), self._num)
+            spans.append(self._span(0, take))
+            rows += list(range(take))
+        values = _np.concatenate([v for v, _, _ in spans])
+        indices = _np.concatenate([i for _, i, _ in spans])
+        indptr, base = [_np.zeros(1, _np.int64)], 0
+        for v, _, p in spans:
+            indptr.append(p[1:] + base)
+            base += len(v)
+        batch = _sp.csr_matrix(
+            (values, indices, _np.concatenate(indptr).astype(_np.int32)),
+            shape=(self.batch_size, self._num_features), ctx=cpu())
+        label = nd.array(self._labels[rows], ctx=cpu())
+        return DataBatch(data=[batch], label=[label], pad=pad)
+
+    def iter_next(self):
+        if self._round:
+            return self._cursor < self._num
+        return self._cursor + self.batch_size <= self._num

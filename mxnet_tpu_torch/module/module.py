@@ -30,6 +30,8 @@ import collections
 import logging
 import os
 
+import torch
+
 from .base_module import BaseModule, _as_list
 from ..base import MXNetError
 from ..config import get_env
@@ -41,7 +43,9 @@ from .. import optimizer as opt
 from ..initializer import InitDesc
 from ..model import load_checkpoint, save_checkpoint
 from ..observability import events as _obs_events
+from ..ndarray.sparse import CSRNDArray, RowSparseNDArray
 from ..optimizer import tree_opt
+from ..ops.sparse_graph import dedup_rsp_pairs
 
 __all__ = ["Module"]
 
@@ -130,11 +134,29 @@ class _ExecGroup:
             if self.grad_req[name] == "null":
                 continue
             total = self.execs[0].grad_dict[name]
+            if isinstance(total, RowSparseNDArray):
+                self._reduce_pairs(name, total)
+                continue
             for ex in self.execs[1:]:
                 total._data = total._data + \
                     ex.grad_dict[name]._data.to(total._data.device)
             for ex in self.execs[1:]:
                 total.copyto(ex.grad_dict[name])
+
+    def _reduce_pairs(self, name, first):
+        """Row-sparse gradients (``Embedding(sparse_grad=True)``): every
+        executor's pairs concatenated and deduplicated again, into each
+        executor's own container."""
+        dev = first._data.device
+        ids = torch.cat([ex.grad_dict[name]._aux[0].to(dev)
+                         for ex in self.execs])
+        vals = torch.cat([ex.grad_dict[name]._data.to(dev)
+                          for ex in self.execs])
+        ids, vals = dedup_rsp_pairs(ids, vals, first.shape[0])
+        for ex in self.execs:
+            dst = ex.grad_dict[name]
+            dst._aux[0] = ids.to(dst._data.device)
+            dst._data = vals.to(dst._data.device)
 
     def broadcast_params(self):
         for table, names in (("arg_dict", self.param_names),
@@ -667,7 +689,25 @@ class Module(BaseModule):
             return False
         if self._grad_req != "write":
             return False
+        if self._needs_legacy_step():
+            return False
         return tree_opt.supports_fused(self._optimizer)
+
+    def _needs_legacy_step(self):
+        """A graph with a CSR argument or a ``Custom`` node takes the
+        legacy step.  A CSR batch's nnz changes from batch to batch, so a
+        captured graph would fit one batch only (and padding the nnz
+        would change the sums); a ``Custom`` node runs user Python that
+        may read back to the host, which a capture cannot hold."""
+        sym = self._symbol
+        if any(not n.is_var and n.op.name == "Custom" for n in sym._topo()):
+            return True
+        if any(n.is_var and n.attrs.get("__storage_type__") == "csr"
+               for n in sym._topo()):
+            return True
+        return any(isinstance(a, CSRNDArray)
+                   for ex in self._exec_group.execs
+                   for a in ex.arg_dict.values())
 
     def _setup_fused(self):
         group = self._exec_group
@@ -726,7 +766,11 @@ class Module(BaseModule):
         group.forward_backward(data_batch)
         group.reduce_grads()
         names = ctx["names"]
-        grads = {n: ex0.grad_dict[n]._data for n in names}
+        grads = {}
+        for n in names:
+            g = ex0.grad_dict[n]
+            grads[n] = (g._aux[0], g._data) \
+                if isinstance(g, RowSparseNDArray) else g._data
         params = {n: ex0.arg_dict[n]._data for n in names}
         ts, lrs, wds = tree_opt.host_hyper(self._optimizer, names,
                                            ctx["idx"])

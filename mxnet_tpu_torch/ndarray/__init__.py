@@ -11,6 +11,8 @@ from . import register as _register
 # generated op functions (nd.FullyConnected, nd.Reshape, ...)
 _register.populate(globals())
 
+from . import sparse  # noqa: F401,E402  (after the op functions exist)
+
 from . import contrib  # noqa: F401,E402  (foreach, while_loop, cond, ...)
 _register.populate_contrib(contrib.__dict__)
 from . import image  # noqa: F401,E402

@@ -169,16 +169,19 @@ class NDArray:
     as_in_ctx = as_in_context
 
     def tostype(self, stype):
+        """This array in storage type *stype* ("default", "row_sparse" or
+        "csr"; see ``ndarray/sparse.py``)."""
         if stype == "default":
             return self
-        raise NotImplementedError("sparse storage is not ported "
-                                  "(ROADMAP queue A item 12)")
+        from . import sparse as _sp
+        return _sp.cast_storage(self, stype)
 
     # -- autograd ---------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
         """Allocate a gradient buffer (zeros on this array's device) and
         mark this array as a variable (reference: ndarray.py
-        attach_grad -> MarkVariables)."""
+        attach_grad -> MarkVariables).  The buffer is dense whatever
+        *stype* asks, as in the JAX package."""
         grad = NDArray(torch.zeros_like(self._data,
                                         memory_format=torch.contiguous_format))
         _ag.mark_variables([self], [grad], grad_req)

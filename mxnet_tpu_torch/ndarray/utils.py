@@ -5,7 +5,9 @@ other wrote: a numpy ``.npz`` archive with a ``__magic__`` entry holding
 ``mxnet_tpu_ndarray_v1``; dict keys are stored as ``key:<name>``, list
 items as ``idx:<i>``.  A bfloat16 array, which ``.npz`` cannot hold, is
 stored as ``<name>/bits`` (its uint16 bit patterns), ``<name>/shape`` and
-a ``<name>/__dtype__`` tag.  Sparse storage is not ported.
+a ``<name>/__dtype__`` tag.  A sparse array is stored as ``<name>/data``,
+``<name>/indices`` (and ``<name>/indptr`` for CSR), ``<name>/shape`` and
+a ``<name>/__stype__`` tag.
 """
 
 from __future__ import annotations
@@ -38,6 +40,14 @@ def _entries(data):
         raise ValueError("save expects NDArray, list or dict")
     entries = {}
     for name, v in items:
+        if getattr(v, "stype", "default") != "default":
+            entries[name + "/__stype__"] = _np.array(v.stype)
+            entries[name + "/data"] = v.data.asnumpy()
+            entries[name + "/indices"] = v.indices.asnumpy()
+            entries[name + "/shape"] = _np.array(v.shape)
+            if v.stype == "csr":
+                entries[name + "/indptr"] = v.indptr.asnumpy()
+            continue
         t = v._data if isinstance(v, NDArray) else torch.as_tensor(v)
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -83,6 +93,19 @@ def load_bytes(raw, ctx=None):
     return load(io.BytesIO(raw), ctx=ctx)
 
 
+def _sparse_entry(z, base, ctx):
+    from . import sparse as _sp
+    stype = str(z[base + "/__stype__"])
+    shape = tuple(int(s) for s in z[base + "/shape"])
+    if stype == "row_sparse":
+        return _sp.row_sparse_array(
+            (z[base + "/data"], z[base + "/indices"]), shape=shape, ctx=ctx)
+    if stype == "csr":
+        return _sp.csr_matrix((z[base + "/data"], z[base + "/indices"],
+                               z[base + "/indptr"]), shape=shape, ctx=ctx)
+    raise ValueError("entry %r: unknown storage type %r" % (base, stype))
+
+
 def load(fname, ctx=None):
     """Load NDArrays saved by :func:`save` (from either package; a path
     or a file object) onto *ctx* (default: the current context)."""
@@ -97,9 +120,8 @@ def load(fname, ctx=None):
             sub = groups[base]
             if len(sub) == 1 and "/" not in sub[0]:
                 return array(z[base], ctx=ctx)
-            if base + "/__dtype__" not in sub:
-                raise ValueError("entry %r: sparse storage is not ported"
-                                 % base)
+            if base + "/__stype__" in sub:
+                return _sparse_entry(z, base, ctx)
             dt = str(z[base + "/__dtype__"])
             if dt != "bfloat16":
                 raise ValueError("entry %r: unknown dtype tag %r"

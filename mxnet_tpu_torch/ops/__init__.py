@@ -14,3 +14,4 @@ from . import image  # noqa: F401
 from . import quantization  # noqa: F401
 from . import detection  # noqa: F401
 from . import spatial  # noqa: F401
+from . import parity  # noqa: F401

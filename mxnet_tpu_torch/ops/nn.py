@@ -644,6 +644,21 @@ def _make_loss(x):
     return x * 1.0
 
 
+def _custom_nout(params):
+    from ..operator import get_prop
+    prop = get_prop(params.get("op_type"))
+    extra = {k: v for k, v in params.items() if k != "op_type"}
+    return len(prop(**extra).list_outputs())
+
+
+@register_op("Custom", num_outputs=_custom_nout)
+def _custom(*inputs, op_type=None, **kwargs):
+    """A user operator registered with ``mx.operator.register`` (see
+    ``mxnet_tpu_torch/operator.py``)."""
+    from ..operator import invoke_custom
+    return invoke_custom(inputs, op_type, **kwargs)
+
+
 # ---------------------------------------------------------------------------
 # softmax variants, LRN, resizing and the CTC loss
 # ---------------------------------------------------------------------------

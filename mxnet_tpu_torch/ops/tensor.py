@@ -1,6 +1,5 @@
-"""Creation, shape, indexing, ordering and product ops (port of
-``mxnet_tpu/ops/tensor.py``; its ``_linalg_*`` ops and ``histogram`` are
-not ported yet).
+"""Creation, shape, indexing, ordering, product, ``linalg`` and histogram
+ops (port of ``mxnet_tpu/ops/tensor.py``).
 
 Indices follow the reference's ``jnp`` rules, never PyTorch's errors:
 
@@ -203,7 +202,15 @@ def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
     gives a NaN row (and passes no gradient).  Token ids arrive as
     floats (serving inputs default to float32) or ints.  Safe under CUDA
     graph capture: no id reaches the device's index assert and nothing
-    is read back to the host."""
+    is read back to the host.
+
+    A ``SparseGradWeight`` (the executor's ``sparse_grad`` path) reads
+    the detached weight and adds its zero per-occurrence leaf, whose
+    gradient is then the row-sparse gradient (``ops/sparse_graph.py``)."""
+    from .sparse_graph import SparseGradWeight
+    if isinstance(weight, SparseGradWeight):
+        return _embedding(data, weight.weight.detach(), input_dim,
+                          output_dim, dtype) + weight.vals
     j, ok = _wrap_index(data, weight.shape[0])
     rows = torch.index_select(weight, 0, j.reshape(-1)).reshape(
         tuple(j.shape) + tuple(weight.shape[1:]))
@@ -650,9 +657,7 @@ def _shuffle(rng, x):
 # precision for float32
 # ---------------------------------------------------------------------------
 
-@register_op("dot")
-def _dot(a, b, transpose_a=False, transpose_b=False):
-    """The last axis of *a* against the first of *b* (MXNet's dot)."""
+def _dense_dot(a, b, transpose_a=False, transpose_b=False):
     if transpose_a and a.dim() > 1:
         a = torch.swapaxes(a, -1, -2)
     if transpose_b and b.dim() > 1:
@@ -660,6 +665,15 @@ def _dot(a, b, transpose_a=False, transpose_b=False):
     if a.dim() == 1 and b.dim() == 1:
         return torch.dot(a, b)
     return torch.tensordot(a, b, dims=([a.dim() - 1], [0]))
+
+
+@register_op("dot")
+def _dot(a, b, transpose_a=False, transpose_b=False):
+    """The last axis of *a* against the first of *b* (MXNet's dot); a CSR
+    carrier on the left contracts sparsely (``ops/sparse_graph.py``)."""
+    from .sparse_graph import dense_dot_maybe_sparse
+    return dense_dot_maybe_sparse(a, b, transpose_a, transpose_b,
+                                  _dense_dot)
 
 
 @register_op("batch_dot")
@@ -719,3 +733,145 @@ def _unravel_index(data, shape=()):
         outs.append(torch.remainder(idx, s))
         idx = torch.div(idx, s, rounding_mode="floor")
     return torch.stack(outs[::-1], dim=0).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# linalg (float32 in full float32; cuSOLVER and cuBLAS on the card).  The
+# JAX package's quirks are kept: ``_linalg_trmm`` multiplies by the whole
+# of *a* (it ignores ``lower``) and ``_linalg_potri`` takes the Cholesky
+# factor L, not the matrix, returning (L L^T)^-1.  Cholesky and the
+# eigendecomposition read the symmetrized input (a + a^T) / 2, as
+# ``jnp.linalg`` does, so their gradients are JAX's too.
+# ---------------------------------------------------------------------------
+
+def _sym(a):
+    return (a + torch.swapaxes(a, -1, -2)) / 2
+
+
+def _solve_tri(a, b, lower, trans):
+    """X with op(a) X = b, op(a) = a^T when *trans*; only *a*'s *lower*
+    (else upper) triangle is read (``jax.scipy.linalg.solve_triangular``)."""
+    if trans:
+        return torch.linalg.solve_triangular(torch.swapaxes(a, -1, -2), b,
+                                             upper=bool(lower))
+    return torch.linalg.solve_triangular(a, b, upper=not lower)
+
+
+@register_op("_linalg_gemm2", aliases=("linalg_gemm2",))
+def _linalg_gemm2(a, b, transpose_a=False, transpose_b=False, alpha=1.0,
+                  axis=-2):
+    if transpose_a:
+        a = torch.swapaxes(a, -1, -2)
+    if transpose_b:
+        b = torch.swapaxes(b, -1, -2)
+    return alpha * torch.matmul(a, b)
+
+
+@register_op("_linalg_gemm", aliases=("linalg_gemm",))
+def _linalg_gemm(a, b, c, transpose_a=False, transpose_b=False, alpha=1.0,
+                 beta=1.0, axis=-2):
+    if transpose_a:
+        a = torch.swapaxes(a, -1, -2)
+    if transpose_b:
+        b = torch.swapaxes(b, -1, -2)
+    return alpha * torch.matmul(a, b) + beta * c
+
+
+@register_op("_linalg_potrf", aliases=("linalg_potrf",))
+def _linalg_potrf(a):
+    return torch.linalg.cholesky(_sym(a))
+
+
+@register_op("_linalg_potri", aliases=("linalg_potri",))
+def _linalg_potri(a):
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    l_inv = _solve_tri(a, eye.expand(a.shape), True, False)
+    return torch.matmul(torch.swapaxes(l_inv, -1, -2), l_inv)
+
+
+@register_op("_linalg_trmm", aliases=("linalg_trmm",))
+def _linalg_trmm(a, b, transpose=False, rightside=False, lower=True,
+                 alpha=1.0):
+    t = torch.swapaxes(a, -1, -2) if transpose else a
+    out = torch.matmul(b, t) if rightside else torch.matmul(t, b)
+    return alpha * out
+
+
+@register_op("_linalg_trsm", aliases=("linalg_trsm",))
+def _linalg_trsm(a, b, transpose=False, rightside=False, lower=True,
+                 alpha=1.0):
+    if rightside:
+        # X A = alpha B  <=>  A^T X^T = alpha B^T
+        sol = _solve_tri(torch.swapaxes(a, -1, -2),
+                         torch.swapaxes(alpha * b, -1, -2), not lower,
+                         transpose)
+        return torch.swapaxes(sol, -1, -2)
+    return _solve_tri(a, alpha * b, lower, transpose)
+
+
+@register_op("_linalg_syrk", aliases=("linalg_syrk",))
+def _linalg_syrk(a, transpose=False, alpha=1.0):
+    at = torch.swapaxes(a, -1, -2)
+    if transpose:
+        return alpha * torch.matmul(at, a)
+    return alpha * torch.matmul(a, at)
+
+
+@register_op("_linalg_sumlogdiag", aliases=("linalg_sumlogdiag",))
+def _linalg_sumlogdiag(a):
+    return torch.sum(torch.log(torch.diagonal(a, dim1=-2, dim2=-1)), dim=-1)
+
+
+@register_op("_linalg_syevd", num_outputs=2, aliases=("linalg_syevd",))
+def _linalg_syevd(a):
+    """(U, w): the eigenvectors as U's rows, the eigenvalues ascending.
+    Each eigenvector's sign is the solver's."""
+    w, v = torch.linalg.eigh(_sym(a))
+    return torch.swapaxes(v, -1, -2), w
+
+
+@register_op("_linalg_gelqf", num_outputs=2, aliases=("linalg_gelqf",))
+def _linalg_gelqf(a):
+    """(Q, L) with a = L Q, from the QR factors of a^T; each row's sign is
+    the solver's."""
+    q, r = torch.linalg.qr(torch.swapaxes(a, -1, -2))
+    return torch.swapaxes(q, -1, -2), torch.swapaxes(r, -1, -2)
+
+
+# ---------------------------------------------------------------------------
+# histogram
+# ---------------------------------------------------------------------------
+
+def _linspace(lo, hi, num, device):
+    """``jnp.linspace(lo, hi, num)`` in float32 by its own formula:
+    lo * (1 - s) + hi * s with s = i / (num - 1), the last edge hi."""
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=device)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=device)
+    div = num - 1
+    if div < 1:
+        return lo.reshape(1)
+    step = torch.arange(div, dtype=torch.float32, device=device) / \
+        torch.tensor(float(div), dtype=torch.float32, device=device)
+    out = lo * (1 - step) + hi * step
+    return torch.cat([out, hi.reshape(1)])
+
+
+@register_op("histogram", num_outputs=2, aliases=("_histogram",))
+def _histogram(data, bin_cnt=10, range=None):
+    """(counts, edges): *bin_cnt* equal bins over *range* (default: the
+    data's min to max), the last bin closed; values outside count
+    nowhere."""
+    n = int(bin_cnt)
+    flat = data.reshape(-1)
+    if range is not None:
+        lo, hi = range
+    else:
+        lo, hi = flat.min().float(), flat.max().float()
+    edges = _linspace(lo, hi, n + 1, data.device)
+    x = flat.to(torch.float32)
+    idx = torch.clamp(torch.searchsorted(edges, x, right=True) - 1, 0, n - 1)
+    in_range = (x >= edges[0]) & (x <= edges[-1])
+    hist = torch.zeros((n,), dtype=torch.float32,
+                       device=data.device).index_add_(
+                           0, idx, in_range.to(torch.float32))
+    return hist, edges

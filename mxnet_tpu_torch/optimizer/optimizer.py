@@ -19,8 +19,13 @@ master rounded to its dtype (``update_multi_precision``).
 ``set_states`` blob is the JAX package's format 2, so optimizer state,
 multi-precision tuples included, crosses between the packages.
 
-Not ported: row-sparse (lazy) updates; a sparse gradient does not exist
-in the port, so every update is dense.
+Row-sparse gradients (``ndarray.sparse.RowSparseNDArray``): SGD with
+``lazy_update`` and AdaGrad update only the gradient's rows
+(``sparse.sgd_row_update``, ``sgd_mom_row_update``,
+``adagrad_row_update``); every other optimizer, and SGD without
+``lazy_update``, densifies the gradient first (the JAX package's Adam
+and the other dense optimizers would read a row-sparse gradient's values
+as a dense gradient).
 """
 
 from __future__ import annotations
@@ -177,19 +182,27 @@ class Optimizer:
         such as a momentum of 0, are left out)."""
         for k, v in self._knobs().items():
             hyper.setdefault(k, v)
-        getattr(nd, op_name)(weight, grad,
+        getattr(nd, op_name)(weight, self._densify(grad),
                              *[s for s in states if s is not None], **hyper)
 
     def _clipped(self, grad):
         """The rescaled, clipped gradient tensor (the Python-side
         optimizers' first step)."""
-        g = grad._data * self.rescale_grad
+        g = self._densify(grad)._data * self.rescale_grad
         if self.clip_gradient is not None:
             g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
         return g
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    @staticmethod
+    def _densify(grad):
+        """A row-sparse gradient as a dense one; a dense one unchanged."""
+        from ..ndarray import sparse as _sp
+        if isinstance(grad, _sp.BaseSparseNDArray):
+            return grad.todense()
+        return grad
 
     @staticmethod
     def _is_mp(weight, state):
@@ -205,7 +218,7 @@ class Optimizer:
         if not self.multi_precision or not self._is_mp(weight, state):
             return self.update(index, weight, grad, state)
         inner, w32 = state
-        self.update(index, w32, NDArray(grad._data.float()), inner)
+        self.update(index, w32, grad.astype("float32"), inner)
         with torch.no_grad():
             weight._data.copy_(w32._data)
 
@@ -225,6 +238,18 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._bump(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        from ..ndarray import sparse as _sp
+        if isinstance(grad, _sp.RowSparseNDArray) and self.lazy_update:
+            # only the gradient's rows move (reference: sgd_update's
+            # row_sparse path, lazy_update)
+            kw = self._knobs()
+            if state is not None:
+                _sp.sgd_mom_row_update(weight, grad, state, lr=lr,
+                                       momentum=self.momentum, wd=wd, **kw)
+            else:
+                _sp.sgd_row_update(weight, grad, lr=lr, wd=wd, **kw)
+            return
+        grad = self._densify(grad)
         if state is not None:
             self._fused("sgd_mom_update", weight, grad, (state,), lr=lr,
                         wd=wd, momentum=self.momentum)
@@ -236,6 +261,7 @@ class SGD(Optimizer):
             return self.update(index, weight, grad, state)
         self._bump(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = self._densify(grad)
         mom, w32 = state
         if mom is not None:
             self._fused("mp_sgd_mom_update", weight, grad, (mom, w32),
@@ -460,8 +486,8 @@ class Adam(Optimizer):
 
 @register
 class AdaGrad(Optimizer):
-    """AdaGrad, dense (reference: optimizer.py AdaGrad:1140 over
-    _sparse_adagrad_update)."""
+    """AdaGrad, with a lazy row update for a row-sparse gradient
+    (reference: optimizer.py AdaGrad:1140 over _sparse_adagrad_update)."""
 
     def __init__(self, eps=1e-7, **kwargs):
         super().__init__(**kwargs)
@@ -472,9 +498,15 @@ class AdaGrad(Optimizer):
 
     def update(self, index, weight, grad, state):
         self._bump(index)
-        self._fused("_sparse_adagrad_update", weight, grad, (state,),
-                    lr=self._get_lr(index), wd=self._get_wd(index),
-                    epsilon=self.float_stable_eps)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        from ..ndarray import sparse as _sp
+        if isinstance(grad, _sp.RowSparseNDArray):
+            _sp.adagrad_row_update(weight, grad, state, lr=lr, wd=wd,
+                                   epsilon=self.float_stable_eps,
+                                   **self._knobs())
+            return
+        self._fused("_sparse_adagrad_update", weight, self._densify(grad),
+                    (state,), lr=lr, wd=wd, epsilon=self.float_stable_eps)
 
 
 @register

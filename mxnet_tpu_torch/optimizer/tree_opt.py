@@ -18,7 +18,14 @@ program.  The hyper-parameters an op takes as Python numbers (momentum,
 rescale_grad, ...) are baked in; ``hyper_sig`` snapshots them, and a
 changed snapshot rebuilds the program.
 
-Not ported: row-sparse (ids, values) gradients (ROADMAP queue A item 12).
+A row-sparse gradient arrives as an ``(ids, values)`` pair from the
+executor's ``Embedding(sparse_grad=True)`` path, deduplicated with the id
+``rows`` on its tail slots (``ops/sparse_graph.dedup_rsp_pairs``).  SGD
+with ``lazy_update`` and AdaGrad update only its rows, in place, with the
+eager lazy updates' code (``ndarray/sparse.py`` ``sgd_rows_``,
+``adagrad_rows_``); the padding slots
+write nothing new, so nothing is read back.  Every other optimizer (and
+SGD under multi-precision or without ``lazy_update``) densifies the pair.
 """
 
 from __future__ import annotations
@@ -27,8 +34,8 @@ import math
 
 import torch
 
-from ..base import MXNetError
 from ..ndarray import NDArray
+from ..ndarray.sparse import adagrad_rows_, sgd_rows_
 from . import optimizer as _opt
 
 __all__ = ["supports_fused", "host_hyper", "hyper_sig", "init_tree_state",
@@ -56,11 +63,13 @@ def _is_rsp(g):
     return isinstance(g, tuple) and len(g) == 2
 
 
-def _dense(g):
+def _dense(g, w):
+    """*g*, an (ids, values) pair densified to *w*'s shape."""
     if _is_rsp(g):
-        raise MXNetError("row-sparse gradients are not ported to "
-                         "mxnet_tpu_torch (ROADMAP queue A item 12)")
+        from ..ops.sparse_graph import densify_pair
+        return densify_pair(g, tuple(w.shape))
     return g
+
 
 
 def _knobs(opt, op):
@@ -88,8 +97,12 @@ def _make_sgd(opt):
     kn = _knobs(opt, _get_op("sgd_update"))
 
     def upd(w, g, state, lr, wd, t):
-        g = _dense(g)
         mom = opt.momentum
+        if _is_rsp(g) and opt.lazy_update and not _is_mp(w, state):
+            sgd_rows_(w, *g, lr, wd, kn["rescale_grad"],
+                      kn.get("clip_gradient"), state, mom)
+            return
+        g = _dense(g, w)
         if _is_mp(w, state):
             m, w32 = state
             if m is not None:
@@ -123,7 +136,7 @@ def _make_simple(op_name, static_of, needs_t=False):
                 kw["lr"] = lr
             if needs_t:
                 kw["t"] = t
-            op.fn(w, _dense(g), *states, **kw)
+            op.fn(w, _dense(g, w), *states, **kw)
 
         return upd
 
@@ -148,6 +161,21 @@ def _per_state(mom_make, plain_make):
     return make
 
 
+def _make_adagrad(opt):
+    dense = _make_simple("_sparse_adagrad_update",
+                         lambda o: {"epsilon": o.float_stable_eps})(opt)
+    kn = _knobs(opt, _get_op("_sparse_adagrad_update"))
+    eps = opt.float_stable_eps
+
+    def upd(w, g, state, lr, wd, t):
+        if not _is_rsp(g):
+            return dense(w, g, state, lr, wd, t)
+        adagrad_rows_(w, *g, state, lr, eps, wd, kn["rescale_grad"],
+                      kn.get("clip_gradient"))     # always lazy
+
+    return upd
+
+
 def _make_rmsprop(opt):
     extra = {"clip_weights": opt.clip_weights} if opt.clip_weights else {}
     if opt.centered:
@@ -162,8 +190,7 @@ def _make_rmsprop(opt):
 
 _BUILDERS = {
     _opt.SGD: _make_sgd,
-    _opt.AdaGrad: _make_simple(
-        "_sparse_adagrad_update", lambda o: {"epsilon": o.float_stable_eps}),
+    _opt.AdaGrad: _make_adagrad,
     _opt.NAG: _per_state(
         _make_simple("nag_mom_update", lambda o: {"momentum": o.momentum}),
         _make_simple("sgd_update", lambda o: {})),
@@ -209,7 +236,8 @@ def _with_generic_mp(opt, upd):
         if not (opt.multi_precision and _is_mp(w, state)):
             return upd(w, g, state, lr, wd, t)
         inner, w32 = state
-        upd(w32, _dense(g).float(), inner, lr, wd, t)
+        g = (g[0], g[1].float()) if _is_rsp(g) else g.float()
+        upd(w32, g, inner, lr, wd, t)
         w.copy_(w32)
 
     return wrapped

@@ -449,6 +449,24 @@ class Symbol:
         os.replace(tmp, fname)
 
     # -- binding -----------------------------------------------------------
+    def _maybe_partition(self):
+        """This graph partitioned by the backend ``MXNET_SUBGRAPH_BACKEND``
+        names (unchanged when it names none; a warning when it names an
+        unregistered one)."""
+        from ..config import get_env
+        backend = get_env("MXNET_SUBGRAPH_BACKEND")
+        if not backend:
+            return self
+        from ..subgraph import partition_graph, list_subgraph_backends
+        if backend not in list_subgraph_backends():
+            import warnings
+            warnings.warn(
+                "MXNET_SUBGRAPH_BACKEND=%r is not a registered backend "
+                "(known: %s); partitioning skipped"
+                % (backend, list_subgraph_backends()))
+            return self
+        return partition_graph(self, backend)
+
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     stype_dict=None, group2ctx=None, shared_arg_names=None,
                     shared_exec=None, shared_buffer=None, **kwargs):
@@ -456,7 +474,8 @@ class Symbol:
         from *kwargs* (``data=(8, 20)``), on *ctx* (default: the current
         context)."""
         from ..executor import Executor
-        return Executor._simple_bind(self, ctx, grad_req, type_dict, kwargs,
+        return Executor._simple_bind(self._maybe_partition(), ctx, grad_req,
+                                     type_dict, kwargs,
                                      shared_exec=shared_exec,
                                      group2ctx=group2ctx)
 
@@ -465,8 +484,8 @@ class Symbol:
         """An Executor over the given argument arrays (a list in
         ``list_arguments`` order, or a dict)."""
         from ..executor import Executor
-        return Executor._bind(self, ctx, args, args_grad, grad_req,
-                              aux_states, group2ctx=group2ctx)
+        return Executor._bind(self._maybe_partition(), ctx, args, args_grad,
+                              grad_req, aux_states, group2ctx=group2ctx)
 
     def eval(self, ctx=None, **kwargs):
         return self.bind(ctx, kwargs).forward()
@@ -505,8 +524,9 @@ def _parse_attr(v):
 
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
-        init=None, **kwargs):
-    """A variable symbol (attributes of the enclosing AttrScopes first)."""
+        init=None, stype=None, **kwargs):
+    """A variable symbol (attributes of the enclosing AttrScopes first);
+    *stype* ("csr", "row_sparse") is kept as ``__storage_type__``."""
     attrs = dict(AttrScope.current_attrs())
     attrs.update(attr or {})
     if shape is not None:
@@ -520,6 +540,8 @@ def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
     if init is not None:
         attrs["__init__"] = init if isinstance(init, str) else \
             init.__class__.__name__
+    if stype is not None:
+        attrs["__storage_type__"] = stype
     attrs.update(kwargs)
     return Symbol([(Node(None, name, attrs=attrs), 0)])
 

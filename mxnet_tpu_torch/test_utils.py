@@ -4,9 +4,10 @@ greedy-decode oracle), and the op sweeps: one or more small cases for
 every op name of the elementwise, reduce, tensor, random and Dropout /
 InstanceNorm families (``op_sweep_cases``) and of the layer ops
 (``layer_op_cases``: Deconvolution, LRN, the resizes, the softmax
-variants, CTC and the ``*_v1`` spellings), which the CPU tests run
-against the JAX package and ``chip_smoke.py`` runs on the card against
-the CPU."""
+variants, CTC and the ``*_v1`` spellings), of the detection ops
+(``detection_op_cases``) and of the long tail and sparse storage
+(``sparse_op_cases``), which the CPU tests run against the JAX package
+and ``chip_smoke.py`` runs on the card against the CPU."""
 
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from .base import torch_dtype
 from .serve.kvpool import as_device
 
 __all__ = ["tiny_attention_lm", "dense_decode_reference", "op_sweep_cases",
-           "layer_op_cases", "SAMPLER_MOMENTS", "moments_within"]
+           "layer_op_cases", "SAMPLER_MOMENTS", "moments_within",
+           "detection_op_cases", "sparse_op_cases", "align_signs"]
 
 
 def tiny_attention_lm(vocab=32, dim=16, seed=0, dtype="float32", ctx=None):
@@ -217,6 +219,11 @@ SAMPLER_MOMENTS = {
     "_sample_normal": ([0.0, 3.0], [1.0, 0.25]),
     "_sample_gamma": ([2.0, 4.5], [2.0, 6.75]),
     "_sample_multinomial": ([1.4, 1.0], [0.64, 0.5]),
+    # the per-row samplers of ops/parity.py (sparse_op_cases)
+    "_sample_exponential": ([1.0, 0.4], [1.0, 0.16]),
+    "_sample_poisson": ([3.0, 7.5], [3.0, 7.5]),
+    "_sample_negative_binomial": ([4.5, 10.0 / 3], [11.25, 50.0 / 9]),
+    "_sample_generalized_negative_binomial": ([2.0, 4.0], [4.0, 8.0]),
 }
 
 
@@ -1073,3 +1080,352 @@ def _proposal_margin(cls_prob, bbox_pred, im_info, params):
         worst = min(worst, nms_margin(bx[None], sc[None], ok[None], thresh,
                                       topk))
     return worst
+
+
+# ---------------------------------------------------------------------------
+# the long tail and sparse storage
+# ---------------------------------------------------------------------------
+
+# the op names sparse_op_cases covers: ops/parity.py's, the linalg ops,
+# histogram, the SparseEmbedding alias and Custom
+SPARSE_SLICE_NAMES = (
+    "hard_sigmoid", "shape_array", "size_array", "_zeros_without_dtype",
+    "_identity_with_attr_like_rhs", "_scatter_minus_scalar",
+    "_scatter_elemwise_div", "_slice_assign", "_crop_assign",
+    "_slice_assign_scalar", "_crop_assign_scalar", "Crop", "SVMOutput",
+    "IdentityAttachKLSparseReg", "_sample_exponential", "_sample_poisson",
+    "_sample_negative_binomial", "_sample_generalized_negative_binomial",
+    "_contrib_group_adagrad_update", "_contrib_bipartite_matching",
+    "_contrib_DeformablePSROIPooling", "cast_storage", "_sparse_retain",
+    "_square_sum", "_contrib_SparseEmbedding", "histogram", "_histogram",
+    "Custom") + tuple(
+        p + "linalg_" + k for k in ("gemm", "gemm2", "potrf", "potri",
+                                    "trmm", "trsm", "syrk", "sumlogdiag",
+                                    "syevd", "gelqf") for p in ("_", ""))
+
+
+def align_signs(got, want, axis):
+    """*got* with each vector along *axis* (-1: rows, -2: columns) given
+    the sign that best matches *want*'s (eigenvectors and LQ factors are
+    signed differently by different solvers); also the signs (+1/-1)."""
+    dims = -1 if axis == -1 else -2
+    dot = (got * want).sum(dim=dims, keepdim=True)
+    sign = torch.where(dot < 0, -1.0, 1.0).to(got.dtype)
+    return got * sign, sign
+
+
+def _register_case_op():
+    """The Custom op of the sweep: y = x^2 with its own backward."""
+    from . import operator as op_mod
+
+    @op_mod.register("test_utils_sqr")
+    class _SqrProp(op_mod.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class _Sqr(op_mod.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    self.assign(out_data[0], req[0], in_data[0] * in_data[0])
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    self.assign(in_grad[0], req[0],
+                                2 * in_data[0] * out_grad[0])
+            return _Sqr()
+
+    return "test_utils_sqr"
+
+
+def sparse_op_cases(seed=0, draws=20000):
+    """The long-tail and sparse sweep.  Each case is a dict with ``id`` and
+    ``kind``:
+
+    - "op": ``name``, ``inputs`` (numpy), ``params``, ``grads`` (indices of
+      the inputs whose gradients are held), optional ``exact`` (output
+      indices that must agree bit for bit) and ``signs`` ({output: axis}
+      for eigenvectors and LQ factors, held after ``align_signs`` with
+      the linked outputs in ``sign_links``);
+    - "sample": a per-row sampler, ``name``, ``inputs``, ``params``; its
+      draws are held by ``SAMPLER_MOMENTS`` within 4 standard errors;
+    - "call": ``run(mx, ctx)`` -> a list of tensors: a function of
+      ``nd.sparse``, a lazy row update, the executor's CSR and
+      sparse-gradient paths or a ``subgraph.partition_graph`` round trip,
+      with optional ``exact``.
+
+    Every name of ``SPARSE_SLICE_NAMES`` has at least one case."""
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+
+    def n(*shape):
+        return rs.standard_normal(shape).astype(f32)
+
+    def u(lo, hi, *shape):
+        return rs.uniform(lo, hi, shape).astype(f32)
+
+    cases = []
+
+    def add(name, inputs, params=None, grads=(0,), tag="", **extra):
+        case = {"kind": "op", "name": name,
+                "inputs": [np.asarray(a) for a in inputs],
+                "params": dict(params or {}), "grads": tuple(grads),
+                "id": name + ("-" + tag if tag else "")}
+        case.update(extra)
+        cases.append(case)
+
+    # elementwise long tail
+    add("hard_sigmoid", [3 * n(4, 5)])
+    add("hard_sigmoid", [n(6)], dict(alpha=0.5, beta=0.25), tag="ab")
+    add("shape_array", [n(2, 3, 4)], grads=(), exact=[0])
+    add("size_array", [n(2, 3, 4)], grads=(), exact=[0])
+    add("_zeros_without_dtype", [], dict(shape=(2, 3)), grads=(),
+        exact=[0])
+    add("_identity_with_attr_like_rhs", [n(3, 4), n(3, 4)], grads=(0, 1))
+    add("_scatter_minus_scalar", [n(3, 4)], dict(scalar=0.5))
+    add("_scatter_elemwise_div", [n(3, 4), u(0.5, 2.0, 3, 4)],
+        grads=(0, 1))
+    # slice assignment
+    add("_slice_assign", [n(4, 5), n(2, 3)], dict(begin=(1, 1), end=(3, 4)),
+        grads=(0, 1))
+    add("_crop_assign", [n(4, 5), n(2, 3)],
+        dict(begin=(0, 1), end=(4, 4), step=(2, 1)), grads=(0, 1))
+    add("_slice_assign_scalar", [n(4, 5)],
+        dict(scalar=2.0, begin=(1,), end=(3,)))
+    add("_crop_assign_scalar", [n(3, 4, 5)],
+        dict(scalar=-1.0, begin=(0, 1), end=(2, None)))
+    # Crop, SVMOutput, IdentityAttachKLSparseReg
+    add("Crop", [n(2, 3, 8, 9)], dict(h_w=(4, 5), offset=(1, 2)))
+    add("Crop", [n(2, 3, 8, 9), n(2, 1, 5, 4)],
+        dict(center_crop=True, num_args=2), tag="like")
+    label = rs.randint(0, 5, 6).astype(f32)
+    add("SVMOutput", [n(6, 5), label], dict(margin=1.0))
+    add("SVMOutput", [n(6, 5), label],
+        dict(margin=0.5, regularization_coefficient=2.0, use_linear=True),
+        tag="linear")
+    add("IdentityAttachKLSparseReg", [u(0.05, 0.95, 8, 6)],
+        dict(sparseness_target=0.2, penalty=0.01))
+    # per-row samplers
+    for name, ins in (
+            ("_sample_exponential", [np.array([1.0, 2.5], f32)]),
+            ("_sample_poisson", [np.array([3.0, 7.5], f32)]),
+            ("_sample_negative_binomial", [np.array([3.0, 5.0], f32),
+                                           np.array([0.4, 0.6], f32)]),
+            ("_sample_generalized_negative_binomial",
+             [np.array([2.0, 4.0], f32), np.array([0.5, 0.25], f32)])):
+        cases.append({"kind": "sample", "name": name, "id": name,
+                      "inputs": ins, "params": {"shape": (draws,)},
+                      "grads": ()})
+    # group adagrad (weight and history written in place)
+    add("_contrib_group_adagrad_update",
+        [n(6, 4), n(6, 4), u(0.0, 1.0, 6)],
+        dict(lr=0.1, rescale_grad=0.5, clip_gradient=1.0), grads=())
+    # bipartite matching: distinct scores, so no tie decides
+    sc = rs.permutation(40).reshape(2, 5, 4).astype(f32) / 40
+    add("_contrib_bipartite_matching", [sc], dict(threshold=0.1), grads=(),
+        exact=[0, 1])
+    add("_contrib_bipartite_matching", [sc],
+        dict(is_ascend=True, threshold=0.8, topk=3), grads=(), exact=[0, 1],
+        tag="ascend")
+    # deformable PSROI pooling
+    od, g, k = 2, 2, 3
+    rois = np.array([[0, 1.3, 2.2, 9.6, 8.4], [1, 0.0, 0.5, 5.2, 11.0],
+                     [0, 4.0, 3.0, 7.0, 6.0]], f32)
+    add("_contrib_DeformablePSROIPooling",
+        [n(2, od * g * g, 12, 12), rois, 0.5 * n(3, 2, k, k)],
+        dict(spatial_scale=1.0, output_dim=od, group_size=g,
+             pooled_size=k, part_size=k, sample_per_part=2, trans_std=0.1),
+        grads=(0, 2))
+    # graph-level sparse ops on dense values
+    add("cast_storage", [n(3, 4)], dict(stype="default"))
+    add("_sparse_retain", [n(6, 3), np.array([1, 4, 4, 9], f32)])
+    add("_square_sum", [n(5, 4)], dict(axis=1, keepdims=True))
+    add("_square_sum", [n(3, 4)], tag="all")
+    add("_contrib_SparseEmbedding",
+        [rs.randint(0, 10, (3, 4)).astype(f32), n(10, 5)],
+        dict(input_dim=10, output_dim=5, sparse_grad=True), grads=(1,))
+    # linalg, both spellings
+    spd = n(2, 4, 4)
+    spd = (spd @ spd.transpose(0, 2, 1) + 4 * np.eye(4, dtype=f32)).astype(f32)
+    low = np.linalg.cholesky(spd.astype(np.float64)).astype(f32)
+    tri = (np.tril(n(2, 4, 4)) + 3 * np.eye(4, dtype=f32)).astype(f32)
+    sym = n(4, 4)
+    sym = (sym + sym.T + np.diag([-6.0, -2.0, 2.0, 6.0])).astype(f32)
+    add("_linalg_gemm", [n(2, 3, 4), n(2, 4, 5), n(2, 3, 5)],
+        dict(alpha=0.5, beta=2.0), grads=(0, 1, 2))
+    add("linalg_gemm", [n(4, 3), n(5, 4), n(3, 5)],
+        dict(transpose_a=True, transpose_b=True), grads=(0, 1, 2))
+    add("_linalg_gemm2", [n(2, 3, 4), n(2, 4, 5)], dict(alpha=2.0),
+        grads=(0, 1))
+    add("linalg_gemm2", [n(64, 48), n(96, 48)], dict(transpose_b=True),
+        grads=(0, 1), tag="wide")
+    add("_linalg_potrf", [spd])
+    add("linalg_potrf", [spd[0]])
+    add("_linalg_potri", [low])
+    add("linalg_potri", [low[1]])
+    add("_linalg_trmm", [tri, n(2, 4, 3)], dict(alpha=1.5), grads=(0, 1))
+    add("linalg_trmm", [tri[0], n(3, 4)],
+        dict(rightside=True, transpose=True), grads=(0, 1))
+    add("_linalg_trsm", [tri, n(2, 4, 3)], dict(alpha=0.5), grads=(0, 1))
+    add("linalg_trsm", [np.swapaxes(tri[1], 0, 1).copy(), n(3, 4)],
+        dict(rightside=True, lower=False, transpose=True), grads=(0, 1))
+    add("_linalg_syrk", [n(2, 3, 5)], dict(alpha=0.5))
+    add("linalg_syrk", [n(64, 96)], dict(transpose=True), tag="wide")
+    add("_linalg_sumlogdiag", [spd])
+    add("linalg_sumlogdiag", [spd[1]])
+    add("_linalg_syevd", [sym], grads=(), signs={0: -1})
+    add("linalg_syevd", [sym[None]], grads=(), signs={0: -1})
+    lq = n(3, 5)
+    add("_linalg_gelqf", [lq], grads=(), signs={0: -1, 1: -2},
+        sign_links={1: 0})
+    add("linalg_gelqf", [n(2, 2, 4)], grads=(), signs={0: -1, 1: -2},
+        sign_links={1: 0})
+    # histogram: data on the edges
+    edges = np.array([0, 1, 2, 3, 4, 5, 0.5, 2.5, 5, 5, -1, 6, 1.0],
+                     f32).reshape(13)
+    add("histogram", [edges], dict(bin_cnt=5, range=(0, 5)), grads=(),
+        exact=[0, 1])
+    add("_histogram", [np.array([0.0, 0.25, 0.5, 0.75, 1.0, 0.125, 0.5],
+                                f32)], dict(bin_cnt=4), grads=(),
+        exact=[0, 1])
+    # Custom
+    add("Custom", [n(3, 4)], dict(op_type=_register_case_op()))
+
+    cases += _sparse_call_cases(rs)
+    return cases
+
+
+def _sparse_call_cases(rs):
+    """The "call" cases of sparse_op_cases."""
+    f32 = np.float32
+    dense = rs.standard_normal((6, 8)).astype(f32)
+    dense[rs.rand(6, 8) > 0.3] = 0
+    rhs = rs.standard_normal((8, 3)).astype(f32)
+    rhs_t = rs.standard_normal((6, 3)).astype(f32)
+    w0 = rs.standard_normal((10, 4)).astype(f32)
+    g_rows = rs.standard_normal((3, 4)).astype(f32)
+    hist0 = rs.uniform(0.1, 1.0, (10, 4)).astype(f32)
+    ids = np.array([[3, 1, 3], [7, 1, 1]], f32)
+    uniq = np.array([[2, 5, 0], [9, 4, 6]], f32)
+    emb_w = rs.standard_normal((10, 4)).astype(f32)
+    fc_w = rs.standard_normal((5, 6)).astype(f32)
+    x_part = rs.standard_normal((4, 6)).astype(f32)
+    cases = []
+
+    def call(tag, run, exact=()):
+        cases.append({"kind": "call", "id": "sparse." + tag, "run": run,
+                      "exact": list(exact)})
+
+    def sp_of(mx):
+        return mx.nd.sparse
+
+    def csr(mx, ctx):
+        return sp_of(mx).csr_matrix(dense, shape=dense.shape, ctx=ctx)
+
+    def rsp(mx, ctx):
+        return sp_of(mx).row_sparse_array((g_rows, [1, 4, 8]),
+                                          shape=(10, 4), ctx=ctx)
+
+    call("dot", lambda mx, ctx: [sp_of(mx).dot(
+        csr(mx, ctx), mx.nd.array(rhs, ctx=ctx))._data])
+    call("dot-transpose", lambda mx, ctx: [sp_of(mx).dot(
+        csr(mx, ctx), mx.nd.array(rhs_t, ctx=ctx), transpose_a=True)._data])
+    call("csr-todense-slice", lambda mx, ctx: [
+        csr(mx, ctx).todense()._data, csr(mx, ctx)[2:5].todense()._data,
+        csr(mx, ctx)[2:5].indptr._data], exact=(0, 1, 2))
+    call("cast-storage", lambda mx, ctx: [
+        t._data for t in (lambda c: (c.data, c.indices, c.indptr))(
+            mx.nd.array(dense, ctx=ctx).tostype("csr"))] + [
+        mx.nd.array(dense, ctx=ctx).tostype("row_sparse").indices._data],
+        exact=(0, 1, 2, 3))
+    call("rsp-todense-retain-add", lambda mx, ctx: [
+        rsp(mx, ctx).todense()._data,
+        sp_of(mx).retain(rsp(mx, ctx),
+                         mx.nd.array([4, 5], ctx=ctx)).todense()._data,
+        sp_of(mx).sparse_add(rsp(mx, ctx), rsp(mx, ctx)).todense()._data,
+        sp_of(mx).elemwise_mul(rsp(mx, ctx),
+                               mx.nd.array(w0, ctx=ctx))._data])
+    call("compress-rowsparse", lambda mx, ctx: (lambda r: [
+        r.indices._data, r.data._data])(sp_of(mx).compress_rowsparse(
+            rsp(mx, ctx).todense())), exact=(0, 1))
+
+    def lazy(kind):
+        def run(mx, ctx):
+            sp = sp_of(mx)
+            w = mx.nd.array(w0, ctx=ctx)
+            st = mx.nd.array(hist0, ctx=ctx)
+            g = rsp(mx, ctx)
+            if kind == "sgd":
+                sp.sgd_row_update(w, g, lr=0.1, wd=0.01, rescale_grad=0.5)
+            elif kind == "sgd-mom":
+                sp.sgd_mom_row_update(w, g, st, lr=0.1, momentum=0.9,
+                                      wd=0.01, clip_gradient=0.5)
+            else:
+                sp.adagrad_row_update(w, g, st, lr=0.1, wd=0.01)
+            return [w._data, st._data]
+        return run
+
+    for kind in ("sgd", "sgd-mom", "adagrad"):
+        call("lazy-" + kind, lazy(kind))
+
+    def dedup(which):
+        def run(mx, ctx):
+            from .ops.sparse_graph import dedup_rsp_pairs
+            t = torch.from_numpy(which).to(ctx.torch_device)
+            vals = torch.from_numpy(np.arange(24, dtype=f32).reshape(
+                2, 3, 4)).to(ctx.torch_device)
+            i, v = dedup_rsp_pairs(t, vals, 10)
+            return [i, v]
+        return run
+
+    call("dedup-repeats", dedup(ids), exact=(0, 1))
+    call("dedup-unique", dedup(uniq), exact=(0, 1))
+
+    def graph_dot(mx, ctx):
+        x = mx.sym.var("x", stype="csr")
+        w = mx.sym.var("w")
+        ex = mx.sym.dot(x, w).bind(
+            ctx, {"x": csr(mx, ctx), "w": mx.nd.array(rhs, ctx=ctx)},
+            args_grad={"w": mx.nd.zeros(rhs.shape, ctx=ctx)})
+        out = ex.forward(is_train=True)[0]
+        ex.backward(mx.nd.ones(out.shape, ctx=ctx))
+        return [out._data, ex.grad_dict["w"]._data]
+
+    call("graph-csr-dot", graph_dot)
+
+    def sparse_grad(mx, ctx):
+        data = mx.sym.var("ids")
+        emb = mx.sym.Embedding(data, mx.sym.var("w"), input_dim=10,
+                               output_dim=4, sparse_grad=True)
+        loss = mx.sym.sum(mx.sym.square(emb))
+        ex = loss.bind(ctx, {"ids": mx.nd.array(ids, ctx=ctx),
+                             "w": mx.nd.array(emb_w, ctx=ctx)},
+                       args_grad={"w": mx.nd.zeros((10, 4), ctx=ctx)},
+                       grad_req={"w": "write", "ids": "null"})
+        ex.forward(is_train=True)
+        ex.backward()
+        g = ex.grad_dict["w"]
+        return [g.indices._data, g.data._data, g.todense()._data]
+
+    call("graph-sparse-grad", sparse_grad, exact=(0,))
+
+    def partition(mx, ctx):
+        from . import subgraph
+        d = mx.sym.var("data")
+        h = mx.sym.FullyConnected(d, mx.sym.var("w"), num_hidden=5,
+                                  no_bias=True, name="fc")
+        h = mx.sym.Activation(h, act_type="relu") + 1.0
+        net = mx.sym.sum(mx.sym.tanh(h * 2.0))
+        part = subgraph.partition_graph(net, "MXTPU_FUSE")
+        outs = []
+        for s in (net, part):
+            ex = s.bind(ctx, {"data": mx.nd.array(x_part, ctx=ctx),
+                              "w": mx.nd.array(fc_w, ctx=ctx)},
+                        args_grad={"w": mx.nd.zeros((5, 6), ctx=ctx)},
+                        grad_req={"w": "write", "data": "null"})
+            outs.append(ex.forward(is_train=True)[0]._data)
+            ex.backward()
+            outs.append(ex.grad_dict["w"]._data)
+        n_sub = sum(1 for nd_ in part._topo()
+                    if not nd_.is_var and nd_.op.name == "_subgraph_exec")
+        outs.append(torch.tensor([n_sub]))
+        return outs
+
+    call("partition-graph", partition, exact=(4,))
+    return cases

@@ -623,7 +623,9 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
         "phase_fleet": lambda t, c, s: {"launches": {"wrapper": 36,
                                                      "graph": 1500}},
         "phase_zoo": lambda t, c, s: {},
-        "phase_detection": lambda t, c, s: {}}
+        "phase_detection": lambda t, c, s: {},
+        "phase_sparse": lambda t, c, s, module_rec=None: {
+            "launches": {k: 108 for k in kernels}}}
     for name, fn in stub.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     assert chip_smoke.main() == 0
@@ -647,10 +649,11 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
         chip_smoke.FLEET_PATH + ", eager: warm-ups"] == 36
     assert fwd["launches_by_path"][
         chip_smoke.FLEET_PATH + ", graph replays"] == 1500
+    assert fwd["launches_by_path"][chip_smoke.SPARSE_LM_PATH] == 108
     assert fwd["launches"] == 72 + 108 + 420 + 60 + 60 + 552 + 72 + 240 + \
-        96 + 84 + 300 + 240 + 36 + 1500
+        96 + 84 + 300 + 240 + 36 + 1500 + 108
     for k in json.loads(lines[-2])["kernels"][1:]:
-        assert k["launches"] == 60 + 60 + 72 + 240
+        assert k["launches"] == 60 + 60 + 72 + 240 + 108
     for k in json.loads(lines[-2])["kernels"]:
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

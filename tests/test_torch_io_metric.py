@@ -1,6 +1,6 @@
 """The port's data iterators, metrics and callbacks against the JAX
-package: the iterator cases of ``tests/test_io.py`` (less LibSVMIter,
-which needs CSR storage) and the 9 cases of ``tests/test_metric.py``
+package: the iterator cases of ``tests/test_io.py`` (LibSVMIter's CSR
+batches with CSVIter's case) and the 9 cases of ``tests/test_metric.py
 mirrored, each run in both packages on the same numpy inputs.
 
 Batches are equal (the same numpy rows, the same shuffle stream);
@@ -168,8 +168,21 @@ def test_csv_iter(tmp_path):
     for t, j in zip(got["port"], got["jax"]):
         for a, b in zip(t, j):
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(MXNetError, match="item 12"):
-        tmx.io.LibSVMIter(data_libsvm=dpath, data_shape=(4,))
+    # LibSVMIter is ported: a LibSVM file gives the JAX package's batches
+    spath = str(tmp_path / "d.libsvm")
+    with open(spath, "w") as f:
+        for r in range(6):
+            f.write("%d %d:%g %d:1.5\n" % (r % 2, r % 3, r + 0.5, 3))
+
+    def run_svm(mx):
+        it = mx.io.LibSVMIter(data_libsvm=spath, data_shape=(4,),
+                              batch_size=4)
+        return [[b.data[0].asnumpy(), b.data[0].indptr.asnumpy(),
+                 b.label[0].asnumpy(), np.array(b.pad)] for b in it]
+    got = _both(run_svm)
+    for t, j in zip(got["port"], got["jax"]):
+        for a, b in zip(t, j):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_resize_iter():

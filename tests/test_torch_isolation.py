@@ -99,7 +99,10 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.gluon.contrib.nn, "
             "mxnet_tpu_torch.gluon.contrib.nn.basic_layers, "
             "mxnet_tpu_torch.ops.detection, mxnet_tpu_torch.ops.spatial, "
-            "mxnet_tpu_torch.image.detection; "
+            "mxnet_tpu_torch.image.detection, "
+            "mxnet_tpu_torch.ndarray.sparse, mxnet_tpu_torch.ops.parity, "
+            "mxnet_tpu_torch.ops.sparse_graph, mxnet_tpu_torch.operator, "
+            "mxnet_tpu_torch.subgraph; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')))")
@@ -167,7 +170,12 @@ def test_gpu_context_without_cuda_raises(no_cuda):
                                    "DecodeMeasurer", "ReplicaServer LOAD",
                                    "replica main", "get_model pretrained",
                                    "alexnet initialize", "ImageDetIter",
-                                   "nd.MultiBoxPrior", "SSD Module"])
+                                   "nd.MultiBoxPrior", "SSD Module",
+                                   "sparse.csr_matrix",
+                                   "sparse.row_sparse_array",
+                                   "sparse.zeros", "nd.load sparse",
+                                   "SparseEmbedding initialize",
+                                   "CSR Module"])
 def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
         no_cuda, tmp_path, entry):
     if entry == "nd.array":
@@ -368,6 +376,24 @@ def test_entry_points_without_ctx_raise_instead_of_using_the_cpu(
             label_names=("label",)).bind(
                 [("data", (1, 2, 3, 3)), ("cls", (1, 2, 9))],
                 [("label", (1, 1, 5))])
+    elif entry == "sparse.csr_matrix":
+        call = lambda: mx.nd.sparse.csr_matrix(np.eye(3, dtype=np.float32))
+    elif entry == "sparse.row_sparse_array":
+        call = lambda: mx.nd.sparse.row_sparse_array(
+            (np.ones((1, 2), np.float32), [1]), shape=(3, 2))
+    elif entry == "sparse.zeros":
+        call = lambda: mx.nd.sparse.zeros("csr", (3, 2))
+    elif entry == "nd.load sparse":
+        mx.nd.save(str(tmp_path / "s.params"), {"c": mx.nd.sparse.csr_matrix(
+            np.eye(3, dtype=np.float32), ctx=mx.cpu())})
+        call = lambda: mx.nd.load(str(tmp_path / "s.params"))
+    elif entry == "SparseEmbedding initialize":
+        call = mx.gluon.contrib.nn.SparseEmbedding(5, 2).initialize
+    elif entry == "CSR Module":
+        out = mx.sym.dot(mx.sym.var("data", stype="csr"),
+                         mx.sym.var("w", shape=(4, 1)))
+        call = lambda: mx.mod.Module(out, label_names=None).bind(
+            [("data", (2, 4))])
     elif entry == "DecodeMeasurer":
         from mxnet_tpu_torch.autotune import synth_decode_trace
         from mxnet_tpu_torch.autotune.measure import DecodeMeasurer

@@ -64,7 +64,7 @@ def test_cases_cover_the_other_fifteen_names():
     assert len(NEW_NAMES) == 15
     port = set(treg.list_ops())
     assert NEW_NAMES | {"Deconvolution"} <= port
-    assert len(port) == 403 and port <= set(jreg.list_ops())
+    assert len(port) == 451 and port <= set(jreg.list_ops())
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c["id"] for c in CASES])

@@ -372,13 +372,30 @@ def test_host_hyper_keeps_per_index_counts():
 
 
 def test_fused_sparse_embedding_is_not_ported():
+    """Row-sparse Embedding gradients are ported now (queue A item 12c):
+    the bind gives the weight a row-sparse gradient container of the ids'
+    slot count, not a dense table, and the fused step takes its pairs."""
     e = sym.Embedding(sym.var("data"), input_dim=10, output_dim=4,
                       sparse_grad=True, name="emb")
     out = sym.SoftmaxOutput(sym.FullyConnected(sym.mean(e, axis=1),
                                                num_hidden=3, name="fc"),
                             name="softmax")
-    with pytest.raises(MXNetError, match="item 12"):
-        out.simple_bind(ctx=tmx.cpu(), data=(5, 6), softmax_label=(5,))
+    ex = out.simple_bind(ctx=tmx.cpu(), data=(5, 6), softmax_label=(5,))
+    g = ex.grad_dict["emb_weight"]
+    assert g.stype == "row_sparse" and g.shape == (10, 4)
+    mod = tmx.Module(out, context=tmx.cpu())
+    mod.bind([("data", (5, 6))], [("softmax_label", (5,))])
+    mod.init_params()
+    mod.init_optimizer(optimizer="sgd", optimizer_params={"momentum": 0.9})
+    batch = tmx.io.DataBatch(
+        [tmx.nd.array(np.arange(30).reshape(5, 6) % 7, ctx=tmx.cpu())],
+        [tmx.nd.array(np.arange(5) % 3, ctx=tmx.cpu())])
+    w0 = mod.get_params()[0]["emb_weight"].asnumpy()
+    mod.forward_backward_update(batch)
+    assert mod.fused_step is not None
+    w1 = mod.get_params()[0]["emb_weight"].asnumpy()
+    np.testing.assert_array_equal(w1[7:], w0[7:])       # ids 7-9 unseen
+    assert not np.array_equal(w1[:7], w0[:7])
 
 
 def test_fused_resume_interop_both_directions(tmp_path):

@@ -41,9 +41,10 @@ FLOAT_TOL = 1e-6
 # layers' ops, the loss heads, attention, the optimizer updates, RNN, the
 # four control-flow ops, the nine _image_* ops with their aliases, the
 # 17 quantization names, the 16 layer-op names of
-# test_utils.layer_op_cases, and the 37 detection and spatial names of
-# test_utils.detection_op_cases)
-N_PORT_OPS = 403
+# test_utils.layer_op_cases, the 37 detection and spatial names of
+# test_utils.detection_op_cases, and the 48 names of
+# test_utils.sparse_op_cases)
+N_PORT_OPS = 451
 
 _JAX_MODULES = {"mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.reduce",
                 "mxnet_tpu.ops.tensor", "mxnet_tpu.ops.random_ops"}

@@ -13,6 +13,13 @@ packages' terms on the CPU (each case runs the JAX package and the port).
    ``astype``, ``Cast``, ``Parameter.cast``/``Block.cast`` and
    ``DataLoader`` batches.  ``mxnet_tpu_torch.enable_x64()`` keeps them,
    as JAX's ``enable_x64`` scope does for the reference.
+3. ``gluon.nn.Embedding(sparse_grad=True)`` under ``gluon.Trainer`` with
+   an optimizer that has a lazy row update (SGD, AdaGrad) moves only the
+   rows a batch touched: momentum and weight decay leave the other rows
+   as they were.  A row touched in the first step but not the second
+   ends as the JAX package's within 1e-6; a row no step touched ends
+   bit-unchanged.  Adam, which has no lazy update, takes the dense
+   gradient in both packages.
 """
 
 import numpy as np
@@ -189,3 +196,54 @@ def test_enable_x64_matches_the_reference_scope():
         tf = tmx.nd.ones((2,), ctx=tmx.cpu()).astype("float64")
     assert str(j.dtype) == str(t.dtype) == "int64"
     assert str(jf.dtype) == str(tf.dtype) == "float64"
+
+
+# -- 3. row-sparse Embedding gradients under gluon.Trainer -------------------
+
+SPARSE_OPTS = {
+    "sgd-momentum-wd": ("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                                "wd": 0.01}),
+    "sgd-momentum": ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    "adagrad": ("adagrad", {"learning_rate": 0.1, "wd": 0.01}),
+}
+SPARSE_STEPS = ([1, 2], [3, 4])         # row 1, 2 then 3, 4
+SPARSE_UNTOUCHED = [0, 5, 6, 7, 8, 9]
+
+
+def _sparse_embedding_run(pkg, opt, params):
+    """A 10 x 3 ``Embedding(sparse_grad=True)`` from seeded weights, two
+    ``Trainer`` steps of sum((emb(ids) - 1)^2): (start, end) weights."""
+    mx = PKGS[pkg]
+    w0 = np.random.RandomState(5).randn(10, 3).astype(np.float32)
+    emb = mx.gluon.nn.Embedding(10, 3, sparse_grad=True)
+    emb.initialize(**_ctx(pkg))
+    emb.weight.set_data(mx.nd.array(w0, **_ctx(pkg)))
+    trainer = mx.gluon.Trainer(emb.collect_params(), opt, dict(params))
+    for ids in SPARSE_STEPS:
+        x = mx.nd.array(np.asarray(ids, np.float32), **_ctx(pkg))
+        with mx.autograd.record():
+            loss = mx.nd.sum(mx.nd.square(emb(x) - 1.0))
+        loss.backward()
+        trainer.step(len(ids))
+    return w0, emb.weight.data().asnumpy()
+
+
+@pytest.mark.parametrize("case", sorted(SPARSE_OPTS))
+def test_sparse_grad_embedding_trainer_matches_jax(case):
+    opt, params = SPARSE_OPTS[case]
+    _, want = _sparse_embedding_run("jax", opt, params)
+    w0, got = _sparse_embedding_run("port", opt, params)
+    assert np.abs(got - want).max() <= 1e-6, (got, want)
+    # lazy updates: rows no step touched stay bit for bit
+    np.testing.assert_array_equal(got[SPARSE_UNTOUCHED], w0[SPARSE_UNTOUCHED])
+
+
+def test_sparse_grad_embedding_adam_stays_dense():
+    """Adam has no lazy row update: weight decay moves every row, in both
+    packages (outputs within 1e-5 of max(1, max |JAX|): Adam divides by
+    sqrt(v) of near-zero second moments, which magnifies f32 rounding)."""
+    params = {"learning_rate": 0.1, "wd": 0.01}
+    _, want = _sparse_embedding_run("jax", "adam", params)
+    w0, got = _sparse_embedding_run("port", "adam", params)
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+    assert (got[SPARSE_UNTOUCHED] != w0[SPARSE_UNTOUCHED]).all()

@@ -46,6 +46,15 @@ def _few_torch_threads():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def _fresh_names():
+    """Auto-generated names count per process: each test builds its graphs
+    in a fresh name scope of each package, so the names compared do not
+    depend on what other tests in this process built."""
+    with jmx.name.NameManager(), tmx.name.NameManager():
+        yield
+
+
 def _same_graph(jsym, tsym, shapes):
     assert tsym.list_arguments() == jsym.list_arguments()
     assert tsym.list_auxiliary_states() == jsym.list_auxiliary_states()
