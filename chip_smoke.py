@@ -227,9 +227,9 @@ Phases, each reported on its own line; any failure exits non-zero:
              seeded pool of 8; the parent replays every pool row at every
              rung of both versions and keeps SHA-256 hashes of the logits.
              (a) One replica: a closed loop of 2 clients x 4 requests, then
-             an open loop of 30 at half its rate; a second replica
-             spawned, the same open loop again, then closed loops of 2 x 4
-             and 4 x 4: up and scale-out seconds, requests/s, p50 and the
+             an open loop of 20 at half its rate; a second replica
+             spawned, the same open loop again, then a closed loop of 2 x
+             4: up and scale-out seconds, requests/s, p50 and the
              slowest request (from each send in a closed loop, whose
              answers are hashed after it; from each scheduled arrival in
              an open loop), the router's mean beside the replicas'
@@ -354,6 +354,40 @@ Phases, each reported on its own line; any failure exits non-zero:
              launches of each attention kernel a step.  (d) A user
              ``CustomOp`` on the card against the CPU, and as a layer of
              an MLP through Module.fit (the legacy step).
+18. kvstore — ``mx.kv`` and the parameter server; no kernel of its own
+             (the server's sums and optimizer run on the host, by design,
+             as the reference's ps-lite servers do), and its LM path
+             launches the three attention kernels.  Every dist job is one
+             server process on the host and worker processes of this
+             script sharing the card, started with the reference's DMLC_*
+             variables and a port from the OS.  (a) 'local', 'device',
+             'nccl' and 'tpu' on the card against the CPU: several values
+             a key, list keys, momentum SGD as the updater, a row-sparse
+             push with repeated ids and ``row_sparse_pull``, the lazy row
+             update with repeated ids (ROADMAP C1), within 2**-18 x
+             max(1, max|cpu|); 2-bit codes of the card's op, the CPU's
+             and a dist worker's ``compress_2bit`` equal, their
+             residuals within that limit; the reference's worker
+             script (tests/test_kvstore.py:200-230) on two workers on the
+             card, dist_sync and dist_async, each pulling [3, 3, 3, 3].
+             (b) The reference's example/sparse/linear_classification in
+             dist mode at phase 17's Avazu width (1,000,001 features,
+             batch 8192, 131,072 seeded rows): two workers, AdaGrad lr 0.5
+             on the server, ``row_sparse_pull`` of each batch's active
+             rows; round 1's server weight against the CPU's AdaGrad of
+             the two workers' summed first gradients (touched rows within
+             2**-18 x max |value|, untouched rows bit-unchanged); the
+             loss falls between epochs, final train accuracy >= 0.9; ms a
+             round split into pull, compute and push.  (c) The LM at full
+             width through ``gluon.Trainer(kvstore=dist_sync)``, two
+             workers of batch 2, SGD lr 0.01 momentum 0.9 on the server,
+             three steps: after step 1 both workers' weights bit-equal and
+             within 2**-20 x max |w0| of w0 + SGD(g0 + g1) in float64 from
+             the gradients each saved before its push; each worker's loss
+             falls; 12 launches of each kernel a step; per step compute,
+             push, the server's apply and pull; each worker's peak memory
+             (together they must fit the card) and the server's RSS;
+             the server never initializes CUDA.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -6193,8 +6227,8 @@ def phase_quant(torch, card, seed, ctx=None, resnet=None, lm=None,
 # (clients, requests each) at 1 replica; closed_two: the same at 2 replicas.
 FLEET = dict(cfg=(VOCAB, DIM, HEADS, LAYERS, SEQ), rungs=(1, 2, 4),
              rows=(1, 2), pool=8, closed=(2, 4),
-             closed_two=((2, 4), (4, 4)), open_share=0.5,
-             open_requests=30, kill_at=3, kill_requests=8, deploy_tail=4,
+             closed_two=((2, 4),), open_share=0.5,
+             open_requests=20, kill_at=3, kill_requests=8, deploy_tail=4,
              max_wait_ms=MAX_WAIT_MS, spawn_timeout=600.0, workers=16,
              hashers=6)
 # (d): the reference's own decode_lm (bench.py:1479-1500)
@@ -9093,10 +9127,792 @@ def phase_sparse(torch, card, seed, ctx=None, linear=None, example=None,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the kvstore
+# ---------------------------------------------------------------------------
+
+# (a)'s stores on the card against the CPU; (b) the reference's sparse
+# linear_classification in dist mode at phase 17's Avazu width, two
+# workers; (c) the LM through gluon.Trainer(kvstore='dist_sync'), two
+# workers of batch 2 sharing the card, momentum SGD on the server
+KV_STORES = ("local", "device", "nccl", "tpu")
+KV_LINEAR = dict(SPARSE_LINEAR, epochs=3, min_accuracy=0.9, workers=2)
+KV_LM = dict(cfg=(VOCAB, DIM, HEADS, LAYERS, SEQ), batch=2, steps=3,
+             lr=0.01, momentum=0.9, workers=2)
+KV_TIMEOUT = 600.0
+KV_PATH = "dist_sync LM train (2 workers)"
+# (c): the pulled weights against w0 + SGD(g0 + g1) in float64
+TOL_KV_LM = 2.0 ** -20
+
+
+def kv_ctx(mx, job):
+    return mx.gpu(0) if job["ctx"] == "gpu" else mx.cpu()
+
+
+def kv_free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def kv_cluster(kv_type, role, job, tmp, timeout=KV_TIMEOUT):
+    """One dist job as the reference's launcher runs it
+    (tests/test_kvstore.py:233-265): one server process on the host
+    (``import mxnet_tpu_torch`` under DMLC_ROLE=server, which the
+    package's bootstrap re-execs into ``mxnet_tpu_torch.kvstore_server``)
+    and ``job["workers"]`` processes of this script (``--kv-worker
+    role``), with the reference's DMLC_* variables and a root port from
+    the OS.  After the workers end, the parent reads the server's stats
+    (its resident memory among them) and stops it.  Returns (the workers'
+    records by rank, the server's record); raises if a process fails or
+    outlives *timeout*."""
+    from mxnet_tpu_torch import _kvstore_impl as kvi
+    n = job["workers"]
+    port = kv_free_port()
+    env = dict(os.environ, DMLC_PS_ROOT_URI="127.0.0.1",
+               DMLC_PS_ROOT_PORT=str(port), DMLC_NUM_WORKER=str(n),
+               DMLC_NUM_SERVER="1", MXNET_KVSTORE_TYPE=kv_type,
+               MXNET_KVSTORE_SYNC_TIMEOUT=str(timeout),
+               MXNET_KVSTORE_RPC_TIMEOUT=str(timeout + 30),
+               PYTHONPATH=HERE + os.pathsep + os.environ.get(
+                   "PYTHONPATH", ""))
+    for k in ("DMLC_ROLE", "DMLC_WORKER_RANK", "DMLC_SERVER_ID"):
+        env.pop(k, None)
+    job_path = os.path.join(tmp, "job-%s-%s.json" % (role, kv_type))
+    with open(job_path, "w") as f:
+        json.dump(dict(job, kv_type=kv_type), f)
+    logs = {}
+
+    def spawn(name, argv, extra):
+        logs[name] = open(os.path.join(tmp, "%s-%s-%s.log" % (
+            role, kv_type, name)),
+                          "w+")
+        return subprocess.Popen(argv, env=dict(env, **extra), cwd=HERE,
+                                stdout=logs[name], stderr=subprocess.STDOUT)
+
+    t0 = time.perf_counter()
+    server = spawn("server", [sys.executable, "-c", "import mxnet_tpu_torch"],
+                   {"DMLC_ROLE": "server"})
+    workers = [spawn("worker%d" % r, [
+        sys.executable, os.path.join(HERE, "chip_smoke.py"), "--kv-worker",
+        role, "--kv-job", job_path],
+        {"DMLC_ROLE": "worker", "DMLC_WORKER_RANK": str(r)})
+        for r in range(n)]
+
+    def tail(name):
+        logs[name].flush()
+        logs[name].seek(0)
+        return logs[name].read()[-3000:]
+
+    try:
+        deadline = time.monotonic() + timeout
+        while any(w.poll() is None for w in workers):
+            if time.monotonic() > deadline:
+                raise RuntimeError("kvstore %s job (%s): a worker outlived "
+                                   "%.0f s" % (role, kv_type, timeout))
+            if server.poll() is not None:
+                raise RuntimeError("kvstore %s job: the server exited with "
+                                   "%s\n%s" % (role, server.returncode,
+                                               tail("server")))
+            time.sleep(0.2)
+        for r, w in enumerate(workers):
+            if w.returncode != 0:
+                raise RuntimeError("kvstore %s job (%s): worker %d exited "
+                                   "with %s\n%s" % (role, kv_type, r,
+                                                    w.returncode,
+                                                    tail("worker%d" % r)))
+        recs = []
+        for r in range(n):
+            logs["worker%d" % r].seek(0)
+            lines = [ln for ln in logs["worker%d" % r].read().splitlines()
+                     if ln.startswith("KVRECORD ")]
+            if not lines:
+                raise RuntimeError("kvstore %s job: worker %d printed no "
+                                   "record\n%s" % (role, r,
+                                                   tail("worker%d" % r)))
+            recs.append(json.loads(lines[-1][len("KVRECORD "):]))
+        sock = kvi._connect_retry("127.0.0.1", port, time.monotonic() + 30)
+        try:
+            stats = kvi._rpc_call(sock, kvi._MSG_CMD, {"head": "stats"})[0]
+            srv = {"pid": server.pid, "rss_mb": stats["rss_mb"],
+                   "stats": stats}
+            kvi._rpc_call(sock, kvi._MSG_STOP)
+        finally:
+            sock.close()
+        rc = server.wait(60)
+        if rc != 0:
+            raise RuntimeError("kvstore %s job: the server exited with %s"
+                               % (role, rc))
+        srv["seconds"] = time.perf_counter() - t0
+        return recs, srv
+    finally:
+        for p in workers + [server]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+
+
+def kv_worker(role, job_path):
+    """A worker process of phase 18 (``chip_smoke.py --kv-worker role
+    --kv-job path``): runs its role and prints one ``KVRECORD`` JSON
+    line for the parent."""
+    sys.path.insert(0, HERE)
+    import torch
+    import mxnet_tpu_torch as mx
+    with open(job_path) as f:
+        job = json.load(f)
+    if job["ctx"] == "gpu" and not torch.cuda.is_available():
+        print("chip_smoke: a kvstore worker on the card found no CUDA",
+              file=sys.stderr)
+        return 1
+    rec = {"ref": kv_worker_ref, "linear": kv_worker_linear,
+           "lm": kv_worker_lm}[role](torch, mx, job)
+    rec["rank"] = int(os.environ["DMLC_WORKER_RANK"])
+    print("KVRECORD " + json.dumps(rec), flush=True)
+    return 0
+
+
+def kv_worker_ref(torch, mx, job):
+    """The reference's worker script (tests/test_kvstore.py:200-230) on
+    *job*'s device: dist_sync pushes rank + 1 (the sum, 3, replaces the
+    stored value); dist_async pushes -(rank + 1) through the server's SGD
+    at lr 1 (w = 1 + 2 = 3 in any order)."""
+    ctx = kv_ctx(mx, job)
+    rank = int(os.environ["DMLC_WORKER_RANK"])
+    kv = mx.kv.create(job["kv_type"])
+    kv.init("w", mx.nd.zeros((4,), ctx=ctx))
+    if "async" in job["kv_type"]:
+        kv.set_optimizer(mx.optimizer.create(
+            "sgd", learning_rate=1.0, rescale_grad=1.0, wd=0.0))
+        kv.push("w", mx.nd.ones((4,), ctx=ctx) * -(rank + 1))
+    else:
+        kv.push("w", mx.nd.ones((4,), ctx=ctx) * (rank + 1))
+    kv.barrier()
+    out = mx.nd.zeros((4,), ctx=ctx)
+    kv.pull("w", out=out)
+    kv.barrier()
+    return {"pulled": out.asnumpy().tolist(),
+            "device": str(out._data.device)}
+
+
+class KvTimer:
+    """Wraps a store's push, pull, barrier and init with host-clock
+    timers (each call ends in a host RPC, so the clock reads its
+    end)."""
+
+    def __init__(self, kv, names=("push", "pull", "barrier", "init",
+                                  "row_sparse_pull")):
+        self.seconds = {n: 0.0 for n in names}
+        for n in names:
+            setattr(kv, n, self._timed(n, getattr(kv, n)))
+
+    def _timed(self, name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+        return run
+
+    def take(self):
+        out = dict(self.seconds)
+        for n in self.seconds:
+            self.seconds[n] = 0.0
+        return out
+
+
+def kv_worker_linear(torch, mx, job):
+    """(b) on one worker: the loop of the reference's
+    example/sparse/linear_classification in dist mode (the port's copy,
+    examples/train_sparse_linear.py:76-160): the batches i with i % workers
+    == rank, ``row_sparse_pull`` of each batch's active rows, the bias
+    pulled, sparse.dot forward and backward, the weight's gradient
+    compressed to its touched rows and pushed with the bias's; AdaGrad
+    runs on the server.  Round 1's gradients (and, on rank 0, the pulled
+    weight after it) go to files for the parent's check; at the end the
+    full weight is pulled and the training set scored."""
+    import numpy as np
+    spec = job["spec"]
+    ctx = kv_ctx(mx, job)
+    sp = mx.nd.sparse
+    rank = int(os.environ["DMLC_WORKER_RANK"])
+    kv = mx.kv.create("dist_sync")
+    n = kv.num_workers
+    feats = spec["features"]
+    it = mx.io.LibSVMIter(data_libsvm=job["path"], data_shape=(feats,),
+                          batch_size=spec["batch"])
+    weight = mx.nd.zeros((feats, 1), ctx=ctx)
+    bias = mx.nd.zeros((1,), ctx=ctx)
+    kv.init("weight", weight)
+    kv.init("bias", bias)
+    kv.set_optimizer(mx.optimizer.create("adagrad",
+                                         learning_rate=spec["lr"]))
+    timer = KvTimer(kv)
+    split = {"pull": [], "compute": [], "push": []}
+    rows, epochs = [], []
+    saved = False
+    for _ in range(spec["epochs"]):
+        it.reset()
+        losses = []
+        for i, batch in enumerate(it):
+            if i % n != rank:
+                continue
+            sync(torch)
+            t0 = time.perf_counter()
+            csr = batch.data[0].as_in_context(ctx)
+            active = torch.unique(csr.indices._data.long())
+            pulled = sp.zeros("row_sparse", (feats, 1), ctx=ctx)
+            kv.row_sparse_pull("weight", out=pulled,
+                               row_ids=mx.nd.NDArray(active))
+            weight._data.index_copy_(0, pulled._aux[0].long(),
+                                     pulled._data)
+            kv.pull("bias", out=bias)
+            sync(torch)
+            t1 = time.perf_counter()
+            y = batch.label[0].as_in_context(ctx)._data.reshape(-1, 1)
+            p = torch.sigmoid((sp.dot(csr, weight) + bias)._data)
+            loss = -(y * torch.log(p + 1e-12) +
+                     (1 - y) * torch.log(1 - p + 1e-12)).mean()
+            dlogits = mx.nd.NDArray((p - y) / y.shape[0])
+            dw = sp.compress_rowsparse(sp.dot(csr, dlogits,
+                                              transpose_a=True))
+            db = mx.nd.NDArray(dlogits._data.sum(0))
+            losses.append(float(loss))
+            rows.append(int(dw.indices.shape[0]))
+            t2 = time.perf_counter()
+            if not saved:
+                np.savez(os.path.join(job["dir"], "grad%d.npz" % rank),
+                         ids=dw._aux[0].cpu().numpy(),
+                         vals=dw._data.cpu().numpy(),
+                         bias=db.asnumpy())
+            kv.push("weight", dw)
+            kv.push("bias", db)
+            t3 = time.perf_counter()
+            if not saved:
+                if rank == 0:
+                    # the sync round is applied when rank 0's push
+                    # returns, and rank 1's next push waits for rank 0's
+                    full = mx.nd.zeros((feats, 1), ctx=ctx)
+                    kv.pull("weight", out=full)
+                    kv.pull("bias", out=bias)
+                    np.savez(os.path.join(job["dir"], "round1.npz"),
+                             weight=full.asnumpy(), bias=bias.asnumpy())
+                saved = True
+            split["pull"].append(t1 - t0)
+            split["compute"].append(t2 - t1)
+            split["push"].append(t3 - t2)
+        epochs.append(sum(losses) / len(losses))
+    kv.barrier()
+    full = mx.nd.zeros((feats, 1), ctx=ctx)
+    kv.pull("weight", out=full)
+    kv.pull("bias", out=bias)
+    it.reset()
+    right = total = 0
+    for batch in it:
+        z = (sp.dot(batch.data[0].as_in_context(ctx), full) + bias)._data
+        y = batch.label[0].as_in_context(ctx)._data.reshape(-1, 1)
+        right += int(((z > 0) == (y > 0.5)).sum())
+        total += int(y.shape[0])
+    kv.barrier()
+    # round 1's times hold the first pulls and the store's setup
+    ms = {k: 1e3 * sum(v[1:]) / max(1, len(v) - 1) for k, v in split.items()}
+    return {"epoch_loss": epochs, "accuracy": right / total, "ms": ms,
+            "rounds": len(rows), "rows_batch": sum(rows) / len(rows),
+            "rpc_s": timer.take(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+            if job["ctx"] == "gpu" else None}
+
+
+def kv_lm_net(torch, mx, job, ctx):
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        get_transformer_lm
+    vocab, dim, heads, layers, seq = job["spec"]["cfg"]
+    gen = torch.Generator(device=ctx.torch_device)
+    gen.manual_seed(job["seed"] + 18)
+    net = get_transformer_lm(vocab=vocab, dim=dim, heads=heads,
+                             layers=layers, max_seq=seq, prefix="kvlm_")
+    net.initialize(ctx=ctx, generator=gen)
+    net.hybridize()
+    return net
+
+
+def kv_save_params(np, path, params, grads=False):
+    os.makedirs(path, exist_ok=True)
+    for i, p in enumerate(params.values()):
+        t = p.grad() if grads else p.data()
+        np.save(os.path.join(path, "%04d.npy" % i), t.asnumpy())
+
+
+def kv_worker_lm(torch, mx, job):
+    """(c) on one worker: the LM from the job's seed (the same weights on
+    every worker), its own seeded batch, ``gluon.Trainer(kvstore=<a
+    dist_sync store>)`` with SGD on the server; per step the compute
+    (forward, backward, the loss read back), push (with the barrier),
+    pull and the server's apply time (its stats).  Step 1's gradients
+    (and on rank 0 the weights before and after it) go to files; the
+    SHA-256 of the weights after step 1 goes in the record."""
+    import hashlib
+    import numpy as np
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import attention as att
+    spec = job["spec"]
+    ctx = kv_ctx(mx, job)
+    on_card = job["ctx"] == "gpu"
+    rank = int(os.environ["DMLC_WORKER_RANK"])
+    vocab, _, _, _, seq = spec["cfg"]
+    net = kv_lm_net(torch, mx, job, ctx)
+    params = net.collect_params()
+    rng = np.random.RandomState(job["seed"] + 180 + rank)
+    x = mx.nd.array(rng.randint(0, vocab, (spec["batch"], seq)).astype(
+        "float32"), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, vocab, (spec["batch"], seq)).astype(
+        "float32"), ctx=ctx)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    kv = mx.kv.create("dist_sync")
+    timer = KvTimer(kv)
+    trainer = gluon.Trainer(params, "sgd", {
+        "learning_rate": spec["lr"], "momentum": spec["momentum"]},
+        kvstore=kv)
+    counters = (att.flash_fwd, att.flash_bwd_dkdv, att.flash_bwd_dq)
+    for c in counters:
+        c.launches = 0
+    if on_card:
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+    steps, losses = [], []
+    for step in range(spec["steps"]):
+        sync(torch)
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        losses.append(float(loss.asnumpy().mean()))
+        t1 = time.perf_counter()
+        if step == 0:
+            kv_save_params(np, os.path.join(job["dir"], "g%d" % rank),
+                           params, grads=True)
+            if rank == 0:
+                kv_save_params(np, os.path.join(job["dir"], "w0"), params)
+        before = kv.server_stats()["apply_seconds"] if rank == 0 else None
+        timer.take()
+        trainer.step(spec["batch"])
+        sync(torch)
+        rpc = timer.take()
+        rec = {"compute_s": t1 - t0, "push_s": rpc["push"] + rpc["barrier"],
+               "pull_s": rpc["pull"], "init_s": rpc["init"],
+               "apply_s": kv.server_stats()["apply_seconds"] - before
+               if rank == 0 else None}
+        steps.append(rec)
+        if step == 0:
+            h = hashlib.sha256()
+            for p in params.values():
+                h.update(p.data().asnumpy().tobytes())
+            sha1 = h.hexdigest()
+            if rank == 0:
+                kv_save_params(np, os.path.join(job["dir"], "w1"), params)
+    kv.barrier()
+    return {"losses": losses, "steps": steps, "sha_after_1": sha1,
+            "rescale": trainer.optimizer.rescale_grad,
+            "params": int(sum(int(np.prod(p.shape))
+                              for p in params.values())),
+            "launches": {c.__name__: c.launches for c in counters},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+            if on_card else None}
+
+
+def kv_store_checks(torch, np, mx, ctx, card, seed, failures):
+    """(a): 'local', 'device', 'nccl' and 'tpu' on *ctx* against the CPU:
+    several values a key pushed (their sum replaces the stored value),
+    list keys, momentum SGD as the store's updater, a row-sparse push
+    whose ids repeat (C1) and ``row_sparse_pull``; the lazy row update
+    on the card with repeated ids; 2-bit codes and residuals of the
+    card's op, the CPU's op and a dist worker's ``compress_2bit``.
+    Floats within 2**-18 x max(1, max |cpu|), codes equal."""
+    sp = mx.nd.sparse
+    rs = np.random.RandomState(seed + 181)
+    a_vals = [rs.randn(64, 32).astype(np.float32) for _ in range(3)]
+    b0, b_grads = rs.randn(1000).astype(np.float32), \
+        [rs.randn(1000).astype(np.float32) for _ in range(2)]
+    emb_ids = ([3, 7, 20], [3, 20, 20])
+    emb_vals = [rs.randn(3, 8).astype(np.float32) for _ in range(2)]
+
+    def run(name, where):
+        kv = mx.kv.create(name)
+        kv.init(["a", "b", "emb"], [mx.nd.zeros((64, 32), ctx=where),
+                                    mx.nd.array(b0, ctx=where),
+                                    mx.nd.zeros((50, 8), ctx=where)])
+        kv.push("a", [mx.nd.array(v, ctx=where) for v in a_vals])
+        outs = [mx.nd.zeros((64, 32), ctx=where),
+                mx.nd.zeros((1000,), ctx=where)]
+        kv.pull(["a", "b"], out=outs)
+        got = {"sum": outs[0].asnumpy(), "b_init": outs[1].asnumpy()}
+        g = sp.sparse_add(*[sp.row_sparse_array((v, i), shape=(50, 8),
+                                                 ctx=where)
+                            for v, i in zip(emb_vals, emb_ids)])
+        kv.push("emb", g)
+        rsp = sp.zeros("row_sparse", (50, 8), ctx=where)
+        kv.row_sparse_pull("emb", out=rsp,
+                           row_ids=mx.nd.array([3, 7, 20, 21], ctx=where))
+        got["emb_rows"] = rsp.asnumpy()[[3, 7, 20, 21]]
+        kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1,
+                                             momentum=0.9))
+        for gr in b_grads:
+            kv.push("b", mx.nd.array(gr, ctx=where))
+        kv.pull("b", out=outs[1])
+        got["b_sgd"] = outs[1].asnumpy()
+        return got
+
+    worst, rows = 0.0, {}
+    for name in KV_STORES:
+        want, got = run(name, mx.cpu()), run(name, ctx)
+        for k in want:
+            scale = max(1.0, float(np.abs(want[k]).max()))
+            r = float(np.abs(got[k] - want[k]).max()) / (TOL_SWEEP * scale)
+            rows["%s/%s" % (name, k)] = r
+            worst = max(worst, r)
+    # C1 on the device: the lazy momentum update with repeated ids
+    w0 = rs.randn(50, 8).astype(np.float32)
+    lazy = {}
+    for where in (mx.cpu(), ctx):
+        w, mom = mx.nd.array(w0, ctx=where), mx.nd.zeros((50, 8), ctx=where)
+        g = sp.sparse_add(*[sp.row_sparse_array((v, i), shape=(50, 8),
+                                                 ctx=where)
+                            for v, i in zip(emb_vals, emb_ids)])
+        for _ in range(2):
+            sp.sgd_mom_row_update(w, g, mom, lr=0.1, momentum=0.9, wd=0.01)
+        lazy[where.device_type] = w.asnumpy()
+    dense = w0.copy()
+    m = np.zeros_like(w0)
+    gd = np.zeros_like(w0)
+    for v, i in zip(emb_vals, emb_ids):
+        np.add.at(gd, i, v)
+    touched = sorted(set(emb_ids[0]) | set(emb_ids[1]))
+    for _ in range(2):
+        m[touched] = 0.9 * m[touched] - 0.1 * (gd[touched] +
+                                               0.01 * dense[touched])
+        dense[touched] += m[touched]
+    untouched = [r for r in range(50) if r not in touched]
+    for k, v in lazy.items():
+        r = float(np.abs(v - dense).max()) / (TOL_SWEEP * max(
+            1.0, float(np.abs(dense).max())))
+        rows["lazy_sgd_mom/" + k] = r
+        worst = max(worst, r)
+        if not np.array_equal(v[untouched], w0[untouched]):
+            failures.append("lazy row update on %s moved an untouched row"
+                            % k)
+    # 2-bit codes: the op on the card and on the CPU, and the dist
+    # worker's own compression (its push calls compress_2bit)
+    from mxnet_tpu_torch._kvstore_impl import compress_2bit
+    from mxnet_tpu_torch.ops.quantization import pack_2bit
+    gq = rs.randn(4099).astype(np.float32)
+    res = (0.3 * rs.randn(4099)).astype(np.float32)
+    packed, residuals = {}, {}
+    for where in (mx.cpu(), ctx):
+        c, r = mx.nd.imperative_invoke(
+            "_contrib_quantize_2bit", mx.nd.array(gq, ctx=where),
+            mx.nd.array(res, ctx=where), threshold=0.5)
+        packed[where.device_type] = np.asarray(pack_2bit(
+            c.asnumpy().astype(np.int8))[0]).tobytes()
+        residuals[where.device_type] = r.asnumpy()
+    host_packed, _, residuals["host"] = compress_2bit(gq, res, 0.5)
+    packed["host"] = np.asarray(host_packed).tobytes()
+    codes_equal = len(set(packed.values())) == 1
+    for k, v in residuals.items():
+        # the worker keeps its residual in float64, the op in float32
+        r = float(np.abs(v - residuals["cpu"]).max()) / TOL_SWEEP
+        rows["residual_2bit/" + k] = r
+        worst = max(worst, r)
+    log("kvstore (a) on %s: %s against the CPU: push of 3 values a key, "
+        "list keys, momentum SGD as the updater, a row-sparse push with "
+        "ids %s + %s and row_sparse_pull: worst %.4g of the limit (2**-18 "
+        "x max(1, max |cpu|)); the lazy momentum update with those "
+        "repeated ids %.4g of the limit against their summed gradient; "
+        "2-bit codes of 4099 values (op on the card, op on the CPU, the "
+        "dist worker's compress_2bit) %s, their residuals within the "
+        "limit" % (
+            card, ", ".join(KV_STORES), emb_ids[0], emb_ids[1], worst,
+            max(v for k, v in rows.items() if k.startswith("lazy")),
+            "equal" if codes_equal else "DIFFER"))
+    if not worst <= 1.0:
+        failures.append("kvstore stores on the card: %.4g of the limit "
+                        "(%s)" % (worst, max(rows, key=rows.get)))
+    if not codes_equal:
+        failures.append("2-bit codes differ between the card, the CPU and "
+                        "the dist worker's compress_2bit")
+    return {"worst": worst, "codes_equal": codes_equal}
+
+
+def kv_ref_jobs(mx, ctx, card, seed, tmp, failures):
+    """(a): the reference's worker script on two workers on *ctx* for
+    dist_sync and dist_async, the two jobs side by side (each its own
+    server and port): every worker must pull [3, 3, 3, 3]."""
+    kinds = ("dist_sync", "dist_async")
+    with concurrent.futures.ThreadPoolExecutor(len(kinds)) as pool:
+        jobs = [pool.submit(kv_cluster, kv_type, "ref", {
+            "ctx": ctx.device_type, "seed": seed, "workers": 2}, tmp)
+            for kv_type in kinds]
+        results = [j.result() for j in jobs]
+    out = {}
+    for kv_type, (recs, srv) in zip(kinds, results):
+        pulled = [r["pulled"] for r in recs]
+        log("kvstore (a) %s: 2 workers on %s (%s) and a host server: "
+            "pulled %s; the server applied %d times, CUDA initialized in "
+            "the server: %s; %.1f s with the processes' start" % (
+                kv_type, card, recs[0]["device"], pulled,
+                srv["stats"]["applies"], srv["stats"]["cuda_initialized"],
+                srv["seconds"]))
+        if any(p != [3.0] * 4 for p in pulled):
+            failures.append("%s reference script pulled %s" % (kv_type,
+                                                               pulled))
+        if srv["stats"]["cuda_initialized"]:
+            failures.append("the %s server initialized CUDA" % kv_type)
+        out[kv_type] = pulled
+    return out
+
+
+def kv_linear(torch, np, mx, ctx, on_card, card, seed, tmp, spec,
+              failures):
+    """(b): the sparse linear job on two workers; round 1's server
+    weight against the CPU's AdaGrad from the sum of both workers' first
+    gradients (touched rows within 2**-18 x max |value|, untouched ones
+    bit-unchanged); the loss falls between epochs, accuracy >= the bar."""
+    path = os.path.join(tmp, "kv_linear.libsvm")
+    nrows, stored, secs = sparse_libsvm(np, path, seed + 18, spec)
+    jdir = os.path.join(tmp, "linear")
+    os.makedirs(jdir)
+    recs, srv = kv_cluster("dist_sync", "linear", {
+        "ctx": ctx.device_type, "seed": seed, "workers": spec["workers"],
+        "spec": spec, "path": path, "dir": jdir}, tmp)
+    feats = spec["features"]
+    g = np.zeros((feats, 1), np.float32)
+    gb = np.zeros((1,), np.float32)
+    ids_all = []
+    for r in range(spec["workers"]):
+        z = np.load(os.path.join(jdir, "grad%d.npz" % r))
+        dense = np.zeros((feats, 1), np.float32)
+        np.add.at(dense, z["ids"].astype(np.int64), z["vals"])
+        g += dense
+        gb += z["bias"]
+        ids_all.append(z["ids"].astype(np.int64))
+    touched = np.unique(np.concatenate(ids_all))
+    w = mx.nd.zeros((feats, 1), ctx=mx.cpu())
+    b = mx.nd.zeros((1,), ctx=mx.cpu())
+    upd = mx.optimizer.get_updater(mx.optimizer.create(
+        "adagrad", learning_rate=spec["lr"]))
+    upd(0, mx.nd.array(g, ctx=mx.cpu()), w)
+    upd(1, mx.nd.array(gb, ctx=mx.cpu()), b)
+    got = np.load(os.path.join(jdir, "round1.npz"))
+    want = w.asnumpy()
+    scale = max(float(np.abs(want[touched]).max()), 1e-30)
+    worst = float(np.abs(got["weight"][touched] - want[touched]).max()) / \
+        (TOL_SWEEP * scale)
+    worst = max(worst, float(np.abs(got["bias"] - b.asnumpy()).max()) /
+                (TOL_SWEEP * max(1e-30, float(np.abs(b.asnumpy()).max()))))
+    gone = np.ones(feats, bool)
+    gone[touched] = False
+    moved = int((got["weight"][gone] != 0).sum())
+    log("kvstore (b) on %s: %d seeded LibSVM rows (%d features, %d stored "
+        "entries, made in %.2f s), 2 workers sharing the device (batches "
+        "i %% 2 = rank, batch %d), AdaGrad lr %g on the host server: round "
+        "1's "
+        "server weight against the CPU's AdaGrad of the summed first "
+        "gradients: %d touched rows, worst %.4g of the limit (2**-18 x max "
+        "|value|), %d of %d untouched rows moved" % (
+            card, nrows, feats, stored, secs, spec["batch"], spec["lr"],
+            touched.size, worst, moved, int(gone.sum())))
+    for r in recs:
+        log("kvstore (b) worker %d: mean loss by epoch %s; %d rounds, ms a "
+            "round (rounds 2-%d, host clock): pull %.3f (row_sparse_pull of "
+            "the active rows and the bias), compute %.3f, push %.3f; %.0f "
+            "touched rows a batch; final train accuracy %.4f (bar %.2f); "
+            "peak device memory %s GB" % (
+                r["rank"], ", ".join("%.6f" % v for v in r["epoch_loss"]),
+                r["rounds"], r["rounds"], r["ms"]["pull"],
+                r["ms"]["compute"], r["ms"]["push"], r["rows_batch"],
+                r["accuracy"], spec["min_accuracy"],
+                "%.3f" % r["peak_gb"] if r["peak_gb"] is not None
+                else "not measured"))
+        if not r["epoch_loss"][-1] < r["epoch_loss"][0]:
+            failures.append("kvstore linear worker %d: the loss did not "
+                            "fall: %s" % (r["rank"], r["epoch_loss"]))
+        if not r["accuracy"] >= spec["min_accuracy"]:
+            failures.append("kvstore linear worker %d: accuracy %.4f < %.2f"
+                            % (r["rank"], r["accuracy"],
+                               spec["min_accuracy"]))
+    log("kvstore (b) server: %d applies in %.2f s of host time, RSS %s MB "
+        "at the job's end, CUDA initialized: %s; the job took %.1f s" % (
+            srv["stats"]["applies"], srv["stats"]["apply_seconds"],
+            "%.0f" % srv["rss_mb"] if srv["rss_mb"] else
+            "not measured", srv["stats"]["cuda_initialized"],
+            srv["seconds"]))
+    if not worst <= 1.0 or moved:
+        failures.append("kvstore linear round 1: %.4g of the limit, %d "
+                        "untouched rows moved" % (worst, moved))
+    if srv["stats"]["cuda_initialized"]:
+        failures.append("the sparse linear job's server initialized CUDA")
+    return {"worst": worst, "moved": moved, "workers": recs,
+            "server": srv}
+
+
+def kv_lm(torch, np, mx, ctx, on_card, card, seed, tmp, spec, failures):
+    """(c): the LM job on two workers; step 1's pulled weights bit-equal
+    across workers and within 2**-20 x max |w0| of w0 + SGD(g0 + g1) in
+    float64; each worker's loss falls; 12 launches of each attention
+    kernel a step on the card; both workers' peaks fit the card."""
+    jdir = os.path.join(tmp, "lm")
+    os.makedirs(jdir)
+    recs, srv = kv_cluster("dist_sync", "lm", {
+        "ctx": ctx.device_type, "seed": seed, "workers": spec["workers"],
+        "spec": spec, "dir": jdir}, tmp)
+    lr = spec["lr"]
+    rescale = 1.0 / (spec["batch"] * spec["workers"])
+    names = sorted(os.listdir(os.path.join(jdir, "w0")))
+    w0max = max(float(np.abs(np.load(os.path.join(jdir, "w0", n))).max())
+                for n in names)
+    worst, worst_name = 0.0, None
+    for n in names:
+        w0 = np.load(os.path.join(jdir, "w0", n)).astype(np.float64)
+        gsum = sum(np.load(os.path.join(jdir, "g%d" % r, n)).astype(
+            np.float64) for r in range(spec["workers"]))
+        # momentum SGD's first step: mom = -lr (rescale g), w += mom
+        ref = w0 - lr * rescale * gsum
+        w1 = np.load(os.path.join(jdir, "w1", n)).astype(np.float64)
+        r = float(np.abs(w1 - ref).max()) / (TOL_KV_LM * w0max)
+        if r > worst:
+            worst, worst_name = r, n
+    shutil.rmtree(jdir, ignore_errors=True)
+    shas = {r["sha_after_1"] for r in recs}
+    for r in recs:
+        for i, st in enumerate(r["steps"]):
+            log("kvstore (c) worker %d step %d on %s: loss %.6f; compute "
+                "%.2f ms, push %.2f ms (with the barrier), pull %.2f ms%s%s"
+                % (r["rank"], i + 1, card, r["losses"][i],
+                   1e3 * st["compute_s"], 1e3 * st["push_s"],
+                   1e3 * st["pull_s"],
+                   ", the server's apply %.2f ms" % (1e3 * st["apply_s"])
+                   if st["apply_s"] is not None else "",
+                   ", the store's init %.2f ms" % (1e3 * st["init_s"])
+                   if st["init_s"] else ""))
+    peaks = [r["peak_gb"] for r in recs]
+    later = [st for r in recs for st in r["steps"][1:]]
+    mean_ms = {k: 1e3 * sum(st[k + "_s"] for st in later
+                            if st[k + "_s"] is not None) /
+               max(1, sum(1 for st in later if st[k + "_s"] is not None))
+               for k in ("compute", "push", "apply", "pull")}
+    log("kvstore (c) on %s: steps 2-%d, mean over both workers (host "
+        "clock): compute %.2f ms, push %.2f ms (with the barrier), the "
+        "server's apply %.2f ms (rank 0's reading), pull %.2f ms; %.3f MB "
+        "pushed and pulled a step by each worker" % (
+            card, spec["steps"], mean_ms["compute"], mean_ms["push"],
+            mean_ms["apply"], mean_ms["pull"], 4 * recs[0]["params"] / 1e6))
+    log("kvstore (c) on %s: the LM (%d parameters, batch %d a worker) "
+        "through gluon.Trainer(kvstore=dist_sync) on %d workers, SGD lr %g "
+        "momentum %g on the host server (rescale %g): after step 1 the "
+        "workers' weights %s; against w0 + SGD(g0 + g1) in float64 worst "
+        "%.4g of the limit (2**-20 x max |w0| = %.3g) at parameter %s; "
+        "losses %s; launches %s; peak device memory by worker %s GB; the "
+        "server's RSS %s MB at the job's end (the store and the momenta "
+        "held), %d applies in %.2f s, CUDA initialized: %s; the job took "
+        "%.1f s" % (
+            card, recs[0]["params"], spec["batch"], spec["workers"], lr,
+            spec["momentum"], recs[0]["rescale"],
+            "bit-equal" if len(shas) == 1 else "DIFFER", worst,
+            TOL_KV_LM * w0max, worst_name, [r["losses"] for r in recs],
+            [r["launches"] for r in recs],
+            ["%.3f" % p for p in peaks] if on_card else "not measured",
+            "%.0f" % srv["rss_mb"] if srv["rss_mb"] else
+            "not measured", srv["stats"]["applies"],
+            srv["stats"]["apply_seconds"], srv["stats"]["cuda_initialized"],
+            srv["seconds"]))
+    if len(shas) != 1:
+        failures.append("kvstore LM: the workers' weights after step 1 "
+                        "differ")
+    if not worst <= 1.0:
+        failures.append("kvstore LM: step 1 at %.4g of the limit (%s)"
+                        % (worst, worst_name))
+    for r in recs:
+        if not r["losses"][-1] < r["losses"][0]:
+            failures.append("kvstore LM worker %d: the loss did not fall: "
+                            "%s" % (r["rank"], r["losses"]))
+        if abs(r["rescale"] - rescale) > 1e-12:
+            failures.append("kvstore LM worker %d: rescale %g, not %g"
+                            % (r["rank"], r["rescale"], rescale))
+        want = LAYERS * spec["steps"] if on_card else 0
+        if on_card and any(v != want for v in r["launches"].values()):
+            failures.append("kvstore LM worker %d launched %s, expected %d "
+                            "each" % (r["rank"], r["launches"], want))
+    if on_card and not sum(peaks) < 80.0:
+        failures.append("kvstore LM: the workers' peaks %s GB do not fit "
+                        "the card" % peaks)
+    if srv["stats"]["cuda_initialized"]:
+        failures.append("the LM job's server initialized CUDA")
+    launches = {k: sum(r["launches"][k] for r in recs)
+                for k in recs[0]["launches"]}
+    return {"worst": worst, "bit_equal": len(shas) == 1, "workers": recs,
+            "server": srv, "launches": launches, "mean_ms": mean_ms}
+
+
+def phase_kvstore(torch, card, seed, ctx=None, linear=None, lm=None):
+    """Phase 18: the KVStore (see the module docstring).  *ctx*, *linear*
+    and *lm* size it down for the CPU test.  Raises at its end if any
+    check failed; returns the record."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    if ctx is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("phase 18 needs CUDA")
+        ctx = mx.gpu(0)
+    on_card = ctx.device_type == "gpu"
+    linear, lm = linear or KV_LINEAR, lm or KV_LM
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("kvstore: phase 18 starts on %s with %s GB of device memory held "
+        "by earlier phases" % (card, "%.3f" % (torch.cuda.memory_allocated()
+                                              / 1e9) if on_card
+                               else "not measured"))
+    t_phase = time.perf_counter()
+    failures = []
+    rec = {"card": card}
+    rec["stores"] = kv_store_checks(torch, np, mx, ctx, card, seed,
+                                    failures)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kv_")
+    try:
+        rec["ref"] = kv_ref_jobs(mx, ctx, card, seed, tmp, failures)
+        rec["linear"] = kv_linear(torch, np, mx, ctx, on_card, card, seed,
+                                  tmp, linear, failures)
+        if on_card:
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["lm"] = kv_lm(torch, np, mx, ctx, on_card, card, seed, tmp, lm,
+                          failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["launches"] = rec["lm"]["launches"]
+    log("kvstore: phase 18 in %.1f s on %s; main-path launches %s (the "
+        "dist_sync LM's two workers); %d failed checks" % (
+            rec["seconds"], card, rec["launches"], len(failures)))
+    if failures:
+        raise RuntimeError("phase 18 failed: " + "; ".join(failures))
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--kv-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.kv_worker:
+        # a worker process of phase 18, started by kv_cluster
+        return kv_worker(args.kv_worker, args.kv_job)
 
     import torch
     if not torch.cuda.is_available():
@@ -9126,6 +9942,7 @@ def main():
     phase_detection(torch, card, args.seed)
     sparse_launches = phase_sparse(torch, card, args.seed,
                                    module_rec=module_record)["launches"]
+    kv_launches = phase_kvstore(torch, card, args.seed)["launches"]
     quant_launches = {
         kind: sum(quant[m]["launches"][kind]
                   for m in ("int8", "int8-weight-only"))
@@ -9143,7 +9960,8 @@ def main():
                    "user-surface LM train (eager nd, adam)":
                    user_launches[name],
                    MODULE_PATH: module_launches[name],
-                   SPARSE_LM_PATH: sparse_launches[name]}
+                   SPARSE_LM_PATH: sparse_launches[name],
+                   KV_PATH: kv_launches[name]}
         if name == "flash_fwd":
             by_path = {
                 "serve (eager: first forward, rung warm-ups)":

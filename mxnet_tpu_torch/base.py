@@ -19,13 +19,22 @@ import threading
 import numpy as _np
 import torch
 
-__all__ = ["MXNetError", "np_dtype", "dtype_name", "torch_dtype",
+__all__ = ["MXNetError", "string_types", "numeric_types", "integer_types",
+           "DTYPE_NAMES", "np_dtype", "dtype_name", "torch_dtype",
            "narrow_dtype", "enable_x64"]
 
 
 class MXNetError(RuntimeError):
     """Framework error type (mirrors ``mxnet_tpu.base.MXNetError``)."""
 
+
+string_types = (str,)
+numeric_types = (float, int, _np.generic)
+integer_types = (int, _np.integer)
+
+# the dtype names the JAX package's tables know, in its order
+DTYPE_NAMES = ("float32", "float64", "float16", "bfloat16", "uint8", "int8",
+               "int32", "int64", "bool")
 
 _NP_NAMES = ("float32", "float64", "float16", "uint8", "uint16", "uint32",
              "int8", "int16", "int32", "int64", "bool")

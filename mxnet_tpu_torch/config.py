@@ -301,3 +301,58 @@ register_env("MXNET_COMPILE_CACHE_DIR", str, "",
              "empty = build/torch_kernels/ at the root of the "
              "checkout.  A serve.Fleet points every replica at one "
              "directory, so a replica after the first builds nothing")
+
+# -- the distributed kvstore (``_kvstore_impl.py``) ------------------------
+register_env("MXNET_KVSTORE_SYNC_TIMEOUT", float, 120.0,
+             "Seconds a dist_sync server waits for all workers' pushes "
+             "or barrier arrivals before raising")
+register_env("MXNET_KVSTORE_HEARTBEAT_INTERVAL", float, 1.0,
+             "Seconds between worker heartbeats feeding dead-node "
+             "detection (reference: ps-lite heartbeats)")
+register_env("MXNET_KVSTORE_CONNECT_TIMEOUT", float, 120.0,
+             "Seconds a dist worker retries connecting to its servers "
+             "(fresh socket per attempt) before raising — covers "
+             "server-process spin-up, which includes a package import")
+register_env("MXNET_KVSTORE_RPC_TIMEOUT", float, 150.0,
+             "Per-call socket timeout (seconds) on dist bulk RPC "
+             "sockets: a server that dies mid-reply surfaces as a "
+             "typed RPCTimeoutError; must exceed "
+             "MXNET_KVSTORE_SYNC_TIMEOUT (sync pushes block server-side "
+             "until the round completes); 0 = no timeout")
+register_env("MXNET_KVSTORE_RPC_RETRIES", int, 5,
+             "Transport attempts per dist bulk RPC: a timed-out or "
+             "connection-broken call reconnects and resends the SAME "
+             "(rank, seq) request id; the server's dedup window makes "
+             "retried mutations apply exactly once")
+register_env("MXNET_KVSTORE_DEDUP_WINDOW", int, 256,
+             "Per-rank server-side idempotency window: how many recent "
+             "mutating request ids the server remembers so a retried "
+             "RPC is answered from cache instead of re-applied")
+register_env("MXNET_KVSTORE_EVICT_TIMEOUT", float, 10.0,
+             "Seconds without a heartbeat before a sync-mode server "
+             "treats a missing contributor as provably dead on a "
+             "sync/barrier deadline and evicts it; an alive-but-slow "
+             "laggard instead raises a SyncTimeoutError naming it")
+register_env("MXNET_KVSTORE_SNAPSHOT_PREFIX", str, "",
+             "Path prefix of the kvstore server's state snapshots "
+             "(store, optimizer state and dedup window); a restarted "
+             "server restores the newest so worker pulls resume from "
+             "committed state; empty = off; server s of a group "
+             "appends '-s<id>'")
+register_env("MXNET_KVSTORE_SNAPSHOT_EVERY", int, 1,
+             "Applies between server state snapshots; only read when "
+             "MXNET_KVSTORE_SNAPSHOT_PREFIX is set; 0 = never")
+register_env("MXNET_KVSTORE_JOIN_TIMEOUT", float, 120.0,
+             "Seconds a joining worker's wait_admission() polls for its "
+             "admission to the expected-contributor set before raising")
+register_env("MXNET_KVSTORE_ADMIT_POLL", float, 0.2,
+             "Poll interval (seconds) of wait_admission()")
+register_env("MXNET_KVSTORE_BIGARRAY_BOUND", int, 1000000,
+             "Arrays above this many elements shard across all servers "
+             "(reference: kvstore_dist.h:58)")
+register_env("MXNET_KVSTORE_TYPE", str, "local",
+             "Default kvstore type for examples and launchers; also the "
+             "type a process launched with DMLC_ROLE=server serves")
+register_env("MXNET_UPDATE_ON_KVSTORE", bool, True,
+             "Module: run the optimizer in the kvstore (on the server "
+             "for dist stores) instead of locally")

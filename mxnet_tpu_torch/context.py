@@ -21,6 +21,9 @@ from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "tpu", "current_context"]
 
+# the reference's device type ids (include/mxnet/base.h Context)
+_DEVTYPE2ID = {"cpu": 1, "gpu": 2}
+
 
 class Context:
     """A device context: 'cpu' or 'gpu' ('tpu' is accepted as 'gpu')."""
@@ -37,6 +40,10 @@ class Context:
             raise ValueError("unknown device type %r" % (device_type,))
         self.device_type = device_type
         self.device_id = int(device_id)
+
+    @property
+    def device_typeid(self):
+        return _DEVTYPE2ID[self.device_type]
 
     def __eq__(self, other):
         return (isinstance(other, Context)
@@ -71,6 +78,14 @@ class Context:
 
     def __exit__(self, *exc):
         Context._default_ctx.stack.pop()
+
+    def empty_cache(self):
+        """Release the caching allocator's unused device memory
+        (``torch.cuda.empty_cache`` on this context's card; nothing on
+        the CPU)."""
+        if self.device_type == "gpu":
+            with torch.cuda.device(self.torch_device):
+                torch.cuda.empty_cache()
 
 
 def cpu(device_id=0):

@@ -1,6 +1,6 @@
 """Gluon — the high-level model API (port of ``mxnet_tpu/gluon/``, subset)."""
 
-from .parameter import Parameter, ParameterDict  # noqa: F401
+from .parameter import Parameter, ParameterDict, Constant  # noqa: F401
 from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from . import nn  # noqa: F401
 from . import loss  # noqa: F401

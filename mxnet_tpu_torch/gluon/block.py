@@ -27,6 +27,7 @@ pass lets each child resolve its own.
 
 from __future__ import annotations
 
+import re
 import threading
 from collections import OrderedDict
 
@@ -160,12 +161,19 @@ class Block(torch.nn.Module):
     def params(self):
         return self._params
 
-    def collect_params(self):
-        """All Parameters of this Block and its children."""
+    def collect_params(self, select=None):
+        """All Parameters of this Block and its children; with *select*
+        (a regular expression), those whose names it matches from the
+        start (reference: block.py collect_params)."""
         ret = ParameterDict(self._params.prefix)
-        ret.update(self.params)
+        if not select:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({name: value for name, value in self.params.items()
+                        if pattern.match(name)})
         for child in self._children.values():
-            ret.update(child.collect_params())
+            ret.update(child.collect_params(select=select))
         return ret
 
     def initialize(self, init=None, ctx=None, verbose=False,

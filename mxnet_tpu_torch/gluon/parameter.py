@@ -24,7 +24,8 @@ from ..ndarray import NDArray
 from .. import initializer as init_mod
 from .. import symbol as sym_mod
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -122,7 +123,11 @@ class Parameter:
         initializer = init or self.init or default_init
         if isinstance(initializer, str):
             initializer = init_mod.create(initializer)
-        initializer(self.name, data, generator)
+        if generator is None:
+            initializer(init_mod.InitDesc(self.name), data)
+        else:
+            with init_mod.using_generator(initializer, generator):
+                initializer(init_mod.InitDesc(self.name), data)
         self._data = data
         self._deferred_init = None
         self._init_grad()
@@ -215,6 +220,22 @@ class Parameter:
             self.initialize(ctx=ctx)
         self.set_data(arr)
 
+    def reset_ctx(self, ctx):
+        """Move the data (and a fresh gradient buffer) to *ctx*, a
+        Context or a list of one; a deferred parameter is made there."""
+        if isinstance(ctx, (list, tuple)):
+            if len(ctx) != 1:
+                raise MXNetError("Parameter %s: one context per parameter "
+                                 "(got %s)" % (self.name, ctx))
+            ctx = ctx[0]
+        ctx = Context(ctx)
+        if self._data is not None:
+            self._data = self._data.as_in_context(ctx).copy()
+            self._init_grad()
+        elif self._deferred_init is not None:
+            init, _, default_init, generator = self._deferred_init
+            self._deferred_init = (init, ctx, default_init, generator)
+
     def cast(self, dtype):
         """Cast the data (and the gradient buffer) to *dtype*; the cast
         data is the marked variable from now on."""
@@ -232,6 +253,32 @@ class Parameter:
                 self.name, shape=self._shape if self._known() else None,
                 lr_mult=self.lr_mult, wd_mult=self.wd_mult)
         return self._var
+
+
+class _ValueInit(init_mod.Initializer):
+    """Fills an array with a Constant's value."""
+
+    def __init__(self, value):
+        super().__init__()
+        self.value = value
+
+    def _init_weight(self, desc, arr):
+        with torch.no_grad():
+            arr._data.copy_(self.value._data.to(arr._data.device,
+                                                arr._data.dtype))
+
+
+class Constant(Parameter):
+    """A parameter that holds *value* and takes no gradient (reference:
+    parameter.py Constant)."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = nd.array(value, ctx=cpu())
+        self.value = value
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=_ValueInit(value),
+                         differentiable=False)
 
 
 class ParameterDict:
@@ -281,6 +328,22 @@ class ParameterDict:
             self._params[name] = param
         return param
 
+    def get_constant(self, name, value=None):
+        """Get-or-create the Constant ``<prefix><name>`` holding
+        *value*."""
+        name = self._prefix + name
+        param = self._params.get(name)
+        if param is None and self._shared is not None:
+            param = self._shared._params.get(name)
+            if param is not None:
+                self._params[name] = param
+        if param is None:
+            if value is None:
+                raise KeyError("No constant named %r" % name)
+            param = Constant(name, value)
+            self._params[name] = param
+        return param
+
     def update(self, other):
         for k, v in other.items():
             if k in self._params and self._params[k] is not v:
@@ -302,6 +365,11 @@ class ParameterDict:
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit,
                          generator=generator)
+
+    def reset_ctx(self, ctx):
+        """Move every parameter to *ctx* (``Parameter.reset_ctx``)."""
+        for p in self.values():
+            p.reset_ctx(ctx)
 
     def setattr(self, name, value):
         """Set attribute *name* of every parameter (``grad_req``,

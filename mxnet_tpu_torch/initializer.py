@@ -1,15 +1,20 @@
 """Weight initializers (port of ``mxnet_tpu/initializer.py``).
 
-Initializers fill an NDArray in place.  Random ones draw from the
-``torch.Generator`` the caller passes, else from the global stream on the
-array's device that ``mx.random.seed`` sets (``runtime.rng``), as the
-reference's initializers draw from its global stream.  The name-pattern
-dispatch (``*_bias`` -> zeros, ``*_gamma`` -> ones, ...) is
-the reference's ``Initializer.__call__`` routing.
+Initializers fill an NDArray in place.  ``Initializer.__call__(desc,
+arr)`` routes by the parameter's name to the reference's hooks, each
+``hook(self, desc, arr)`` with the ``InitDesc``: ``*weight`` to
+``_init_weight``, ``*bias`` to ``_init_bias``, ``*gamma``/``*beta``,
+running and moving statistics to ``_init_zero``/``_init_one``, anything
+else to ``_init_default``.  Random ones draw from the instance's
+generator while :func:`using_generator` sets one, else from the global
+stream on the array's device that ``mx.random.seed`` sets
+(``runtime.rng``), as the reference's initializers draw from its global
+stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -19,20 +24,19 @@ import torch
 
 __all__ = ["Initializer", "Uniform", "Normal", "Zero", "One", "Constant",
            "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias",
-           "Mixed", "InitDesc", "register", "create"]
+           "Mixed", "InitDesc", "register", "create", "using_generator"]
 
 _REGISTRY = {}
 
 
-def _register(cls, *names):
-    for n in (cls.__name__,) + names:
-        _REGISTRY[n.lower()] = cls
-    return cls
-
-
-def register(cls):
-    """Class decorator: make *cls* creatable by its lower-cased name."""
-    return _register(cls)
+def register(obj=None, name=None, aliases=()):
+    """Make a class creatable by its lower-cased name (or *name*) and by
+    each of *aliases*; a class decorator with or without arguments."""
+    def _do(cls):
+        for n in (name or cls.__name__,) + tuple(aliases):
+            _REGISTRY[n.lower()] = cls
+        return cls
+    return _do if obj is None else _do(obj)
 
 
 def create(name, **kwargs):
@@ -57,6 +61,19 @@ def _stream(arr, generator):
     return rng.generator(arr._data.device)
 
 
+@contextlib.contextmanager
+def using_generator(init, generator):
+    """Within the block, the random draws of *init* (an Initializer or a
+    Mixed) come from the ``torch.Generator`` *generator* (None: the
+    global stream)."""
+    old = getattr(init, "_generator", None)
+    init._generator = generator
+    try:
+        yield init
+    finally:
+        init._generator = old
+
+
 class InitDesc(str):
     """A parameter's name with its attributes: ``attrs["__init__"]`` names
     the initializer (a ``dumps()`` string) that fills it, whatever the
@@ -70,7 +87,9 @@ class InitDesc(str):
 
 
 class Initializer:
-    """Base initializer with name-based dispatch."""
+    """Base initializer with the reference's name-based dispatch."""
+
+    _generator = None
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
@@ -79,37 +98,70 @@ class Initializer:
         """``[name, kwargs]`` as JSON, which :func:`create` reads."""
         return json.dumps([type(self).__name__.lower(), self._kwargs])
 
-    def __call__(self, name, arr, generator=None):
-        """Fill NDArray *arr*, the parameter called *name*."""
-        generator = _stream(arr, generator)
-        init = getattr(name, "attrs", {}).get("__init__", "")
-        if init:
-            create(init)._init_weight(name, arr, generator)
-            return
-        name = name.lower()
-        if name.endswith("weight"):
-            self._init_weight(name, arr, generator)
-        elif name.endswith(("bias", "beta", "running_mean", "moving_mean")):
-            arr._data.zero_()
-        elif name.endswith(("gamma", "running_var", "moving_var")):
-            arr._data.fill_(1.0)
-        else:
-            self._init_weight(name, arr, generator)
+    def _rng(self, arr):
+        """The generator a random hook draws *arr*'s values from."""
+        return _stream(arr, self._generator)
 
-    def _init_weight(self, name, arr, generator):
+    def __call__(self, desc, arr):
+        """Fill NDArray *arr*, the parameter *desc* (a name or an
+        ``InitDesc``)."""
+        if not isinstance(desc, InitDesc):
+            desc = InitDesc(desc)
+        init = desc.attrs.get("__init__", "")
+        if init:
+            with using_generator(create(init), self._generator) as inner:
+                inner._init_weight(desc, arr)
+            return
+        name = desc.lower()
+        if name.endswith("weight"):
+            self._init_weight(desc, arr)
+        elif name.endswith("bias"):
+            self._init_bias(desc, arr)
+        elif name.endswith("gamma"):
+            self._init_gamma(desc, arr)
+        elif name.endswith("beta"):
+            self._init_beta(desc, arr)
+        elif name.endswith(("running_mean", "moving_mean")):
+            self._init_zero(desc, arr)
+        elif name.endswith(("running_var", "moving_var")):
+            self._init_one(desc, arr)
+        elif name.endswith(("moving_inv_var", "moving_avg")):
+            self._init_zero(desc, arr)
+        else:
+            self._init_default(desc, arr)
+
+    def _init_weight(self, desc, arr):
         raise NotImplementedError
+
+    def _init_bias(self, desc, arr):
+        arr._data.zero_()
+
+    def _init_gamma(self, desc, arr):
+        arr._data.fill_(1.0)
+
+    def _init_beta(self, desc, arr):
+        arr._data.zero_()
+
+    def _init_zero(self, desc, arr):
+        arr._data.zero_()
+
+    def _init_one(self, desc, arr):
+        arr._data.fill_(1.0)
+
+    def _init_default(self, desc, arr):
+        self._init_weight(desc, arr)
 
     def __repr__(self):
         return "%s(%s)" % (type(self).__name__, self._kwargs)
 
 
 class Zero(Initializer):
-    def _init_weight(self, name, arr, generator):
+    def _init_weight(self, desc, arr):
         arr._data.zero_()
 
 
 class One(Initializer):
-    def _init_weight(self, name, arr, generator):
+    def _init_weight(self, desc, arr):
         arr._data.fill_(1.0)
 
 
@@ -120,8 +172,8 @@ class Uniform(Initializer):
         super().__init__(scale=scale)
         self.scale = scale
 
-    def _init_weight(self, name, arr, generator):
-        arr._data.uniform_(-self.scale, self.scale, generator=generator)
+    def _init_weight(self, desc, arr):
+        arr._data.uniform_(-self.scale, self.scale, generator=self._rng(arr))
 
 
 class Normal(Initializer):
@@ -131,8 +183,8 @@ class Normal(Initializer):
         super().__init__(sigma=sigma)
         self.sigma = sigma
 
-    def _init_weight(self, name, arr, generator):
-        arr._data.normal_(0.0, self.sigma, generator=generator)
+    def _init_weight(self, desc, arr):
+        arr._data.normal_(0.0, self.sigma, generator=self._rng(arr))
 
 
 class Constant(Initializer):
@@ -142,7 +194,7 @@ class Constant(Initializer):
         super().__init__(value=value)
         self.value = value
 
-    def _init_weight(self, name, arr, generator):
+    def _init_weight(self, desc, arr):
         arr._data.fill_(self.value)
 
 
@@ -159,10 +211,10 @@ class Xavier(Initializer):
         self.factor_type = factor_type
         self.magnitude = float(magnitude)
 
-    def _init_weight(self, name, arr, generator):
+    def _init_weight(self, desc, arr):
         shape = arr.shape
         if len(shape) < 2:
-            raise ValueError("Xavier requires >=2D weight for %s" % name)
+            raise ValueError("Xavier requires >=2D weight for %s" % desc)
         hw_scale = float(math.prod(shape[2:]))
         fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
         try:
@@ -172,9 +224,9 @@ class Xavier(Initializer):
             raise ValueError("invalid factor_type %r" % self.factor_type)
         scale = math.sqrt(self.magnitude / factor)
         if self.rnd_type == "uniform":
-            arr._data.uniform_(-scale, scale, generator=generator)
+            arr._data.uniform_(-scale, scale, generator=self._rng(arr))
         elif self.rnd_type == "gaussian":
-            arr._data.normal_(0.0, scale, generator=generator)
+            arr._data.normal_(0.0, scale, generator=self._rng(arr))
         else:
             raise ValueError("invalid rnd_type %r" % self.rnd_type)
 
@@ -197,15 +249,15 @@ class Orthogonal(Initializer):
         self.scale = scale
         self.rand_type = rand_type
 
-    def _init_weight(self, name, arr, generator):
+    def _init_weight(self, desc, arr):
         nout = arr.shape[0]
         nin = math.prod(arr.shape[1:])
         dev = arr._data.device
         if self.rand_type == "uniform":
-            tmp = torch.rand((nout, nin), generator=generator, device=dev,
+            tmp = torch.rand((nout, nin), generator=self._rng(arr), device=dev,
                              dtype=torch.float64) * 2 - 1
         else:
-            tmp = torch.randn((nout, nin), generator=generator, device=dev,
+            tmp = torch.randn((nout, nin), generator=self._rng(arr), device=dev,
                               dtype=torch.float64)
         u, _, q = torch.linalg.svd(tmp, full_matrices=False)
         res = u if u.shape == tmp.shape else q
@@ -216,7 +268,7 @@ class Orthogonal(Initializer):
 class Bilinear(Initializer):
     """The bilinear upsampling kernel (for a Deconvolution's weight)."""
 
-    def _init_weight(self, name, arr, generator):
+    def _init_weight(self, desc, arr):
         shape = arr.shape
         weight = _np.zeros(shape, dtype=_np.float32)
         f = shape[3] / 2.0
@@ -237,17 +289,13 @@ class LSTMBias(Initializer):
         super().__init__(forget_bias=forget_bias)
         self.forget_bias = forget_bias
 
-    def _init_weight(self, name, arr, generator):
+    def _init_weight(self, desc, arr):
         n = arr.shape[0] // 4
         with torch.no_grad():
             arr._data.zero_()
             arr._data[n:2 * n] = self.forget_bias
 
-    def __call__(self, name, arr, generator=None):
-        if str(name).lower().endswith("bias"):
-            self._init_weight(name, arr, _stream(arr, generator))
-        else:
-            super().__call__(name, arr, generator)
+    _init_bias = _init_weight
 
 
 class Mixed:
@@ -257,21 +305,19 @@ class Mixed:
     def __init__(self, patterns, initializers):
         self.map = list(zip([re.compile(p) for p in patterns], initializers))
 
-    def __call__(self, name, arr, generator=None):
+    _generator = None
+
+    def __call__(self, desc, arr):
         for prog, init in self.map:
-            if prog.match(str(name)):
-                init(name, arr, generator)
+            if prog.match(str(desc)):
+                with using_generator(init, self._generator):
+                    init(desc, arr)
                 return
-        raise ValueError("no initializer pattern matches %r" % str(name))
+        raise ValueError("no initializer pattern matches %r" % str(desc))
 
 
-_register(Zero, "zeros")
-_register(One, "ones")
-_register(Uniform)
-_register(Normal)
-_register(Constant)
-_register(Orthogonal)
-_register(Xavier)
-_register(MSRAPrelu)
-_register(Bilinear)
-_register(LSTMBias)
+register(Zero, aliases=("zeros",))
+register(One, aliases=("ones",))
+for _cls in (Uniform, Normal, Constant, Orthogonal, Xavier, MSRAPrelu,
+             Bilinear, LSTMBias, Mixed):
+    register(_cls)

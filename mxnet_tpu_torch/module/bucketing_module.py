@@ -177,6 +177,7 @@ class BucketingModule(BaseModule):
         module._optimizer = shared_module._optimizer
         module._updater = shared_module._updater
         module._kvstore = shared_module._kvstore
+        module._update_on_kvstore = shared_module._update_on_kvstore
         module.optimizer_initialized = True
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",

@@ -18,10 +18,19 @@ state and ``save_optimizer_states`` writes the legacy format.
 A Module runs on ``current_context()`` (the card) unless given
 ``context=mx.cpu()``; binding raises without CUDA.
 
-Not ported: distributed and server-side kvstores, ``update_on_kvstore``
-and elastic membership (ROADMAP queue A item 14), job state and
-checkpoint managers (item 15), ``group2ctxs`` (item 16).  A local
-kvstore over several devices is the in-process gradient sum.
+The kvstore (``_create_kvstore``, reference model.py): none on one
+device unless a distributed store or a store object is named; a local
+store over several devices holds the weights and, with
+``update_on_kvstore`` (``MXNET_UPDATE_ON_KVSTORE``, default on), applies
+the Module's Updater on push (``set_updater``), so the fused step and
+the store's step share one state.  A distributed store
+('dist_sync', 'dist_async') is initialized from rank 0's weights, its
+gradients are rescaled over the global batch (batch size x workers),
+and every step is the legacy step: its pushes, barrier and pulls are
+host RPCs, which a CUDA graph cannot hold.
+
+Not ported: elastic membership, job state and checkpoint managers (queue
+A item 15), ``group2ctxs`` (item 16).
 """
 
 from __future__ import annotations
@@ -195,6 +204,7 @@ class Module(BaseModule):
         self._optimizer = None
         self._updater = None
         self._kvstore = None
+        self._update_on_kvstore = False
         self._grad_req = "write"
         self._monitor = None
         self._preload_opt_states = None
@@ -236,8 +246,12 @@ class Module(BaseModule):
 
     def save_optimizer_states(self, fname):
         """The Updater's states as its format-2 blob (whichever path
-        trained them: the fused step updates the Updater's tensors)."""
+        trained them: the fused step updates the Updater's tensors); a
+        distributed store's through the store."""
         assert self.optimizer_initialized
+        if self._updater is None:
+            self._kvstore.save_optimizer_states(fname)
+            return
         tmp = "%s.tmp%d" % (fname, os.getpid())
         with open(tmp, "wb") as f:
             f.write(self._updater.get_states())
@@ -247,6 +261,9 @@ class Module(BaseModule):
         """Load states saved by :meth:`save_optimizer_states` (of either
         package) after checking they belong to this optimizer."""
         assert self.optimizer_initialized
+        if self._updater is None:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             self._apply_updater_states(f.read())
 
@@ -277,10 +294,10 @@ class Module(BaseModule):
         raise _not_ported("job state (mid-epoch resume)", "item 15")
 
     def elastic_tick(self, train_data=None):
-        raise _not_ported("elastic membership (dist stores)", "item 14")
+        raise _not_ported("elastic membership (dist stores)", "item 15")
 
     def resync_from_kvstore(self):
-        raise _not_ported("elastic membership (dist stores)", "item 14")
+        raise _not_ported("elastic membership (dist stores)", "item 15")
 
     # -- properties --------------------------------------------------------
     @property
@@ -408,39 +425,75 @@ class Module(BaseModule):
     # -- optimizer ---------------------------------------------------------
     @staticmethod
     def _create_kvstore(kvstore, num_device):
-        """None: a local or device store is the in-process gradient sum
-        here (and pointless on one device); a distributed store or a
-        store object is not ported."""
-        if kvstore and (not isinstance(kvstore, str) or "dist" in kvstore):
-            raise _not_ported("distributed and object kvstores (%r)"
-                              % (kvstore,), "item 14")
-        return None
+        """``(kv, update_on_kvstore)`` (reference: model.py
+        _create_kvstore): no store for None, nor for a store name other
+        than a distributed one on one device (pointless overhead there);
+        ``update_on_kvstore`` from ``MXNET_UPDATE_ON_KVSTORE``, and always
+        on for an async store."""
+        from .._kvstore_impl import KVStoreBase, create
+        if kvstore is None or kvstore == "":
+            return None, False
+        if isinstance(kvstore, KVStoreBase):
+            kv = kvstore
+        else:
+            if num_device == 1 and "dist" not in kvstore:
+                return None, False
+            kv = create(kvstore)
+        update_on_kvstore = get_env("MXNET_UPDATE_ON_KVSTORE")
+        if "async" in getattr(kv, "type", ""):
+            update_on_kvstore = True
+        return kv, update_on_kvstore
+
+    def _dist(self):
+        return self._kvstore is not None and \
+            "dist" in getattr(self._kvstore, "type", "")
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Create the optimizer (gradients rescaled by 1/batch size unless
-        *optimizer_params* says otherwise) and its Updater."""
+        """Create the kvstore and the optimizer (gradients rescaled by 1/
+        batch size, the global batch for a distributed store, unless
+        *optimizer_params* says otherwise); register every weight with
+        the store (rank 0's, pulled back into every executor) and place
+        the Updater here or in the store (reference: module.py
+        init_optimizer:333)."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             return
         self._fused = None
         self._fused_state = None
-        self._kvstore = self._create_kvstore(kvstore, len(self._context))
+        self._kvstore, self._update_on_kvstore = self._create_kvstore(
+            kvstore, len(self._context))
+        group = self._exec_group
         if isinstance(optimizer, str):
-            idx2name = dict(enumerate(self._exec_group.param_names))
+            batch_size = group.batch_size
+            if self._dist():
+                # the servers sum every worker's gradient sum
+                batch_size *= self._kvstore.num_workers
+            idx2name = dict(enumerate(group.param_names))
             optimizer_params = dict(optimizer_params)
-            optimizer_params.setdefault(
-                "rescale_grad", 1.0 / self._exec_group.batch_size)
+            optimizer_params.setdefault("rescale_grad", 1.0 / batch_size)
             optimizer = opt.create(optimizer, param_idx2name=idx2name,
                                    **optimizer_params)
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
-        if self._preload_opt_states:
-            with open(self._preload_opt_states, "rb") as f:
-                self._apply_updater_states(f.read())
-            self._preload_opt_states = None
+        if self._kvstore is not None:
+            for i, name in enumerate(group.param_names):
+                self._kvstore.init(i, group.execs[0].arg_dict[name])
+                self._kvstore.pull(
+                    i, out=[ex.arg_dict[name] for ex in group.execs])
+        if self._dist() and self._update_on_kvstore:
+            self._kvstore.set_optimizer(optimizer)
+            self._updater = None     # the servers hold it
+        else:
+            self._updater = opt.get_updater(optimizer)
+            if self._kvstore is not None and self._update_on_kvstore:
+                # the store applies this Updater on push; the fused step
+                # updates the same state tensors in place
+                self._kvstore.set_updater(self._updater)
         self.optimizer_initialized = True
+        if self._preload_opt_states:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     # -- execution ---------------------------------------------------------
     def forward(self, data_batch, is_train=None):
@@ -500,16 +553,39 @@ class Module(BaseModule):
 
     def update(self):
         """Sum the gradients across devices and run the Updater over every
-        parameter (reference: module.py update:644)."""
+        parameter (reference: module.py update:644).  With
+        ``update_on_kvstore`` the store runs it: push every executor's
+        gradients, a barrier for a distributed store, pull the weights
+        into every executor.  A store without the Updater sums the
+        gradients (push, pull) and the Updater runs here."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
         group = self._exec_group
-        group.reduce_grads()
         ex0 = group.execs[0]
-        for i, name in enumerate(group.param_names):
-            if group.grad_req[name] != "null":
-                self._updater(i, ex0.grad_dict[name], ex0.arg_dict[name])
+        live = [(i, n) for i, n in enumerate(group.param_names)
+                if group.grad_req[n] != "null"]
+        kv = self._kvstore
+        if kv is not None and self._update_on_kvstore:
+            if not self._dist():
+                # fused steps may have moved the weights past the store's
+                for i, name in live:
+                    kv.assign(i, ex0.arg_dict[name])
+            for i, name in live:
+                kv.push(i, [ex.grad_dict[name] for ex in group.execs])
+            if self._dist():
+                kv.barrier()
+            for i, name in live:
+                kv.pull(i, out=[ex.arg_dict[name] for ex in group.execs])
+            return
+        if kv is not None:
+            for i, name in live:
+                kv.push(i, [ex.grad_dict[name] for ex in group.execs])
+                kv.pull(i, out=[ex.grad_dict[name] for ex in group.execs])
+        else:
+            group.reduce_grads()
+        for i, name in live:
+            self._updater(i, ex0.grad_dict[name], ex0.arg_dict[name])
         group.broadcast_params()
 
     # -- non-finite guard ----------------------------------------------------
@@ -676,6 +752,9 @@ class Module(BaseModule):
 
     def _fused_ok(self):
         if not get_env("MXNET_MODULE_FUSED_STEP"):
+            return False
+        if self._dist():
+            # pushes, a barrier and pulls over TCP: no graph holds them
             return False
         cls = type(self)
         if cls.forward_backward is not Module.forward_backward \

@@ -347,22 +347,32 @@ def compress_rowsparse(dense_grad, rtol=0.0):
 
 
 def _rows_of(ids, vals, num_rows):
-    """(rows, values, any_valid): each slot whose id lies outside
-    ``[0, num_rows)`` takes the id and values of the first valid slot,
-    so it computes and writes exactly that slot's row again, and an
-    ``index_put_`` of the results is deterministic with no id dropped
-    by a readback."""
+    """(rows, values, any_valid), one slot per input slot, with the
+    entries of a repeated id summed: every slot of a row carries that
+    row's summed gradient, so an ``index_put_`` of the results writes
+    equal values to each repeat and is deterministic.  A slot whose id
+    lies outside ``[0, num_rows)`` takes the row and sum of the first
+    valid id, so it writes that row's result again.  Fixed shapes and
+    no readback: a stable sort of the ids, segment ids by a cumulative
+    sum, the sums by ``index_add_``."""
     ids = ids.long().reshape(-1)
+    n = ids.shape[0]
+    vals = vals.reshape((n,) + tuple(vals.shape[1:]))
     valid = (ids >= 0) & (ids < num_rows)
-    # the first valid slot, as a 1-element index (a 0-d index tensor
-    # would be read back to the host)
-    j = torch.argmax(valid.to(torch.uint8)).reshape(1)
-    rows = torch.where(valid, ids, ids.index_select(0, j)).clamp(
-        0, max(num_rows - 1, 0))
-    vals = vals.reshape((ids.shape[0],) + tuple(vals.shape[1:]))
-    vals = torch.where(valid.reshape((-1,) + (1,) * (vals.dim() - 1)),
-                       vals, vals.index_select(0, j))
-    return rows, vals, valid.any()
+    # invalid slots sort last behind the sentinel num_rows
+    key = torch.where(valid, ids, torch.full_like(ids, num_rows))
+    key, order = torch.sort(key, stable=True)
+    vals = vals.index_select(0, order)
+    valid = valid.index_select(0, order)
+    first = torch.ones_like(valid)
+    first[1:] = key[1:] != key[:-1]
+    seg = torch.cumsum(first.to(torch.long), 0) - 1
+    sums = torch.zeros_like(vals).index_add_(0, seg, vals)
+    # an invalid slot reads the first segment, which is valid whenever
+    # any slot is (valid keys sort before the sentinel)
+    seg = torch.where(valid, seg, torch.zeros_like(seg))
+    rows = torch.where(valid, key, key[:1]).clamp(0, max(num_rows - 1, 0))
+    return rows, sums.index_select(0, seg), valid.any()
 
 
 def _row_grad(weight, ids, vals, rescale_grad, clip_gradient, wd):
@@ -381,7 +391,8 @@ def _row_grad(weight, ids, vals, rescale_grad, clip_gradient, wd):
 
 def _put_rows(dst, rows, new, ok):
     """Write *new* into the rows *rows* of *dst* in place (each row's
-    repeats carry equal values); nothing when no slot was valid."""
+    repeats carry equal values, ``_rows_of``); nothing when no slot was
+    valid."""
     old = dst[rows]
     dst.index_put_((rows,), torch.where(ok, new.to(dst.dtype), old))
 

@@ -86,6 +86,14 @@ def _zeros(weight, dtype=None):
                                dtype=dtype or weight._data.dtype))
 
 
+class _Mults:
+    """A Parameter's learning-rate and weight-decay multipliers, which
+    stand in for it in a pickled optimizer's ``param_dict``."""
+
+    def __init__(self, lr_mult, wd_mult):
+        self.lr_mult, self.wd_mult = lr_mult, wd_mult
+
+
 class Optimizer:
     """Base optimizer (reference: optimizer.py Optimizer:46).
 
@@ -109,6 +117,14 @@ class Optimizer:
         self.idx2name = dict(param_idx2name or {})
         self.param_dict = param_dict or {}
         self.lr_mult, self.wd_mult = {}, {}
+
+    def __getstate__(self):
+        # a pickled optimizer (a kvstore's SET_OPT, ``dump_optimizer``)
+        # carries each Parameter's multipliers, not its device tensors
+        state = dict(self.__dict__)
+        state["param_dict"] = {i: _Mults(p.lr_mult, p.wd_mult)
+                               for i, p in self.param_dict.items()}
+        return state
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -700,15 +716,19 @@ class Updater:
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
 
-    def get_states(self):
+    def get_states(self, dump_optimizer=False):
         """The states as the JAX package's format-2 blob (pickled): numpy
         payload, the optimizer's class name and hyper-parameter
-        signature."""
+        signature; with *dump_optimizer* the optimizer itself too (such
+        a blob is refused by :meth:`set_states`, which unpickles numpy
+        payloads only)."""
         blob = {"__format__": 2,
                 "states": {k: _to_np(v) for k, v in self.states.items()},
                 "opt_class": type(self.optimizer).__name__,
                 "hyper_sig": [getattr(self.optimizer, a, None)
                               for a in _HYPER_ATTRS]}
+        if dump_optimizer:
+            blob["optimizer"] = self.optimizer
         return pickle.dumps(blob)
 
     def set_states(self, states):

@@ -1,7 +1,8 @@
 """Deterministic fault-injection harness (port of
 ``mxnet_tpu/resilience/chaos.py``, subset: the spec, the tick counters
 and the injection accounting that the serve choke points of
-:mod:`.servechaos` read).
+:mod:`.servechaos` and the kvstore choke points of :mod:`.netchaos`
+read).
 
 Activation: programmatic :func:`configure` wins; otherwise the
 ``MXNET_CHAOS`` env knob supplies a spec string such as
@@ -17,8 +18,8 @@ import logging
 
 from .. import sanitizer as _san
 
-__all__ = ["configure", "reset", "active", "enabled", "tick",
-           "note_injection"]
+__all__ = ["configure", "reset", "active", "enabled", "tick", "counter",
+           "consume", "fired", "note_injection"]
 
 log = logging.getLogger(__name__)
 
@@ -99,13 +100,42 @@ def tick(name):
         return _ticks[name]
 
 
-def note_injection(key, **fields):
-    """Account an injection that fired: bumps the fired table, the
-    ``chaos_injections_total`` counter and the chaos event trail."""
+def counter(name):
+    """The current value of a named event counter."""
     with _lock:
-        _used[key] = _used.get(key, 0) + 1
+        return _ticks.get(name, 0)
+
+
+def fired(key):
+    """How many times injection *key* has fired."""
+    with _lock:
+        return _used.get(key, 0)
+
+
+def consume(key):
+    """True (and the fire accounted) while fires remain in *key*'s
+    budget of the active spec."""
+    budget = active().get(key, 0)
+    with _lock:
+        hit = _used.get(key, 0) + 1
+        if hit > budget:
+            return False
+        _used[key] = hit
+    _account(key, fire=hit, budget=budget)
+    return True
+
+
+def _account(key, **fields):
     from ..observability import events as _obs_events
     from ..observability import metrics as _metrics
     _metrics.counter("chaos_injections_total",
                      "chaos faults actually fired").inc()
     _obs_events.emit("chaos", injection=key, **fields)
+
+
+def note_injection(key, **fields):
+    """Account an injection that fired: bumps the fired table, the
+    ``chaos_injections_total`` counter and the chaos event trail."""
+    with _lock:
+        _used[key] = _used.get(key, 0) + 1
+    _account(key, **fields)

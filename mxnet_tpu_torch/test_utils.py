@@ -1,6 +1,9 @@
-"""Test fixtures (port of ``mxnet_tpu/test_utils.py``, subset: the tiny
-attention language model behind the paged-decode tests and its dense
-greedy-decode oracle), and the op sweeps: one or more small cases for
+"""Test helpers (port of ``mxnet_tpu/test_utils.py``): the user helpers
+(``assert_almost_equal``, ``rand_ndarray``, ``check_numeric_gradient``,
+``check_symbolic_forward``/``_backward``, ``check_consistency``; arrays
+are made on ``default_context()``, the card, unless a *ctx* is given),
+the tiny attention language model behind the paged-decode tests and its
+dense greedy-decode oracle, and the op sweeps: one or more small cases for
 every op name of the elementwise, reduce, tensor, random and Dropout /
 InstanceNorm families (``op_sweep_cases``) and of the layer ops
 (``layer_op_cases``: Deconvolution, LRN, the resizes, the softmax
@@ -14,12 +17,254 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import torch_dtype
+from .base import enable_x64, torch_dtype
+from . import context as ctx_mod
+from . import ndarray as nd
+from .ndarray import NDArray
 from .serve.kvpool import as_device
 
-__all__ = ["tiny_attention_lm", "dense_decode_reference", "op_sweep_cases",
+__all__ = ["default_context", "assert_almost_equal", "almost_equal", "same",
+           "rand_ndarray", "rand_shape_nd", "random_arrays", "numeric_grad",
+           "check_numeric_gradient", "check_symbolic_forward",
+           "check_symbolic_backward", "check_consistency", "list_backends",
+           "tiny_attention_lm", "dense_decode_reference", "op_sweep_cases",
            "layer_op_cases", "SAMPLER_MOMENTS", "moments_within",
            "detection_op_cases", "sparse_op_cases", "align_signs"]
+
+_DEFAULT_RTOL = {np.dtype(np.float16): 1e-2, np.dtype(np.float32): 1e-4,
+                 np.dtype(np.float64): 1e-5}
+_DEFAULT_ATOL = {np.dtype(np.float16): 1e-2, np.dtype(np.float32): 1e-5,
+                 np.dtype(np.float64): 1e-7}
+
+
+def default_context():
+    return ctx_mod.current_context()
+
+
+def _np(a):
+    return a.asnumpy() if isinstance(a, NDArray) else np.asarray(a)
+
+
+def same(a, b):
+    return np.array_equal(_np(a), _np(b))
+
+
+def almost_equal(a, b, rtol=None, atol=None):
+    a, b = _np(a), _np(b)
+    rtol = rtol if rtol is not None else _DEFAULT_RTOL.get(a.dtype, 1e-4)
+    atol = atol if atol is not None else _DEFAULT_ATOL.get(a.dtype, 1e-5)
+    return np.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True)
+
+
+def assert_almost_equal(a, b, rtol=None, atol=None, names=("a", "b")):
+    a_np, b_np = _np(a), _np(b)
+    rtol = rtol if rtol is not None else \
+        _DEFAULT_RTOL.get(a_np.dtype, 1e-4)
+    atol = atol if atol is not None else \
+        _DEFAULT_ATOL.get(a_np.dtype, 1e-5)
+    np.testing.assert_allclose(a_np, b_np, rtol=rtol, atol=atol,
+                               equal_nan=True,
+                               err_msg="%s and %s differ" % names)
+
+
+def rand_shape_nd(ndim, dim=10):
+    return tuple(np.random.randint(1, dim + 1, size=ndim))
+
+
+def rand_ndarray(shape, stype="default", density=None, dtype=None,
+                 ctx=None):
+    """Values U(-1, 1) from numpy's global stream, as the JAX package
+    draws them: a row_sparse array keeps rows at *density*, a csr array
+    entries at *density*."""
+    dtype = dtype or np.float32
+    if stype == "default":
+        return nd.array(np.random.uniform(-1, 1, shape).astype(dtype),
+                        ctx=ctx)
+    density = 0.5 if density is None else density
+    arr = np.random.uniform(-1, 1, shape).astype(dtype)
+    mask = np.random.uniform(0, 1, shape[:1]) < density
+    arr[~mask] = 0
+    if stype == "row_sparse":
+        return nd.array(arr, ctx=ctx).tostype("row_sparse")
+    if stype == "csr":
+        arr2 = arr * (np.random.uniform(0, 1, shape) < density)
+        return nd.array(arr2, ctx=ctx).tostype("csr")
+    raise ValueError("unknown stype %r" % stype)
+
+
+def random_arrays(*shapes):
+    arrays = [np.random.randn(*s).astype(np.float32) for s in shapes]
+    if len(arrays) == 1:
+        return arrays[0]
+    return arrays
+
+
+def _as_location(sym, location):
+    """User inputs as {argument name: numpy array}."""
+    if isinstance(location, dict):
+        return {k: _np(v) for k, v in location.items()}
+    return {name: _np(v) for name, v in zip(sym.list_arguments(), location)}
+
+
+def _bind(sym, location, aux_states=None, grad_req="write", ctx=None,
+          dtype=None):
+    ctx = ctx or default_context()
+    args, grads = {}, {}
+    for name, v in location.items():
+        v = np.asarray(v, dtype=dtype) if dtype else np.asarray(v)
+        args[name] = nd.array(v, ctx=ctx, dtype=v.dtype)
+        grads[name] = nd.zeros(v.shape, ctx=ctx, dtype=v.dtype)
+    aux = {k: nd.array(_np(v), ctx=ctx)
+           for k, v in (aux_states or {}).items()}
+    return sym.bind(ctx=ctx, args=args, args_grad=grads, grad_req=grad_req,
+                    aux_states=aux)
+
+
+def numeric_grad(f, location, eps=1e-4):
+    """Central-difference gradients of a scalar f({name: array})."""
+    grads = {}
+    for name, v in location.items():
+        v = np.asarray(v, dtype=np.float64)
+        g = np.zeros_like(v)
+        flat, gflat = v.reshape(-1), g.reshape(-1)
+        for i in range(flat.size):
+            orig = flat[i]
+            flat[i] = orig + eps
+            fp = f({**location, name: v})
+            flat[i] = orig - eps
+            fm = f({**location, name: v})
+            flat[i] = orig
+            gflat[i] = (fp - fm) / (2 * eps)
+        grads[name] = g
+    return grads
+
+
+def check_numeric_gradient(sym, location, aux_states=None, eps=1e-3,
+                           rtol=1e-2, atol=1e-4, grad_nodes=None, ctx=None):
+    """Symbolic gradients against central finite differences, in float64
+    (reference: test_utils.py:790).  The output is projected onto a fixed
+    random direction; one probe executor serves every difference, its
+    random stream and auxiliary states put back before each."""
+    with enable_x64():
+        location = {k: np.asarray(v, np.float64)
+                    for k, v in _as_location(sym, location).items()}
+        aux64 = {k: np.asarray(_np(v), np.float64)
+                 for k, v in (aux_states or {}).items()}
+        grad_nodes = grad_nodes or list(location)
+        exe = _bind(sym, location, aux64, ctx=ctx)
+        outs = exe.forward(is_train=True)
+        rs = np.random.RandomState(0)
+        proj = [rs.normal(0, 1, o.shape).astype(np.float64) for o in outs]
+        exe.backward(out_grads=[nd.array(p, ctx=o.context, dtype="float64")
+                                for p, o in zip(proj, outs)])
+        sym_grads = {n: exe.grad_dict[n].asnumpy() for n in grad_nodes}
+        probe = _bind(sym, location, aux64, ctx=ctx)
+        gen0 = probe._gen.get_state()
+        aux0 = {n: a._data for n, a in probe.aux_dict.items()}
+
+        def f(loc):
+            probe._gen.set_state(gen0)
+            for n, a in probe.aux_dict.items():
+                a._data = aux0[n]
+            os_ = probe.forward(is_train=True, **{**location, **loc})
+            return sum(float(np.sum(o.asnumpy() * p))
+                       for o, p in zip(os_, proj))
+
+        num_grads = numeric_grad(f, {n: location[n] for n in grad_nodes},
+                                 eps=eps)
+        for n in grad_nodes:
+            np.testing.assert_allclose(
+                sym_grads[n], num_grads[n], rtol=rtol, atol=atol,
+                err_msg="numeric vs symbolic gradient mismatch for %r of "
+                        "%s" % (n, sym.list_outputs()))
+
+
+def check_symbolic_forward(sym, location, expected, rtol=1e-4, atol=1e-5,
+                           aux_states=None, ctx=None):
+    """Forward outputs against expected numpy arrays (reference:
+    test_utils.py:926)."""
+    exe = _bind(sym, _as_location(sym, location), aux_states, ctx=ctx)
+    outs = exe.forward(is_train=False)
+    if not isinstance(expected, (list, tuple)):
+        expected = [expected]
+    for o, e in zip(outs, expected):
+        np.testing.assert_allclose(o.asnumpy(), np.asarray(e), rtol=rtol,
+                                   atol=atol)
+    return outs
+
+
+def check_symbolic_backward(sym, location, out_grads, expected, rtol=1e-4,
+                            atol=1e-5, aux_states=None, grad_req="write",
+                            ctx=None):
+    """Input gradients against expected arrays (reference:
+    test_utils.py:1054)."""
+    exe = _bind(sym, _as_location(sym, location), aux_states,
+                grad_req=grad_req, ctx=ctx)
+    outs = exe.forward(is_train=True)
+    if not isinstance(out_grads, (list, tuple)):
+        out_grads = [out_grads]
+    exe.backward(out_grads=[nd.array(_np(g), ctx=o.context)
+                            for g, o in zip(out_grads, outs)])
+    items = expected.items() if isinstance(expected, dict) else \
+        zip(sym.list_arguments(), expected)
+    for name, e in items:
+        if e is None:
+            continue
+        np.testing.assert_allclose(
+            exe.grad_dict[name].asnumpy(), np.asarray(e), rtol=rtol,
+            atol=atol, err_msg="input gradient mismatch for %r" % name)
+    return exe.grad_dict
+
+
+def list_backends():
+    """The backends a consistency check can run on: 'cpu', and 'gpu'
+    where CUDA is available."""
+    return ["cpu"] + (["gpu"] if torch.cuda.is_available() else [])
+
+
+def check_consistency(sym, location=None, shapes=None, aux_states=None,
+                      backends=None, rtol=1e-4, atol=1e-5, grad_req="write",
+                      seed=0):
+    """The same symbol on every backend, outputs and gradients held
+    together (reference: test_utils.py:1207, the CPU against the card
+    here); with one backend, two runs must agree."""
+    backends = backends or list_backends()
+    if location is None or (shapes is not None
+                            and isinstance(location, dict)):
+        rs = np.random.RandomState(seed)
+        overrides = dict(location or {})
+        location = {n: overrides.get(n, rs.normal(0, 1, s).astype(
+            np.float32)) for n, s in shapes.items()}
+    else:
+        location = _as_location(sym, location)
+    rs = np.random.RandomState(seed + 1)
+    results = []
+    for backend in (backends if len(backends) > 1 else backends * 2):
+        ctx = ctx_mod.cpu(0) if backend == "cpu" else ctx_mod.gpu(0)
+        exe = _bind(sym, location, aux_states, grad_req=grad_req, ctx=ctx)
+        outs = exe.forward(is_train=True)
+        if grad_req == "null":
+            results.append(([o.asnumpy() for o in outs], {}, None,
+                            backend))
+            continue
+        proj = [rs.normal(0, 1, o.shape).astype(np.float32)
+                for o in outs] if not results else results[0][2]
+        exe.backward(out_grads=[nd.array(p, ctx=ctx) for p in proj])
+        grads = {n: exe.grad_dict[n].asnumpy() for n in exe.grad_dict}
+        results.append(([o.asnumpy() for o in outs], grads, proj, backend))
+    ref_outs, ref_grads, _, ref_b = results[0]
+    for outs, grads, _, b in results[1:]:
+        for i, (o, r) in enumerate(zip(outs, ref_outs)):
+            np.testing.assert_allclose(
+                o, r, rtol=rtol, atol=atol,
+                err_msg="output %d disagrees between %s and %s"
+                        % (i, ref_b, b))
+        for n in ref_grads:
+            np.testing.assert_allclose(
+                grads[n], ref_grads[n], rtol=rtol, atol=atol,
+                err_msg="grad %r disagrees between %s and %s"
+                        % (n, ref_b, b))
+    return results
 
 
 def tiny_attention_lm(vocab=32, dim=16, seed=0, dtype="float32", ctx=None):

@@ -625,7 +625,9 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
         "phase_zoo": lambda t, c, s: {},
         "phase_detection": lambda t, c, s: {},
         "phase_sparse": lambda t, c, s, module_rec=None: {
-            "launches": {k: 108 for k in kernels}}}
+            "launches": {k: 108 for k in kernels}},
+        "phase_kvstore": lambda t, c, s: {
+            "launches": {k: 72 for k in kernels}}}
     for name, fn in stub.items():
         monkeypatch.setattr(chip_smoke, name, fn)
     assert chip_smoke.main() == 0
@@ -650,10 +652,11 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
     assert fwd["launches_by_path"][
         chip_smoke.FLEET_PATH + ", graph replays"] == 1500
     assert fwd["launches_by_path"][chip_smoke.SPARSE_LM_PATH] == 108
+    assert fwd["launches_by_path"][chip_smoke.KV_PATH] == 72
     assert fwd["launches"] == 72 + 108 + 420 + 60 + 60 + 552 + 72 + 240 + \
-        96 + 84 + 300 + 240 + 36 + 1500 + 108
+        96 + 84 + 300 + 240 + 36 + 1500 + 108 + 72
     for k in json.loads(lines[-2])["kernels"][1:]:
-        assert k["launches"] == 60 + 60 + 72 + 240 + 108
+        assert k["launches"] == 60 + 60 + 72 + 240 + 108 + 72
     for k in json.loads(lines[-2])["kernels"]:
         assert {"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -341,7 +341,8 @@ def _filled(init, shape, name="w_weight"):
     arr = nd.zeros(shape, ctx=CPU)
     gen = torch.Generator()
     gen.manual_seed(0)
-    init(name, arr, gen)
+    with mx.init.using_generator(init, gen):
+        init(name, arr)
     return arr.asnumpy()
 
 
@@ -383,7 +384,7 @@ def test_init_desc_and_register():
 
     @mx.init.register
     class Threes(mx.init.Initializer):
-        def _init_weight(self, name, arr, generator):
+        def _init_weight(self, desc, arr):
             arr._data.fill_(3.0)
 
     np.testing.assert_array_equal(

@@ -87,7 +87,10 @@ def test_import_leaves_jax_and_mxnet_tpu_unloaded():
             "mxnet_tpu_torch.autotune.search, "
             "mxnet_tpu_torch.autotune.__main__, "
             "mxnet_tpu_torch.resilience.checkpoint, "
-            "mxnet_tpu_torch._kvstore_impl, mxnet_tpu_torch.serve.replica, "
+            "mxnet_tpu_torch._kvstore_impl, mxnet_tpu_torch.kvstore, "
+            "mxnet_tpu_torch.kvstore_server, "
+            "mxnet_tpu_torch.resilience.netchaos, "
+            "mxnet_tpu_torch.serve.replica, "
             "mxnet_tpu_torch.serve.router, mxnet_tpu_torch.serve.fleet, "
             "mxnet_tpu_torch.gluon.model_zoo.model_store, "
             "mxnet_tpu_torch.gluon.model_zoo.vision.alexnet, "

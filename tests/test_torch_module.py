@@ -696,10 +696,10 @@ def test_not_ported_paths_raise():
     mod = tmx.Module(_mlp(), context=tmx.cpu())
     mod.bind([("data", (16, 8))], [("softmax_label", (16,))])
     mod.init_params()
-    with pytest.raises(MXNetError, match="item 14"):
-        mod.init_optimizer(kvstore="dist_sync")
-    with pytest.raises(MXNetError, match="item 14"):
+    with pytest.raises(MXNetError, match="item 15"):
         mod.elastic_tick()
+    with pytest.raises(MXNetError, match="item 15"):
+        mod.resync_from_kvstore()
     with pytest.raises(MXNetError, match="item 15"):
         mod.job_state()
     data, labels = _toy_data(n=32, dim=8)

@@ -10,8 +10,7 @@ Tolerances: outputs within 1e-5 x max(1, max |JAX|), gradients within
 lazy update does not touch bit-unchanged.
 
 The reference file's two kvstore cases (``row_sparse_pull``, a local
-kvstore's row-sparse push and pull) wait for the kvstore's port (ROADMAP
-queue A item 14).
+kvstore's row-sparse push and pull) are in tests/test_torch_kvstore.py.
 """
 
 import os

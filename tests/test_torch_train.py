@@ -151,11 +151,19 @@ def test_trainer_surface():
     assert tr.optimizer.learning_rate == 0.02
     tr.allreduce_grads()
     params = net.collect_params()
-    for kwargs in (dict(kvstore="dist_sync"), dict(kvstore="nccl"),
-                   dict(compression_params={"type": "2bit"}),
-                   dict(update_on_kvstore=True)):
-        with pytest.raises(tmx.MXNetError, match="not ported"):
-            tgluon.Trainer(params, "sgd", **kwargs)
-    for kvstore in ("device", "local", None):
-        tgluon.Trainer(params, "sgd", kvstore=kvstore,
-                       update_on_kvstore=False)
+    # a store name on one device makes no store: the first step's store
+    # setup finds nothing to do, or refuses what needs a store
+    for kvstore in ("device", "local", "nccl", "tpu", None):
+        tr = tgluon.Trainer(params, "sgd", kvstore=kvstore,
+                            update_on_kvstore=False)
+        tr.allreduce_grads()
+        assert tr._kvstore is None
+    for kwargs, what in ((dict(compression_params={"type": "2bit"}),
+                          "compression_params"),
+                         (dict(update_on_kvstore=True),
+                          "update_on_kvstore")):
+        with pytest.raises(tmx.MXNetError, match=what):
+            tgluon.Trainer(params, "sgd", **kwargs).allreduce_grads()
+    # a distributed store is made at the first step, not at construction
+    assert tgluon.Trainer(params, "sgd", kvstore="dist_sync")._kvstore \
+        is None

@@ -373,7 +373,8 @@ def test_initializers(init, std):
         arr = tmx.nd.zeros((64, 32, 3, 3), ctx=tmx.cpu())
         gen = torch.Generator()
         gen.manual_seed(7)
-        init("conv0_weight", arr, gen)
+        with tmx.init.using_generator(init, gen):
+            init("conv0_weight", arr)
         arrs.append(arr.asnumpy())
     np.testing.assert_array_equal(arrs[0], arrs[1])
     if std:
