@@ -9,14 +9,17 @@ Phases, each reported on its own line; any failure exits non-zero:
              source, all started together; print ptxas's registers and
              spills, and fail if an instantiation the paths run
              (``PATH_ENTRIES``: flash_fwd, flash_bwd_dkdv and
-             flash_bwd_dq, f32, D = 64) spills or is missing.
+             flash_bwd_dq, f32, D = 64, and flash_fwd's bf16 D = 64
+             tensor-core kernel) spills or is missing.
 3. kernel  — hold each kernel against its plain PyTorch version on the
              card over a grid of cases, each relaunched for bit-equality,
              head dims past 256 up to the kernels' bound among them, and
-             at B*H = 65600 (past grid.y's 65535); then time kernel,
-             plain version and one PyTorch library call at the paths'
-             shape, and the wide-head kernels beside their plain
-             versions.
+             at B*H = 65600 (past grid.y's 65535); each flash_fwd case
+             logs its route (wgmma, simt or wide), which must be the one
+             ``attention._fwd_route`` states and the library's own rule
+             gives; then time kernel, plain version and one PyTorch
+             library call at the paths' shape in f32, bf16 and f16, and
+             the wide-head kernels beside their plain versions.
 4. serve   — batch serving at full width: build the transformer LM
              (vocab 32000, dim 1024, heads 16, 12 layers, seq 2048),
              hybridize, forward, export a checkpoint, load it into a
@@ -76,7 +79,8 @@ Phases, each reported on its own line; any failure exits non-zero:
              bf16 loss and gradients against float64 (ReLU masks
              frozen).  (d) The LM, sgd lr 0.01 momentum 0.9, int32 ids,
              batch 8 x 2048: the main path whose launches are counted
-             (the bf16 kernels, 12 of each a step), the loss must fall
+             (the bf16 kernels, 12 of each a step, every flash_fwd on its
+             tensor-core route), the loss must fall
              over four steps, step 1's loss against the plain
              attention's, shares; then the same step with PyTorch's SDPA
              in the kernels' place, timed only.
@@ -423,10 +427,15 @@ SOURCES = ("flash_fwd", "flash_bwd")
 DATA_SOURCES = ("nvjpeg_decode",)       # phase 12's nvJPEG binding (nvcc)
 HOST_SOURCES = ("recordio_reader",)     # phase 12's g++ library (src/io)
 # (kernel, source, part of the mangled name) of the instantiations the
-# paths run, f32 and D = 64 (flash_fwd_kernel<float, 64, ...>,
+# paths run at D = 64: f32 (flash_fwd_kernel<float, 64, ...>,
 # flash_bwd_dkdv_kernel<float, 64, ...>, flash_bwd_dq_kernel<float, 64,
-# ...>): a spill in any fails the build phase
+# ...>) and the bf16 tensor-core forward of the north-star LM
+# (flash_fwd_tc_kernel<__nv_bfloat16, 64, ...>): a spill in any fails the
+# build phase
+FWD_TC = "flash_fwd bfloat16 (wgmma)"
 PATH_ENTRIES = (("flash_fwd", "flash_fwd", "flash_fwd_kernelIfLi64E"),
+                (FWD_TC, "flash_fwd",
+                 "flash_fwd_tc_kernelI13__nv_bfloat16Li64E"),
                 ("flash_bwd_dkdv", "flash_bwd",
                  "flash_bwd_dkdv_kernelIfLi64E"),
                 ("flash_bwd_dq", "flash_bwd", "flash_bwd_dq_kernelIfLi64E"))
@@ -752,9 +761,10 @@ def phase_build():
     usage = path_usage({name: info["log"]
                         for name, info in zip(SOURCES, infos)})
     for kernel, u in usage.items():
-        log("build: %s float32 D=64 (on the paths): %d registers, %d bytes "
+        log("build: %s D=64 (on the paths): %d registers, %d bytes "
             "spill stores, %d bytes spill loads -> ok" % (
-                kernel, u["registers"], u["spill_stores"], u["spill_loads"]))
+                kernel if kernel == FWD_TC else kernel + " float32",
+                u["registers"], u["spill_stores"], u["spill_loads"]))
     return usage
 
 
@@ -807,10 +817,45 @@ CASES = [
     (1, 2, 200, 300, 300, True, "float32", True),
     (1, 2, 300, 200, 300, True, "bfloat16", True),
     (1, 1, 256, 256, 1024, False, "float32", True),
+    # the edges of flash_fwd's tensor-core route (16-bit, D <= 128,
+    # D % 8 == 0): B*H past 65535; D = 128 with Sq > Sk (empty rows); D 80
+    # (zeros past D in the tiles), causal and ragged; D 36, whose rows are
+    # not whole 16-byte chunks, on the SIMT kernel
+    (1, 65600, 16, 16, 64, True, "bfloat16", True),
+    (1, 4, 300, 100, 128, True, "float16", True),
+    (1, 2, 1000, 1537, 80, True, "bfloat16", True),
+    (1, 2, 130, 100, 36, True, "bfloat16", True),
 ]
 # the wide-head shapes timed beside their plain versions (b, h, sq, sk, d,
 # causal)
 WIDE_TIMED = ((1, 2, 200, 300, 300, True), (1, 1, 256, 256, 1024, False))
+
+
+def library_route(att, dtype, d, aligned):
+    """The route the library's own rule (``flash_fwd_route``) gives."""
+    lib = att._cuda.load("flash_fwd", att._bind_fwd)
+    return att.FWD_ROUTES[lib.flash_fwd_route(d, att._KERNEL_DTYPES[dtype],
+                                              int(aligned))]
+
+
+def check_routes(torch, att):
+    """``attention._fwd_route`` against the library's rule over every
+    dtype, head dim 1..300 and the bound, aligned or not."""
+    n = 0
+    for dt in att._KERNEL_DTYPES:
+        for d in list(range(1, 301)) + [att.KERNEL_MAX_HEAD_DIM]:
+            for aligned in (False, True):
+                want = library_route(att, dt, d, aligned)
+                if att._fwd_route(dt, d, aligned) != want:
+                    raise RuntimeError(
+                        "flash_fwd route of %s d=%d aligned=%s: _fwd_route "
+                        "says %s, the library %s" % (
+                            dt, d, aligned, att._fwd_route(dt, d, aligned),
+                            want))
+                n += 1
+    log("kernel flash_fwd routes: attention._fwd_route agrees with the "
+        "library's flash_fwd_route on %d (dtype, head dim, alignment) "
+        "cases -> ok" % n)
 
 
 def check_fwd_case(torch, att, gen, case):
@@ -820,7 +865,11 @@ def check_fwd_case(torch, att, gen, case):
     k = _rand(torch, (b, h, sk, d), dt, gen)
     v = _rand(torch, (b, h, sk, d), dt, gen)
     scale = 1.0 / math.sqrt(d)
+    route = att._fwd_route(dt, d, att._aligned16(q, k, v))
+    before = dict(att.flash_fwd.launches_by_route)
     got = att.flash_fwd(q, k, v, causal, scale, with_lse=True)
+    counted = [r for r, n in att.flash_fwd.launches_by_route.items()
+               if n != before[r]]
     want = att._chunked_attention(q, k, v, causal, scale, with_lse=True)
     torch.cuda.synchronize()
     err_o, ratio = o_error(torch, att, got[0], want[0], q, k, v, causal,
@@ -838,12 +887,15 @@ def check_fwd_case(torch, att, gen, case):
         # the no-lse launch must give the same o
         o2 = att.flash_fwd(q, k, v, causal, scale)
         same = same and bool(torch.equal(o2, got[0]))
-    ok = ok and same
-    log("kernel flash_fwd %s b%d h%d sq%d sk%d d%d causal=%s lse=%s: "
-        "max|o-plain| %.3g (worst error/limit %.3f, limit %s), "
+    routed = counted == [route] and \
+        route == library_route(att, dt, d, att._aligned16(q, k, v))
+    ok = ok and same and routed
+    log("kernel flash_fwd %s b%d h%d sq%d sk%d d%d causal=%s lse=%s route "
+        "%s%s: max|o-plain| %.3g (worst error/limit %.3f, limit %s), "
         "max|lse-plain| %.3g (tol %g), empty rows %d, repeat bit-equal %s "
         "-> %s" % (
-            dtn, b, h, sq, sk, d, causal, with_lse, err_o, ratio,
+            dtn, b, h, sq, sk, d, causal, with_lse, route,
+            "" if routed else " (counted on %s)" % counted, err_o, ratio,
             tol_text(dtn), err_l, TOL_LSE, empty, same,
             "ok" if ok else "FAIL"))
     if not ok:
@@ -986,6 +1038,7 @@ def phase_kernel(torch, card, seed):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     worst = {}
+    check_routes(torch, att)
     cases = CASES + [(1, 2, 128, 160, att.KERNEL_MAX_HEAD_DIM, True,
                       "float32", True)]
     for case in cases:
@@ -1019,7 +1072,7 @@ def phase_kernel(torch, card, seed):
     # timing at the paths' shape
     b, h, sq, sk, d = PATH_SHAPE
     rows = {}
-    for dtn in ("float32", "bfloat16"):
+    for dtn in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtn)
         inputs = bwd_inputs(torch, att, gen, b, h, sq, sk, d, True, dt)
         q, k, v, do, o, lse, delta, scale = inputs
@@ -1082,10 +1135,15 @@ def phase_kernel(torch, card, seed):
                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
                 "library": LIBRARY_CALL[lib is None]}
-            log("kernel %s timing %s b%d h%d s%d d%d causal on %s: kernel "
+            if name == "flash_fwd":
+                rows[(name, dtn)]["kernel_route"] = att._fwd_route(
+                    dt, d, att._aligned16(q, k, v))
+            log("kernel %s timing %s b%d h%d s%d d%d causal on %s%s: kernel "
                 "%.4f ms, plain %.4f ms, library %.4f ms (%s), bound %.4f ms "
                 "(%s), kernel at %.1f%% of bound, max err %.3g" % (
-                    name, dtn, b, h, sq, d, card, ms, plain_ms, lib_ms,
+                    name, dtn, b, h, sq, d, card,
+                    " (route %s)" % rows[(name, dtn)]["kernel_route"]
+                    if name == "flash_fwd" else "", ms, plain_ms, lib_ms,
                     LIBRARY_CALL[lib is None], bound, by,
                     100.0 * bound / ms, errs[name]))
         del inputs, q, k, v, do, o, lse, delta
@@ -2747,12 +2805,15 @@ def ns_lm(torch, card, mx, gen, rng, ctx, failures):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0      # the north-star LM path's counts start here
+    att.flash_fwd.launches_by_route.update(
+        dict.fromkeys(att.flash_fwd.launches_by_route, 0))
     step1, _ = ns_steps(torch, trainer, x, y, 1)
     timed, dt = ns_steps(torch, trainer, x, y, LM_NS_STEPS - 1)
     shares = profile(torch, lambda: float(trainer.fit_batch(x, y)),
                      "north-star LM profile, one step of batch %d x %d"
                      % (BATCH, SEQ), card, LM_NS_SHARES)
     launches = {c.__name__: c.launches for c in counters}
+    fwd_routes = dict(att.flash_fwd.launches_by_route)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in step1 + timed]
     steps = LM_NS_STEPS + 1
@@ -2791,6 +2852,13 @@ def ns_lm(torch, card, mx, gen, rng, ctx, failures):
                             "instantiations of all three kernels")
     if any(n != LAYERS * steps for n in launches.values()):
         failures.append("north-star LM launch counts %s" % launches)
+    log("north-star LM: flash_fwd launches by route %s (all %d must be "
+        "wgmma: the bf16 tensor-core kernel)" % (fwd_routes,
+                                                 LAYERS * steps))
+    if fwd_routes != dict(dict.fromkeys(fwd_routes, 0),
+                          wgmma=LAYERS * steps):
+        failures.append("the north-star LM's bf16 forward launches did not "
+                        "all take the tensor-core route: %s" % fwd_routes)
     if not all(math.isfinite(v) for v in losses) or \
             not losses[-1] < losses[0]:
         failures.append("the north-star LM loss did not fall: %s" % losses)
@@ -9923,26 +9991,34 @@ def main():
     import mxnet_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     t_start = time.perf_counter()
-    card = phase_device(torch)
-    path_ptxas = phase_build()
-    timing = phase_kernel(torch, card, args.seed)
-    serve_launches = phase_serve(torch, card, args.seed)
-    train_launches = phase_train(torch, card, args.seed)
-    phase_resnet(torch, card, args.seed)
-    ns_launches = phase_north_star(torch, card, args.seed)
-    decode_launches = phase_decode(torch, card, args.seed)
-    user_launches = phase_user_surface(torch, card, args.seed)
-    module_record = phase_module(torch, card, args.seed)
+
+    def phase(fn, *a, **kw):
+        """Run one phase; log its wall seconds."""
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        log("phase %s: %.1f s" % (fn.__name__, time.perf_counter() - t0))
+        return out
+    card = phase(phase_device, torch)
+    path_ptxas = phase(phase_build)
+    seed = args.seed
+    timing = phase(phase_kernel, torch, card, seed)
+    serve_launches = phase(phase_serve, torch, card, seed)
+    train_launches = phase(phase_train, torch, card, seed)
+    phase(phase_resnet, torch, card, seed)
+    ns_launches = phase(phase_north_star, torch, card, seed)
+    decode_launches = phase(phase_decode, torch, card, seed)
+    user_launches = phase(phase_user_surface, torch, card, seed)
+    module_record = phase(phase_module, torch, card, seed)
     module_launches = module_record["launches"]
-    phase_lstm(torch, card, args.seed)
-    phase_data(torch, card, args.seed)
-    quant = phase_quant(torch, card, args.seed)["lm"]
-    fleet = phase_fleet(torch, card, args.seed)["launches"]
-    phase_zoo(torch, card, args.seed)
-    phase_detection(torch, card, args.seed)
-    sparse_launches = phase_sparse(torch, card, args.seed,
-                                   module_rec=module_record)["launches"]
-    kv_launches = phase_kvstore(torch, card, args.seed)["launches"]
+    phase(phase_lstm, torch, card, seed)
+    phase(phase_data, torch, card, seed)
+    quant = phase(phase_quant, torch, card, seed)["lm"]
+    fleet = phase(phase_fleet, torch, card, seed)["launches"]
+    phase(phase_zoo, torch, card, seed)
+    phase(phase_detection, torch, card, seed)
+    sparse_launches = phase(phase_sparse, torch, card, seed,
+                            module_rec=module_record)["launches"]
+    kv_launches = phase(phase_kvstore, torch, card, seed)["launches"]
     quant_launches = {
         kind: sum(quant[m]["launches"][kind]
                   for m in ("int8", "int8-weight-only"))
@@ -9983,9 +10059,18 @@ def main():
             "replaces": replaces, "launches": sum(by_path.values())},
             **timing[(name, "float32")], launches_by_path=by_path,
             dtype="float32", shape=[b, h, sq, sk, d], causal=True,
-            bfloat16=timing[(name, "bfloat16")], card=card))
+            bfloat16=timing[(name, "bfloat16")],
+            float16=timing[(name, "float16")], card=card))
         if name in path_ptxas:
             kernels[-1]["ptxas"] = path_ptxas[name]
+        if name == "flash_fwd":
+            # the kernel each dtype's launches take at this shape (the
+            # key "route" names the language, as the contract asks)
+            kernels[-1]["kernel_route"] = {
+                dtn: timing[(name, dtn)]["kernel_route"]
+                for dtn in ("float32", "bfloat16", "float16")}
+            if FWD_TC in path_ptxas:
+                kernels[-1]["ptxas_bfloat16"] = path_ptxas[FWD_TC]
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

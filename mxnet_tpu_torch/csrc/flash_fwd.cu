@@ -15,11 +15,48 @@
 // What bounds it on this card: at the serving shape (causal, S = 2048,
 // D = 64) the work is 2 products of D multiply-adds per visible (query,
 // key) pair against 4 tensors of reads and writes, ~128 flop per byte in
-// f32: the operations bound it, not the bytes.  f32 stays exact f32 on the
-// FMA units (no TF32, no mma): the ceiling is their 67 TFLOP/s, and the
-// 16-bit dtypes run the same code on values staged in their storage dtype.
+// f32: the operations bound it, not the bytes.  Three kernels, picked by a
+// rule on dtype, head dim and alignment (route(), mirrored by
+// attention._fwd_route):
+// - bfloat16 / float16 with D <= 128, D % 8 == 0 and 16-byte aligned
+//   bases: the tensor-core kernel (flash_fwd_tc_kernel, below), against
+//   the 989 TFLOP/s of the tensor cores;
+// - float32, and the 16-bit shapes off that route up to D = 256: the
+//   register-tiled SIMT kernel (flash_fwd_kernel), exact f32 on the FMA
+//   units (no TF32, no mma), against their 67 TFLOP/s; 16-bit values are
+//   staged in their storage dtype;
+// - D > 256: the wide kernel.
 //
-// Design, a register-tiled SIMT product on a cp.async K/V stream (the
+// The tensor-core kernel, designed for Hopper:
+// - A persistent grid, one block an SM, walks (batch*head, q-tile) slots
+//   in chunks of heads whose K and V fit in a third of L2, each chunk's
+//   q-tiles heaviest first (the causal q-tiles that see the most keys).
+//   A block is two consumer warpgroups of 64 query rows each (BQ = 128)
+//   and a producer warpgroup, which gives its registers to the consumers
+//   with setmaxnreg; one producer thread loads Q once a q-tile and streams
+//   K and V tiles of BK keys through a ring of kTcStages stages with TMA
+//   (3-d tensor maps, zeros past the tensor's rows and head dims, 128- or
+//   64-byte swizzle), each stage's full and empty mbarriers handing it
+//   between the producer and the consumers' warps.  The producer runs
+//   ahead into the next q-tile while the consumers finish one.
+// - Both products are wgmma.mma_async with f32 accumulators: S = Q K^T
+//   with Q and K K-major in shared memory, O += P V with P in registers
+//   and V read MN-major (wgmma's transpose, which it offers only for
+//   16-bit types).  S's accumulator fragment is P's A fragment two
+//   registers at a time, so P never leaves the registers.
+// - The online softmax runs on the fragment: a row's max inside the
+//   thread, then two __shfl_xor_sync across its quad, in log2 units;
+//   p = exp2(s * scale * log2(e) - m) on the special-function unit; l sums
+//   the unrounded p while P is p rounded to v's dtype (attention.py:206,
+//   :212).  k-tile t's S = Q K^T runs beside k-tile t - 1's P V, and its
+//   softmax while that P V finishes.
+// - The same contract as below: causal aligns the sequence ends, only a
+//   k-tile that straddles the diagonal or the ragged key edge takes the
+//   per-score mask, k-tiles wholly above a warpgroup's last row are not
+//   computed, a row that sees no key writes o = 0 and lse = +1e30, rows
+//   past Sq are not stored, and there are no atomics.
+//
+// The register-tiled kernel: a SIMT product on a cp.async K/V stream (the
 // shape of flash_bwd.cu's dkdv kernel, plus the online softmax's row max):
 // - A block of 256 threads owns a q-tile of BQ queries of one batch*head.
 //   Q is staged once; K and V tiles of BK keys are streamed with 16-byte
@@ -71,14 +108,17 @@
 // when m grows, p is rounded to v's dtype against the running max and l
 // sums the unrounded p.  The speed is not tuned (PERF.md).
 
+#include <cuda.h>   // CUtensorMap; the driver function comes through the runtime
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -477,8 +517,627 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core kernel for 16-bit storage (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcConsumers = 2;                         // warpgroups
+constexpr int kTcConsumerThreads = 128 * kTcConsumers;
+constexpr int kTcBQ = 64 * kTcConsumers;                // queries a block
+constexpr int kTcStages = 4;                            // the K/V ring
+// + a producer warpgroup, which hands its registers to the consumers
+// with setmaxnreg: each of the SM's four register files holds one warp of
+// every warpgroup, so a block of 9 warps would cap all at 168 registers
+constexpr int kTcThreads = kTcConsumerThreads + 128;
+constexpr int kTcProducerRegs = 24;
+constexpr int kTcConsumerRegs =
+    (65536 / 128 - kTcProducerRegs) / kTcConsumers / 8 * 8;
+// the K and V bytes of the heads whose blocks run together: a third of
+// the card's 50 MB L2
+constexpr long long kTcL2Bytes = 16LL << 20;
+
+// keys a k-tile by padded head dim: at DP 128 a consumer thread holds O
+// (64 f32) beside S (BK / 2 f32) and P (BK / 4 words)
+template <int DP> struct TcTile;
+template <> struct TcTile<32> { static constexpr int BK = 128; };
+template <> struct TcTile<64> { static constexpr int BK = 128; };
+template <> struct TcTile<128> { static constexpr int BK = 64; };
+
+// Shared memory of one block, every tile in the layout TMA writes and
+// wgmma reads: column blocks of CB values (SW bytes: the swizzle span),
+// each holding every row of the tile at SW bytes a row, 16-byte chunks
+// swizzled within 8-row atoms.  Q (kTcBQ rows), then kTcStages stages of
+// K and V (BK rows each), then the mbarriers.  The base is 1024-aligned.
+template <int DP, int BK>
+struct TcSmem {
+  static constexpr int SW = DP >= 64 ? 128 : 64;
+  static constexpr int CB = SW / 2;
+  static constexpr int NCB = DP / CB;
+  static constexpr uint32_t q = kTcBQ * DP * 2;
+  static constexpr uint32_t kv = BK * DP * 2;   // K (or V) of one stage
+  static constexpr uint32_t stages = kTcStages * 2 * kv;
+  static constexpr uint32_t bars = q + stages;  // full[], empty[], qfull, qempty
+  static constexpr size_t bytes = 1024 + bars + 8 * (2 * kTcStages + 2);
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the phase of *bar* with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one TMA box of a (batch*head, rows, d) tensor into shared memory at
+// *dst*; coordinates innermost first, past the tensor filled with zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(bh)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading byte
+// offset *lbo* (between column blocks of an MN-major operand; unused for
+// K-major), stride byte offset 8 * SW (between 8-row atoms), and the
+// swizzle (1: 128 bytes, 2: 64 bytes)
+template <int SW>
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo) {
+  constexpr uint64_t layout = SW == 128 ? 1 : 2;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((8 * SW) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator
+// across the asynchronous wgmma that owns it
+template <int R>
+__device__ __forceinline__ void reg_fence(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// m64nNk16, float32 accumulators (N / 2 a thread), 16-bit operands.
+// ss: A and B from shared memory, both K-major.  rs: A from registers
+// (4 words of packed pairs), B from shared memory, MN-major (transposed).
+// SD 0: D = A B, else D += A B.
+#define FA_R8(a, b, c, d, e, f, g, h)                                    \
+  "%" #a ", %" #b ", %" #c ", %" #d ", %" #e ", %" #f ", %" #g ", %" #h
+#define FA_REGS16 "{" FA_R8(0, 1, 2, 3, 4, 5, 6, 7) ", " \
+  FA_R8(8, 9, 10, 11, 12, 13, 14, 15) "}"
+#define FA_REGS32 "{" FA_R8(0, 1, 2, 3, 4, 5, 6, 7) ", "                  \
+  FA_R8(8, 9, 10, 11, 12, 13, 14, 15) ", "                                \
+  FA_R8(16, 17, 18, 19, 20, 21, 22, 23) ", "                              \
+  FA_R8(24, 25, 26, 27, 28, 29, 30, 31) "}"
+#define FA_REGS64 "{" FA_R8(0, 1, 2, 3, 4, 5, 6, 7) ", "                  \
+  FA_R8(8, 9, 10, 11, 12, 13, 14, 15) ", "                                \
+  FA_R8(16, 17, 18, 19, 20, 21, 22, 23) ", "                              \
+  FA_R8(24, 25, 26, 27, 28, 29, 30, 31) ", "                              \
+  FA_R8(32, 33, 34, 35, 36, 37, 38, 39) ", "                              \
+  FA_R8(40, 41, 42, 43, 44, 45, 46, 47) ", "                              \
+  FA_R8(48, 49, 50, 51, 52, 53, 54, 55) ", "                              \
+  FA_R8(56, 57, 58, 59, 60, 61, 62, 63) "}"
+#define FA_ACC8(d, i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FA_ACC16(d) FA_ACC8(d, 0), FA_ACC8(d, 8)
+#define FA_ACC32(d) FA_ACC16(d), FA_ACC8(d, 16), FA_ACC8(d, 24)
+#define FA_ACC64(d) \
+  FA_ACC32(d), FA_ACC8(d, 32), FA_ACC8(d, 40), FA_ACC8(d, 48), FA_ACC8(d, 56)
+// (N, its accumulator registers R, then the operand numbers R .. R + 8)
+#define FA_MMA(N, R, TY, TS, REGS, ACC, o0, o1, o2, o3, o4, o5, o6, o7, o8) \
+  template <>                                                              \
+  struct Mma<N, TY> {                                                      \
+    template <int SD>                                                      \
+    __device__ __forceinline__ static void ss(float (&d)[R], uint64_t a,   \
+                                              uint64_t b) {                \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #o2 ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TS    \
+                   "." TS " " REGS ", %" #o0 ", %" #o1 ", p, %" #o3        \
+                   ", %" #o4 ", %" #o5 ", %" #o6 ";\n}\n"                  \
+                   : ACC(d)                                                \
+                   : "l"(a), "l"(b), "r"(SD), "n"(1), "n"(1), "n"(0),      \
+                     "n"(0));                                              \
+    }                                                                      \
+    template <int SD>                                                      \
+    __device__ __forceinline__ static void rs(float (&d)[R],               \
+                                              const uint32_t (&a)[4],      \
+                                              uint64_t b) {                \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #o5 ", 0;\n"       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TS    \
+                   "." TS " " REGS ", {%" #o0 ", %" #o1 ", %" #o2          \
+                   ", %" #o3 "}, %" #o4 ", p, %" #o6 ", %" #o7 ", %" #o8   \
+                   ";\n}\n"                                                \
+                   : ACC(d)                                                \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),   \
+                     "r"(SD), "n"(1), "n"(1), "n"(1));                     \
+    }                                                                      \
+  };
+
+template <int N, typename T> struct Mma;
+FA_MMA(32, 16, __nv_bfloat16, "bf16", FA_REGS16, FA_ACC16, 16, 17, 18, 19,
+       20, 21, 22, 23, 24)
+FA_MMA(64, 32, __nv_bfloat16, "bf16", FA_REGS32, FA_ACC32, 32, 33, 34, 35,
+       36, 37, 38, 39, 40)
+FA_MMA(128, 64, __nv_bfloat16, "bf16", FA_REGS64, FA_ACC64, 64, 65, 66, 67,
+       68, 69, 70, 71, 72)
+FA_MMA(32, 16, __half, "f16", FA_REGS16, FA_ACC16, 16, 17, 18, 19, 20, 21,
+       22, 23, 24)
+FA_MMA(64, 32, __half, "f16", FA_REGS32, FA_ACC32, 32, 33, 34, 35, 36, 37,
+       38, 39, 40)
+FA_MMA(128, 64, __half, "f16", FA_REGS64, FA_ACC64, 64, 65, 66, 67, 68, 69,
+       70, 71, 72)
+
+// two float32 values as a packed pair of T, the lower index in the low half
+template <typename T> __device__ __forceinline__ uint32_t pack2(float x, float y);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x,
+                                                                     float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float x, float y) {
+  const __half2 h = __floats2half2_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void reg_fence(uint32_t (&d)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(d[i][r])::"memory");
+}
+
+// 2**x on the special-function unit (subnormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Issue S = Q K^T for the warpgroup's 64 rows (Q at *qw*) against the BK
+// keys of the stage at *ks*, as one wgmma group: DP / 16 k-steps, each
+// 32 bytes further into the rows of its column block.
+template <typename T, int DP, int BK>
+__device__ __forceinline__ void tc_qk(uint32_t qw, uint32_t ks,
+                                      float (&s)[BK / 2]) {
+  using S = TcSmem<DP, BK>;
+  // a k-step moves only the descriptors' start address (in 16-byte units)
+  const uint64_t a0 = gmma_desc<S::SW>(qw, 0), b0 = gmma_desc<S::SW>(ks, 0);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int c = kk * 16 / S::CB;
+    const int off = (kk * 16 % S::CB) * 2;
+    const uint64_t a = a0 + ((c * (kTcBQ * S::SW) + off) >> 4);
+    const uint64_t b = b0 + ((c * (BK * S::SW) + off) >> 4);
+    if (kk == 0)
+      Mma<BK, T>::template ss<0>(s, a, b);
+    else
+      Mma<BK, T>::template ss<1>(s, a, b);
+  }
+  wgmma_commit();
+}
+
+// Issue O += P V against the BK keys of the stage whose V is at *vs*, as
+// one wgmma group: k-step kk takes keys [16 kk, 16 kk + 16), two 8-row
+// atoms of every column block, and P's A fragment p[kk].
+template <typename T, int DP, int BK>
+__device__ __forceinline__ void tc_pv(uint32_t vs,
+                                      const uint32_t (&p)[BK / 16][4],
+                                      float (&o)[DP / 2]) {
+  using S = TcSmem<DP, BK>;
+  const uint64_t b0 = gmma_desc<S::SW>(vs, BK * S::SW);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    Mma<DP, T>::template rs<1>(o, p[kk], b0 + ((kk * 16 * S::SW) >> 4));
+  wgmma_commit();
+}
+
+// The online softmax of one k-tile of keys [k0, k0 + BK) on S's
+// accumulator fragment, in place: s becomes p = exp2(s * scale2 - m_new)
+// (0 where masked), m and l move, and alpha = exp2(m - m_new) is what O
+// must be scaled by.  A thread holds rows rw and rw + 8 (i = 0, 1) of the
+// warpgroup's 64 and of each group n of 8 keys the two at 8 n + 2 (lane %
+// 4) + j: register 4 n + 2 i + j (the same for O's head dims).  *qpos0*
+// is row rw's position among the keys.  MASKED: the k-tile straddles the
+// causal diagonal or the ragged key edge.
+template <bool MASKED, int BK>
+__device__ __forceinline__ void tc_softmax(float (&s)[BK / 2], int lane,
+                                           int qpos0, int k0, int sk,
+                                           int causal, float scale2,
+                                           float (&m)[2], float (&l)[2],
+                                           float (&alpha)[2]) {
+  const int kc = k0 + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = qpos0 + 8 * i;
+    // the max of the unscaled scores, and the sum below, in 4 chains
+    float part[4] = {kNegInf, kNegInf, kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kj = kc + 8 * n + j;
+        if (!MASKED || (kj < sk && (!causal || kj <= qpos)))
+          part[(2 * n + j) & 3] = fmaxf(part[(2 * n + j) & 3],
+                                        s[4 * n + 2 * i + j]);
+      }
+    float mx = fmaxf(fmaxf(part[0], part[1]), fmaxf(part[2], part[3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = mx > kNegInf * 0.5f ? fmaxf(m[i], mx * scale2) : m[i];
+    alpha[i] = ex2(m[i] - m_new);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[c] = 0.f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kj = kc + 8 * n + j;
+        const bool ok = !MASKED || (kj < sk && (!causal || kj <= qpos));
+        float& x = s[4 * n + 2 * i + j];
+        x = ok ? ex2(fmaf(x, scale2, -m_new)) : 0.f;
+        part[(2 * n + j) & 3] += x;
+      }
+    l[i] = l[i] * alpha[i] + ((part[0] + part[1]) + (part[2] + part[3]));
+    m[i] = m_new;
+  }
+}
+
+// p rounded to v's dtype (l summed it unrounded): register pairs of the
+// S fragment, two groups of 8 keys a k-step, are P's A fragment
+template <typename T, int BK>
+__device__ __forceinline__ void tc_pack(const float (&s)[BK / 2],
+                                        uint32_t (&p)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      p[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// A persistent block takes slots blockIdx.x, + gridDim.x, ... of the
+// nbh * ceil(sq / kTcBQ) (batch*head, q-tile) slots (see tile() below).
+// Its first kTcConsumers warpgroups are consumers of 64 query rows each;
+// the first thread after them is the producer, which loads Q once a
+// q-tile and streams K and V through a ring of kTcStages stages with TMA:
+// full[s] completes when a stage's bytes have landed, empty[s] when every
+// consumer warp is done with it; qfull and qempty do the same for Q.
+template <typename T, int DP, int BK>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    T* __restrict__ o, float* __restrict__ lse, int nbh,
+                    int sq, int sk, int d, float scale, int causal,
+                    int group) {
+  using S = TcSmem<DP, BK>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t qs = base;
+  const uint32_t bars = base + S::bars;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kTcStages + st); };
+  const uint32_t qfull = bars + 16 * kTcStages;
+  const uint32_t qempty = qfull + 8;
+  auto kst = [&](int st) { return base + S::q + st * 2 * S::kv; };
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int st = 0; st < kTcStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kTcConsumers * 4);
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, kTcConsumers * 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int nq = (sq + kTcBQ - 1) / kTcBQ;
+  const int off = sk - sq;
+  const long long tiles = (long long)nbh * nq;
+  // The (batch*head, q-tile) of a slot: slots run through chunks of
+  // *group* heads, each chunk's q-tiles heaviest first, so that the K and
+  // V the blocks in flight read fit in L2.  Returns q0, sets *head*.
+  auto tile = [&](long long slot, int& head) {
+    const long long per = (long long)group * nq;
+    const long long chunk = slot / per;
+    const long long r = slot - chunk * per;
+    const int heads = (int)min((long long)group, nbh - chunk * group);
+    head = (int)(chunk * group + r % heads);
+    return (nq - 1 - (int)(r / heads)) * kTcBQ;
+  };
+  // one past the last key the q-tile at q0 needs, in k-tiles
+  auto k_tiles = [&](int q0) {
+    const int k_end =
+        causal ? max(0, min(sk, min(q0 + kTcBQ, sq) + off)) : sk;
+    return (k_end + BK - 1) / BK;
+  };
+
+  if (tid >= kTcConsumerThreads) {   // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kTcProducerRegs));
+    if (tid != kTcConsumerThreads) return;
+    int it = 0, jt = 0;
+    for (long long slot = blockIdx.x; slot < tiles; slot += gridDim.x) {
+      int bh;
+      const int q0 = tile(slot, bh);
+      const int nk = k_tiles(q0);
+      if (nk == 0) continue;
+      mbar_wait(qempty, (jt & 1) ^ 1);
+      mbar_expect_tx(qfull, S::q);
+#pragma unroll
+      for (int c = 0; c < S::NCB; ++c)
+        tma_load(qs + c * (kTcBQ * S::SW), &qmap, qfull, c * S::CB, q0, bh);
+      ++jt;
+      for (int t = 0; t < nk; ++t, ++it) {
+        const int st = it % kTcStages;
+        mbar_wait(empty(st), ((it / kTcStages) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * S::kv);
+#pragma unroll
+        for (int c = 0; c < S::NCB; ++c) {
+          tma_load(kst(st) + c * (BK * S::SW), &kmap, full(st), c * S::CB,
+                   t * BK, bh);
+          tma_load(kst(st) + S::kv + c * (BK * S::SW), &vmap, full(st),
+                   c * S::CB, t * BK, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kTcConsumerRegs));
+  const int g = tid >> 7;                 // the consumer warpgroup
+  const int w = (tid >> 5) & 3, lane = tid & 31;
+  const int rw = 16 * w + (lane >> 2);    // the thread's first row of 64
+  const float scale2 = scale * kLog2e;
+  // a warp is done with a stage (or Q): one arrival for its 32 threads,
+  // after its wgmma.wait_group, which all of them execute together
+  auto release = [&](uint32_t bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  int it = 0, jt = 0;   // k-tiles and q-tiles taken so far
+  for (long long slot = blockIdx.x; slot < tiles; slot += gridDim.x) {
+    int bh;
+    const int q0 = tile(slot, bh);
+    const int q0w = q0 + 64 * g;          // the warpgroup's first row
+    const int nk = k_tiles(q0);
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[DP / 2];
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
+    if (nk > 0) {
+      mbar_wait(qfull, jt & 1);
+      ++jt;
+      const uint32_t qw = qs + 64 * g * S::SW;
+      // k-tiles the warpgroup computes: under causal, one past the last
+      // key its last row sees changes nothing and is skipped
+      const int last = q0w + 63 + off;
+      const int nkw = causal ? min(nk, last < 0 ? 0 : last / BK + 1) : nk;
+      auto stage = [&](int t) { return kst((it + t) % kTcStages); };
+      auto wait_full = [&](int t) {
+        mbar_wait(full((it + t) % kTcStages), ((it + t) / kTcStages) & 1);
+      };
+      float sc[BK / 2], alpha[2];
+      uint32_t p[BK / 16][4];
+      auto softmax = [&](int t) {
+        const int k0 = t * BK;
+        if (k0 + BK > sk || (causal && q0w + off < k0 + BK - 1))
+          tc_softmax<true, BK>(sc, lane, q0w + rw + off, k0, sk, causal,
+                               scale2, m, l, alpha);
+        else
+          tc_softmax<false, BK>(sc, lane, q0w + rw + off, k0, sk, causal,
+                                scale2, m, l, alpha);
+      };
+      if (nkw > 0) {
+        wait_full(0);
+        wgmma_fence();
+        tc_qk<T, DP, BK>(qw, stage(0), sc);
+        wgmma_wait0();
+        reg_fence(sc);
+        softmax(0);   // O is 0: alpha is not needed
+        tc_pack<T, BK>(sc, p);
+        // k-tile t's S = Q K^T runs on the tensor cores beside k-tile
+        // t - 1's O += P V; its softmax runs while P V finishes
+        for (int t = 1; t < nkw; ++t) {
+          wait_full(t);
+          reg_fence(sc);
+          reg_fence(p);
+          reg_fence(acc);
+          wgmma_fence();
+          tc_qk<T, DP, BK>(qw, stage(t), sc);
+          tc_pv<T, DP, BK>(stage(t - 1) + S::kv, p, acc);
+          wgmma_wait1();
+          reg_fence(sc);
+          softmax(t);
+          wgmma_wait0();
+          reg_fence(acc);
+          release(empty((it + t - 1) % kTcStages));
+#pragma unroll
+          for (int e = 0; e < DP / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+          tc_pack<T, BK>(sc, p);
+        }
+        // every S = Q K^T of the q-tile is done: the producer may load
+        // the next q-tile's Q
+        release(qempty);
+        reg_fence(p);
+        reg_fence(acc);
+        wgmma_fence();
+        tc_pv<T, DP, BK>(stage(nkw - 1) + S::kv, p, acc);
+        wgmma_wait0();
+        reg_fence(acc);
+        release(empty((it + nkw - 1) % kTcStages));
+      } else {
+        release(qempty);
+      }
+      // a skipped k-tile is released once it has landed, so that the
+      // arrival counts toward its own phase of the stage's barrier
+      for (int t = nkw; t < nk; ++t) {
+        wait_full(t);
+        release(empty((it + t) % kTcStages));
+      }
+      it += nk;
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const int qi = q0w + rw + 8 * i;
+      if (qi >= sq) continue;
+      const bool degenerate = m[i] <= kNegInf * 0.5f;
+      const float inv = degenerate ? 0.f : 1.f / li;
+      T* row = o + ((size_t)bh * sq + qi) * d;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = 8 * n + 2 * (lane & 3);
+        if (col < d)   // d % 8 == 0: the pair is whole
+          *reinterpret_cast<uint32_t*>(row + col) = pack2<T>(
+              acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+      }
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[(size_t)bh * sq + qi] =
+            degenerate ? 1e30f : m[i] * 0.693147180559945309f + logf(li);
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// cuTensorMapEncodeTiled, a driver function, through the runtime (the
+// library links only the runtime); null when the driver lacks it
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a contiguous (bh, rows, d) 16-bit tensor, boxes of
+// (1, box_rows, cols) swizzled by *sw* bytes
+cudaError_t tensor_map(CUtensorMap* map, const void* base, bool bf16,
+                       int bh, int rows, int d, int box_rows, int cols,
+                       int sw) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int DP>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int bh, int sq, int sk, int d, float scale,
+                      int causal, cudaStream_t stream) {
+  constexpr int BK = TcTile<DP>::BK;
+  using S = TcSmem<DP, BK>;
+  static_assert(S::bytes <= 232448, "shared memory of a block");
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap qm, km, vm;
+  memset(&km, 0, sizeof(km));
+  memset(&vm, 0, sizeof(vm));
+  cudaError_t err = tensor_map(&qm, q, bf16, bh, sq, d, kTcBQ, S::CB, S::SW);
+  if (err == cudaSuccess && sk > 0)   // sk == 0: no k-tile is loaded
+    err = tensor_map(&km, k, bf16, bh, sk, d, BK, S::CB, S::SW);
+  if (err == cudaSuccess && sk > 0)
+    err = tensor_map(&vm, v, bf16, bh, sk, d, BK, S::CB, S::SW);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_tc_kernel<T, DP, BK>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)S::bytes);
+  if (err != cudaSuccess) return err;
+  // heads a chunk: their K and V within kTcL2Bytes
+  const int group = (int)std::max<long long>(
+      1, std::min<long long>(bh, kTcL2Bytes / (4LL * std::max(sk, 1) * d)));
+  // one block an SM, each walking the slots blockIdx.x, + gridDim.x, ...
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)bh * ((sq + kTcBQ - 1) / kTcBQ);
+  kernel<<<(unsigned)std::min<long long>(tiles, sms), kTcThreads, S::bytes,
+           stream>>>(qm, km, vm, static_cast<T*>(o),
+                     static_cast<float*>(lse), bh, sq, sk, d, scale, causal,
+                     group);
+  return cudaGetLastError();
 }
 
 // DP: the padded head dim.  Raises the block's dynamic shared memory limit
@@ -522,12 +1181,37 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the padded head dim: the least of 32, 64, 128, 256 that covers d; past
-// 256 the wide kernel
+constexpr int kRouteSimt = 0, kRouteWide = 1, kRouteWgmma = 2;
+
+// The route a launch takes, a rule on its dtype, head dim and bases
+// (attention._fwd_route states the same): 16-bit storage with d <= 128,
+// rows of whole 16-byte chunks and 16-byte aligned bases on the tensor
+// cores; else the register-tiled kernel up to d = 256, past it the wide
+// kernel.
+int route(int d, int dtype, bool aligned) {
+  if (dtype != 0 && d <= 128 && d % 8 == 0 && aligned) return kRouteWgmma;
+  return d <= 256 ? kRouteSimt : kRouteWide;
+}
+
+// the padded head dim: the least of 32, 64, 128 (and 256 off the tensor
+// cores) that covers d; past 256 the wide kernel
 template <typename T>
 cudaError_t by_dim(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int sq, int sk, int d, float scale,
                    int causal, cudaStream_t stream) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (route(d, 1, aligned16(q) && aligned16(k) && aligned16(v)) ==
+        kRouteWgmma) {
+      if (d <= 32)
+        return launch_tc<T, 32>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                                stream);
+      if (d <= 64)
+        return launch_tc<T, 64>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                                stream);
+      return launch_tc<T, 128>(q, k, v, o, lse, bh, sq, sk, d, scale, causal,
+                               stream);
+    }
+  }
   if (d <= 32)
     return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
   if (d <= 64)
@@ -567,4 +1251,11 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The route a launch with this head dim, dtype (as flash_fwd takes it)
+// and 16-byte alignment of all three bases takes: 0 the register-tiled
+// kernel, 1 the wide kernel, 2 the tensor-core kernel.
+extern "C" int flash_fwd_route(int d, int dtype, int aligned) {
+  return route(d, dtype, aligned != 0);
 }

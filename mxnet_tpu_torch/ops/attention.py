@@ -10,14 +10,16 @@ Layout is (batch, heads, seq, head_dim) at every public function.
 - ``_flash_bwd_dkdv_plain`` / ``_flash_bwd_dq_plain``: the plain versions
   of the two backward kernels, blockwise over *chunk* keys (dK, dV) or
   queries (dQ), with p recomputed from the saved logsumexp.
-- ``flash_fwd``: the wrapper of the hand-written Hopper kernel
-  ``mxnet_tpu_torch/csrc/flash_fwd.cu``, which replaces the TPU kernel
+- ``flash_fwd``: the wrapper of the hand-written Hopper kernels of
+  ``mxnet_tpu_torch/csrc/flash_fwd.cu``, which replace the TPU kernel
   ``_flash_fwd_kernel`` (``mxnet_tpu/ops/attention.py:164``).  At the
-  serving shape the kernel is bound by operations, not bytes (about 128
-  flop per byte moved in f32), so its design keeps every score, weight
-  and partial output in register micro-tiles of warp-owned query rows
-  and streams K/V tiles into shared memory with cp.async; see the
-  source's header.
+  serving shape the work is bound by operations, not bytes (about 128
+  flop per byte moved in f32).  A rule on dtype, head dim and alignment
+  (``_fwd_route``) picks one of three kernels: 16-bit storage at D <= 128
+  runs on the tensor cores (wgmma on a TMA ring, P kept in registers);
+  float32, and the 16-bit shapes off that route up to D = 256, run the
+  register-tiled FMA kernel on a cp.async stream; D > 256 the wide
+  kernel.  See the source's header.
 - ``flash_bwd_dkdv`` / ``flash_bwd_dq`` (and ``flash_bwd``, which runs
   both): the wrappers of ``mxnet_tpu_torch/csrc/flash_bwd.cu``, which
   replaces ``_flash_bwd_dkdv_kernel`` (attention.py:335) and
@@ -34,6 +36,7 @@ Each wrapper counts its kernel's launches in its ``launches`` attribute.
 A call made while its stream is being captured into a CUDA graph only
 records the kernel into the graph, and counts in ``captured`` instead;
 ``launch_counts`` and ``capture_counts`` read both per kernel.
+``flash_fwd`` also splits its launches by route (``launches_by_route``).
 """
 
 from __future__ import annotations
@@ -297,12 +300,34 @@ def _count(wrapper, capturing):
         wrapper.launches += 1
 
 
+# flash_fwd's routes, indexed as the source's flash_fwd_route numbers them
+FWD_ROUTES = ("simt", "wide", "wgmma")
+
+
+def _fwd_route(dtype, d, aligned):
+    """The kernel a ``flash_fwd`` launch takes: "wgmma" (the tensor-core
+    kernel) for bfloat16 / float16 storage at D <= 128 with rows of whole
+    16-byte chunks (D % 8 == 0) and q, k, v bases 16-byte aligned
+    (*aligned*); else "simt" (the register-tiled FMA kernel) up to D =
+    256 and "wide" past it.  The same rule as the source's ``route``
+    (``flash_fwd_route`` in the library)."""
+    if dtype in (torch.bfloat16, torch.float16) and d <= 128 and \
+            d % 8 == 0 and aligned:
+        return "wgmma"
+    return "simt" if d <= 256 else "wide"
+
+
+def _aligned16(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _bind_fwd(lib):
-    vp = ctypes.c_void_p
-    lib.flash_fwd.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                              ctypes.c_int, ctypes.c_int, vp]
-    lib.flash_fwd.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.flash_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                              ctypes.c_float, ci, ci, vp]
+    lib.flash_fwd.restype = ci
+    lib.flash_fwd_route.argtypes = [ci, ci, ci]
+    lib.flash_fwd_route.restype = ci
 
 
 def _bind_bwd(lib):
@@ -329,6 +354,7 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None, with_lse=False):
         if with_lse else None
     if b * h * sq == 0:
         return (o, lse) if with_lse else o
+    route = _fwd_route(q.dtype, d, _aligned16(q, k, v))
     lib = _cuda.load("flash_fwd", _bind_fwd)
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -339,13 +365,17 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None, with_lse=False):
         capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise MXNetError("flash_fwd: kernel launch failed with CUDA error "
-                         "%d" % rc)
+                         "%d (route %s)" % (rc, route))
     _count(flash_fwd, capturing)
+    if not capturing:
+        flash_fwd.launches_by_route[route] += 1
     return (o, lse) if with_lse else o
 
 
 flash_fwd.launches = 0
 flash_fwd.captured = 0
+# the launches split by the route each took (``_fwd_route``)
+flash_fwd.launches_by_route = dict.fromkeys(FWD_ROUTES, 0)
 
 
 def flash_bwd_dkdv(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
@@ -485,7 +515,9 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, chunk=512,
     that requires grad); otherwise no lse is kept.
 
     On CUDA the head dim D is at most ``KERNEL_MAX_HEAD_DIM`` (2048) and
-    a larger one raises ``MXNetError``.  D <= 256 runs the register-tiled
+    a larger one raises ``MXNetError``.  The forward of 16-bit inputs with
+    D <= 128 (D % 8 == 0, 16-byte aligned bases) runs on the tensor cores
+    (``_fwd_route``).  Otherwise D <= 256 runs the register-tiled
     kernels, one compile-time tile for each padded head dim (32, 64, 128,
     256); a larger D runs simple kernels that keep each warp's row and its
     float32 sums in shared memory, whose size sets the bound (the JAX

@@ -175,6 +175,50 @@ def test_cpu_dispatch_runs_plain_version_and_launches_nothing():
         out.numpy(), tatt._chunked_attention(*_t(q, k, v), True).numpy())
 
 
+@pytest.mark.parametrize("dtype,d,aligned,route", [
+    (torch.bfloat16, 32, True, "wgmma"),
+    (torch.float16, 32, True, "wgmma"),
+    (torch.bfloat16, 33, True, "simt"),     # rows not whole 16-byte chunks
+    (torch.bfloat16, 64, True, "wgmma"),
+    (torch.float16, 80, True, "wgmma"),     # padded to 128
+    (torch.bfloat16, 128, True, "wgmma"),
+    (torch.float16, 129, True, "simt"),     # past the tensor-core tiles
+    (torch.bfloat16, 256, True, "simt"),
+    (torch.float16, 300, True, "wide"),
+    (torch.bfloat16, 36, True, "simt"),     # D % 8 != 0
+    (torch.float16, 64, False, "simt"),     # a base off 16 bytes
+    (torch.float32, 64, True, "simt"),      # f32 stays on the FMA units
+    (torch.float32, 128, True, "simt"),
+    (torch.float32, 300, True, "wide"),
+], ids=lambda x: str(x).replace("torch.", ""))
+def test_fwd_route_rule(dtype, d, aligned, route):
+    """``_fwd_route``: 16-bit storage with D <= 128, D % 8 == 0 and
+    16-byte aligned bases on the tensor cores; the rest on the
+    register-tiled kernel up to D = 256, the wide kernel past it."""
+    assert tatt._fwd_route(dtype, d, aligned) == route
+
+
+def test_fwd_route_alignment_reads_every_base():
+    buf = torch.zeros(4 * 64 + 8, dtype=torch.bfloat16)
+    whole = buf[:4 * 64].view(1, 1, 4, 64)
+    shifted = buf[1:4 * 64 + 1].view(1, 1, 4, 64)   # 2 bytes off
+    assert whole.is_contiguous() and shifted.is_contiguous()
+    assert tatt._aligned16(whole, whole, whole)
+    assert not tatt._aligned16(whole, shifted, whole)
+    assert tatt._fwd_route(torch.bfloat16, 64,
+                           tatt._aligned16(whole, whole, shifted)) == "simt"
+
+
+def test_route_counts_cover_every_route():
+    counts = tatt.flash_fwd.launches_by_route
+    assert set(counts) == set(tatt.FWD_ROUTES) == {"simt", "wide", "wgmma"}
+    assert all(isinstance(n, int) for n in counts.values())
+    before = dict(tatt.flash_fwd.launches_by_route)
+    q, k, v = _qkv(1, 2, 16, 16, 8)
+    tatt.flash_attention(*_t(q, k, v), causal=True)
+    assert tatt.flash_fwd.launches_by_route == before
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = _qkv(1, 1, 8, 8, 8)
     with pytest.raises(MXNetError, match="CUDA tensors"):

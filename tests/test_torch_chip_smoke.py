@@ -3,8 +3,9 @@
 The build gate reads registers and spills from nvcc's ``-Xptxas -v``
 logs and fails the run when an instantiation the paths run
 (``PATH_ENTRIES``: flash_fwd, flash_bwd_dkdv and flash_bwd_dq, f32,
-D = 64) spills or is missing from its source's log, on a fresh build and
-on one that an earlier run left behind.
+D = 64, and flash_fwd's bf16 D = 64 tensor-core kernel) spills or is
+missing from its source's log, on a fresh build and on one that an
+earlier run left behind.
 
 Phase 6 (ResNet-50): its limits against float64 pass f32-sized errors
 and fail TF32-sized ones (the sizes its first run on an H100 measured),
@@ -78,6 +79,10 @@ FWD64 = ("_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64ELi128ELi64EEEvPKT_S3_S3_"
          "PS1_Pfiiifii")
 FWD64_BF16 = FWD64.replace("kernelIf", "kernelI13__nv_bfloat16")
 FWD128 = FWD64.replace("Li64ELi128", "Li128ELi64")
+FWD64_TC = ("_ZN12_GLOBAL__N_119flash_fwd_tc_kernelI13__nv_bfloat16Li64ELi128"
+            "EEEv14CUtensorMap_stS2_S2_PT_Pfiiiifii")
+FWD128_TC_F16 = FWD64_TC.replace("I13__nv_bfloat16Li64ELi128",
+                                 "I6__halfLi128ELi64")
 CLEAN = {"registers": 168, "spill_stores": 0, "spill_loads": 0}
 
 
@@ -105,7 +110,7 @@ def test_ptxas_usage_reads_every_entry():
         DQ64: {"registers": 214, "spill_stores": 68, "spill_loads": 72}}
 
 
-def _logs(fwd=((FWD64, 168, 0, 0),),
+def _logs(fwd=((FWD64, 168, 0, 0), (FWD64_TC, 168, 0, 0)),
           bwd=((DKDV64, 168, 0, 0), (DQ64, 168, 0, 0))):
     """{source: nvcc log}, each path entry clean unless given."""
     return {"flash_fwd": _log(fwd), "flash_bwd": _log(bwd)}
@@ -113,12 +118,14 @@ def _logs(fwd=((FWD64, 168, 0, 0),),
 
 def test_path_dkdv_usage_passes_a_clean_build():
     logs = _logs(fwd=[(FWD64_BF16, 255, 96, 96), (FWD64, 190, 0, 0),
-                      (FWD128, 255, 40, 40)],
+                      (FWD128, 255, 40, 40), (FWD64_TC, 168, 0, 0),
+                      (FWD128_TC_F16, 168, 8, 8)],
                  bwd=[(DKDV64_BF16, 255, 96, 96), (DKDV64, 168, 0, 0),
                       (DQ64_BF16, 255, 68, 72), (DQ64, 214, 0, 0)])
     assert chip_smoke.path_usage(logs) == {
         "flash_fwd": {"registers": 190, "spill_stores": 0,
                       "spill_loads": 0},
+        chip_smoke.FWD_TC: CLEAN,
         "flash_bwd_dkdv": CLEAN,
         "flash_bwd_dq": {"registers": 214, "spill_stores": 0,
                          "spill_loads": 0}}
@@ -143,16 +150,16 @@ def test_path_dkdv_usage_fails_without_the_spill_line():
         chip_smoke.path_usage(logs)
 
 
-ENTRY = {"flash_fwd": FWD64, "flash_bwd_dkdv": DKDV64,
-         "flash_bwd_dq": DQ64}
-SOURCE = {"flash_fwd": "flash_fwd", "flash_bwd_dkdv": "flash_bwd",
-          "flash_bwd_dq": "flash_bwd"}
+ENTRY = {"flash_fwd": FWD64, chip_smoke.FWD_TC: FWD64_TC,
+         "flash_bwd_dkdv": DKDV64, "flash_bwd_dq": DQ64}
+SOURCE = {"flash_fwd": "flash_fwd", chip_smoke.FWD_TC: "flash_fwd",
+          "flash_bwd_dkdv": "flash_bwd", "flash_bwd_dq": "flash_bwd"}
 
 
 @pytest.mark.parametrize("fault", ["spill stores", "spill loads", "missing",
                                    "in the other source's log"])
-@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dkdv",
-                                    "flash_bwd_dq"])
+@pytest.mark.parametrize("kernel", ["flash_fwd", chip_smoke.FWD_TC,
+                                    "flash_bwd_dkdv", "flash_bwd_dq"])
 def test_path_usage_fails_when_an_entry_spills_or_is_missing(kernel, fault):
     """Each path entry fails the run on its own, beside clean entries of
     the other kernels, and each is read only from its own source's log."""
@@ -196,6 +203,7 @@ def test_build_gate_reads_a_library_built_before(tmp_path, monkeypatch,
     passes a clean build and still fails a spilling one."""
     from mxnet_tpu_torch.ops import _cuda
     nvcc = _fake_nvcc(tmp_path, _log([(FWD64, 168, 0, 0),
+                                      (FWD64_TC, 168, 0, 0),
                                       (DKDV64, 168, spill, spill),
                                       (DQ64, 214, 0, 0)]))
     monkeypatch.setattr(_cuda, "BUILD_DIR", str(tmp_path / "build"))
@@ -214,7 +222,8 @@ def test_build_gate_reads_a_library_built_before(tmp_path, monkeypatch,
             assert info["seconds"] == 0.0 and entry in info["log"]
     if not spill:
         assert results[0] == results[1] == {
-            "flash_fwd": CLEAN, "flash_bwd_dkdv": CLEAN,
+            "flash_fwd": CLEAN, chip_smoke.FWD_TC: CLEAN,
+            "flash_bwd_dkdv": CLEAN,
             "flash_bwd_dq": dict(CLEAN, registers=214)}
 
 
@@ -360,7 +369,7 @@ def test_bf16_check_runs_and_orders_the_gaps():
     assert gaps["loss"][1] < gaps["loss"][0]
 
 
-def test_checkpoint_round_trip_of_a_resnet_trainer(monkeypatch):
+def test_checkpoint_round_trip_of_a_resnet_trainer(monkeypatch, one_thread):
     """Phase 7 (e) on a ResNet-18 of 10 classes (the phase's net, cut to
     size for the CPU)."""
     import numpy as np
@@ -601,11 +610,14 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
     row = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
            "bound_by": "operations", "library_ms": 1.5, "library": "x"}
     kernels = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+    route = {"float32": "simt", "bfloat16": "wgmma", "float16": "wgmma"}
     stub = {
         "phase_device": lambda t: "card, 700.00 W",
         "phase_build": lambda: {},
-        "phase_kernel": lambda t, c, s: {(k, d): dict(row) for k in kernels
-                                         for d in ("float32", "bfloat16")},
+        "phase_kernel": lambda t, c, s: {
+            (k, d): dict(row, **({"kernel_route": route[d]}
+                                 if k == "flash_fwd" else {}))
+            for k in kernels for d in route},
         "phase_serve": lambda t, c, s: {"eager": 72, "direct": 108,
                                         "traffic": 420},
         "phase_train": lambda t, c, s: {k: 60 for k in kernels},
@@ -636,6 +648,8 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
         "platform": "gpu", "kind": "card", "count": 1}}
     fwd = json.loads(lines[-2])["kernels"][0]
     assert fwd["name"] == "flash_fwd"
+    assert fwd["kernel_route"] == route and fwd["route"] == "cuda"
+    assert fwd["float16"]["ms"] == fwd["bfloat16"]["ms"] == 1.0
     assert fwd["launches_by_path"]["batched serve (graph replays: "
                                    "traffic dispatches)"] == 420
     assert fwd["launches_by_path"]["decode prefill"] == 552
@@ -851,7 +865,7 @@ def test_user_surface_phase_raises_without_cuda(monkeypatch):
 MODULE_CFG = (50, 32, 4, 2, 32)
 
 
-def test_module_phase_runs_on_the_cpu():
+def test_module_phase_runs_on_the_cpu(one_thread):
     import torch
     import mxnet_tpu_torch as mx
     rec = chip_smoke.phase_module(torch, "cpu", 0, cfg=MODULE_CFG,
@@ -868,7 +882,7 @@ def test_module_phase_runs_on_the_cpu():
 
 @pytest.mark.parametrize("fault", ["bits", "scatter", "loss", "first",
                                    "score", "checkpoint"])
-def test_module_checks_are_wired(monkeypatch, fault):
+def test_module_checks_are_wired(monkeypatch, fault, one_thread):
     """Each check of phase 10 fails the phase when its numbers break."""
     import torch
     import mxnet_tpu_torch as mx
@@ -958,7 +972,7 @@ def _lstm_phase(monkeypatch):
                                  **LSTM_SMALL)
 
 
-def test_lstm_phase_runs_on_the_cpu(monkeypatch):
+def test_lstm_phase_runs_on_the_cpu(monkeypatch, one_thread):
     rec = _lstm_phase(monkeypatch)
     assert len(rec["op"]) == len(chip_smoke.RNN_CASES)
     assert all(r["relaunch_equal"] and r["ratio"] == 0.0
@@ -976,7 +990,7 @@ def test_lstm_phase_runs_on_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("fault", ["op", "fall", "routes", "score",
                                    "checkpoint"])
-def test_lstm_checks_are_wired(monkeypatch, fault):
+def test_lstm_checks_are_wired(monkeypatch, fault, one_thread):
     """Each check of phase 11 fails the phase when its numbers break."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import rnn as rnn_op
@@ -1044,7 +1058,7 @@ DATA_SMALL = dict(n=48, sides=(36, 60), image=32, batch=8, classes=10,
                           "thumbnail": True}, workers=2)
 
 
-def test_data_phase_runs_on_the_cpu():
+def test_data_phase_runs_on_the_cpu(one_thread):
     import torch
     import mxnet_tpu_torch as mx
     rec = chip_smoke.phase_data(torch, "cpu", 0, ctx=mx.cpu(), **DATA_SMALL)
@@ -1093,7 +1107,7 @@ def test_plain_geometry_is_the_routes_geometry():
 
 @pytest.mark.parametrize("fault", ["decode", "chain", "parity", "aux",
                                    "workers"])
-def test_data_checks_are_wired(monkeypatch, fault):
+def test_data_checks_are_wired(monkeypatch, fault, one_thread):
     """Each check of phase 12 fails the phase when its numbers break (the
     training steps stubbed where the fault is elsewhere)."""
     import torch
@@ -1159,8 +1173,10 @@ QUANT_SMALL = dict(
 
 @pytest.fixture
 def one_thread():
-    """Phase 13's CPU cases in one torch thread: the suite runs beside
-    other workers, and many threads each would oversubscribe the cores."""
+    """The phases' CPU cases (7, 10-13) in one torch thread: the suite
+    runs beside other workers, and many threads each would oversubscribe
+    the cores (phase 12's case took 20 s alone and 574 s beside five
+    other workers with torch's default threads)."""
     import torch
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -123,6 +123,48 @@ def test_forward_at_the_tile_edges(cuda, sq, sk, d, causal, dtype):
     assert torch.equal(att.flash_fwd(q, k, v, causal), o)
 
 
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,dtype", [
+    (2, 4, 512, 512, 64, True, torch.bfloat16),
+    (1, 3, 300, 777, 128, False, torch.float16)])
+def test_tensor_core_route_matches_plain_version(cuda, b, h, sq, sk, d,
+                                                 causal, dtype):
+    """The 16-bit tensor-core kernel (route "wgmma") against the plain
+    version at the limits above; relaunches, and the launch without lse,
+    give the same bits; the launch counts on its route."""
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v = _qkv(cuda, b, h, sq, sk, d, dtype, seed=d)
+    assert att._fwd_route(dtype, d, att._aligned16(q, k, v)) == "wgmma"
+    before = dict(att.flash_fwd.launches_by_route)
+    o, lse = att.flash_fwd(q, k, v, causal, with_lse=True)
+    assert att.flash_fwd.launches_by_route == dict(
+        before, wgmma=before["wgmma"] + 1)
+    po, plse = att._chunked_attention(q, k, v, causal, with_lse=True)
+    assert bool(((o.float() - po.float()).abs()
+                 <= _o_limit(po, q, k, v, causal)).all())
+    assert (lse - plse).abs().max().item() <= 1e-4
+    o2, lse2 = att.flash_fwd(q, k, v, causal, with_lse=True)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    assert torch.equal(att.flash_fwd(q, k, v, causal), o)
+
+
+def test_unaligned_16bit_base_takes_the_simt_route(cuda):
+    """A contiguous bf16 q whose base is 2 bytes off 16 runs the
+    register-tiled kernel, within the same limits."""
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v = _qkv(cuda, 1, 2, 200, 200, 64, torch.bfloat16)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    qs = buf[1:].view(q.shape)
+    qs.copy_(q)
+    assert qs.is_contiguous() and qs.data_ptr() % 16 != 0
+    before = dict(att.flash_fwd.launches_by_route)
+    o = att.flash_fwd(qs, k, v, True)
+    assert att.flash_fwd.launches_by_route == dict(
+        before, simt=before["simt"] + 1)
+    po = att._chunked_attention(q, k, v, True)
+    assert bool(((o.float() - po.float()).abs()
+                 <= _o_limit(po, q, k, v, True)).all())
+
+
 def test_all_three_kernels_past_65535_batch_heads(cuda):
     """B*H = 65600 goes on grid.x: one launch of each kernel against its
     plain version, through flash_attention's forward and backward too."""
@@ -379,7 +421,7 @@ def test_capture_failure_raises_and_never_runs_eager(cuda, tmp_path):
     # through the registry: the load fails typed and registers nothing
     from unittest import mock
     with mock.patch.object(mx.serve.predictor, "_build_eval",
-                           lambda sym, training: syncing):
+                           lambda sym, training, **kw: syncing):
         with pytest.raises(mx.serve.ServeError, match="capture"):
             reg.load("bad", good._symbol, good._params,
                      data_shapes={"data0": (1, 64)}, ctx=mx.gpu(0),
