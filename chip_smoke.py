@@ -9,15 +9,18 @@ Phases, each reported on its own line; any failure exits non-zero:
              source, all started together; print ptxas's registers and
              spills, and fail if an instantiation the paths run
              (``PATH_ENTRIES``: flash_fwd, flash_bwd_dkdv and
-             flash_bwd_dq, f32, D = 64, and flash_fwd's bf16 D = 64
-             tensor-core kernel) spills or is missing.
+             flash_bwd_dq, f32, D = 64, and the bf16 D = 64 tensor-core
+             kernels of flash_fwd and flash_bwd_dkdv) spills or is
+             missing.
 3. kernel  — hold each kernel against its plain PyTorch version on the
              card over a grid of cases, each relaunched for bit-equality,
              head dims past 256 up to the kernels' bound among them, and
-             at B*H = 65600 (past grid.y's 65535); each flash_fwd case
-             logs its route (wgmma, simt or wide), which must be the one
-             ``attention._fwd_route`` states and the library's own rule
-             gives; then time kernel, plain version and one PyTorch
+             at B*H = 65600 (past grid.y's 65535); each flash_fwd and
+             flash_bwd_dkdv case logs its route (wgmma, simt or wide),
+             which must be the one ``attention._fwd_route`` /
+             ``_dkdv_route`` states and the library's own rule gives (a
+             dout off 16 bytes alone sends dkdv to simt); then time
+             kernel, plain version and one PyTorch
              library call at the paths' shape in f32, bf16 and f16, and
              the wide-head kernels beside their plain versions.
 4. serve   — batch serving at full width: build the transformer LM
@@ -79,8 +82,8 @@ Phases, each reported on its own line; any failure exits non-zero:
              bf16 loss and gradients against float64 (ReLU masks
              frozen).  (d) The LM, sgd lr 0.01 momentum 0.9, int32 ids,
              batch 8 x 2048: the main path whose launches are counted
-             (the bf16 kernels, 12 of each a step, every flash_fwd on its
-             tensor-core route), the loss must fall
+             (the bf16 kernels, 12 of each a step, every flash_fwd and
+             flash_bwd_dkdv on its tensor-core route), the loss must fall
              over four steps, step 1's loss against the plain
              attention's, shares; then the same step with PyTorch's SDPA
              in the kernels' place, timed only.
@@ -429,16 +432,21 @@ HOST_SOURCES = ("recordio_reader",)     # phase 12's g++ library (src/io)
 # (kernel, source, part of the mangled name) of the instantiations the
 # paths run at D = 64: f32 (flash_fwd_kernel<float, 64, ...>,
 # flash_bwd_dkdv_kernel<float, 64, ...>, flash_bwd_dq_kernel<float, 64,
-# ...>) and the bf16 tensor-core forward of the north-star LM
-# (flash_fwd_tc_kernel<__nv_bfloat16, 64, ...>): a spill in any fails the
-# build phase
+# ...>) and the bf16 tensor-core kernels of the north-star LM
+# (flash_fwd_tc_kernel<__nv_bfloat16, 64, ...>,
+# flash_bwd_dkdv_tc_kernel<__nv_bfloat16, 64, ...>): a spill in any fails
+# the build phase
 FWD_TC = "flash_fwd bfloat16 (wgmma)"
+DKDV_TC = "flash_bwd_dkdv bfloat16 (wgmma)"
 PATH_ENTRIES = (("flash_fwd", "flash_fwd", "flash_fwd_kernelIfLi64E"),
                 (FWD_TC, "flash_fwd",
                  "flash_fwd_tc_kernelI13__nv_bfloat16Li64E"),
                 ("flash_bwd_dkdv", "flash_bwd",
                  "flash_bwd_dkdv_kernelIfLi64E"),
+                (DKDV_TC, "flash_bwd",
+                 "flash_bwd_dkdv_tc_kernelI13__nv_bfloat16Li64E"),
                 ("flash_bwd_dq", "flash_bwd", "flash_bwd_dq_kernelIfLi64E"))
+TC_ENTRIES = {FWD_TC: "flash_fwd", DKDV_TC: "flash_bwd_dkdv"}
 # phase 3's case past grid.y's 65535 (b, h, sq, sk, d), causal, f32, and
 # the most extra device memory its plain versions may take: a few tensors
 # of q's 134 MB, as they hold no score matrix larger than q
@@ -477,6 +485,9 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 # o is held per element to 2**-bits * A + 2 ulps of the dtype at |plain|.
 TOL_F32 = 1e-4
 ULP_BITS = {"bfloat16": 7, "float16": 10}       # explicit mantissa bits
+# the exponent of each 16-bit dtype's smallest normal value: below it the
+# spacing of the dtype's values stays 2**(MIN_EXP - bits) (subnormals)
+MIN_EXP = {"bfloat16": -126, "float16": -14}
 TOL_LSE = 1e-4
 # Backward: both versions recompute the same p from the forward's lse
 # (not a running max) and sum in f32 in another order.  Held per element
@@ -489,7 +500,10 @@ TOL_LSE = 1e-4
 # and ds (for dk, dq) to the dtype; both round the same f32 value, so a
 # term differs only where the f32 noise straddles a rounding boundary,
 # by one ulp <= 2**-bits * |term|: held to (2**-bits + 2**-12) * M plus 2
-# ulps of the dtype at |plain| for the final rounding.
+# ulps of the dtype at |plain| for the final rounding.  An ulp is the
+# dtype's own spacing (``ulp``), which below float16's smallest normal
+# (2**-14) stays 2**-24: two f32 sums a hair apart may round to
+# neighbouring float16 subnormals, one such spacing apart.
 BWD_F32_BITS = 12
 # served logits vs the plain-attention graph, relative to max |logit|
 TOL_SERVE = 1e-3
@@ -572,6 +586,13 @@ def log(*a):
     print(*a, flush=True)
 
 
+def ulp(torch, a, dtn):
+    """The spacing of the 16-bit dtype *dtn*'s values at magnitudes *a*
+    (a float32 tensor), subnormals included."""
+    e = torch.floor(torch.log2(a.clamp_min(2.0 ** -24)))
+    return torch.exp2(e.clamp_min(MIN_EXP[dtn]) - ULP_BITS[dtn])
+
+
 def o_error(torch, att, got, want, q, k, v, causal, scale, dtn):
     """(max |got - want|, worst ratio of error to its limit)."""
     err = (got.float() - want.float()).abs()
@@ -579,11 +600,9 @@ def o_error(torch, att, got, want, q, k, v, causal, scale, dtn):
         tol = torch.full_like(err, TOL_F32)
     else:
         bits = ULP_BITS[dtn]
-        mag = want.float().abs().clamp_min(2.0 ** -24)
-        ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
         a = att._chunked_attention(q.float(), k.float(), v.float().abs(),
                                    causal, scale)
-        tol = 2 * ulp + 2.0 ** -bits * a
+        tol = 2 * ulp(torch, want.float().abs(), dtn) + 2.0 ** -bits * a
     return err.max().item(), (err / tol).max().item()
 
 
@@ -615,10 +634,8 @@ def bwd_error(torch, got, want, mag, dtn):
     err = (got.float() - want.float()).abs()
     tol = 2.0 ** -BWD_F32_BITS * mag
     if dtn != "float32":
-        bits = ULP_BITS[dtn]
-        a = want.float().abs().clamp_min(2.0 ** -24)
-        tol = tol + 2.0 ** -bits * mag + \
-            2 * torch.exp2(torch.floor(torch.log2(a)) - bits)
+        tol = tol + 2.0 ** -ULP_BITS[dtn] * mag + \
+            2 * ulp(torch, want.float().abs(), dtn)
     return err.max().item(), (err / tol.clamp_min(1e-30)).max().item()
 
 
@@ -763,7 +780,7 @@ def phase_build():
     for kernel, u in usage.items():
         log("build: %s D=64 (on the paths): %d registers, %d bytes "
             "spill stores, %d bytes spill loads -> ok" % (
-                kernel if kernel == FWD_TC else kernel + " float32",
+                kernel if kernel in TC_ENTRIES else kernel + " float32",
                 u["registers"], u["spill_stores"], u["spill_loads"]))
     return usage
 
@@ -826,36 +843,57 @@ CASES = [
     (1, 2, 1000, 1537, 80, True, "bfloat16", True),
     (1, 2, 130, 100, 36, True, "bfloat16", True),
 ]
+# the edges of flash_bwd_dkdv's tensor-core route (the forward's rule, with
+# dout's base among the aligned ones) that none of the 16-bit cases above
+# has, run after them on a generator of their own, so that every case above
+# keeps its inputs and its worst error from run to run (b, h, sq, sk, d,
+# causal, dtype, dout off 16 bytes): Sq not a multiple of 4, so the lse and
+# delta rows end off 16 bytes (the kernel reads them without TMA), causal,
+# with rows that see no key; f16 at D 64, not causal, ragged; dout alone 2
+# bytes off 16-byte alignment, which sends dkdv to the register-tiled kernel
+DKDV_EDGE_CASES = [
+    (1, 2, 1537, 1000, 64, True, "bfloat16", False),
+    (1, 2, 1000, 1537, 64, False, "float16", False),
+    (1, 2, 200, 200, 64, True, "bfloat16", True),
+]
 # the wide-head shapes timed beside their plain versions (b, h, sq, sk, d,
 # causal)
 WIDE_TIMED = ((1, 2, 200, 300, 300, True), (1, 1, 256, 256, 1024, False))
 
 
-def library_route(att, dtype, d, aligned):
-    """The route the library's own rule (``flash_fwd_route``) gives."""
-    lib = att._cuda.load("flash_fwd", att._bind_fwd)
-    return att.FWD_ROUTES[lib.flash_fwd_route(d, att._KERNEL_DTYPES[dtype],
-                                              int(aligned))]
+def library_route(att, dtype, d, aligned, kernel="flash_fwd"):
+    """The route the library's own rule (``flash_fwd_route``, or
+    ``flash_bwd_dkdv_route`` for *kernel* "flash_bwd_dkdv") gives."""
+    if kernel == "flash_fwd":
+        lib = att._cuda.load("flash_fwd", att._bind_fwd)
+        rule, names = lib.flash_fwd_route, att.FWD_ROUTES
+    else:
+        lib = att._cuda.load("flash_bwd", att._bind_bwd)
+        rule, names = lib.flash_bwd_dkdv_route, att.DKDV_ROUTES
+    return names[rule(d, att._KERNEL_DTYPES[dtype], int(aligned))]
 
 
 def check_routes(torch, att):
-    """``attention._fwd_route`` against the library's rule over every
-    dtype, head dim 1..300 and the bound, aligned or not."""
-    n = 0
-    for dt in att._KERNEL_DTYPES:
-        for d in list(range(1, 301)) + [att.KERNEL_MAX_HEAD_DIM]:
-            for aligned in (False, True):
-                want = library_route(att, dt, d, aligned)
-                if att._fwd_route(dt, d, aligned) != want:
-                    raise RuntimeError(
-                        "flash_fwd route of %s d=%d aligned=%s: _fwd_route "
-                        "says %s, the library %s" % (
-                            dt, d, aligned, att._fwd_route(dt, d, aligned),
-                            want))
-                n += 1
-    log("kernel flash_fwd routes: attention._fwd_route agrees with the "
-        "library's flash_fwd_route on %d (dtype, head dim, alignment) "
-        "cases -> ok" % n)
+    """``attention._fwd_route`` and ``attention._dkdv_route`` against the
+    library's rules over every dtype, head dim 1..300 and the bound,
+    aligned or not."""
+    for kernel, mine in (("flash_fwd", att._fwd_route),
+                         ("flash_bwd_dkdv", att._dkdv_route)):
+        n = 0
+        for dt in att._KERNEL_DTYPES:
+            for d in list(range(1, 301)) + [att.KERNEL_MAX_HEAD_DIM]:
+                for aligned in (False, True):
+                    want = library_route(att, dt, d, aligned, kernel)
+                    if mine(dt, d, aligned) != want:
+                        raise RuntimeError(
+                            "%s route of %s d=%d aligned=%s: %s says %s, the "
+                            "library %s" % (kernel, dt, d, aligned,
+                                            mine.__name__,
+                                            mine(dt, d, aligned), want))
+                    n += 1
+        log("kernel %s routes: attention.%s agrees with the library's %s "
+            "on %d (dtype, head dim, alignment) cases -> ok" % (
+                kernel, mine.__name__, kernel + "_route", n))
 
 
 def check_fwd_case(torch, att, gen, case):
@@ -903,12 +941,24 @@ def check_fwd_case(torch, att, gen, case):
     return ratio
 
 
-def bwd_inputs(torch, att, gen, b, h, sq, sk, d, causal, dt):
-    """q, k, v, a random dO, and o, lse from flash_fwd; delta."""
+def off16(torch, t):
+    """A contiguous copy of *t* whose base lies one element past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+def bwd_inputs(torch, att, gen, b, h, sq, sk, d, causal, dt,
+               dout_off16=False):
+    """q, k, v, a random dO (with *dout_off16*, its base off 16-byte
+    alignment), and o, lse from flash_fwd; delta."""
     q = _rand(torch, (b, h, sq, d), dt, gen)
     k = _rand(torch, (b, h, sk, d), dt, gen)
     v = _rand(torch, (b, h, sk, d), dt, gen)
     do = _rand(torch, (b, h, sq, d), dt, gen)
+    if dout_off16:
+        do = off16(torch, do)
     scale = 1.0 / math.sqrt(d)
     o, lse = att.flash_fwd(q, k, v, causal, scale, with_lse=True)
     return q, k, v, do, o, lse, att._delta(o, do), scale
@@ -916,9 +966,16 @@ def bwd_inputs(torch, att, gen, b, h, sq, sk, d, causal, dt):
 
 def check_bwd(torch, att, inputs, causal, dtn):
     """Both backward kernels against their plain versions; returns
-    {kernel: (max abs err, worst error/limit)}."""
+    {kernel: (max abs err, worst error/limit)}, and under "dkdv_route"
+    the route dkdv's launch was counted on if it is the one
+    ``attention._dkdv_route`` and the library's rule give, else None."""
     q, k, v, do, o, lse, delta, scale = inputs
+    route = att._dkdv_route(q.dtype, q.shape[-1],
+                            att._aligned16(q, k, v, do))
+    before = dict(att.flash_bwd_dkdv.launches_by_route)
     dk, dv = att.flash_bwd_dkdv(q, k, v, do, lse, delta, causal, scale)
+    counted = [r for r, n in att.flash_bwd_dkdv.launches_by_route.items()
+               if n != before[r]]
     dq = att.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
     pdk, pdv = att._flash_bwd_dkdv_plain(q, k, v, do, lse, delta, causal,
                                          scale)
@@ -926,7 +983,10 @@ def check_bwd(torch, att, inputs, causal, dtn):
     torch.cuda.synchronize()
     m_dq, m_dk, m_dv = bwd_magnitudes(torch, att, q, k, v, do, lse, delta,
                                       causal, scale)
-    res = {}
+    res = {"dkdv_route": route if counted == [route] and route ==
+           library_route(att, q.dtype, q.shape[-1],
+                         att._aligned16(q, k, v, do), "flash_bwd_dkdv")
+           else None}
     for name, pairs in (("flash_bwd_dkdv", ((dk, pdk, m_dk),
                                             (dv, pdv, m_dv))),
                         ("flash_bwd_dq", ((dq, pdq, m_dq),))):
@@ -940,6 +1000,37 @@ def check_bwd(torch, att, inputs, causal, dtn):
         bool(torch.equal(dv2, dv)) and bool(torch.equal(
             att.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale), dq))
     return res
+
+
+def check_bwd_case(torch, att, gen, case, worst):
+    """Both backward kernels on one case (b, h, sq, sk, d, causal, dtype,
+    dout off 16 bytes) against their plain versions, relaunched; dkdv's
+    launch counted on the route both rules give (simt when dout is off 16
+    bytes).  Folds the worst error/limit into *worst*."""
+    b, h, sq, sk, d, causal, dtn, dout_off = case
+    inputs = bwd_inputs(torch, att, gen, b, h, sq, sk, d, causal,
+                        getattr(torch, dtn), dout_off)
+    res = check_bwd(torch, att, inputs, causal, dtn)
+    empty = (inputs[5] == 1e30).sum().item()
+    route = res["dkdv_route"]
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        err, ratio = res[name]
+        ok = ratio <= 1.0 and res["deterministic"] and route is not None
+        worst[(name, dtn)] = max(worst.get((name, dtn), 0.0), ratio)
+        log("kernel %s %s b%d h%d sq%d sk%d d%d causal=%s%s%s: max|grad-"
+            "plain| %.3g (worst error/limit %.3f, limit %s), empty rows "
+            "%d, repeat bit-equal %s -> %s" % (
+                name, dtn, b, h, sq, sk, d, causal,
+                " dout off 16 bytes" if dout_off else "",
+                " route %s" % (route or "not the stated one")
+                if name == "flash_bwd_dkdv" else "", err, ratio,
+                bwd_tol_text(dtn), empty, res["deterministic"],
+                "ok" if ok else "FAIL"))
+        if not ok:
+            raise RuntimeError("%s disagrees with its plain version" % name)
+    if dout_off and route != "simt":
+        raise RuntimeError("flash_bwd_dkdv with dout off 16 bytes took "
+                           "route %s, not simt" % route)
 
 
 def check_big_bh(torch, att, gen, worst):
@@ -979,7 +1070,8 @@ def check_big_bh(torch, att, gen, worst):
         extra_mb(lambda: att._flash_bwd_dq_plain(q, k, v, do, lse, delta,
                                                  True, scale)))
     ok = ratio <= 1.0 and err_l <= TOL_LSE and same and \
-        res["deterministic"] and plain_mb <= BIG_BH_PLAIN_MB and \
+        res["deterministic"] and res["dkdv_route"] == "simt" and \
+        plain_mb <= BIG_BH_PLAIN_MB and \
         all(res[n][1] <= 1.0 for n in ("flash_bwd_dkdv", "flash_bwd_dq"))
     worst[("flash_fwd", "float32")] = max(worst[("flash_fwd", "float32")],
                                           ratio)
@@ -1045,25 +1137,17 @@ def phase_kernel(torch, card, seed):
         ratio = check_fwd_case(torch, att, gen, case)
         worst[("flash_fwd", case[6])] = max(
             worst.get(("flash_fwd", case[6]), 0.0), ratio)
-    for (b, h, sq, sk, d, causal, dtn, _) in cases:
-        inputs = bwd_inputs(torch, att, gen, b, h, sq, sk, d, causal,
-                            getattr(torch, dtn))
-        res = check_bwd(torch, att, inputs, causal, dtn)
-        empty = (inputs[5] == 1e30).sum().item()
-        for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
-            err, ratio = res[name]
-            ok = ratio <= 1.0 and res["deterministic"]
-            worst[(name, dtn)] = max(worst.get((name, dtn), 0.0), ratio)
-            log("kernel %s %s b%d h%d sq%d sk%d d%d causal=%s: max|grad-"
-                "plain| %.3g (worst error/limit %.3f, limit %s), empty rows "
-                "%d, repeat bit-equal %s -> %s" % (
-                    name, dtn, b, h, sq, sk, d, causal, err, ratio,
-                    bwd_tol_text(dtn), empty, res["deterministic"],
-                    "ok" if ok else "FAIL"))
-            if not ok:
-                raise RuntimeError("%s disagrees with its plain version"
-                                   % name)
+    for case in cases:
+        check_bwd_case(torch, att, gen, case[:7] + (False,), worst)
     check_big_bh(torch, att, gen, worst)
+    edge = torch.Generator(device="cuda")
+    edge.manual_seed(seed + 1)
+    for case in DKDV_EDGE_CASES:
+        if not case[7]:
+            ratio = check_fwd_case(torch, att, edge, case[:7] + (True,))
+            worst[("flash_fwd", case[6])] = max(worst[("flash_fwd",
+                                                       case[6])], ratio)
+        check_bwd_case(torch, att, edge, case, worst)
     for (name, dtn), r in sorted(worst.items()):
         log("kernel worst error/limit over the cases: %s %s %.3f"
             % (name, dtn, r))
@@ -1087,9 +1171,10 @@ def phase_kernel(torch, card, seed):
                                % (err, ratio, tol_text(dtn)))
         errs = {"flash_fwd": err}
         res = check_bwd(torch, att, inputs, True, dtn)
-        if not res["deterministic"]:
+        if not res["deterministic"] or res["dkdv_route"] is None:
             raise RuntimeError("a backward kernel at the path shape gave "
-                               "other bits on a second launch")
+                               "other bits on a second launch, or dkdv "
+                               "took another route than the stated one")
         for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
             if not res[name][1] <= 1.0:
                 raise RuntimeError("%s at the path shape: max err %g, worst "
@@ -1138,12 +1223,15 @@ def phase_kernel(torch, card, seed):
             if name == "flash_fwd":
                 rows[(name, dtn)]["kernel_route"] = att._fwd_route(
                     dt, d, att._aligned16(q, k, v))
+            elif name == "flash_bwd_dkdv":
+                rows[(name, dtn)]["kernel_route"] = res["dkdv_route"]
             log("kernel %s timing %s b%d h%d s%d d%d causal on %s%s: kernel "
                 "%.4f ms, plain %.4f ms, library %.4f ms (%s), bound %.4f ms "
                 "(%s), kernel at %.1f%% of bound, max err %.3g" % (
                     name, dtn, b, h, sq, d, card,
                     " (route %s)" % rows[(name, dtn)]["kernel_route"]
-                    if name == "flash_fwd" else "", ms, plain_ms, lib_ms,
+                    if "kernel_route" in rows[(name, dtn)] else "", ms,
+                    plain_ms, lib_ms,
                     LIBRARY_CALL[lib is None], bound, by,
                     100.0 * bound / ms, errs[name]))
         del inputs, q, k, v, do, o, lse, delta
@@ -2805,8 +2893,8 @@ def ns_lm(torch, card, mx, gen, rng, ctx, failures):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0      # the north-star LM path's counts start here
-    att.flash_fwd.launches_by_route.update(
-        dict.fromkeys(att.flash_fwd.launches_by_route, 0))
+    for c in (att.flash_fwd, att.flash_bwd_dkdv):
+        c.launches_by_route.update(dict.fromkeys(c.launches_by_route, 0))
     step1, _ = ns_steps(torch, trainer, x, y, 1)
     timed, dt = ns_steps(torch, trainer, x, y, LM_NS_STEPS - 1)
     shares = profile(torch, lambda: float(trainer.fit_batch(x, y)),
@@ -2814,6 +2902,7 @@ def ns_lm(torch, card, mx, gen, rng, ctx, failures):
                      % (BATCH, SEQ), card, LM_NS_SHARES)
     launches = {c.__name__: c.launches for c in counters}
     fwd_routes = dict(att.flash_fwd.launches_by_route)
+    dkdv_routes = dict(att.flash_bwd_dkdv.launches_by_route)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in step1 + timed]
     steps = LM_NS_STEPS + 1
@@ -2859,6 +2948,13 @@ def ns_lm(torch, card, mx, gen, rng, ctx, failures):
                           wgmma=LAYERS * steps):
         failures.append("the north-star LM's bf16 forward launches did not "
                         "all take the tensor-core route: %s" % fwd_routes)
+    log("north-star LM: flash_bwd_dkdv launches by route %s (all %d must "
+        "be wgmma: the bf16 tensor-core kernel)" % (dkdv_routes,
+                                                    LAYERS * steps))
+    if dkdv_routes != dict(dict.fromkeys(dkdv_routes, 0),
+                           wgmma=LAYERS * steps):
+        failures.append("the north-star LM's bf16 dK/dV launches did not "
+                        "all take the tensor-core route: %s" % dkdv_routes)
     if not all(math.isfinite(v) for v in losses) or \
             not losses[-1] < losses[0]:
         failures.append("the north-star LM loss did not fall: %s" % losses)
@@ -10063,14 +10159,15 @@ def main():
             float16=timing[(name, "float16")], card=card))
         if name in path_ptxas:
             kernels[-1]["ptxas"] = path_ptxas[name]
-        if name == "flash_fwd":
+        if name in TC_ENTRIES.values():
             # the kernel each dtype's launches take at this shape (the
             # key "route" names the language, as the contract asks)
             kernels[-1]["kernel_route"] = {
                 dtn: timing[(name, dtn)]["kernel_route"]
                 for dtn in ("float32", "bfloat16", "float16")}
-            if FWD_TC in path_ptxas:
-                kernels[-1]["ptxas_bfloat16"] = path_ptxas[FWD_TC]
+            for entry, kernel in TC_ENTRIES.items():
+                if kernel == name and entry in path_ptxas:
+                    kernels[-1]["ptxas_bfloat16"] = path_ptxas[entry]
     log("total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,9 +31,62 @@
 // which breaks the f32 limit the kernels are held to (2**-12 times the sum
 // of the absolute terms); three TF32 products a product (3xTF32) would
 // keep it, at the price of hi/lo operand splits and a new error analysis,
-// so f32 stays on the FMA units and the 16-bit dtypes run the same code.
+// so f32 stays on the FMA units.  For 16-bit storage the ceiling is the
+// 989 TFLOP/s of the tensor cores, which dkdv reaches through its own
+// kernel (below); dq's 16-bit launches still run the SIMT code.  Three
+// dkdv kernels, picked by a rule on dtype, head dim and alignment (route(),
+// mirrored by attention._dkdv_route):
+// - bfloat16 / float16 with D <= 128, D % 8 == 0 and q, k, v, dO bases
+//   16-byte aligned: the tensor-core kernel (flash_bwd_dkdv_tc_kernel);
+// - float32, and the 16-bit shapes off that route up to D = 256: the
+//   register-tiled SIMT kernel (flash_bwd_dkdv_kernel);
+// - D > 256: the wide kernel.
 //
-// dkdv, a register-tiled SIMT product on a cp.async stream:
+// dkdv on the tensor cores (16-bit storage, D <= 128), designed for Hopper
+// on the forward's pieces (hopper_tc.cuh):
+// - A block owns a k-tile of kDkBK = 128 keys of one batch*head: two
+//   consumer warpgroups of 64 keys each and a producer warpgroup, which
+//   gives its registers to the consumers with setmaxnreg.  One producer
+//   thread loads K and V once by TMA (they stay in shared memory) and
+//   streams q-tiles of BQ queries (Q and dO, 3-d tensor maps, zeros past
+//   Sq and D) through a ring of kDkStages stages, from the first q-tile
+//   that can see the k-tile (the causal skip of the SIMT kernel below);
+//   a second producer warp writes each q-tile's lse * log2(e) and delta
+//   beside it with plain loads (f32 rows of Sq floats, whose stride TMA
+//   cannot take when Sq % 4 != 0), zeros past Sq.
+// - The products are swapped so that P^T and dS^T never leave the
+//   registers (FlashAttention-3's arrangement): each warpgroup computes
+//   S^T = K Q^T and dP^T = V dO^T (wgmma ss, M = 64 keys, N = BQ, both
+//   operands K-major), then p^T = exp2(s^T * scale * log2(e) - lse *
+//   log2(e)) on ex2.approx (the dq kernel's fold) and ds^T = p^T (dp^T -
+//   delta) * scale on the fragment, with lse and delta per column read
+//   from shared memory; then dV += round(P^T) dO and dK += round(dS^T) Q
+//   (wgmma rs: the A fragments are the S^T and dP^T accumulators rounded
+//   to the storage dtype two registers at a time, tc_pack; dO and Q are
+//   read MN-major through wgmma's transpose from the same TMA-written
+//   tiles that S^T and dP^T read K-major).  q-tile t's S^T and dP^T run
+//   beside q-tile t - 1's dV and dK.
+// - Only a q-tile that straddles the causal diagonal or a ragged edge (Sq,
+//   or Sk for the warpgroup's keys) takes the per-score mask, where a
+//   masked score gives p = 0 outright (queries past Sq too, whose lse is
+//   not there); q-tiles wholly above a warpgroup's first key are not
+//   computed.  A row with lse = +1e30 gives p = 0.
+// - dK and dV stay in registers (f32) across the q-tiles and are stored
+//   once, rounded, for keys < Sk: no atomics, so a relaunch gives the same
+//   bits.
+// - Grid: one block a (batch*head, k-tile) slot, slots in chunks of heads
+//   whose Q and dO fit in a third of L2, each chunk's k-tiles heaviest
+//   first (the first k-tile is seen by the most queries under causal).
+// - Of the variants timed at the training shape on an H100 (BQ x stages
+//   at D 64: 64 x 2, 3, 4, 6 and 32 x 4; one persistent block an SM; one
+//   chunk of all heads), 64 x 3 with one block a slot was the fastest,
+//   4 % ahead of 64 x 4 (PERF.md, tools/torch_flash_dkdv_tc_tiles.py).
+//   With the loads left out the kernel takes the same time; without p
+//   and ds 0.70 of it: the products and the math on their fragments, not
+//   the loads, hold it.
+//
+// dkdv, a register-tiled SIMT product on a cp.async stream (f32, and
+// 16-bit storage off the tensor-core route):
 // - One block of 256 threads owns a k-tile of BK keys of one batch*head
 //   and streams tiles of BQ queries, from the first that can see the
 //   k-tile (the causal skip of attention.py:368-370, turned around).  K
@@ -117,16 +170,24 @@
 // row sees, dkdv starts at the first query that sees its key.  Same
 // numerics as the tiled kernels; the speed is not tuned (PERF.md).
 
+#include <cuda.h>   // CUtensorMap; the driver function comes through the runtime
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <algorithm>
+#include <type_traits>
+
+#include "hopper_tc.cuh"
 
 namespace {
+
+using namespace hopper_tc;
 
 constexpr int kThreads = 256;   // 8 warps, both tiled kernels
 
@@ -552,6 +613,355 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// dK/dV on the tensor cores, 16-bit storage (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kDkConsumers = 2;                        // warpgroups
+constexpr int kDkConsumerThreads = 128 * kDkConsumers;
+constexpr int kDkBK = 64 * kDkConsumers;               // keys a block
+constexpr int kDkStages = 3;                           // the Q/dO ring
+// + a producer warpgroup, which hands its registers to the consumers with
+// setmaxnreg: the block's 12 warps start at kDkLaunchRegs registers each,
+// the pool that setmaxnreg redistributes; 40 for the producer (its two
+// loops spill at 24) leave 232 for each consumer
+constexpr int kDkThreads = kDkConsumerThreads + 128;
+constexpr int kDkLaunchRegs = 65536 / kDkThreads / 8 * 8;   // 168
+constexpr int kDkProducerRegs = 40;
+constexpr int kDkConsumerRegs =
+    (kDkLaunchRegs * kDkThreads / 128 - kDkProducerRegs) / kDkConsumers /
+    8 * 8;
+// the Q and dO bytes of the heads whose blocks run together: a third of
+// the card's 50 MB L2
+constexpr long long kDkL2Bytes = 16LL << 20;
+
+// queries a streamed q-tile by padded head dim: a consumer thread holds dK
+// and dV (DP / 2 f32 each) beside S^T and dP^T (BQ / 2 f32 each) and their
+// packed A fragments (BQ / 4 words each): 160 registers at DP 64, 176 at
+// DP 128 with BQ 32
+template <int DP> struct DkdvTcTile;
+template <> struct DkdvTcTile<32> { static constexpr int BQ = 64; };
+template <> struct DkdvTcTile<64> { static constexpr int BQ = 64; };
+template <> struct DkdvTcTile<128> { static constexpr int BQ = 32; };
+
+// Shared memory of one block, every tile in TcLayout (hopper_tc.cuh): K
+// and V (kDkBK rows each), then kDkStages stages of (Q, dO: BQ rows each),
+// then each stage's lse * log2(e) and delta (BQ floats each), then the
+// mbarriers.  The base is 1024-aligned, and so is every tile.
+template <int DP, int BQ>
+struct DkdvTcSmem {
+  static constexpr uint32_t kv = kDkBK * DP * 2;    // K (or V)
+  static constexpr uint32_t rows = BQ * DP * 2;     // Q (or dO) of a stage
+  static constexpr uint32_t stages = 2 * kv;
+  static constexpr uint32_t rowsf = stages + kDkStages * 2 * rows;
+  static constexpr uint32_t bars = rowsf + kDkStages * 2 * BQ * 4;
+  // full[], empty[], kfull, kempty
+  static constexpr size_t bytes = 1024 + bars + 8 * (2 * kDkStages + 2);
+  static_assert(kv % 1024 == 0 && rows % 1024 == 0, "tile alignment");
+};
+
+// p^T and ds^T of one q-tile on the fragments of S^T = K Q^T (*s*) and
+// dP^T = V dO^T (*dp*), in place: p = exp2(s * scale2 - lse * log2(e))
+// and ds = p * (dp - delta) * scale (0 where masked).  A thread holds keys
+// *key0* and key0 + 8 (i = 0, 1) and of each group n of 8 queries the two
+// at 8 n + 2 (lane % 4) + j: register 4 n + 2 i + j.  *ls* holds the
+// q-tile's lse * log2(e), then its delta.  MASKED: the q-tile straddles
+// the causal diagonal or a ragged edge.
+template <bool MASKED, int BQ>
+__device__ __forceinline__ void dkdv_tc_grads(float (&s)[BQ / 2],
+                                              float (&dp)[BQ / 2],
+                                              const float* __restrict__ ls,
+                                              int lane, int key0, int q0,
+                                              int sq, int sk, int off,
+                                              int causal, float scale2,
+                                              float scale) {
+#pragma unroll
+  for (int n = 0; n < BQ / 8; ++n) {
+    const int c = 8 * n + 2 * (lane & 3);
+    const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+    const float2 dl = *reinterpret_cast<const float2*>(ls + BQ + c);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int qi = q0 + c + j;
+      const float lj = j ? l2.y : l2.x, dj = j ? dl.y : dl.x;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int kj = key0 + 8 * i;
+        const bool ok =
+            !MASKED || (qi < sq && kj < sk && (!causal || kj <= qi + off));
+        float& x = s[4 * n + 2 * i + j];
+        float& y = dp[4 * n + 2 * i + j];
+        const float p = ok ? ex2(fmaf(x, scale2, -lj)) : 0.f;
+        x = p;
+        y = p * (y - dj) * scale;
+      }
+    }
+  }
+}
+
+// A block takes slots blockIdx.x, + gridDim.x, ... of the nbh * ceil(sk /
+// kDkBK) (batch*head, k-tile) slots (see tile() below).  Its first
+// kDkConsumers warpgroups are consumers of 64 keys each; the producer
+// warpgroup's first warp loads K and V once a slot (kfull, kempty) and
+// streams the q-tiles' Q and dO through a ring of kDkStages stages with
+// TMA, its second warp writes each q-tile's lse * log2(e) and delta into
+// the stage; full[s] completes when a stage's bytes have landed and the
+// 32 lanes have written its rows, empty[s] when every consumer warp is
+// done with it.
+template <typename T, int DP, int BQ>
+__global__ void __launch_bounds__(kDkThreads, 1)
+flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap omap,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         T* __restrict__ dk, T* __restrict__ dv, int nbh,
+                         int sq, int sk, int d, float scale, int causal,
+                         int group) {
+  using S = DkdvTcSmem<DP, BQ>;
+  using L = TcLayout<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float* rowsf = reinterpret_cast<float*>(smem_raw + (base - raw) + S::rowsf);
+  const uint32_t ks = base, vs = base + S::kv;
+  const uint32_t bars = base + S::bars;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kDkStages + st); };
+  const uint32_t kfull = bars + 16 * kDkStages;
+  const uint32_t kempty = kfull + 8;
+  // Q of stage st; its dO follows at + S::rows
+  auto qst = [&](int st) { return base + S::stages + st * 2 * S::rows; };
+  auto lsd = [&](int st) { return rowsf + st * 2 * BQ; };
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int st = 0; st < kDkStages; ++st) {
+      mbar_init(full(st), 1 + 32);
+      mbar_init(empty(st), kDkConsumers * 4);
+    }
+    mbar_init(kfull, 1);
+    mbar_init(kempty, kDkConsumers * 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int nk = (sk + kDkBK - 1) / kDkBK;
+  const int off = sk - sq;
+  const long long tiles = (long long)nbh * nk;
+  // The (batch*head, k-tile) of a slot: slots run through chunks of
+  // *group* heads, each chunk's k-tiles heaviest first (under causal the
+  // first k-tile is seen by the most queries), so that the Q and dO the
+  // blocks in flight read fit in L2.  Returns k0, sets *head*.
+  auto tile = [&](long long slot, int& head) {
+    const long long per = (long long)group * nk;
+    const long long chunk = slot / per;
+    const long long r = slot - chunk * per;
+    const int heads = (int)min((long long)group, nbh - chunk * group);
+    head = (int)(chunk * group + r % heads);
+    return (int)(r / heads) * kDkBK;
+  };
+  // under causal, query i sees key k0 iff k0 <= i + off: the q-tiles
+  // start at the first query that sees the k-tile's first key
+  auto q_first = [&](int k0) { return causal ? max(0, k0 - off) : 0; };
+
+  if (tid >= kDkConsumerThreads) {   // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kDkProducerRegs));
+    const int pw = (tid - kDkConsumerThreads) >> 5, lane = tid & 31;
+    if (pw > 1 || (pw == 0 && lane != 0)) return;
+    int it = 0, jt = 0;
+    for (long long slot = blockIdx.x; slot < tiles; slot += gridDim.x) {
+      int bh;
+      const int k0 = tile(slot, bh);
+      const int q_begin = q_first(k0);
+      const int nq = (sq - q_begin + BQ - 1) / BQ;
+      if (pw == 0) {   // one thread issues every TMA load
+        mbar_wait(kempty, (jt & 1) ^ 1);
+        mbar_expect_tx(kfull, 2 * S::kv);
+#pragma unroll
+        for (int c = 0; c < L::NCB; ++c) {
+          tma_load(ks + c * (kDkBK * L::SW), &kmap, kfull, c * L::CB, k0, bh);
+          tma_load(vs + c * (kDkBK * L::SW), &vmap, kfull, c * L::CB, k0, bh);
+        }
+        for (int t = 0; t < nq; ++t) {
+          const int st = (it + t) % kDkStages;
+          mbar_wait(empty(st), (((it + t) / kDkStages) & 1) ^ 1);
+          mbar_expect_tx(full(st), 2 * S::rows);
+#pragma unroll
+          for (int c = 0; c < L::NCB; ++c) {
+            tma_load(qst(st) + c * (BQ * L::SW), &qmap, full(st),
+                     c * L::CB, q_begin + t * BQ, bh);
+            tma_load(qst(st) + S::rows + c * (BQ * L::SW), &omap, full(st),
+                     c * L::CB, q_begin + t * BQ, bh);
+          }
+        }
+      } else {   // lse and delta: f32 rows whose stride TMA cannot take
+        const float* lb = lse + (size_t)bh * sq;
+        const float* db = delta + (size_t)bh * sq;
+        for (int t = 0; t < nq; ++t) {
+          const int st = (it + t) % kDkStages;
+          mbar_wait(empty(st), (((it + t) / kDkStages) & 1) ^ 1);
+          float* ls = lsd(st);
+          const int q0 = q_begin + t * BQ;
+#pragma unroll
+          for (int r = lane; r < BQ; r += 32) {
+            const bool ok = q0 + r < sq;   // zeros past Sq, masked below
+            ls[r] = ok ? lb[q0 + r] * kLog2e : 0.f;
+            ls[BQ + r] = ok ? db[q0 + r] : 0.f;
+          }
+          mbar_arrive(full(st));
+        }
+      }
+      it += nq;
+      ++jt;
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kDkConsumerRegs));
+  const int g = tid >> 7;                 // the consumer warpgroup
+  const int w = (tid >> 5) & 3, lane = tid & 31;
+  const int rw = 16 * w + (lane >> 2);    // the thread's first key of 64
+  const float scale2 = scale * kLog2e;
+  // a warp is done with a stage (or K and V): one arrival for its 32
+  // threads, after its wgmma.wait_group, which all of them execute
+  // together
+  auto release = [&](uint32_t bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  int it = 0, jt = 0;   // q-tiles and slots taken so far
+  for (long long slot = blockIdx.x; slot < tiles; slot += gridDim.x) {
+    int bh;
+    const int k0 = tile(slot, bh);
+    const int kw0 = k0 + 64 * g;          // the warpgroup's first key
+    const int q_begin = q_first(k0);
+    const int nq = (sq - q_begin + BQ - 1) / BQ;
+    // the first q-tile the warpgroup computes: under causal, one whose
+    // last query sees no key of the warpgroup's changes nothing; nor does
+    // any, when all its keys lie past Sk
+    int t0 = 0;
+    if (kw0 >= sk) {
+      t0 = nq;
+    } else if (causal) {
+      const int need = kw0 - off - (BQ - 1) - q_begin;
+      t0 = need <= 0 ? 0 : min(nq, (need + BQ - 1) / BQ);
+    }
+    float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) dka[e] = dva[e] = 0.f;
+    mbar_wait(kfull, jt & 1);
+    ++jt;
+    const uint32_t kw = ks + 64 * g * L::SW, vw = vs + 64 * g * L::SW;
+    auto stage = [&](int t) { return (it + t) % kDkStages; };
+    auto wait_full = [&](int t) {
+      mbar_wait(full(stage(t)), ((it + t) / kDkStages) & 1);
+    };
+    float sc[BQ / 2], dpc[BQ / 2];
+    uint32_t pk[BQ / 16][4], dsk[BQ / 16][4];
+    // S^T = K Q^T and dP^T = V dO^T of q-tile t: two wgmma groups
+    auto issue_sdp = [&](int t) {
+      const uint32_t qs = qst(stage(t));
+      tc_qk<T, DP, BQ, kDkBK>(kw, qs, sc);
+      tc_qk<T, DP, BQ, kDkBK>(vw, qs + S::rows, dpc);
+    };
+    // dV += round(P^T) dO and dK += round(dS^T) Q of q-tile t, with Q and
+    // dO read MN-major: two wgmma groups
+    auto issue_dkdv = [&](int t) {
+      const uint32_t qs = qst(stage(t));
+      tc_pv<T, DP, BQ>(qs + S::rows, pk, dva);
+      tc_pv<T, DP, BQ>(qs, dsk, dka);
+    };
+    auto grads = [&](int t) {
+      const int q0 = q_begin + t * BQ;
+      const float* ls = lsd(stage(t));
+      if (q0 + BQ > sq || kw0 + 64 > sk || (causal && q0 + off < kw0 + 63))
+        dkdv_tc_grads<true, BQ>(sc, dpc, ls, lane, kw0 + rw, q0, sq, sk, off,
+                                causal, scale2, scale);
+      else
+        dkdv_tc_grads<false, BQ>(sc, dpc, ls, lane, kw0 + rw, q0, sq, sk,
+                                 off, causal, scale2, scale);
+    };
+    // a skipped q-tile is released once it has landed, so that the
+    // arrival counts toward its own phase of the stage's barrier
+    for (int t = 0; t < t0; ++t) {
+      wait_full(t);
+      release(empty(stage(t)));
+    }
+    if (t0 < nq) {
+      wait_full(t0);
+      wgmma_fence();
+      issue_sdp(t0);
+      wgmma_wait0();
+      reg_fence(sc);
+      reg_fence(dpc);
+      grads(t0);
+      tc_pack<T, BQ>(sc, pk);
+      tc_pack<T, BQ>(dpc, dsk);
+      // q-tile t's S^T and dP^T run on the tensor cores beside q-tile
+      // t - 1's dV and dK; its p and ds while those finish
+      for (int t = t0 + 1; t < nq; ++t) {
+        wait_full(t);
+        reg_fence(sc);
+        reg_fence(dpc);
+        reg_fence(pk);
+        reg_fence(dsk);
+        reg_fence(dka);
+        reg_fence(dva);
+        wgmma_fence();
+        issue_sdp(t);
+        issue_dkdv(t - 1);
+        wgmma_wait2();
+        reg_fence(sc);
+        reg_fence(dpc);
+        grads(t);
+        wgmma_wait0();
+        reg_fence(dka);
+        reg_fence(dva);
+        release(empty(stage(t - 1)));
+        tc_pack<T, BQ>(sc, pk);
+        tc_pack<T, BQ>(dpc, dsk);
+      }
+      reg_fence(pk);
+      reg_fence(dsk);
+      reg_fence(dka);
+      reg_fence(dva);
+      wgmma_fence();
+      issue_dkdv(nq - 1);
+      wgmma_wait0();
+      reg_fence(dka);
+      reg_fence(dva);
+      release(empty(stage(nq - 1)));
+    }
+    // every product of the slot on K and V is done: the producer may load
+    // the next slot's
+    release(kempty);
+    it += nq;
+
+    // dK and dV rounded to T, keys past Sk not stored; d % 8 == 0, so
+    // every pair of head dims is whole
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kj = kw0 + rw + 8 * i;
+      if (kj >= sk) continue;
+      T* rk = dk + ((size_t)bh * sk + kj) * d;
+      T* rv = dv + ((size_t)bh * sk + kj) * d;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const int col = 8 * n + 2 * (lane & 3);
+        if (col < d) {
+          *reinterpret_cast<uint32_t*>(rk + col) =
+              pack2<T>(dka[4 * n + 2 * i], dka[4 * n + 2 * i + 1]);
+          *reinterpret_cast<uint32_t*>(rv + col) =
+              pack2<T>(dva[4 * n + 2 * i], dva[4 * n + 2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // dQ
 // ---------------------------------------------------------------------------
 
@@ -941,6 +1351,41 @@ cudaError_t launch_dq(const Args& a, void* dq) {
   return cudaGetLastError();
 }
 
+template <typename T, int DP>
+cudaError_t launch_dkdv_tc(const Args& a, void* dk, void* dv) {
+  constexpr int BQ = DkdvTcTile<DP>::BQ;
+  using S = DkdvTcSmem<DP, BQ>;
+  using L = TcLayout<DP>;
+  static_assert(S::bytes <= 232448, "shared memory of a block");
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap qm, km, vm, om;
+  cudaError_t err =
+      tensor_map(&qm, a.q, bf16, a.bh, a.sq, a.d, BQ, L::CB, L::SW);
+  if (err == cudaSuccess)
+    err = tensor_map(&om, a.dout, bf16, a.bh, a.sq, a.d, BQ, L::CB, L::SW);
+  if (err == cudaSuccess)
+    err = tensor_map(&km, a.k, bf16, a.bh, a.sk, a.d, kDkBK, L::CB, L::SW);
+  if (err == cudaSuccess)
+    err = tensor_map(&vm, a.v, bf16, a.bh, a.sk, a.d, kDkBK, L::CB, L::SW);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_dkdv_tc_kernel<T, DP, BQ>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)S::bytes);
+  if (err != cudaSuccess) return err;
+  // heads a chunk: their Q and dO within kDkL2Bytes
+  const int group = (int)std::max<long long>(
+      1, std::min<long long>(a.bh, kDkL2Bytes / (4LL * a.sq * a.d)));
+  const long long tiles =
+      (long long)a.bh * ((a.sk + kDkBK - 1) / kDkBK);
+  // one block a slot, started in slot order as SMs free up
+  const long long grid = std::min<long long>(tiles, INT_MAX);
+  kernel<<<(unsigned)grid, kDkThreads, S::bytes, a.stream>>>(
+      qm, km, vm, om, a.lse, a.delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), a.bh, a.sq, a.sk, a.d, a.scale, a.causal, group);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_dkdv_wide(const Args& a, void* dk, void* dv) {
   const size_t bytes = wide_bytes(4, a.d);
@@ -972,10 +1417,19 @@ cudaError_t launch_dq_wide(const Args& a, void* dq) {
   return cudaGetLastError();
 }
 
-// the padded head dim: the least of 32, 64, 128, 256 that covers d; past
-// 256 the wide kernel
+// the padded head dim: the least of 32, 64, 128 (and 256 off the tensor
+// cores) that covers d; past 256 the wide kernel.  The route (hopper_tc.cuh)
+// reads the bases of q, k, v and dO.
 template <typename T>
 cudaError_t dkdv_by_dim(const Args& a, void* dk, void* dv) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (route(a.d, 1, aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+                          aligned16(a.dout)) == kRouteWgmma) {
+      if (a.d <= 32) return launch_dkdv_tc<T, 32>(a, dk, dv);
+      if (a.d <= 64) return launch_dkdv_tc<T, 64>(a, dk, dv);
+      return launch_dkdv_tc<T, 128>(a, dk, dv);
+    }
+  }
   if (a.d <= 32) return launch_dkdv<T, 32>(a, dk, dv);
   if (a.d <= 64) return launch_dkdv<T, 64>(a, dk, dv);
   if (a.d <= 128) return launch_dkdv<T, 128>(a, dk, dv);
@@ -1016,6 +1470,14 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
     case 2: return (int)dkdv_by_dim<__half>(a, dk, dv);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The route a flash_bwd_dkdv launch with this head dim, dtype (as
+// flash_bwd_dkdv takes it) and 16-byte alignment of the bases of q, k, v
+// and dout takes: 0 the register-tiled kernel, 1 the wide kernel, 2 the
+// tensor-core kernel (route() in hopper_tc.cuh, flash_fwd's rule).
+extern "C" int flash_bwd_dkdv_route(int d, int dtype, int aligned) {
+  return route(d, dtype, aligned != 0);
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,

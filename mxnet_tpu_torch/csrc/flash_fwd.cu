@@ -43,7 +43,10 @@
 //   with Q and K K-major in shared memory, O += P V with P in registers
 //   and V read MN-major (wgmma's transpose, which it offers only for
 //   16-bit types).  S's accumulator fragment is P's A fragment two
-//   registers at a time, so P never leaves the registers.
+//   registers at a time, so P never leaves the registers.  These Hopper
+//   pieces (mbarriers, TMA, descriptors, the wgmma wrappers, the
+//   fragment packing, the tensor maps) live in hopper_tc.cuh, which
+//   flash_bwd.cu's tensor-core dK/dV kernel shares.
 // - The online softmax runs on the fragment: a row's max inside the
 //   thread, then two __shfl_xor_sync across its quad, in log2 units;
 //   p = exp2(s * scale * log2(e) - m) on the special-function unit; l sums
@@ -120,7 +123,11 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "hopper_tc.cuh"
+
 namespace {
+
+using namespace hopper_tc;
 
 constexpr float kNegInf = -1e30f;   // the masked-score sentinel (_NEG_INF)
 constexpr int kThreads = 256;       // 8 warps
@@ -550,230 +557,15 @@ template <> struct TcTile<128> { static constexpr int BK = 64; };
 // K and V (BK rows each), then the mbarriers.  The base is 1024-aligned.
 template <int DP, int BK>
 struct TcSmem {
-  static constexpr int SW = DP >= 64 ? 128 : 64;
-  static constexpr int CB = SW / 2;
-  static constexpr int NCB = DP / CB;
+  static constexpr int SW = TcLayout<DP>::SW;
+  static constexpr int CB = TcLayout<DP>::CB;
+  static constexpr int NCB = TcLayout<DP>::NCB;
   static constexpr uint32_t q = kTcBQ * DP * 2;
   static constexpr uint32_t kv = BK * DP * 2;   // K (or V) of one stage
   static constexpr uint32_t stages = kTcStages * 2 * kv;
   static constexpr uint32_t bars = q + stages;  // full[], empty[], qfull, qempty
   static constexpr size_t bytes = 1024 + bars + 8 * (2 * kTcStages + 2);
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the phase of *bar* with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one TMA box of a (batch*head, rows, d) tensor into shared memory at
-// *dst*; coordinates innermost first, past the tensor filled with zeros
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row,
-                                         int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
-      "r"(bh)
-      : "memory");
-}
-
-// wgmma's shared-memory matrix descriptor: start address, leading byte
-// offset *lbo* (between column blocks of an MN-major operand; unused for
-// K-major), stride byte offset 8 * SW (between 8-row atoms), and the
-// swizzle (1: 128 bytes, 2: 64 bytes)
-template <int SW>
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo) {
-  constexpr uint64_t layout = SW == 128 ? 1 : 2;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((8 * SW) >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving reads or writes of an accumulator
-// across the asynchronous wgmma that owns it
-template <int R>
-__device__ __forceinline__ void reg_fence(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// m64nNk16, float32 accumulators (N / 2 a thread), 16-bit operands.
-// ss: A and B from shared memory, both K-major.  rs: A from registers
-// (4 words of packed pairs), B from shared memory, MN-major (transposed).
-// SD 0: D = A B, else D += A B.
-#define FA_R8(a, b, c, d, e, f, g, h)                                    \
-  "%" #a ", %" #b ", %" #c ", %" #d ", %" #e ", %" #f ", %" #g ", %" #h
-#define FA_REGS16 "{" FA_R8(0, 1, 2, 3, 4, 5, 6, 7) ", " \
-  FA_R8(8, 9, 10, 11, 12, 13, 14, 15) "}"
-#define FA_REGS32 "{" FA_R8(0, 1, 2, 3, 4, 5, 6, 7) ", "                  \
-  FA_R8(8, 9, 10, 11, 12, 13, 14, 15) ", "                                \
-  FA_R8(16, 17, 18, 19, 20, 21, 22, 23) ", "                              \
-  FA_R8(24, 25, 26, 27, 28, 29, 30, 31) "}"
-#define FA_REGS64 "{" FA_R8(0, 1, 2, 3, 4, 5, 6, 7) ", "                  \
-  FA_R8(8, 9, 10, 11, 12, 13, 14, 15) ", "                                \
-  FA_R8(16, 17, 18, 19, 20, 21, 22, 23) ", "                              \
-  FA_R8(24, 25, 26, 27, 28, 29, 30, 31) ", "                              \
-  FA_R8(32, 33, 34, 35, 36, 37, 38, 39) ", "                              \
-  FA_R8(40, 41, 42, 43, 44, 45, 46, 47) ", "                              \
-  FA_R8(48, 49, 50, 51, 52, 53, 54, 55) ", "                              \
-  FA_R8(56, 57, 58, 59, 60, 61, 62, 63) "}"
-#define FA_ACC8(d, i)                                                    \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define FA_ACC16(d) FA_ACC8(d, 0), FA_ACC8(d, 8)
-#define FA_ACC32(d) FA_ACC16(d), FA_ACC8(d, 16), FA_ACC8(d, 24)
-#define FA_ACC64(d) \
-  FA_ACC32(d), FA_ACC8(d, 32), FA_ACC8(d, 40), FA_ACC8(d, 48), FA_ACC8(d, 56)
-// (N, its accumulator registers R, then the operand numbers R .. R + 8)
-#define FA_MMA(N, R, TY, TS, REGS, ACC, o0, o1, o2, o3, o4, o5, o6, o7, o8) \
-  template <>                                                              \
-  struct Mma<N, TY> {                                                      \
-    template <int SD>                                                      \
-    __device__ __forceinline__ static void ss(float (&d)[R], uint64_t a,   \
-                                              uint64_t b) {                \
-      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #o2 ", 0;\n"       \
-                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TS    \
-                   "." TS " " REGS ", %" #o0 ", %" #o1 ", p, %" #o3        \
-                   ", %" #o4 ", %" #o5 ", %" #o6 ";\n}\n"                  \
-                   : ACC(d)                                                \
-                   : "l"(a), "l"(b), "r"(SD), "n"(1), "n"(1), "n"(0),      \
-                     "n"(0));                                              \
-    }                                                                      \
-    template <int SD>                                                      \
-    __device__ __forceinline__ static void rs(float (&d)[R],               \
-                                              const uint32_t (&a)[4],      \
-                                              uint64_t b) {                \
-      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #o5 ", 0;\n"       \
-                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TS    \
-                   "." TS " " REGS ", {%" #o0 ", %" #o1 ", %" #o2          \
-                   ", %" #o3 "}, %" #o4 ", p, %" #o6 ", %" #o7 ", %" #o8   \
-                   ";\n}\n"                                                \
-                   : ACC(d)                                                \
-                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),   \
-                     "r"(SD), "n"(1), "n"(1), "n"(1));                     \
-    }                                                                      \
-  };
-
-template <int N, typename T> struct Mma;
-FA_MMA(32, 16, __nv_bfloat16, "bf16", FA_REGS16, FA_ACC16, 16, 17, 18, 19,
-       20, 21, 22, 23, 24)
-FA_MMA(64, 32, __nv_bfloat16, "bf16", FA_REGS32, FA_ACC32, 32, 33, 34, 35,
-       36, 37, 38, 39, 40)
-FA_MMA(128, 64, __nv_bfloat16, "bf16", FA_REGS64, FA_ACC64, 64, 65, 66, 67,
-       68, 69, 70, 71, 72)
-FA_MMA(32, 16, __half, "f16", FA_REGS16, FA_ACC16, 16, 17, 18, 19, 20, 21,
-       22, 23, 24)
-FA_MMA(64, 32, __half, "f16", FA_REGS32, FA_ACC32, 32, 33, 34, 35, 36, 37,
-       38, 39, 40)
-FA_MMA(128, 64, __half, "f16", FA_REGS64, FA_ACC64, 64, 65, 66, 67, 68, 69,
-       70, 71, 72)
-
-// two float32 values as a packed pair of T, the lower index in the low half
-template <typename T> __device__ __forceinline__ uint32_t pack2(float x, float y);
-template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x,
-                                                                     float y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float x, float y) {
-  const __half2 h = __floats2half2_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void wgmma_wait1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-template <int R>
-__device__ __forceinline__ void reg_fence(uint32_t (&d)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(d[i][r])::"memory");
-}
-
-// 2**x on the special-function unit (subnormal results flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Issue S = Q K^T for the warpgroup's 64 rows (Q at *qw*) against the BK
-// keys of the stage at *ks*, as one wgmma group: DP / 16 k-steps, each
-// 32 bytes further into the rows of its column block.
-template <typename T, int DP, int BK>
-__device__ __forceinline__ void tc_qk(uint32_t qw, uint32_t ks,
-                                      float (&s)[BK / 2]) {
-  using S = TcSmem<DP, BK>;
-  // a k-step moves only the descriptors' start address (in 16-byte units)
-  const uint64_t a0 = gmma_desc<S::SW>(qw, 0), b0 = gmma_desc<S::SW>(ks, 0);
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const int c = kk * 16 / S::CB;
-    const int off = (kk * 16 % S::CB) * 2;
-    const uint64_t a = a0 + ((c * (kTcBQ * S::SW) + off) >> 4);
-    const uint64_t b = b0 + ((c * (BK * S::SW) + off) >> 4);
-    if (kk == 0)
-      Mma<BK, T>::template ss<0>(s, a, b);
-    else
-      Mma<BK, T>::template ss<1>(s, a, b);
-  }
-  wgmma_commit();
-}
-
-// Issue O += P V against the BK keys of the stage whose V is at *vs*, as
-// one wgmma group: k-step kk takes keys [16 kk, 16 kk + 16), two 8-row
-// atoms of every column block, and P's A fragment p[kk].
-template <typename T, int DP, int BK>
-__device__ __forceinline__ void tc_pv(uint32_t vs,
-                                      const uint32_t (&p)[BK / 16][4],
-                                      float (&o)[DP / 2]) {
-  using S = TcSmem<DP, BK>;
-  const uint64_t b0 = gmma_desc<S::SW>(vs, BK * S::SW);
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    Mma<DP, T>::template rs<1>(o, p[kk], b0 + ((kk * 16 * S::SW) >> 4));
-  wgmma_commit();
-}
 
 // The online softmax of one k-tile of keys [k0, k0 + BK) on S's
 // accumulator fragment, in place: s becomes p = exp2(s * scale2 - m_new)
@@ -824,18 +616,6 @@ __device__ __forceinline__ void tc_softmax(float (&s)[BK / 2], int lane,
     l[i] = l[i] * alpha[i] + ((part[0] + part[1]) + (part[2] + part[3]));
     m[i] = m_new;
   }
-}
-
-// p rounded to v's dtype (l summed it unrounded): register pairs of the
-// S fragment, two groups of 8 keys a k-step, are P's A fragment
-template <typename T, int BK>
-__device__ __forceinline__ void tc_pack(const float (&s)[BK / 2],
-                                        uint32_t (&p)[BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      p[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 // A persistent block takes slots blockIdx.x, + gridDim.x, ... of the
@@ -976,7 +756,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       if (nkw > 0) {
         wait_full(0);
         wgmma_fence();
-        tc_qk<T, DP, BK>(qw, stage(0), sc);
+        tc_qk<T, DP, BK, kTcBQ>(qw, stage(0), sc);
         wgmma_wait0();
         reg_fence(sc);
         softmax(0);   // O is 0: alpha is not needed
@@ -989,7 +769,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
           reg_fence(p);
           reg_fence(acc);
           wgmma_fence();
-          tc_qk<T, DP, BK>(qw, stage(t), sc);
+          tc_qk<T, DP, BK, kTcBQ>(qw, stage(t), sc);
           tc_pv<T, DP, BK>(stage(t - 1) + S::kv, p, acc);
           wgmma_wait1();
           reg_fence(sc);
@@ -1049,56 +829,6 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// cuTensorMapEncodeTiled, a driver function, through the runtime (the
-// library links only the runtime); null when the driver lacks it
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a contiguous (bh, rows, d) 16-bit tensor, boxes of
-// (1, box_rows, cols) swizzled by *sw* bytes
-cudaError_t tensor_map(CUtensorMap* map, const void* base, bool bf16,
-                       int bh, int rows, int d, int box_rows, int cols,
-                       int sw) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(
-      map,
-      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-      3, const_cast<void*>(base), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE,
-      sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename T, int DP>
@@ -1179,18 +909,6 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       sq, sk, d, scale, causal);
   return cudaGetLastError();
-}
-
-constexpr int kRouteSimt = 0, kRouteWide = 1, kRouteWgmma = 2;
-
-// The route a launch takes, a rule on its dtype, head dim and bases
-// (attention._fwd_route states the same): 16-bit storage with d <= 128,
-// rows of whole 16-byte chunks and 16-byte aligned bases on the tensor
-// cores; else the register-tiled kernel up to d = 256, past it the wide
-// kernel.
-int route(int d, int dtype, bool aligned) {
-  if (dtype != 0 && d <= 128 && d % 8 == 0 && aligned) return kRouteWgmma;
-  return d <= 256 ? kRouteSimt : kRouteWide;
 }
 
 // the padded head dim: the least of 32, 64, 128 (and 256 off the tensor

@@ -5,9 +5,11 @@ function (``nvjpeg_decode.cu`` binds the toolkit's nvJPEG and links it).  ``nvcc
 library under ``build/torch_kernels/`` at the root of the checkout (or
 the directory ``MXNET_COMPILE_CACHE_DIR`` names), at first use; ``ctypes``
 loads it.  Sources include no PyTorch header, so a build takes seconds.
-The library's file name carries a hash of its source, so an edited source
-is never served by a stale build; nvcc's output (ptxas's registers and
-spills) is kept beside it as ``.log``.
+The library's file name carries a hash of its source and of every header
+of ``csrc/`` it includes (``#include "name.cuh"``, followed through the
+headers' own includes), so an edited source or header is never served by
+a stale build; nvcc's output (ptxas's registers and spills) is kept
+beside it as ``.log``.
 
 Several processes may share one build directory (a serving fleet's
 replicas do): a build holds an ``flock`` on ``<library>.lock`` while it
@@ -25,6 +27,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -72,10 +75,35 @@ def nvcc_seconds():
         return _nvcc_seconds[0]
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src):
+    """*src* and the files of its directory it includes with quotes,
+    each once, in the order they are first reached."""
+    seen, order, todo = set(), [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        order.append((path, text))
+        for inc in _INCLUDE.findall(text):
+            dep = os.path.join(os.path.dirname(path), inc.decode())
+            if os.path.exists(dep):
+                todo.append(dep)
+    return order
+
+
 def _paths(name):
     src = os.path.join(SOURCE_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    h = hashlib.sha256()
+    for path, text in _sources(src):
+        h.update(os.path.basename(path).encode() + b"\0")
+        h.update(hashlib.sha256(text).digest())
+    digest = h.hexdigest()[:12]
     return src, os.path.join(build_dir(), "lib%s-%s.so" % (name, digest))
 
 

@@ -24,7 +24,11 @@ Layout is (batch, heads, seq, head_dim) at every public function.
   both): the wrappers of ``mxnet_tpu_torch/csrc/flash_bwd.cu``, which
   replaces ``_flash_bwd_dkdv_kernel`` (attention.py:335) and
   ``_flash_bwd_dq_kernel`` (:380).  Also bound by operations; see the
-  source's header.
+  source's header.  ``_dkdv_route`` picks dK/dV's kernel by the forward's
+  rule, with dout's base among the aligned ones: 16-bit storage at D <= 128
+  runs on the tensor cores (S^T and dP^T by wgmma, P^T and dS^T kept in
+  registers for dV and dK); the rest as the forward.  dQ runs the
+  register-tiled kernel in every dtype up to D = 256.
 - ``_FlashAttention``: the ``torch.autograd.Function`` over the forward
   with lse and the two backward kernels (the JAX package's
   ``jax.custom_vjp`` ``_flash``, attention.py:482-499).
@@ -36,7 +40,8 @@ Each wrapper counts its kernel's launches in its ``launches`` attribute.
 A call made while its stream is being captured into a CUDA graph only
 records the kernel into the graph, and counts in ``captured`` instead;
 ``launch_counts`` and ``capture_counts`` read both per kernel.
-``flash_fwd`` also splits its launches by route (``launches_by_route``).
+``flash_fwd`` and ``flash_bwd_dkdv`` also split their launches by route
+(``launches_by_route``).
 """
 
 from __future__ import annotations
@@ -317,6 +322,21 @@ def _fwd_route(dtype, d, aligned):
     return "simt" if d <= 256 else "wide"
 
 
+# flash_bwd_dkdv's routes, indexed as the source's flash_bwd_dkdv_route
+# numbers them (the same three as the forward's)
+DKDV_ROUTES = FWD_ROUTES
+
+
+def _dkdv_route(dtype, d, aligned):
+    """The kernel a ``flash_bwd_dkdv`` launch takes: "wgmma" (the
+    tensor-core kernel) for bfloat16 / float16 storage at D <= 128 with
+    rows of whole 16-byte chunks (D % 8 == 0) and q, k, v and dout bases
+    16-byte aligned (*aligned*); else "simt" (the register-tiled FMA
+    kernel) up to D = 256 and "wide" past it.  The same rule as the
+    source's ``route`` (``flash_bwd_dkdv_route`` in the library)."""
+    return _fwd_route(dtype, d, aligned)
+
+
 def _aligned16(*tensors):
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
@@ -337,6 +357,8 @@ def _bind_bwd(lib):
     lib.flash_bwd_dkdv.restype = ci
     lib.flash_bwd_dq.argtypes = [vp] * 7 + tail
     lib.flash_bwd_dq.restype = ci
+    lib.flash_bwd_dkdv_route.argtypes = [ci, ci, ci]
+    lib.flash_bwd_dkdv_route.restype = ci
 
 
 def flash_fwd(q, k, v, causal=False, sm_scale=None, with_lse=False):
@@ -393,6 +415,7 @@ def flash_bwd_dkdv(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
         return dk, dv
     if sq == 0:
         return dk.zero_(), dv.zero_()
+    route = _dkdv_route(q.dtype, d, _aligned16(q, k, v, dout))
     lib = _cuda.load("flash_bwd", _bind_bwd)
     with torch.cuda.device(q.device):
         rc = lib.flash_bwd_dkdv(
@@ -403,13 +426,17 @@ def flash_bwd_dkdv(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
         capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise MXNetError("flash_bwd_dkdv: kernel launch failed with CUDA "
-                         "error %d" % rc)
+                         "error %d (route %s)" % (rc, route))
     _count(flash_bwd_dkdv, capturing)
+    if not capturing:
+        flash_bwd_dkdv.launches_by_route[route] += 1
     return dk, dv
 
 
 flash_bwd_dkdv.launches = 0
 flash_bwd_dkdv.captured = 0
+# the launches split by the route each took (``_dkdv_route``)
+flash_bwd_dkdv.launches_by_route = dict.fromkeys(DKDV_ROUTES, 0)
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal=False, sm_scale=None):
@@ -515,9 +542,10 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, chunk=512,
     that requires grad); otherwise no lse is kept.
 
     On CUDA the head dim D is at most ``KERNEL_MAX_HEAD_DIM`` (2048) and
-    a larger one raises ``MXNetError``.  The forward of 16-bit inputs with
-    D <= 128 (D % 8 == 0, 16-byte aligned bases) runs on the tensor cores
-    (``_fwd_route``).  Otherwise D <= 256 runs the register-tiled
+    a larger one raises ``MXNetError``.  The forward and the dK/dV
+    gradient of 16-bit inputs with D <= 128 (D % 8 == 0, 16-byte aligned
+    bases) run on the tensor cores (``_fwd_route``, ``_dkdv_route``).
+    Otherwise D <= 256 runs the register-tiled
     kernels, one compile-time tile for each padded head dim (32, 64, 128,
     256); a larger D runs simple kernels that keep each warp's row and its
     float32 sums in shared memory, whose size sets the bound (the JAX

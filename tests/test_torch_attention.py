@@ -219,6 +219,65 @@ def test_route_counts_cover_every_route():
     assert tatt.flash_fwd.launches_by_route == before
 
 
+@pytest.mark.parametrize("dtype,d,aligned,route", [
+    (torch.bfloat16, 32, True, "wgmma"),
+    (torch.float16, 32, True, "wgmma"),
+    (torch.bfloat16, 16, True, "wgmma"),    # padded to 32
+    (torch.bfloat16, 33, True, "simt"),     # rows not whole 16-byte chunks
+    (torch.bfloat16, 64, True, "wgmma"),
+    (torch.float16, 80, True, "wgmma"),     # padded to 128
+    (torch.bfloat16, 128, True, "wgmma"),
+    (torch.float16, 129, True, "simt"),     # past the tensor-core tiles
+    (torch.bfloat16, 256, True, "simt"),
+    (torch.float16, 300, True, "wide"),
+    (torch.bfloat16, 36, True, "simt"),     # D % 8 != 0
+    (torch.float16, 64, False, "simt"),     # a base off 16 bytes
+    (torch.float32, 64, True, "simt"),      # f32 stays on the FMA units
+    (torch.float32, 128, True, "simt"),
+    (torch.float32, 300, True, "wide"),
+], ids=lambda x: str(x).replace("torch.", ""))
+def test_dkdv_route_rule(dtype, d, aligned, route):
+    """``_dkdv_route``: 16-bit storage with D <= 128, D % 8 == 0 and
+    16-byte aligned bases of q, k, v and dout on the tensor cores; the
+    rest on the register-tiled kernel up to D = 256, the wide kernel past
+    it."""
+    assert tatt._dkdv_route(dtype, d, aligned) == route
+
+
+def test_dkdv_route_reads_dout_alignment_alone():
+    """A dout whose base alone is off 16 bytes sends dK/dV to the
+    register-tiled kernel, while the forward's rule (q, k, v only) keeps
+    the tensor cores."""
+    buf = torch.zeros(4 * 64 + 8, dtype=torch.bfloat16)
+    whole = buf[:4 * 64].view(1, 1, 4, 64)
+    shifted = buf[1:4 * 64 + 1].view(1, 1, 4, 64)   # 2 bytes off
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    assert tatt._fwd_route(torch.bfloat16, 64,
+                           tatt._aligned16(whole, whole, whole)) == "wgmma"
+    assert tatt._dkdv_route(
+        torch.bfloat16, 64,
+        tatt._aligned16(whole, whole, whole, whole)) == "wgmma"
+    assert tatt._dkdv_route(
+        torch.bfloat16, 64,
+        tatt._aligned16(whole, whole, whole, shifted)) == "simt"
+
+
+def test_dkdv_route_counts_cover_every_route():
+    """``flash_bwd_dkdv.launches_by_route`` holds a count for each route
+    of the source's ``flash_bwd_dkdv_route``, and a gradient on the CPU
+    (the plain versions) moves none of them."""
+    counts = tatt.flash_bwd_dkdv.launches_by_route
+    assert set(counts) == set(tatt.DKDV_ROUTES) == {"simt", "wide",
+                                                    "wgmma"}
+    assert tatt.DKDV_ROUTES == tatt.FWD_ROUTES   # one numbering, :1 = wide
+    assert all(isinstance(n, int) for n in counts.values())
+    before = dict(counts)
+    q, k, v = (t.requires_grad_() for t in _t(*_qkv(1, 2, 16, 16, 8)))
+    tatt.flash_attention(q, k, v, causal=True).sum().backward()
+    assert q.grad is not None
+    assert tatt.flash_bwd_dkdv.launches_by_route == before
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = _qkv(1, 1, 8, 8, 8)
     with pytest.raises(MXNetError, match="CUDA tensors"):

@@ -3,9 +3,11 @@
 The build gate reads registers and spills from nvcc's ``-Xptxas -v``
 logs and fails the run when an instantiation the paths run
 (``PATH_ENTRIES``: flash_fwd, flash_bwd_dkdv and flash_bwd_dq, f32,
-D = 64, and flash_fwd's bf16 D = 64 tensor-core kernel) spills or is
-missing from its source's log, on a fresh build and on one that an
-earlier run left behind.
+D = 64, and the bf16 D = 64 tensor-core kernels of flash_fwd and
+flash_bwd_dkdv) spills or is missing from its source's log, on a fresh
+build and on one that an earlier run left behind.  Phase 3's route check
+fails when the library's rule and the wrapper's disagree, for either
+kernel.
 
 Phase 6 (ResNet-50): its limits against float64 pass f32-sized errors
 and fail TF32-sized ones (the sizes its first run on an H100 measured),
@@ -83,6 +85,10 @@ FWD64_TC = ("_ZN12_GLOBAL__N_119flash_fwd_tc_kernelI13__nv_bfloat16Li64ELi128"
             "EEEv14CUtensorMap_stS2_S2_PT_Pfiiiifii")
 FWD128_TC_F16 = FWD64_TC.replace("I13__nv_bfloat16Li64ELi128",
                                  "I6__halfLi128ELi64")
+DKDV64_TC = ("_ZN12_GLOBAL__N_124flash_bwd_dkdv_tc_kernelI13__nv_bfloat16"
+             "Li64ELi64EEEv14CUtensorMap_stS2_S2_S2_PKfS4_PT_S6_iiiifii")
+DKDV128_TC_F16 = DKDV64_TC.replace("I13__nv_bfloat16Li64ELi64",
+                                   "I6__halfLi128ELi32")
 CLEAN = {"registers": 168, "spill_stores": 0, "spill_loads": 0}
 
 
@@ -111,7 +117,8 @@ def test_ptxas_usage_reads_every_entry():
 
 
 def _logs(fwd=((FWD64, 168, 0, 0), (FWD64_TC, 168, 0, 0)),
-          bwd=((DKDV64, 168, 0, 0), (DQ64, 168, 0, 0))):
+          bwd=((DKDV64, 168, 0, 0), (DKDV64_TC, 168, 0, 0),
+               (DQ64, 168, 0, 0))):
     """{source: nvcc log}, each path entry clean unless given."""
     return {"flash_fwd": _log(fwd), "flash_bwd": _log(bwd)}
 
@@ -121,12 +128,14 @@ def test_path_dkdv_usage_passes_a_clean_build():
                       (FWD128, 255, 40, 40), (FWD64_TC, 168, 0, 0),
                       (FWD128_TC_F16, 168, 8, 8)],
                  bwd=[(DKDV64_BF16, 255, 96, 96), (DKDV64, 168, 0, 0),
+                      (DKDV64_TC, 168, 0, 0), (DKDV128_TC_F16, 168, 8, 8),
                       (DQ64_BF16, 255, 68, 72), (DQ64, 214, 0, 0)])
     assert chip_smoke.path_usage(logs) == {
         "flash_fwd": {"registers": 190, "spill_stores": 0,
                       "spill_loads": 0},
         chip_smoke.FWD_TC: CLEAN,
         "flash_bwd_dkdv": CLEAN,
+        chip_smoke.DKDV_TC: CLEAN,
         "flash_bwd_dq": {"registers": 214, "spill_stores": 0,
                          "spill_loads": 0}}
 
@@ -139,7 +148,8 @@ def test_path_dkdv_usage_passes_a_clean_build():
 ])
 def test_path_dkdv_usage_fails_the_run(entries):
     with pytest.raises(RuntimeError, match="flash_bwd_dkdv_kernel"):
-        chip_smoke.path_usage(_logs(bwd=entries + [(DQ64, 168, 0, 0)]))
+        chip_smoke.path_usage(_logs(bwd=entries + [(DKDV64_TC, 168, 0, 0),
+                                                   (DQ64, 168, 0, 0)]))
 
 
 def test_path_dkdv_usage_fails_without_the_spill_line():
@@ -151,15 +161,18 @@ def test_path_dkdv_usage_fails_without_the_spill_line():
 
 
 ENTRY = {"flash_fwd": FWD64, chip_smoke.FWD_TC: FWD64_TC,
-         "flash_bwd_dkdv": DKDV64, "flash_bwd_dq": DQ64}
+         "flash_bwd_dkdv": DKDV64, chip_smoke.DKDV_TC: DKDV64_TC,
+         "flash_bwd_dq": DQ64}
 SOURCE = {"flash_fwd": "flash_fwd", chip_smoke.FWD_TC: "flash_fwd",
-          "flash_bwd_dkdv": "flash_bwd", "flash_bwd_dq": "flash_bwd"}
+          "flash_bwd_dkdv": "flash_bwd", chip_smoke.DKDV_TC: "flash_bwd",
+          "flash_bwd_dq": "flash_bwd"}
 
 
 @pytest.mark.parametrize("fault", ["spill stores", "spill loads", "missing",
                                    "in the other source's log"])
 @pytest.mark.parametrize("kernel", ["flash_fwd", chip_smoke.FWD_TC,
-                                    "flash_bwd_dkdv", "flash_bwd_dq"])
+                                    "flash_bwd_dkdv", chip_smoke.DKDV_TC,
+                                    "flash_bwd_dq"])
 def test_path_usage_fails_when_an_entry_spills_or_is_missing(kernel, fault):
     """Each path entry fails the run on its own, beside clean entries of
     the other kernels, and each is read only from its own source's log."""
@@ -181,6 +194,44 @@ def test_path_usage_fails_when_an_entry_spills_or_is_missing(kernel, fault):
     with pytest.raises(RuntimeError, match="spills" if "spill" in fault
                        else "complete entries"):
         chip_smoke.path_usage(logs)
+
+
+def _library_rule(d, dtype, aligned):
+    """The sources' route(): 2 tensor cores, 0 register-tiled, 1 wide."""
+    if dtype != 0 and d <= 128 and d % 8 == 0 and aligned:
+        return 2
+    return 0 if d <= 256 else 1
+
+
+@pytest.mark.parametrize("wrong", [None, "flash_fwd", "flash_bwd_dkdv"])
+def test_check_routes_fails_on_a_library_that_disagrees(monkeypatch,
+                                                        wrong):
+    """Phase 3 holds ``_fwd_route`` and ``_dkdv_route`` against the
+    library's ``flash_fwd_route`` and ``flash_bwd_dkdv_route``: a library
+    whose rule for either kernel sends one aligned bf16 head dim
+    elsewhere fails the phase, naming that kernel."""
+    import types
+    import torch
+    from mxnet_tpu_torch.ops import attention as att
+
+    def rule(kernel):
+        def fn(d, dtype, aligned):
+            if kernel == wrong and d == 72 and dtype == 1 and aligned:
+                return 0
+            return _library_rule(d, dtype, aligned)
+        return fn
+    libs = {"flash_fwd": types.SimpleNamespace(
+        flash_fwd_route=rule("flash_fwd")),
+        "flash_bwd": types.SimpleNamespace(
+            flash_bwd_dkdv_route=rule("flash_bwd_dkdv"))}
+    monkeypatch.setattr(att._cuda, "load", lambda name, bind=None:
+                        libs[name])
+    if wrong is None:
+        chip_smoke.check_routes(torch, att)
+    else:
+        with pytest.raises(RuntimeError, match=wrong + " route of "
+                           "torch.bfloat16 d=72 aligned=True"):
+            chip_smoke.check_routes(torch, att)
 
 
 def _fake_nvcc(tmp_path, text):
@@ -205,6 +256,7 @@ def test_build_gate_reads_a_library_built_before(tmp_path, monkeypatch,
     nvcc = _fake_nvcc(tmp_path, _log([(FWD64, 168, 0, 0),
                                       (FWD64_TC, 168, 0, 0),
                                       (DKDV64, 168, spill, spill),
+                                      (DKDV64_TC, 168, 0, 0),
                                       (DQ64, 214, 0, 0)]))
     monkeypatch.setattr(_cuda, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(_cuda, "_nvcc", lambda: nvcc)
@@ -223,7 +275,7 @@ def test_build_gate_reads_a_library_built_before(tmp_path, monkeypatch,
     if not spill:
         assert results[0] == results[1] == {
             "flash_fwd": CLEAN, chip_smoke.FWD_TC: CLEAN,
-            "flash_bwd_dkdv": CLEAN,
+            "flash_bwd_dkdv": CLEAN, chip_smoke.DKDV_TC: CLEAN,
             "flash_bwd_dq": dict(CLEAN, registers=214)}
 
 
@@ -616,7 +668,7 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
         "phase_build": lambda: {},
         "phase_kernel": lambda t, c, s: {
             (k, d): dict(row, **({"kernel_route": route[d]}
-                                 if k == "flash_fwd" else {}))
+                                 if k != "flash_bwd_dq" else {}))
             for k in kernels for d in route},
         "phase_serve": lambda t, c, s: {"eager": 72, "direct": 108,
                                         "traffic": 420},
@@ -646,9 +698,12 @@ def test_last_lines_are_the_kernels_and_the_contract(monkeypatch, capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "card", "count": 1}}
-    fwd = json.loads(lines[-2])["kernels"][0]
+    fwd, dkdv, dq = json.loads(lines[-2])["kernels"]
     assert fwd["name"] == "flash_fwd"
     assert fwd["kernel_route"] == route and fwd["route"] == "cuda"
+    assert dkdv["name"] == "flash_bwd_dkdv"
+    assert dkdv["kernel_route"] == route and dkdv["route"] == "cuda"
+    assert "kernel_route" not in dq
     assert fwd["float16"]["ms"] == fwd["bfloat16"]["ms"] == 1.0
     assert fwd["launches_by_path"]["batched serve (graph replays: "
                                    "traffic dispatches)"] == 420
@@ -1354,3 +1409,35 @@ def test_quant_phase_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         chip_smoke.phase_quant(torch, "no card", 0)
+
+
+def test_16bit_limits_take_the_dtypes_own_ulp():
+    """The "2 ulps of the dtype at |plain|" term of the 16-bit limits is
+    the dtype's own spacing: for a float16 value below its smallest
+    normal (2**-14) that is 2**-24, the subnormal spacing.  Two float16
+    subnormals one spacing apart (phase 3's path-shape dv element
+    -4.58956e-06 against -4.64916e-06, sums of one term flipped by
+    rounding) pass the backward limit; three spacings apart fail it.
+    Normal float16 values and bfloat16 keep 2**(floor(log2|x|) - bits)."""
+    import torch
+    sub = 2.0 ** -24
+    want = torch.tensor([-77 * sub, 0.75, 3e-3])
+    got16 = chip_smoke.ulp(torch, want.abs(), "float16")
+    assert got16.tolist() == [sub, 2.0 ** -11, 2.0 ** -19]
+    assert chip_smoke.ulp(torch, want.abs(), "bfloat16").tolist() == [
+        2.0 ** -25, 2.0 ** -8, 2.0 ** -16]
+    mag = torch.tensor([3.714e-05, 1.0, 1.0])
+    for steps, ok in ((1, True), (2, True), (3, False)):
+        got = want.clone()
+        got[0] -= steps * sub
+        _, ratio = chip_smoke.bwd_error(torch, got.half(), want.half(), mag,
+                                        "float16")
+        assert (ratio <= 1.0) == ok, (steps, ratio)
+    # one float16 ulp at 0.75 (2**-11) passes, as before; 4 ulps fail
+    for steps, ok in ((1, True), (4, False)):
+        got = want.clone()
+        got[1] += steps * 2.0 ** -11
+        _, ratio = chip_smoke.bwd_error(torch, got.half(), want.half(),
+                                        torch.tensor([1e-9, 1e-3, 1e-9]),
+                                        "float16")
+        assert (ratio <= 1.0) == ok, (steps, ratio)

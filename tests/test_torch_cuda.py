@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: ``flash_fwd``, ``flash_bwd_dkdv``
-and ``flash_bwd_dq`` against their plain versions, the wrappers'
+(its 16-bit tensor-core route at the tile edges too) and ``flash_bwd_dq``
+against their plain versions, the wrappers'
 refusals, and the launch counts of the serving and training paths; the
 float32 ``Convolution`` on cuDNN held to float64 (no TF32); and serving's
 CUDA graph per rung (replay against eager, outputs that never alias,
@@ -779,6 +780,75 @@ def test_dkdv_takes_inputs_off_16_byte_alignment(cuda):
     got = att.flash_bwd_dkdv(*ins, lse, delta, True)
     want = att.flash_bwd_dkdv(q, k, v, do, lse, delta, True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,dtype", [
+    (256, 256, 64, True, torch.bfloat16),
+    (256, 256, 64, False, torch.float16),
+    # lengths off the k-tile (128 keys, 64 a warpgroup) and the q-tile (64
+    # at D <= 64, 32 at D 128); Sq % 4 != 0, so the lse and delta rows end
+    # off 16 bytes
+    (129, 65, 64, False, torch.bfloat16),
+    (65, 129, 64, True, torch.float16),
+    (1, 300, 64, True, torch.bfloat16),
+    (1537, 1000, 64, True, torch.bfloat16),
+    (1000, 1537, 64, False, torch.float16),
+    # causal, Sq > Sk: rows that see no key (lse +1e30)
+    (300, 100, 64, True, torch.bfloat16),
+    (333, 70, 128, True, torch.float16),
+    # head dims of each padded tile, and off them (zeros past D)
+    (150, 170, 32, True, torch.float16),
+    (150, 170, 16, False, torch.bfloat16),
+    (200, 190, 80, True, torch.bfloat16),
+    (130, 200, 96, False, torch.float16),
+    (97, 61, 128, True, torch.bfloat16),
+    (300, 300, 128, False, torch.bfloat16)])
+def test_dkdv_tensor_core_route_matches_plain_version(cuda, sq, sk, d,
+                                                      causal, dtype):
+    """The 16-bit tensor-core dK/dV kernel (route "wgmma") at the edges of
+    its tiles against ``_flash_bwd_dkdv_plain`` within chip_smoke.py's
+    16-bit limit; the launch counts on its route, and a relaunch gives
+    the same bits."""
+    from chip_smoke import bwd_error, bwd_magnitudes
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 2, 3, sq, sk, d, dtype,
+                                          causal, seed=sq + sk + d)
+    assert att._dkdv_route(dtype, d, att._aligned16(q, k, v, do)) == "wgmma"
+    before = dict(att.flash_bwd_dkdv.launches_by_route)
+    dk, dv = att.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    assert att.flash_bwd_dkdv.launches_by_route == dict(
+        before, wgmma=before["wgmma"] + 1)
+    pdk, pdv = att._flash_bwd_dkdv_plain(q, k, v, do, lse, delta, causal)
+    _, m_dk, m_dv = bwd_magnitudes(torch, att, q, k, v, do, lse, delta,
+                                   causal, 1.0 / math.sqrt(d))
+    dtn = str(dtype).split(".")[1]
+    for got, want, mag in ((dk, pdk, m_dk), (dv, pdv, m_dv)):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        assert bwd_error(torch, got, want, mag, dtn)[1] <= 1.0
+    dk2, dv2 = att.flash_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+def test_dkdv_dout_off_16_bytes_takes_the_simt_route(cuda):
+    """A bf16 dout whose base alone is 2 bytes off 16 sends dK/dV to the
+    register-tiled kernel (the forward of the same q, k, v stays on the
+    tensor cores), within the same limit against the plain version."""
+    from chip_smoke import bwd_error, bwd_magnitudes, off16
+    from mxnet_tpu_torch.ops import attention as att
+    q, k, v, do, lse, delta = _bwd_inputs(cuda, 1, 2, 200, 200, 64,
+                                          torch.bfloat16, True)
+    dos = off16(torch, do)
+    assert dos.is_contiguous() and dos.data_ptr() % 16 != 0
+    assert att._fwd_route(q.dtype, 64, att._aligned16(q, k, v)) == "wgmma"
+    before = dict(att.flash_bwd_dkdv.launches_by_route)
+    dk, dv = att.flash_bwd_dkdv(q, k, v, dos, lse, delta, True)
+    assert att.flash_bwd_dkdv.launches_by_route == dict(
+        before, simt=before["simt"] + 1)
+    pdk, pdv = att._flash_bwd_dkdv_plain(q, k, v, do, lse, delta, True)
+    _, m_dk, m_dv = bwd_magnitudes(torch, att, q, k, v, do, lse, delta,
+                                   True, 1.0 / 8)
+    for got, want, mag in ((dk, pdk, m_dk), (dv, pdv, m_dv)):
+        assert bwd_error(torch, got, want, mag, "bfloat16")[1] <= 1.0
 
 
 def test_function_backward_launches_both_kernels(cuda):

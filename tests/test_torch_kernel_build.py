@@ -151,3 +151,45 @@ def test_chip_smoke_reports_the_nvjpeg_build_command(tmp_path, monkeypatch):
     assert secs > 0 and runs.read_text() == "run\n"
     assert "nvjpeg_decode.cu" in cmd and "-lnvjpeg" in cmd
     assert str(tmp_path / "k") in cmd
+
+
+def test_library_name_follows_the_headers_a_source_includes(tmp_path,
+                                                            monkeypatch):
+    """The library's file name hashes the source and every ``csrc``
+    header it includes, through the headers' own includes: editing a
+    header a source includes names a new library (no stale build is
+    served), while a header no source includes changes nothing."""
+    from mxnet_tpu_torch.ops import _cuda
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\n'
+                              'int k() { return A + B; }\n')
+    (src / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n'
+                               'constexpr int A = 1;\n')
+    (src / "b.cuh").write_text("#pragma once\nconstexpr int B = 2;\n")
+    (src / "unused.cuh").write_text("constexpr int C = 3;\n")
+    monkeypatch.setattr(_cuda, "SOURCE_DIR", str(src))
+    monkeypatch.setattr(_cuda, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.delenv("MXNET_COMPILE_CACHE_DIR", raising=False)
+    first = _cuda._paths("k")[1]
+    assert first == _cuda._paths("k")[1]
+    assert [os.path.basename(p) for p, _ in
+            _cuda._sources(str(src / "k.cu"))] == ["k.cu", "a.cuh",
+                                                   "b.cuh"]
+    (src / "unused.cuh").write_text("constexpr int C = 4;\n")
+    assert _cuda._paths("k")[1] == first
+    names = {first}
+    for header, text in (("a.cuh", '#pragma once\n#include "b.cuh"\n'
+                                   'constexpr int A = 5;\n'),
+                         ("b.cuh", "#pragma once\nconstexpr int B = 6;\n")):
+        (src / header).write_text(text)
+        path = _cuda._paths("k")[1]
+        assert path not in names, header
+        names.add(path)
+    # the shipped sources: the tensor-core header is part of both attention
+    # libraries' names
+    monkeypatch.undo()
+    for name in ("flash_fwd", "flash_bwd"):
+        found = [os.path.basename(p) for p, _ in _cuda._sources(
+            os.path.join(_cuda.SOURCE_DIR, name + ".cu"))]
+        assert found == [name + ".cu", "hopper_tc.cuh"], found

@@ -51,7 +51,7 @@ NO_LOADS = [
      "+ S::kv + c * (BK * S::SW), &vmap, full(st),\n                   "
      "c * S::CB, t * BK, bh);\n", "")]
 NO_SOFTMAX = [("          softmax(t);\n", "")]
-NO_QK = [("tc_qk<T, DP, BK>(qw, stage(t), sc);", "wgmma_commit();")]
+NO_QK = [("tc_qk<T, DP, BK, kTcBQ>(qw, stage(t), sc);", "wgmma_commit();")]
 NO_PV = [("tc_pv<T, DP, BK>(stage(t - 1) + S::kv, p, acc);",
           "wgmma_commit();"),
          ("tc_pv<T, DP, BK>(stage(nkw - 1) + S::kv, p, acc);",
@@ -95,7 +95,8 @@ def build(name, text, out_dir):
         f.write(text)
     proc = subprocess.run(
         [_cuda._nvcc(), *_cuda.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", lib, src],
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", _cuda.SOURCE_DIR,
+         "-o", lib, src],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed on %s:\n%s" % (name, proc.stdout))

@@ -52,7 +52,8 @@ def build(name, text, out_dir):
         f.write(text)
     proc = subprocess.run(
         [_cuda._nvcc(), *_cuda.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", lib, src],
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", _cuda.SOURCE_DIR,
+         "-o", lib, src],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed on %s:\n%s" % (name, proc.stdout))
